@@ -32,6 +32,38 @@ exiting non-zero before a result is printed:
    reset before this phase and must be non-zero after it.
 6. times: each kernel and its plain version with CUDA events, median of 5
    windows with [min, max].
+7. kernel C (fused loss and all 18 gradients) against its plain version
+   (compute_loss plus autograd) on the card: the published weights at
+   (B, T) in {(64, 200), (8, 200)} with ragged lengths, a case with every
+   length <= 150 (valid_to < T), u in both layouts, beta in {0.1, 1.0};
+   and the probe shape (B=256, T=512, C=16, K=8, hidden 256/128,
+   trans_hidden 256) with fresh weights from a seed.  The loss within
+   1e-5 relative, each gradient within 1e-4 * max|plain| max-abs (both
+   float32, different summation orders); a second call bit-equal to the
+   first; one launch a call.
+8. kernel D (window gather) against its plain version and the host
+   collate at B=64, T=200 on a pool of ragged synthetic sequences, with
+   windows at the start and the end of a sequence, ln = min_len and
+   ln = T: exactly equal.
+9. training through TrainPipeline with the published configuration on
+   the card (4 epochs of 15 steps, save_freq 2): the log shows
+   `input_pipeline=device fused=True`; kernels C and D launch once a step
+   each (counts reset just before the run); every epoch loss is finite;
+   the same pipeline on the CPU (plain versions, the same index stream)
+   gives per-epoch losses within 1e-4 relative; a run stopped by SIGTERM
+   after epoch 2 and resumed ends bit-equal to the uninterrupted run; the
+   trained .npz serves a mean-field request through the port's
+   InferenceModel on the card, matching the CPU within 1e-4.
+10. times: kernels C and D and their plain versions (kernel C's plain
+   version is the forward plus the autograd backward), and the
+   pipeline's training goodput in seqs/s from the log timestamps of the
+   steady epochs (2-4).
+11. profile: an 8-epoch TrainPipeline run without periodic checkpoints,
+   its last epoch traced with torch.profiler on the card alone: the
+   goodput of the untraced steady epochs (3-7), the profiler's overhead
+   on the host, the device's busy share of the traced epoch's wall and
+   (inferred) of an untraced step's, and the device time a step of
+   kernel C, kernel D and the rest (clip, Adam).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -42,6 +74,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -369,6 +402,376 @@ def phase_times(torch, np, model):
     return res
 
 
+PROBE = dict(input_dim=16, hidden_dim=256, K=8, hidden_dim2=128, u_dim=4,
+             trans_hidden=256)
+
+
+def train_inputs(torch, np, rng, B, T, C, U, dev, short=None, btu=False):
+    x = torch.from_numpy(rng.normal(size=(B, C, T)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(B, U, T)).astype(np.float32))
+    if btu:
+        u = u.transpose(1, 2).contiguous()
+    lens = rng.integers(T // 3, T + 1, size=B).astype(np.int32)
+    lens[0] = T
+    if short is not None:
+        lens = np.minimum(lens, short)
+    return x.to(dev), u.to(dev), torch.from_numpy(lens).to(dev)
+
+
+def probe_model(torch, dev):
+    from vqvaehmm_tpu_torch.core.config import ModelConfig
+    from vqvaehmm_tpu_torch.models.vae_hmm import VAEHMM
+
+    return VAEHMM(ModelConfig(**PROBE), device=dev,
+                  generator=torch.Generator().manual_seed(7))
+
+
+def phase_kernel_c(torch, np, model):
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+
+    dev = model.device
+    rng = np.random.default_rng(4)
+    probe = probe_model(torch, dev)
+    cases = [(model, 64, 200, 1.0, None, False),
+             (model, 8, 200, 0.1, None, False),
+             (model, 64, 200, 0.1, 150, False),
+             (model, 8, 200, 1.0, 150, True),
+             (probe, 256, 512, 1.0, None, False)]
+    worst, worst_loss = 0.0, 0.0
+    n0 = fused_loss_and_grads.launches
+    for m, B, T, beta, short, btu in cases:
+        cfg = m.cfg
+        x, u, lens = train_inputs(torch, np, rng, B, T, cfg.input_dim,
+                                  cfg.u_dim, dev, short, btu)
+        loss, grads = fused_loss_and_grads(m, x, u, lens, beta,
+                                           use_kernel=True)
+        loss2, grads2 = fused_loss_and_grads(m, x, u, lens, beta,
+                                             use_kernel=True)
+        want_loss, want = fused_loss_and_grads(m, x, u, lens, beta,
+                                               use_kernel=False)
+        torch.cuda.synchronize()
+        what = f"B={B} T={T} beta={beta} short={short} btu={btu}"
+        if not torch.isfinite(loss) or not all(
+                torch.isfinite(g).all() for g in grads.values()):
+            fail(f"kernel C gave a non-finite loss or gradient at {what}")
+        rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        worst_loss = max(worst_loss, rel)
+        if rel > 1e-5:
+            fail(f"kernel C loss {float(loss)} vs plain {float(want_loss)}"
+                 f" (relative {rel:.3e} > 1e-5) at {what}")
+        for name, w in want.items():
+            err = max_abs(grads[name], w)
+            bound = 1e-4 * float(w.abs().max())
+            worst = max(worst, err)
+            if err > bound:
+                fail(f"kernel C gradient {name} max-abs error {err:.3e} > "
+                     f"{bound:.3e} at {what}")
+        if not torch.equal(loss, loss2) or not all(
+                torch.equal(grads[n], grads2[n]) for n in grads):
+            fail(f"kernel C is not bit-equal across two calls at {what}")
+    if fused_loss_and_grads.launches - n0 != 2 * len(cases):
+        fail(f"kernel C launched {fused_loss_and_grads.launches - n0} "
+             f"times for {2 * len(cases)} calls")
+    say("kernel C", f"{len(cases)} cases: loss within {worst_loss:.3e} "
+        f"relative (tol 1e-5), gradients within 1e-4 * max|plain| "
+        f"(largest max-abs error {worst:.3e}), second call bit-equal")
+    return worst
+
+
+def synthetic_pool(np, rng, C, U):
+    from vqvaehmm_tpu_torch.data.synthetic import synthetic_sequences
+
+    xs, us, _ = synthetic_sequences(12, 400, C, U, 3, seed=5)
+    lens = rng.integers(200, 401, size=12)
+    return ([x[:, :n] for x, n in zip(xs, lens)],
+            [u[:, :n] for u, n in zip(us, lens)], lens)
+
+
+def gather_case(np, rng, lens, B, T, min_len):
+    si = rng.integers(0, len(lens), size=B)
+    ln = rng.integers(min_len, T + 1, size=B)
+    ln[:8] = min_len
+    ln[8:16] = T
+    st = rng.integers(0, lens[si] - ln + 1)
+    st[::4] = 0                                   # windows at the start
+    st[1::4] = (lens[si] - ln)[1::4]              # windows at the end
+    return [a.astype(np.int32) for a in (si, st, ln)]
+
+
+def phase_kernel_d(torch, np, dev):
+    from vqvaehmm_tpu_torch.data.dataset import collate_fn
+    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_windows,
+                                               validate_triples)
+
+    rng = np.random.default_rng(6)
+    xs, us, lens = synthetic_pool(np, rng, 5, 4)
+    px, pu = (torch.from_numpy(a).to(dev) for a in build_pools(xs, us))
+    B, T = 64, 200
+    worst = 0.0
+    n0 = gather_windows.launches
+    for _ in range(4):
+        trip = gather_case(np, rng, lens, B, T, 20)
+        validate_triples(*trip, lens, T)
+        idx = [torch.from_numpy(a).to(dev) for a in trip]
+        got = gather_windows(px, pu, *idx, T, use_kernel=True)
+        want = gather_windows(px, pu, *idx, T, use_kernel=False)
+        torch.cuda.synchronize()
+        si, st, ln = trip
+        host = collate_fn([(xs[i][:, s:s + n], us[i][:, s:s + n], n)
+                           for i, s, n in zip(si, st, ln)], pad_to=T)
+        for name, g, w, h in zip(("x", "u"), got, want, host):
+            worst = max(worst, max_abs(g, w))
+            if not torch.equal(g, w) or not np.array_equal(g.cpu().numpy(),
+                                                           h):
+                fail(f"kernel D {name} differs from its plain version or "
+                     "the host collate")
+    if gather_windows.launches - n0 != 4:
+        fail(f"kernel D launched {gather_windows.launches - n0} times for 4 "
+             "calls")
+    say("kernel D", "4 batches at B=64, T=200 equal to the plain version "
+        "and the host collate bit for bit")
+    return worst
+
+
+def _pipeline_cfg(ckpt_dir, **training):
+    from vqvaehmm_tpu_torch.core.config import apply_overrides, load_config
+
+    over = [f"training.checkpoint_dir={ckpt_dir}", "training.num_epochs=4",
+            "training.save_freq=2"]
+    over += [f"training.{k}={json.dumps(v)}" for k, v in training.items()]
+    return apply_overrides(load_config(CONFIG), over)
+
+
+def phase_train(torch, np):
+    from vqvaehmm_tpu_torch.data.checkpoint import load_metadata
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.gather import gather_windows
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # the main path: the published configuration on the card
+        logs = []
+
+        def log(msg):
+            logs.append((time.perf_counter(), msg))
+
+        cfg = _pipeline_cfg(os.path.join(tmp, "gpu"))
+        pipe = TrainPipeline(cfg, device="cuda")
+        fused_loss_and_grads.launches = 0
+        gather_windows.launches = 0
+        state = pipe.train(log_fn=log)
+        torch.cuda.synchronize()
+        launches = {"fused_train": fused_loss_and_grads.launches,
+                    "gather": gather_windows.launches}
+        t = cfg.training
+        steps = t.num_epochs * (cfg.data.samples_per_epoch // t.batch_size)
+        if not any(m.startswith("input_pipeline=device fused=True")
+                   for _, m in logs):
+            fail("the training log does not show input_pipeline=device "
+                 f"fused=True: {[m for _, m in logs]}")
+        for name, n in launches.items():
+            if n != steps:
+                fail(f"training launched the {name} kernel {n} times in "
+                     f"{steps} steps")
+        if state.step != steps:
+            fail(f"training made {state.step} updates, not {steps}")
+        gpu_hist = pipe.history
+        if len(gpu_hist) != t.num_epochs or not np.isfinite(gpu_hist).all():
+            fail(f"epoch losses {gpu_hist}")
+        stamps = [ts for ts, m in logs if m.startswith("Epoch ")]
+        seqs = t.batch_size * (cfg.data.samples_per_epoch // t.batch_size)
+        goodput = (len(stamps) - 1) * seqs / (stamps[-1] - stamps[0])
+        say("train", f"TrainPipeline on the card: {steps} steps, kernel "
+            f"launches {launches}, epoch losses {gpu_hist}")
+
+        # the same pipeline on the CPU: plain versions, same index stream
+        cpu = TrainPipeline(_pipeline_cfg(os.path.join(tmp, "cpu"),
+                                          input_pipeline="device"),
+                            device="cpu")
+        cpu.train(log_fn=None)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gpu_hist, cpu.history))
+        if rel > 1e-4:
+            fail(f"card epoch losses {gpu_hist} vs CPU {cpu.history}: "
+                 f"relative {rel:.3e} > 1e-4")
+        say("train", f"CPU plain run: epoch losses {cpu.history}, largest "
+            f"relative difference {rel:.3e} (tol 1e-4)")
+
+        # exact resume: SIGTERM after epoch 2, then a rerun
+        rcfg = _pipeline_cfg(os.path.join(tmp, "resume"))
+
+        def preempt_at_2(msg):
+            if msg.startswith("Epoch 2/"):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        first = TrainPipeline(rcfg, device="cuda")
+        part = first.train(log_fn=preempt_at_2)
+        meta = load_metadata(os.path.join(tmp, "resume", "vae_hmm_periodic"))
+        if not first.preempted or part.step != steps // 2 or \
+                not meta or not meta.get("preempted"):
+            fail(f"SIGTERM did not stop training at epoch 2 (step "
+                 f"{part.step}, metadata {meta})")
+        second = TrainPipeline(rcfg, device="cuda")
+        resumed = second.train(log_fn=None)
+        if second.preempted or resumed.step != steps:
+            fail(f"the resumed run ended at step {resumed.step}")
+        ref = state.model.state_dict()
+        for name, v in resumed.model.state_dict().items():
+            if not torch.equal(v, ref[name]):
+                fail(f"resumed run differs from the uninterrupted run at "
+                     f"{name}")
+        say("train", "SIGTERM at epoch 2 and resume: final parameters "
+            "bit-equal to the uninterrupted run")
+
+        # serve what the card trained
+        with open(CONFIG) as f:
+            model_section = json.load(f)["model"]
+        cfg_path = os.path.join(tmp, "inference_config.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"model": model_section, "checkpoint_path":
+                       os.path.join(tmp, "gpu", "vae_hmm_trained.npz")}, f)
+        served = InferenceModel(cfg_path, device="cuda")
+        if not served.checkpoint_loaded:
+            fail("InferenceModel did not load the trained .npz")
+        x = np.random.default_rng(8).normal(size=(5, 200)).astype(
+            np.float32).tolist()
+        got, want = served.infer(x), InferenceModel(cfg_path,
+                                                    device="cpu").infer(x)
+        for key in ("mu", "logvar", "regime_probs"):
+            g, w = np.asarray(got[key]), np.asarray(want[key])
+            if g.shape != w.shape or not np.isfinite(g).all() or \
+                    float(np.abs(g - w).max()) > 1e-4:
+                fail(f"served {key} of the trained model: shape {g.shape} "
+                     f"or values differ from the CPU by more than 1e-4")
+        say("train", "the trained .npz serves a mean-field request on the "
+            "card, equal to the CPU within 1e-4")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, goodput
+
+
+def phase_train_times(torch, np, model):
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.gather import build_pools, gather_windows
+
+    dev = model.device
+    rng = np.random.default_rng(9)
+    res = {}
+    probe = probe_model(torch, dev)
+    for m, B, T, iters in ((model, 64, 200, 20), (probe, 256, 512, 2)):
+        x, u, lens = train_inputs(torch, np, rng, B, T, m.cfg.input_dim,
+                                  m.cfg.u_dim, dev)
+        for use in (False, True):
+            res[("fused_train", B, T, use)] = _time(
+                torch, lambda: fused_loss_and_grads(m, x, u, lens, 1.0,
+                                                    use_kernel=use),
+                iters=iters)
+    xs, us, lens = synthetic_pool(np, rng, 5, 4)
+    px, pu = (torch.from_numpy(a).to(dev) for a in build_pools(xs, us))
+    idx = [torch.from_numpy(a).to(dev)
+           for a in gather_case(np, rng, lens, 64, 200, 20)]
+    for use in (False, True):
+        res[("gather", 64, 200, use)] = _time(
+            torch, lambda: gather_windows(px, pu, *idx, 200,
+                                          use_kernel=use))
+    for (name, B, T, use), (med, lo, hi) in res.items():
+        say("times", f"{name} {'kernel' if use else 'plain '} B={B} "
+            f"T={T}: {med:.4f} ms [{lo:.4f}, {hi:.4f}]")
+    return res
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy
+
+
+def phase_train_profile(torch, np):
+    """Goodput of steady epochs without checkpoints, and where the time of
+    one steady epoch of the pipeline goes on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from vqvaehmm_tpu_torch.data.device_sampler import DeviceEpochSampler
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+
+    # CUPTI's set-up, outside the traced epoch
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    # the last epoch (8) is traced on the card alone (no host ops are
+    # recorded), from just after the profiler starts to its log line;
+    # epochs 3-7 are the untraced steady epochs.  Unlike them, epoch 8
+    # draws no next epoch.
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    stamps, begin = [], []
+
+    def log(msg):
+        if not msg.startswith("Epoch "):
+            return
+        stamps.append(time.perf_counter())
+        if msg.startswith("Epoch 7/"):
+            prof.start()
+            begin.append(time.perf_counter())
+        elif msg.startswith("Epoch 8/"):
+            prof.stop()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        cfg = _pipeline_cfg(tmp, num_epochs=8, save_freq=0)
+        pipe = TrainPipeline(cfg, device="cuda")
+        pipe.train(log_fn=log)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t = cfg.training
+    B, steps = t.batch_size, cfg.data.samples_per_epoch // t.batch_size
+    # gaps[k]: the wall of epoch k + 2, between two log lines
+    gaps = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    untraced = gaps[1:6]                                 # epochs 3-7
+    steady = len(untraced) * steps * B / (sum(untraced) / 1e3)
+    traced = 1e3 * (stamps[7] - begin[0]) / steps
+    plain_step = statistics.median(untraced) / steps
+    say("profile", f"TrainPipeline, save_freq 0, 8 epochs: ms between "
+        f"epoch log lines {[round(g, 3) for g in gaps]}; goodput of the "
+        f"untraced epochs 3-7: {steady:.1f} seqs/s")
+
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    cats = {"kernel C": [], "kernel D": [], "other (clip, Adam, sums)": []}
+    for e in ops:
+        key = ("kernel C" if "fused_train" in e.name else "kernel D"
+               if "gather_kernel" in e.name else "other (clip, Adam, sums)")
+        cats[key].append((e.time_range.start, e.time_range.end))
+    busy = _busy_us(iv for ivs in cats.values() for iv in ivs) / 1e3 / steps
+    if busy <= 0.0:
+        fail("the profiler saw no device time in the traced epoch")
+    # the device time a step does not depend on the host, so its share
+    # of an untraced step's wall is inferred from the trace
+    say("profile", f"traced epoch 8: {traced:.4f} ms a step against "
+        f"{plain_step:.4f} ms a step untraced (profiler overhead "
+        f"{traced / plain_step:.3f}x); device busy {busy:.4f} ms a step: "
+        f"{100 * busy / traced:.2f}% of the traced wall, "
+        f"{100 * busy / plain_step:.2f}% of an untraced step (inferred)")
+    for key, ivs in cats.items():
+        say("profile", f"  device {key}: {_busy_us(ivs) / 1e3 / steps:.4f} "
+            f"ms a step, {len(ivs)} ops in {steps} steps")
+
+    sampler = DeviceEpochSampler(pipe.load_data(), "cuda")
+    t0 = time.perf_counter()
+    triples = sampler.sample_indices_fast(B)
+    t1 = time.perf_counter()
+    sampler.upload(*triples)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    say("profile", f"drawing an epoch's index triples {1e3 * (t1 - t0):.3f}"
+        f" ms, uploading them {1e3 * (t2 - t1):.3f} ms (idle card)")
+    return steady
+
+
 def main() -> int:
     try:
         import torch
@@ -406,6 +809,9 @@ def main() -> int:
     lib = _build.library()
     say("build", f"{', '.join(os.path.relpath(s, ROOT) for s in _build.sources())} "
         f"-> {os.path.relpath(lib._name, ROOT)} in {_build.build_seconds:.1f} s")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            say("build", line.strip())
 
     dev = torch.device("cuda")
     model = load_published(torch, dev)
@@ -417,6 +823,17 @@ def main() -> int:
     launches = phase_serve(torch, np)
     # 6. times
     times = phase_times(torch, np, model)
+    # 7, 8: the training kernels against their plain versions
+    err_c = phase_kernel_c(torch, np, load_published(torch, dev))
+    err_d = phase_kernel_d(torch, np, dev)
+    # 9. training
+    train_launches, goodput = phase_train(torch, np)
+    # 10. times
+    ttimes = phase_train_times(torch, np, model)
+    say("times", f"training goodput (TrainPipeline, published configuration,"
+        f" epochs 2-4): {goodput:.1f} seqs/s")
+    # 11. where a training step's time goes
+    phase_train_profile(torch, np)
 
     kernels = [
         {"name": "fused_infer", "route": "cuda",
@@ -434,6 +851,23 @@ def main() -> int:
          "launches": launches["viterbi"], "max_abs_err": err_b,
          "ms": times[("viterbi", 64, True)][0],
          "plain_ms": times[("viterbi", 64, False)][0],
+         "shape": "B=64 T=200"},
+        {"name": "fused_train", "route": "cuda",
+         "source": "vqvaehmm_tpu_torch/csrc/fused_train.cu",
+         "replaces": "vqvaehmm_tpu/ops/pallas_train.py:82",
+         "launches": train_launches["fused_train"], "max_abs_err": err_c,
+         "ms": ttimes[("fused_train", 64, 200, True)][0],
+         "plain_ms": ttimes[("fused_train", 64, 200, False)][0],
+         "shape": "B=64 T=200",
+         "probe_ms": ttimes[("fused_train", 256, 512, True)][0],
+         "probe_plain_ms": ttimes[("fused_train", 256, 512, False)][0]},
+        {"name": "gather", "route": "cuda",
+         "source": "vqvaehmm_tpu_torch/csrc/gather.cu",
+         "replaces": "vqvaehmm_tpu/ops/pallas_gather.py:140",
+         "also_replaces": ["vqvaehmm_tpu/ops/pallas_gather.py:150"],
+         "launches": train_launches["gather"], "max_abs_err": err_d,
+         "ms": ttimes[("gather", 64, 200, True)][0],
+         "plain_ms": ttimes[("gather", 64, 200, False)][0],
          "shape": "B=64 T=200"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

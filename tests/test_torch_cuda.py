@@ -155,3 +155,94 @@ def test_launch_counters_under_threads(cuda):
     torch.cuda.synchronize()
     assert fused_forward.launches - a == 16 * 25
     assert viterbi_fused.launches - b == 16 * 25
+
+
+def _train_inputs(dev, B, T, seed, C=5, U=4, short=None, btu=False):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(B, C, T)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(B, U, T)).astype(np.float32))
+    if btu:
+        u = u.transpose(1, 2).contiguous()
+    lens = rng.integers(max(1, T // 3), T + 1, size=B).astype(np.int32)
+    lens[0] = T
+    if short is not None:
+        lens = np.minimum(lens, short)
+    return x.to(dev), u.to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.parametrize("B,T,beta,short,btu", [
+    (1, 1, 1.0, None, False), (3, 37, 0.7, None, False),
+    (8, 200, 1.0, 150, False), (5, 64, 0.3, None, True)])
+def test_fused_train_matches_plain(cuda, B, T, beta, short, btu):
+    from vqvaehmm_tpu_torch.ops.fused_train import (
+        fused_loss_and_grads, fused_loss_and_grads_reference)
+
+    model = _model(cuda, seed=4, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128)
+    x, u, lens = _train_inputs(cuda, B, T, B * 7 + T, short=short, btu=btu)
+    before = fused_loss_and_grads.launches
+    loss, grads = fused_loss_and_grads(model, x, u, lens, beta)
+    want_loss, want = fused_loss_and_grads_reference(model, x, u, lens, beta)
+    torch.cuda.synchronize()
+    assert fused_loss_and_grads.launches == before + 1
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for name, w in want.items():
+        err = float((grads[name] - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+    # the same inputs give the same bits
+    loss2, grads2 = fused_loss_and_grads(model, x, u, lens, beta)
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(grads[n], grads2[n]) for n in grads)
+
+
+def test_fused_elbo_backward_fills_grad(cuda):
+    from vqvaehmm_tpu_torch.ops.fused_train import FusedELBO
+
+    model = _model(cuda, seed=5)
+    x, u, lens = _train_inputs(cuda, 4, 50, 9)
+    params = [p for _, p in model.named_parameters()]
+    loss = FusedELBO.apply(model, x, u, lens, 0.5, *params)
+    loss.backward()
+    got = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad()
+    model.compute_loss(x, u, lens, 0.5).backward()
+    for n, p in model.named_parameters():
+        assert float((got[n] - p.grad).abs().max()) <= \
+            1e-4 * float(p.grad.abs().max()), n
+
+
+def test_fused_train_gate_refuses_large_K(cuda):
+    from vqvaehmm_tpu_torch.ops.fused_train import (KMAX,
+                                                    fused_loss_and_grads,
+                                                    train_step_supported)
+
+    model = _model(cuda, K=KMAX + 1)
+    assert not train_step_supported(model.cfg, 2, 16)
+    x, u, lens = _train_inputs(cuda, 2, 16, 1)
+    with pytest.raises(ValueError, match="unsupported"):
+        fused_loss_and_grads(model, x, u, lens, 1.0)
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (16, 48), (64, 200)])
+def test_gather_matches_plain(cuda, B, T):
+    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_windows,
+                                               gather_windows_reference)
+
+    rng = np.random.default_rng(B + T)
+    lens = rng.integers(T, 3 * T + 1, size=6)
+    xs = [rng.normal(size=(5, n)).astype(np.float32) for n in lens]
+    us = [rng.normal(size=(4, n)).astype(np.float32) for n in lens]
+    px, pu = (torch.from_numpy(a).to(cuda) for a in build_pools(xs, us))
+    si = rng.integers(0, 6, size=B)
+    ln = rng.integers(1, T + 1, size=B)
+    ln[0] = T
+    st = rng.integers(0, lens[si] - ln + 1)
+    st[-1] = lens[si[-1]] - ln[-1]            # a window at the very end
+    idx = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+           for a in (si, st, ln)]
+    before = gather_windows.launches
+    got = gather_windows(px, pu, *idx, T)
+    want = gather_windows_reference(px, pu, *idx, T)
+    torch.cuda.synchronize()
+    assert gather_windows.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -159,12 +159,11 @@ class TrainConfig:
     # metadata, so a preempted-and-resumed run stops at the same epoch.
     early_stop_patience: int = 0
     early_stop_min_delta: float = 0.0
-    # Single-kernel Pallas loss+grads path (ops/pallas_train.py). Needs
-    # T % 8 == 0 and a 128-divisible lane block.  "auto" (default) takes
-    # the fused path exactly when the backend is TPU and the shapes
-    # qualify (train/trainer.py::resolve_fused); true forces it where
-    # supported (with a logged XLA fallback otherwise); false forces the
-    # XLA path — the CPU/parity configuration.
+    # The fused loss-and-gradients kernel (ops/fused_train.py).  "auto"
+    # (default) takes it on a CUDA device and the plain path on the CPU;
+    # true forces it; false takes the plain path (compute_loss and
+    # autograd).  On a CUDA device a shape the kernel's gate refuses
+    # raises (train/trainer.py::resolve_fused).
     fused: Union[bool, str] = "auto"
     # "host": epochs assembled on the host (native C sampler + prefetch,
     # the reference's DataLoader shape).  "device": the sequence pool

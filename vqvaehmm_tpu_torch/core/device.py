@@ -1,0 +1,16 @@
+"""The one place a device string becomes a torch.device."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device(device); a CUDA device on a machine without a usable
+    GPU raises instead of moving the work to the CPU quietly."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; pass "
+            "device='cpu' to run the plain PyTorch path on the CPU")
+    return dev

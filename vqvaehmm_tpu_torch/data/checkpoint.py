@@ -1,4 +1,4 @@
-"""Weights across the two packages: the JAX parameter pytree <-> state_dict.
+"""Weights across the two packages, and training checkpoints.
 
 The JAX package keeps its parameters in torch's layouts already (Conv1d
 (O, I, W), Linear (out, in)), so crossing over is a renaming and no
@@ -6,11 +6,17 @@ transpose.  Its `.npz` files hold flat `/`-joined keys
 (`encoder/conv1/weight`); the port's modules use the reference's
 state_dict keys (`encoder.conv1.weight`), so a reference `.pt` file loads
 into them directly.
+
+A training checkpoint (save_checkpoint) holds the model, the Adam state
+and the step, so a run resumes exactly; it is the port's own format
+(torch.save), with the JAX package's `.meta.json` sidecar beside it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import json
+import os
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -95,6 +101,60 @@ def load_params_npz(path: str) -> Dict:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return out
+
+
+def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]
+                    ) -> None:
+    """Write a state_dict as the JAX package's flat-npz parameter file
+    (`/`-joined pytree paths, save_params_npz's layout), so either package
+    loads the other's trained weights."""
+    flat = _flatten("", params_to_numpy(state_dict))
+    np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
+
+
+def save_checkpoint(path: str, state, metadata: Optional[Dict] = None
+                    ) -> None:
+    """Save a training state (model parameters, Adam state and step) to
+    `path + ".pt"` with torch.save, and `metadata` to the same
+    `path + ".meta.json"` sidecar the JAX package writes.  Both files are
+    written to a temporary name and renamed, so a run killed mid-write
+    leaves the previous checkpoint whole."""
+    path = os.path.abspath(path)
+    blob = {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step)}
+    tmp = f"{path}.pt.{os.getpid()}.tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path + ".pt")
+    if metadata:
+        tmp = f"{path}.meta.json.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(metadata, f)
+        os.replace(tmp, path + ".meta.json")
+
+
+def load_checkpoint(path: str, state):
+    """Restore a save_checkpoint file into `state` (its model and
+    optimizer, whose state carries the step) in place and return it.  A
+    checkpoint of another model configuration raises ValueError naming
+    the mismatched parameters."""
+    path = os.path.abspath(path)
+    # read on the CPU: load_state_dict copies the parameters and Adam's
+    # moments to their devices and keeps Adam's step count on the host
+    blob = torch.load(path + ".pt", map_location="cpu", weights_only=True)
+    validate_params_for(state.model, blob["model"], what=f"checkpoint {path}")
+    state.model.load_state_dict(blob["model"])
+    state.optimizer.load_state_dict(blob["optimizer"])
+    return state
+
+
+def load_metadata(path: str) -> Optional[Dict]:
+    """The `.meta.json` sidecar of a checkpoint, or None."""
+    p = os.path.abspath(path) + ".meta.json"
+    if os.path.exists(p):
+        with open(p) as f:
+            return json.load(f)
+    return None
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:

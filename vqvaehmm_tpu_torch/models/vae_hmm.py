@@ -106,7 +106,14 @@ class VAEHMM(nn.Module):
         self.decoder = Decoder(cfg, device)
         if cfg.matmul_precision == "highest":
             # parity mode: full float32 on the card (cuDNN convolutions
-            # default to TF32, which keeps about three decimal digits)
+            # default to TF32, which keeps about three decimal digits).
+            # These flags are process-wide, not per model: once a
+            # "highest" model is built, every later matmul and convolution
+            # in the process runs in full float32, and nothing here turns
+            # them back on.  The plain versions of the CUDA kernels
+            # (compute_loss plus autograd for the fused train step, the
+            # serving forward) are held to them at float32 tolerances, so
+            # they depend on the flags being off.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.reset_parameters(generator)

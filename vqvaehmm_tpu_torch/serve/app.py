@@ -31,6 +31,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512)
 MAX_BODY = 64 * 1024 * 1024
 MODES = ("mean_field", "smoothed", "filtered", "viterbi")
@@ -52,15 +54,6 @@ def require_finite_output(*arrays) -> None:
                 "(input magnitude out of range?)")
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available; pass "
-            "device='cpu' to serve the plain PyTorch path on the CPU")
-    return dev
-
-
 class InferenceModel:
     """A loaded VAEHMM on one device, answering infer/predict requests."""
 
@@ -71,7 +64,7 @@ class InferenceModel:
                                        params_from_numpy, validate_params_for)
         from ..models.vae_hmm import VAEHMM
 
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.cfg = load_config(config_path)
         if self.cfg.model.family != "vae":
             raise NotImplementedError(

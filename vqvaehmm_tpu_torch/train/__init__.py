@@ -1,0 +1,3 @@
+from .trainer import (ClippedAdam, Trainer, TrainState, beta_schedule,
+                      make_lr_schedule, make_optimizer, resolve_fused,
+                      resolve_input_pipeline, train_model, train_step)

@@ -1,0 +1,334 @@
+"""Training of the VAE-HMM: the optimizer, the step and the epoch loop.
+
+Counterpart of vqvaehmm_tpu/train/trainer.py, in eager PyTorch:
+
+* `make_optimizer` -> `ClippedAdam`, torch.optim.Adam (betas 0.9/0.999,
+  eps 1e-8) behind optax's clip_by_global_norm, with the learning rate of
+  `make_lr_schedule` read at the number of updates made so far (optax
+  reads its schedule at the pre-increment count);
+* `train_step`: one update, its loss and gradients from the fused
+  kernel (ops/fused_train.py) or from compute_loss and autograd;
+* `make_epoch_step`: an epoch of host-assembled batches; the device
+  input pipeline's epoch is data/device_sampler.py::make_epoch_step;
+* `Trainer` and `train_model`, the reference's training entry points.
+
+An epoch makes one host sync: each step's loss stays on the device, and
+only the epoch mean is read back.  `"auto"` in `resolve_fused` and
+`resolve_input_pipeline` means the kernel and the device pipeline on a
+CUDA device and the plain path and the host pipeline on the CPU.  The JAX
+package's `mesh` (data parallelism) is not ported (ROADMAP.md queue 1,
+item 13).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple, Union
+
+import torch
+
+from ..core.device import resolve_device
+from ..data.dataset import RandomChunkDataset, epoch_arrays
+from ..ops.fused_train import fused_loss_and_grads, train_step_supported
+
+
+def resolve_input_pipeline(value: str = "auto", device="cpu") -> str:
+    """'host' or 'device': explicit values pass through, 'auto' (the
+    config default) is 'device' on a CUDA device and 'host' elsewhere."""
+    if value in ("host", "device"):
+        return value
+    if value not in ("auto", None):
+        raise ValueError(f"unknown input_pipeline {value!r}; "
+                         "expected 'auto', 'host' or 'device'")
+    return "device" if torch.device(device).type == "cuda" else "host"
+
+
+def resolve_fused(value, model_cfg, batch_size: int, max_len: int,
+                  device="cpu", log_fn=print) -> bool:
+    """Whether the fused train kernel runs, decided before training.
+    False -> the plain path.  'auto'/None -> the kernel on a CUDA device,
+    the plain path on the CPU.  True -> the kernel (on the CPU its plain
+    version; a shape the gate refuses is logged there).  On a CUDA device
+    a shape that train_step_supported refuses raises: the plain path runs
+    on the card only when asked for with fused=False."""
+    if value is False:
+        return False
+    if value not in (True, "auto", None):
+        raise ValueError(f"unknown fused {value!r}; "
+                         "expected true, false or 'auto'")
+    supported = (batch_size > 0
+                 and train_step_supported(model_cfg, batch_size, max_len))
+    on_cuda = torch.device(device).type == "cuda"
+    if not supported and on_cuda:
+        raise ValueError(
+            f"the fused train kernel does not take B={batch_size}, "
+            f"T={max_len} for {model_cfg} (train_step_supported refused "
+            "it); pass fused=False (training.fused=false) to train on the "
+            "plain path")
+    if value is True:
+        if not supported and log_fn:
+            log_fn(f"fused step unsupported at T={max_len}, "
+                   f"B={batch_size}; using the plain path")
+        return supported
+    return on_cuda
+
+
+def beta_schedule(epoch: int, num_epochs: int, warmup: bool = True) -> float:
+    """KL annealing beta = min(1, 2(ep+1)/E)."""
+    if not warmup:
+        return 1.0
+    return min(1.0, 2.0 * (epoch + 1) / num_epochs)
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    # optax.linear_schedule: count clipped to [0, steps]
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count: int) -> float:
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    return schedule
+
+
+def make_lr_schedule(lr: float, schedule: str = "constant",
+                     warmup_steps: int = 0,
+                     total_steps: Optional[int] = None,
+                     final_lr_frac: float = 0.0
+                     ) -> Union[float, Callable[[int], float]]:
+    """The learning rate as a function of the update count, or the plain
+    float for a constant rate without warm-up.  The same schedules as the
+    JAX package's make_lr_schedule (optax's constant, cosine_decay with
+    alpha=final_lr_frac, linear, and the warm-up join), as plain
+    functions of the step."""
+    if schedule == "constant" and warmup_steps <= 0:
+        return lr
+    if schedule == "constant":
+        def base(count):
+            return lr
+    elif schedule in ("cosine", "linear"):
+        if not total_steps:
+            raise ValueError(f"schedule={schedule!r} needs total_steps")
+        decay = max(1, int(total_steps) - int(warmup_steps))
+        if schedule == "cosine":
+            def base(count):
+                c = min(count, decay)
+                cos = 0.5 * (1.0 + math.cos(math.pi * c / decay))
+                return lr * ((1.0 - final_lr_frac) * cos + final_lr_frac)
+        else:
+            base = _linear(lr, lr * final_lr_frac, decay)
+    else:
+        raise ValueError(f"unknown lr schedule {schedule!r} "
+                         "(constant | cosine | linear)")
+    if warmup_steps <= 0:
+        return base
+    warm = _linear(0.0, lr, warmup_steps)
+
+    def joined(count: int) -> float:
+        return warm(count) if count < warmup_steps \
+            else base(count - warmup_steps)
+
+    return joined
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g / norm * max_norm on every
+    array when norm = sqrt(sum of all squares) is not below max_norm, the
+    arrays unchanged otherwise.  (torch.nn.utils.clip_grad_norm_ scales
+    by max_norm / (norm + 1e-6), which is another update.)"""
+    squares = torch._foreach_mul(grads, grads)
+    norm = torch.sqrt(torch.stack([s.sum() for s in squares]).sum())
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one,
+                                           torch.full_like(norm, max_norm)))
+
+
+class ClippedAdam(torch.optim.Adam):
+    """torch.optim.Adam (betas 0.9/0.999, eps 1e-8: optax.adam in exact
+    arithmetic) with an optional global-norm clip before it and a
+    step-indexed learning rate.  `update()` applies one update from the
+    parameters' `.grad`."""
+
+    def __init__(self, params, lr, gradient_clip: Optional[float] = None):
+        self.schedule = lr if callable(lr) else None
+        super().__init__(params, lr=lr(0) if callable(lr) else lr,
+                         betas=(0.9, 0.999), eps=1e-8)
+        self.gradient_clip = gradient_clip
+
+    @property
+    def updates(self) -> int:
+        """Updates made so far (Adam's own step count, kept on the host
+        and saved in state_dict, so a resumed schedule continues)."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state.get(p)
+                return int(state["step"]) if state else 0
+        return 0
+
+    def update(self) -> None:
+        params = [p for g in self.param_groups for p in g["params"]
+                  if p.grad is not None]
+        if self.gradient_clip is not None:
+            clip_by_global_norm_([p.grad for p in params],
+                                 self.gradient_clip)
+        if self.schedule is not None:
+            lr = float(self.schedule(self.updates))
+            for group in self.param_groups:
+                group["lr"] = lr
+        self.step()
+
+
+def make_optimizer(model: torch.nn.Module, lr: float,
+                   gradient_clip: Optional[float] = None,
+                   schedule: str = "constant", warmup_steps: int = 0,
+                   total_steps: Optional[int] = None,
+                   final_lr_frac: float = 0.0) -> ClippedAdam:
+    """Adam over the model's parameters, with the JAX package's defaults
+    (reference parity) and its schedule knobs."""
+    return ClippedAdam(model.parameters(),
+                       make_lr_schedule(lr, schedule, warmup_steps,
+                                        total_steps, final_lr_frac),
+                       gradient_clip)
+
+
+@dataclass
+class TrainState:
+    """The model and its optimizer; `step` counts the updates made."""
+
+    model: torch.nn.Module
+    optimizer: ClippedAdam
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.updates
+
+
+def train_step(model, optimizer: ClippedAdam, x: torch.Tensor,
+               u: torch.Tensor, lengths: torch.Tensor, beta: float,
+               fused: bool = False) -> torch.Tensor:
+    """One update; returns the loss (a device scalar, not synchronised).
+    fused=True takes the loss and all gradients from
+    ops/fused_train.py (one kernel call on the card); fused=False from
+    compute_loss and autograd."""
+    loss, grads = fused_loss_and_grads(model, x, u, lengths, beta,
+                                       use_kernel=None if fused else False)
+    for name, p in model.named_parameters():
+        p.grad = grads[name]
+    optimizer.update()
+    return loss
+
+
+def make_epoch_step(model, optimizer: ClippedAdam, fused: bool = False):
+    """epoch(xs, us, lens, beta) -> mean loss (a device scalar) over the
+    stacked host-assembled batches (batches, B, ...), on the model's
+    device."""
+    dev = model.device
+
+    def epoch(xs, us, lens, beta: float) -> torch.Tensor:
+        xs, us, lens = (torch.as_tensor(a).to(dev) for a in (xs, us, lens))
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(xs.shape[0]):
+            total = total + train_step(model, optimizer, xs[i], us[i],
+                                       lens[i], beta, fused)
+        return total / xs.shape[0]
+
+    return epoch
+
+
+class Trainer:
+    """Object-style trainer (the reference Trainer API: train_epoch /
+    train, grad clip 1.0, beta warm-up flag).  The model's parameters are
+    drawn from `seed` here, as the JAX Trainer draws them."""
+
+    def __init__(self, model, lr: float = 1e-3,
+                 gradient_clip: Optional[float] = 1.0,
+                 beta_warmup: bool = True, seed: int = 0,
+                 fused: bool = False, device_data: Optional[bool] = None):
+        self.model = model
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        self.state = TrainState(model, make_optimizer(model, lr,
+                                                      gradient_clip))
+        self.beta_warmup = beta_warmup
+        self._fused = fused
+        self._device_data = device_data
+        self._epoch_step = make_epoch_step(model, self.state.optimizer,
+                                           fused)
+        self._sampler = None
+
+    def train_epoch(self, dataset: RandomChunkDataset, batch_size: int,
+                    beta: float = 1.0) -> float:
+        device_data = self._device_data
+        if device_data is None:
+            device_data = self.model.device.type == "cuda"
+        if device_data:
+            from ..data.device_sampler import DeviceEpochSampler
+
+            if self._sampler is None or self._sampler.dataset is not dataset:
+                self._sampler = DeviceEpochSampler(dataset,
+                                                   self.model.device)
+                self._gstep = self._sampler.make_epoch_step(
+                    self.model, self.state.optimizer, fused=self._fused)
+            return float(self._gstep(*self._sampler.draw_epoch(batch_size),
+                                     beta))
+        xs, us, lens = epoch_arrays(dataset, batch_size)
+        return float(self._epoch_step(xs, us, lens, beta))
+
+    def train(self, dataset: RandomChunkDataset, num_epochs: int,
+              batch_size: int = 64, log_fn=print) -> list:
+        history = []
+        for ep in range(num_epochs):
+            beta = beta_schedule(ep, num_epochs, self.beta_warmup)
+            loss = self.train_epoch(dataset, batch_size, beta)
+            history.append(loss)
+            if log_fn:
+                log_fn(f"Epoch {ep + 1}/{num_epochs}, Loss: {loss:.4f}")
+        return history
+
+
+def train_model(model, dataset: RandomChunkDataset, num_epochs: int = 10,
+                lr: float = 1e-3, batch_size: int = 64, seed: int = 0,
+                gradient_clip: Optional[float] = None,
+                beta_warmup: bool = True,
+                state: Optional[TrainState] = None,
+                fused: Optional[bool] = None,
+                device_data: Optional[bool] = None,
+                device="cuda", log_fn=print) -> Tuple[TrainState, list]:
+    """End-to-end training with the reference's schedule on `device`
+    (which must be usable: a CUDA device without a GPU raises).  Without
+    `state`, the model's parameters are drawn from `seed` and a fresh
+    optimizer made.  fused / device_data: None = auto (the kernel and the
+    device input pipeline on a CUDA device).  Returns the state and the
+    per-epoch mean losses."""
+    dev = resolve_device(device)
+    model.to(dev)
+    if state is None:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        state = TrainState(model, make_optimizer(model, lr, gradient_clip))
+    if device_data is None:
+        device_data = dev.type == "cuda"
+    fused = resolve_fused("auto" if fused is None else fused, model.cfg,
+                          batch_size, dataset.max_len, device=dev,
+                          log_fn=log_fn)
+    history = []
+    if device_data:
+        from ..data.device_sampler import DeviceEpochSampler
+
+        sampler = DeviceEpochSampler(dataset, dev)
+        gstep = sampler.make_epoch_step(model, state.optimizer, fused=fused)
+    else:
+        estep = make_epoch_step(model, state.optimizer, fused=fused)
+    for ep in range(num_epochs):
+        beta = beta_schedule(ep, num_epochs, beta_warmup)
+        if device_data:
+            mean_loss = gstep(*sampler.draw_epoch(batch_size), beta)
+        else:
+            mean_loss = estep(*epoch_arrays(dataset, batch_size), beta)
+        loss = float(mean_loss)
+        history.append(loss)
+        if log_fn is not None:
+            log_fn(f"Epoch {ep + 1}/{num_epochs}, Loss: {loss:.4f}")
+    return state, history
