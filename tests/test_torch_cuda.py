@@ -246,3 +246,232 @@ def test_gather_matches_plain(cuda, B, T):
     torch.cuda.synchronize()
     assert gather_windows.launches == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The bulk-scoring slice: encoder, evidence and one-kernel decode
+# ---------------------------------------------------------------------------
+
+
+def _path_scores(log_pi, log_A, log_obs, states, lengths):
+    """log p(z, x) of each row's path over its valid steps."""
+    s = states.long()
+    B, T = s.shape
+    rows = torch.arange(B, device=s.device)
+    valid = torch.arange(T, device=s.device)[None, :] < lengths[:, None]
+    score = log_pi[s[:, 0]] + log_obs[rows, 0, s[:, 0]] * valid[:, 0]
+    for t in range(1, T):
+        step = log_A[rows, t, s[:, t - 1], s[:, t]] + log_obs[rows, t, s[:, t]]
+        score = score + torch.where(valid[:, t], step, torch.zeros_like(step))
+    return score
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 37), (5, 64), (460, 20),
+                                 (1, 2327)])
+def test_fused_encode_matches_plain(cuda, B, T):
+    from vqvaehmm_tpu_torch.ops.fused_encoder import (fused_encode,
+                                                      fused_encode_reference)
+
+    model = _model(cuda, hidden_dim=64, hidden_dim2=32)
+    rng = np.random.default_rng(B * 1000 + T)
+    x = torch.from_numpy(rng.normal(size=(B, 5, T)).astype(np.float32)
+                         ).to(cuda)
+    lens = torch.from_numpy(rng.integers(1, T + 1, size=B)
+                            .astype(np.int32)).to(cuda)
+    before = fused_encode.launches
+    with torch.inference_mode():
+        for vt in (None, max(1, T - 3), lens):
+            got = fused_encode(model, x, valid_to=vt)
+            want = fused_encode_reference(model, x, valid_to=vt)
+            # float32 on both sides, different summation orders
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+            assert torch.equal(got, model.encode(x, valid_to=vt))
+        assert torch.equal(model.posterior(x),
+                           torch.softmax(fused_encode(model, x), dim=1))
+    # per case: the wrapper and model.encode; then posterior and the wrapper
+    assert fused_encode.launches == before + 8
+
+
+def test_fused_encode_rows_independent(cuda):
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    model = _model(cuda, seed=1)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(6, 5, 130)).astype(np.float32)
+                         ).to(cuda)
+    vt = torch.tensor([130, 5, 64, 65, 1, 129], dtype=torch.int32,
+                      device=cuda)
+    with torch.inference_mode():
+        batched = fused_encode(model, x, valid_to=vt)
+        for i in range(6):
+            solo = fused_encode(model, x[i:i + 1], valid_to=vt[i:i + 1])
+            assert torch.equal(batched[i:i + 1], solo)
+
+
+@pytest.mark.parametrize("B,T,btu,ragged", [
+    (1, 1, False, False), (3, 37, False, True), (5, 64, True, True),
+    (2, 200, True, False), (1, 2327, False, False)])
+def test_fused_evidence_and_decode_match_plain(cuda, B, T, btu, ragged):
+    from vqvaehmm_tpu_torch.ops.fused_decode import (
+        fused_evidence, fused_evidence_reference, fused_viterbi_states,
+        fused_viterbi_states_reference)
+
+    model = _model(cuda, seed=6, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128)
+    x, u, lens = _train_inputs(cuda, B, T, B * 11 + T, btu=btu)
+    if not ragged:
+        lens = None
+    a, b = fused_evidence.launches, fused_viterbi_states.launches
+    with torch.inference_mode():
+        got = fused_evidence(model, x, u, lens)
+        want = fused_evidence_reference(model, x, u, lens)
+        for g, w, name in zip(got, want, ("log_pi", "log_A", "log_obs")):
+            assert g.shape == w.shape and g.is_contiguous(), name
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5, msg=name)
+        states = fused_viterbi_states(model, x, u, lens)
+        plain = fused_viterbi_states_reference(model, x, u, lens)
+        two_stage = viterbi_fused(*got, lens).states
+    assert (fused_evidence.launches, fused_viterbi_states.launches) == \
+        (a + 1, b + 1)
+    assert states.dtype == torch.int32 and states.shape == (B, T)
+    # the one-kernel decode computes the evidence kernel's bits
+    assert torch.equal(states, two_stage)
+    full = torch.full((B,), T, device=cuda) if lens is None else lens.long()
+    if not torch.equal(states, plain):
+        # a tie to float rounding: the path must score as the optimum, to
+        # 1e-4 absolute or 32 float32 roundings of the score, the larger
+        # (about 1e-2 at T=2327, well under one wrong state's cost)
+        sg = _path_scores(*want, states, full).double()
+        sw = _path_scores(*want, plain, full).double()
+        tol = torch.clamp(32 * torch.finfo(torch.float32).eps * sw.abs(),
+                          min=1e-4)
+        assert bool(((sg - sw).abs() <= tol).all()), (sg, sw)
+    # frozen tails past each length
+    for i in range(B):
+        L = int(full[i])
+        assert bool((states[i, L:] == states[i, L - 1]).all())
+
+
+def test_bulk_kernels_gates_raise(cuda):
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states,
+                                                     supported)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import (encode_supported,
+                                                      fused_encode)
+
+    wide = _model(cuda, hidden_dim=2048, hidden_dim2=8)
+    x = torch.zeros((1, 5, 8), device=cuda)
+    u = torch.zeros((1, 4, 8), device=cuda)
+    assert not encode_supported(wide.cfg, 1, 8)
+    many = _model(cuda, K=9)
+    assert not supported(many.cfg, 1, 8)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="unsupported"):
+            fused_encode(wide, x)
+        for fn in (fused_evidence, fused_viterbi_states):
+            with pytest.raises(ValueError, match="unsupported"):
+                fn(many, x, u)
+        with pytest.raises(TypeError, match="float32"):
+            fused_encode(_model(cuda), x.double())
+
+
+def test_inference_kernels_refuse_autograd(cuda):
+    """With grad mode on and weights that require grad, the paths that
+    would hand back a detached tensor raise instead; they launch under
+    no_grad, with frozen weights, and the plain version stays
+    differentiable."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    model = _model(cuda, seed=3)
+    x, u, lens = _train_inputs(cuda, 2, 40, 9)
+    before = (fused_encode.launches, fused_evidence.launches)
+    calls = (lambda: model.posterior(x), lambda: model.encode(x),
+             lambda: fused_encode(model, x),
+             lambda: fused_evidence(model, x, u, lens),
+             lambda: model.smoothed_posterior(x, u, lens),
+             lambda: model.filtered_posterior(x, u, lens),
+             lambda: model.viterbi_decode(x, u, lens))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="fused=False"):
+            call()
+    assert (fused_encode.launches, fused_evidence.launches) == before
+    assert model.posterior(x, fused=False).requires_grad
+    with torch.no_grad():
+        for call in calls:
+            call()
+    for p in model.parameters():
+        p.requires_grad_(False)
+    for call in calls:
+        call()
+    with pytest.raises(RuntimeError, match="fused=False"):
+        model.posterior(x.clone().requires_grad_(True))
+    assert (fused_encode.launches, fused_evidence.launches) == \
+        (before[0] + 6, before[1] + 8)
+
+
+def test_bulk_kernels_refuse_cpu_tensors():
+    """use_kernel=True on a CPU tensor raises: no CUDA kernel runs there and
+    none gives way to its plain version."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    model = _model("cpu")
+    x, u = torch.zeros((1, 5, 8)), torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_encode(model, x, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        model.encode(x, fused=True)
+    for fn in (fused_evidence, fused_viterbi_states):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(model, x, u, use_kernel=True)
+
+
+def test_exact_modes_take_kernel_evidence(cuda):
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+
+    model = _model(cuda, seed=2)
+    x = torch.randn((2, 5, 50), device=cuda)
+    u = torch.randn((2, 4, 50), device=cuda)
+    lengths = torch.tensor([50, 31], device=cuda)
+    n = fused_evidence.launches
+    with torch.inference_mode():
+        for fn in (model.smoothed_posterior, model.filtered_posterior):
+            got = fn(x, u, lengths)
+            want = fn(x, u, lengths, use_kernel=False)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        model.viterbi_decode(x, u, lengths)
+    assert fused_evidence.launches == n + 3
+
+
+def test_plain_versions_launch_no_kernel(cuda):
+    """What the kernels are held against stays plain PyTorch on the card:
+    no reference, and no differentiable path of the model, reaches a
+    hand-written kernel."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import (
+        fused_evidence, fused_evidence_reference, fused_viterbi_states,
+        fused_viterbi_states_reference)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import (fused_encode,
+                                                      fused_encode_reference)
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.gather import gather_windows
+
+    wrappers = (fused_forward, viterbi_fused, fused_encode, fused_evidence,
+                fused_viterbi_states, fused_loss_and_grads, gather_windows)
+    model = _model(cuda, seed=8)
+    x, u, lens = _train_inputs(cuda, 3, 40, 5)
+    before = [w.launches for w in wrappers]
+    fused_forward_reference(model, x, valid_to=lens)
+    fused_encode_reference(model, x, valid_to=lens)
+    fused_evidence_reference(model, x, u, lens)
+    fused_viterbi_states_reference(model, x, u, lens)
+    model.compute_loss(x, u, lens, 0.5).backward()
+    (mu, _), _ = model(x)
+    assert mu.requires_grad
+    for fn in (model.smoothed_posterior, model.filtered_posterior,
+               model.viterbi_decode):
+        fn(x, u, lens, use_kernel=False)
+    model.posterior(x, fused=False)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == before

@@ -167,3 +167,125 @@ def test_bf16_config_not_ported():
                       u_dim=4, trans_hidden=8, compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VAEHMM(cfg)
+
+
+def test_improved_head_matches_jax():
+    """The stacked per-regime bank on shared weights, <= 1e-5, for (B, K)
+    and (B, K, T) inputs; the committed head checkpoint loads into it."""
+    import jax
+
+    from vqvaehmm_tpu.models.portfolio import HeadConfig as JaxHeadConfig
+    from vqvaehmm_tpu.models.portfolio import \
+        ImprovedPortfolioOptimizer as JaxHead
+    from vqvaehmm_tpu_torch.data.checkpoint import (
+        improved_head_params_from_numpy, load_improved_head)
+    from vqvaehmm_tpu_torch.models import (HeadConfig,
+                                           ImprovedPortfolioOptimizer)
+
+    jhead = JaxHead(JaxHeadConfig(K=3, n_assets=7, hidden_dim=16))
+    params = jhead.init(jax.random.PRNGKey(3))
+    thead = ImprovedPortfolioOptimizer(HeadConfig(K=3, n_assets=7,
+                                                  hidden_dim=16)).eval()
+    thead.load_state_dict(improved_head_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params)))
+    q = np.random.default_rng(4).dirichlet(np.ones(3), size=(5, 11))
+    q = np.ascontiguousarray(q.transpose(0, 2, 1), dtype=np.float32)
+    with torch.no_grad():
+        close(thead(t(q)), jhead(params, jnp.asarray(q)), 1e-5, "(B, K, T)")
+        close(thead(t(q[:, :, 3])), jhead(params, jnp.asarray(q[:, :, 3])),
+              1e-5, "(B, K)")
+    with pytest.raises(KeyError, match="stacked"):
+        improved_head_params_from_numpy({"fc1": {"weight": np.zeros((4, 3)),
+                                                 "bias": np.zeros(4)}})
+    path = os.path.join(ROOT, "artifacts", "portfolio_head.npz")
+    from vqvaehmm_tpu.data.checkpoint import load_params_npz as jax_load
+
+    loaded = load_improved_head(path, device="cpu")
+    big = JaxHead(JaxHeadConfig(K=3, n_assets=10, hidden_dim=64))
+    hp = jax.tree_util.tree_map(jnp.asarray, jax_load(path))
+    with torch.no_grad():
+        w = loaded(t(q))
+    close(w, big(hp, jnp.asarray(q)), 1e-5, "portfolio_head.npz")
+    assert not loaded.training and np.allclose(w.sum(-1).numpy(), 1.0,
+                                               atol=1e-5)
+
+
+def test_improved_head_dropout_only_in_train_mode():
+    """eval() is deterministic; train() draws its masks from the generator
+    it is given: the same seed gives the same output, and about a fifth of
+    the hidden units are dropped."""
+    from vqvaehmm_tpu_torch.models import (HeadConfig,
+                                           ImprovedPortfolioOptimizer)
+
+    head = ImprovedPortfolioOptimizer(
+        HeadConfig(K=3, n_assets=5, hidden_dim=256),
+        generator=torch.Generator().manual_seed(0))
+    q = torch.softmax(torch.randn((64, 3),
+                                  generator=torch.Generator().manual_seed(1)),
+                      dim=1)
+    with torch.no_grad():
+        head.eval()
+        base = head(q)
+        assert torch.equal(base, head(q, torch.Generator().manual_seed(9)))
+        head.train()
+        with pytest.raises(ValueError, match="Generator"):
+            head(q)
+        a = head(q, torch.Generator().manual_seed(5))
+        b = head(q, torch.Generator().manual_seed(5))
+        c = head(q, torch.Generator().manual_seed(6))
+        assert torch.equal(a, b) and not torch.equal(a, c)
+        assert not torch.equal(a, base)
+        kept = head._drop(torch.ones((3, 64, 256)),
+                          torch.Generator().manual_seed(7))
+    frac = float((kept == 0).float().mean())
+    assert abs(frac - 0.2) < 0.01
+    assert torch.allclose(kept[kept != 0], torch.tensor(1.25))
+    assert np.allclose(a.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+def test_posterior_and_exact_modes_dispatch_on_cpu():
+    """posterior(fused=...) and the exact modes through fused_evidence on
+    CPU tensors: the plain versions, equal to the JAX package's."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+
+    jm, params, tm = model_pair(seed=12)
+    x, u, lengths = inputs(3, 33, seed=13)
+    jargs = (params, jnp.asarray(x), jnp.asarray(u), jnp.asarray(lengths))
+    with torch.no_grad():
+        post = tm.posterior(t(x))
+        assert torch.equal(post, tm.posterior(t(x), fused=False))
+        with pytest.raises(ValueError, match="CUDA"):
+            tm.posterior(t(x), fused=True)
+        log_pi, log_A, log_obs = tm._evidence_inputs(t(x), t(u), t(lengths),
+                                                     None)
+        for g, w in zip((log_pi, log_A, log_obs),
+                        fused_evidence(tm, t(x), t(u), t(lengths))):
+            assert torch.equal(g, w)
+        states = tm.viterbi_decode(t(x), t(u), t(lengths))
+    close(post, jm.posterior(params, jnp.asarray(x), fused=False), 1e-5)
+    jpi, jA = jm.prior(params, jnp.asarray(u))
+    close(log_pi, jpi, 1e-5, "log_pi")
+    close(log_A, jA, 1e-5, "log_A")
+    close(log_obs, jm._hmm_evidence(params, jnp.asarray(x),
+                                    jnp.asarray(lengths)), 1e-5, "log_obs")
+    want = np.asarray(jm.viterbi_decode(*jargs, use_pallas=False))
+    for b in range(3):
+        np.testing.assert_array_equal(states[b, :lengths[b]].numpy(),
+                                      want[b, :lengths[b]])
+
+
+def test_model_sample_decodes_the_drawn_path():
+    _, _, tm = model_pair(seed=14)
+    _, u, _ = inputs(4, 25, seed=15)
+    with torch.no_grad():
+        states, mean = tm.sample(t(u), torch.Generator().manual_seed(0),
+                                 sample_obs=False)
+        again, x = tm.sample(t(u), torch.Generator().manual_seed(0))
+        q = torch.nn.functional.one_hot(states.long(), 3).float()
+        mu, logvar = tm.decode(q.transpose(1, 2))
+    assert states.dtype == torch.int32 and tuple(states.shape) == (4, 25)
+    assert torch.equal(states, again)
+    assert torch.equal(mean, mu) and tuple(x.shape) == (4, 5, 25)
+    # a draw scatters about the emission mean by the emission's deviation
+    z = ((x - mu) / torch.exp(0.5 * logvar)).numpy()
+    assert abs(z.mean()) < 0.2 and 0.8 < z.std() < 1.2

@@ -74,6 +74,43 @@ def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
             for k, v in flat.items()}
 
 
+_IMPROVED_HEAD_KEYS = tuple(f"fc{i}/{leaf}" for i in (1, 2, 3)
+                            for leaf in ("weight", "bias"))
+
+
+def improved_head_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
+    """The JAX package's ImprovedPortfolioOptimizer pytree (the K experts
+    stacked: fc{1,2,3}/{weight (K, out, in), bias (K, out)}) -> a float32
+    state_dict for the port's module.  The sibling of params_from_numpy,
+    which reads the same `fc*` paths as the unstacked
+    RegimePortfolioOptimizer."""
+    flat = _flatten("", tree)
+    if sorted(flat) != sorted(_IMPROVED_HEAD_KEYS) or any(
+            np.ndim(flat[f"fc{i}/weight"]) != 3 for i in (1, 2, 3)):
+        shapes = {k: np.shape(v) for k, v in sorted(flat.items())}
+        raise KeyError("not a stacked ImprovedPortfolioOptimizer pytree: "
+                       f"paths and shapes {shapes}")
+    return {k.replace("/", "."): torch.from_numpy(
+                np.array(v, dtype=np.float32, copy=True))
+            for k, v in flat.items()}
+
+
+def load_improved_head(path: str, device="cuda"):
+    """An ImprovedPortfolioOptimizer in eval() mode on `device`, sized by
+    and loaded from a stacked-pytree `.npz` (artifacts/portfolio_head.npz)."""
+    from ..core.device import resolve_device
+    from ..models.portfolio import HeadConfig, ImprovedPortfolioOptimizer
+
+    state = improved_head_params_from_numpy(load_params_npz(path))
+    K, hidden, _ = state["fc1.weight"].shape
+    head = ImprovedPortfolioOptimizer(
+        HeadConfig(K=K, n_assets=state["fc3.weight"].shape[1],
+                   hidden_dim=hidden), device=resolve_device(device))
+    validate_params_for(head, state, what=f"head checkpoint {path!r}")
+    head.load_state_dict(state)
+    return head.eval()
+
+
 def params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """Inverse of params_from_numpy: a state_dict -> the JAX package's
     nested parameter pytree of numpy arrays."""

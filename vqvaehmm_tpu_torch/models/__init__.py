@@ -1,2 +1,3 @@
-from .portfolio import HeadConfig, RegimePortfolioOptimizer
+from .portfolio import (HeadConfig, ImprovedPortfolioOptimizer,
+                        RegimePortfolioOptimizer)
 from .vae_hmm import VAEHMM

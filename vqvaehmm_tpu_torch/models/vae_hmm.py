@@ -17,11 +17,17 @@ data/checkpoint.py maps the JAX package's parameter pytree onto them.
 Public tensors keep the JAX package's layouts: (B, C, T), and log_A
 (B, T, K, K).
 
-The serving forward (`infer_forward`) and the Viterbi decode
-(`viterbi_decode`) run in hand-written CUDA kernels on a CUDA device
-(ops/fused_infer.py, ops/fused_viterbi.py) and in their plain versions
-on the CPU.  torch's own exp/log/log_softmax are used throughout: the
-JAX package's ops/precise.py exists only for the TPU build's fast math.
+On a CUDA device the inference paths run in hand-written CUDA kernels:
+the serving forward `infer_forward` (ops/fused_infer.py), the encoder
+behind `posterior` and `encode(fused=None)` (ops/fused_encoder.py), the
+evidence of the three exact modes (ops/fused_decode.py) and the Viterbi
+recursion (ops/fused_viterbi.py).  On the CPU each runs its plain
+version; the plain version runs on the card only when asked with
+`fused=False` / `use_kernel=False`.  The kernels' outputs carry no
+gradient: `compute_loss` and `forward` take the plain, differentiable
+convolutions on every device.  torch's own exp/log/log_softmax are used
+throughout: the JAX package's ops/precise.py exists only for the TPU
+build's fast math.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ from ..core.config import ModelConfig
 from ..core.masking import length_mask, pairwise_mask
 from ..ops import hmm as hmm_ops
 from ..ops import nn as ops
+from ..ops.fused_decode import fused_evidence
+from ..ops.fused_encoder import fused_encode
 from ..ops.fused_infer import fused_forward
 from ..ops.fused_viterbi import viterbi_fused
 
@@ -145,9 +153,21 @@ class VAEHMM(nn.Module):
     # Sub-modules
     # ------------------------------------------------------------------
 
-    def encode(self, x: torch.Tensor, valid_to=None) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, valid_to=None,
+               fused: Optional[bool] = None) -> torch.Tensor:
         """x (B, C, T) -> regime logits (B, K, T).  valid_to (scalar or
-        (B,)) zeroes x and the first hidden layer at t >= valid_to."""
+        (B,)) zeroes x and the first hidden layer at t >= valid_to.
+
+        fused=None runs the whole stack as one CUDA kernel for a CUDA
+        tensor (ops/fused_encoder.py; inference only: it raises where grad
+        mode is on and x or the weights require grad) and the plain
+        convolutions for a CPU tensor; fused=False is the plain,
+        differentiable stack on any device; fused=True on a CPU tensor
+        raises."""
+        if fused is None:
+            fused = x.is_cuda
+        if fused:
+            return fused_encode(self, x, valid_to=valid_to, use_kernel=True)
         enc = self.encoder
         T = x.shape[-1]
         if valid_to is not None:
@@ -206,7 +226,8 @@ class VAEHMM(nn.Module):
         mask = length_mask(lengths, T)
         valid_to = lengths.max()
         log_pi, log_A = self.prior(u)
-        log_q = torch.log_softmax(self.encode(x, valid_to=valid_to), dim=1)
+        log_q = torch.log_softmax(
+            self.encode(x, valid_to=valid_to, fused=False), dim=1)
         q = torch.exp(log_q)
         mu, logvar = self.decode(q, valid_to=valid_to)
 
@@ -228,14 +249,37 @@ class VAEHMM(nn.Module):
         return recon_loss + beta * (prior_loss - entropy)
 
     def forward(self, x: torch.Tensor):
-        """((mu, logvar), q), the reference's forward."""
-        q = torch.softmax(self.encode(x), dim=1)
+        """((mu, logvar), q), the reference's forward (differentiable)."""
+        q = torch.softmax(self.encode(x, fused=False), dim=1)
         mu, logvar = self.decode(q)
         return (mu, logvar), q
 
-    def posterior(self, x: torch.Tensor) -> torch.Tensor:
-        """Mean-field regime posterior q (B, K, T) = softmax(encode(x))."""
-        return torch.softmax(self.encode(x), dim=1)
+    def sample(self, u: torch.Tensor, generator: torch.Generator,
+               sample_obs: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Generative ancestral rollout: (states (B, T) int32, x (B, C, T)).
+        A regime path is drawn from the input-conditioned prior chain
+        p(z | u) and decoded through the Gaussian emission model (a one-hot
+        state makes the soft codebook lookup that regime's embedding row).
+        sample_obs=False returns the emission mean instead of a draw.  All
+        draws come from `generator`, on its device."""
+        log_pi, log_A = self.prior(u)
+        B, T = log_A.shape[0], log_A.shape[1]
+        states = hmm_ops.sample(generator, log_pi, log_A, T, batch=B)
+        q = torch.nn.functional.one_hot(
+            states.long(), self.cfg.K).to(torch.float32).transpose(1, 2)
+        mu, logvar = self.decode(q)
+        if not sample_obs:
+            return states, mu
+        noise = torch.randn(mu.shape, generator=generator,
+                            device=generator.device).to(mu.device)
+        return states, mu + torch.exp(0.5 * logvar) * noise
+
+    def posterior(self, x: torch.Tensor,
+                  fused: Optional[bool] = None) -> torch.Tensor:
+        """Mean-field regime posterior q (B, K, T) = softmax(encode(x)),
+        the backtester's posterior extraction.  fused: see encode."""
+        return torch.softmax(self.encode(x, fused=fused), dim=1)
 
     def infer_forward(self, x: torch.Tensor, valid_to=None,
                       use_kernel: Optional[bool] = None):
@@ -251,28 +295,39 @@ class VAEHMM(nn.Module):
 
     def _hmm_evidence(self, x: torch.Tensor,
                       lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        """Encoder evidence (B, T, K), the encoder bounded at
-        max(lengths)."""
+        """Encoder evidence (B, T, K) in plain PyTorch, the encoder bounded
+        at max(lengths)."""
         valid_to = lengths.max() if lengths is not None else None
-        logits = self.encode(x, valid_to=valid_to)
+        logits = self.encode(x, valid_to=valid_to, fused=False)
         return torch.log_softmax(logits, dim=1).transpose(1, 2)
 
+    def _evidence_inputs(self, x: torch.Tensor, u: torch.Tensor,
+                         lengths: Optional[torch.Tensor],
+                         use_kernel: Optional[bool]):
+        """(log_pi, log_A, log_obs) for the exact-inference paths: one
+        kernel launch for CUDA tensors (ops/fused_decode.py; inference
+        only, as encode's kernel is), prior() and _hmm_evidence() for CPU
+        tensors or with use_kernel=False."""
+        return fused_evidence(self, x, u, lengths, use_kernel=use_kernel)
+
     def smoothed_posterior(self, x: torch.Tensor, u: torch.Tensor,
-                           lengths: Optional[torch.Tensor] = None
+                           lengths: Optional[torch.Tensor] = None,
+                           use_kernel: Optional[bool] = None
                            ) -> torch.Tensor:
         """Forward-backward regime posterior (B, K, T)."""
-        log_pi, log_A = self.prior(u)
-        log_obs = self._hmm_evidence(x, lengths)
+        log_pi, log_A, log_obs = self._evidence_inputs(x, u, lengths,
+                                                       use_kernel)
         gamma = hmm_ops.posterior_marginals(log_pi, log_A, log_obs, lengths)
         return gamma.transpose(1, 2)
 
     def filtered_posterior(self, x: torch.Tensor, u: torch.Tensor,
-                           lengths: Optional[torch.Tensor] = None
+                           lengths: Optional[torch.Tensor] = None,
+                           use_kernel: Optional[bool] = None
                            ) -> torch.Tensor:
         """Filtering regime posterior (B, K, T): evidence up to t only
         (the encoder itself looks 2 steps ahead)."""
-        log_pi, log_A = self.prior(u)
-        log_obs = self._hmm_evidence(x, lengths)
+        log_pi, log_A, log_obs = self._evidence_inputs(x, u, lengths,
+                                                       use_kernel)
         alpha = hmm_ops.filtered_marginals(log_pi, log_A, log_obs, lengths)
         return alpha.transpose(1, 2)
 
@@ -280,9 +335,11 @@ class VAEHMM(nn.Module):
                        lengths: Optional[torch.Tensor] = None,
                        use_kernel: Optional[bool] = None) -> torch.Tensor:
         """MAP regime path (B, T) int32 under the prior's transitions.  On
-        a CUDA tensor the decode is one kernel launch for any T
-        (ops/fused_viterbi.py)."""
-        log_pi, log_A = self.prior(u)
-        log_obs = self._hmm_evidence(x, lengths)
+        CUDA tensors the evidence is one kernel launch and the decode
+        another, for any T (ops/fused_decode.py, ops/fused_viterbi.py);
+        the one-kernel decode from raw (x, u) is
+        ops.fused_decode.fused_viterbi_states."""
+        log_pi, log_A, log_obs = self._evidence_inputs(x, u, lengths,
+                                                       use_kernel)
         return viterbi_fused(log_pi, log_A, log_obs, lengths,
                              use_kernel=use_kernel).states

@@ -10,15 +10,16 @@ shared library with a plain C interface:
 
 One process a source makes the build as long as its slowest source
 (fused_train.cu) rather than the sum of all: on an H100 machine, 7.5 s
-against 15.2 s for a single nvcc over the four sources.  `build_log`
-keeps what ptxas printed (registers, shared memory and spills of each
-kernel).  The sources in the repository are the only
+against 15.2 s for a single nvcc over the first four sources.
+`build_log` keeps what ptxas printed (registers, shared memory and
+spills of each kernel).  The sources in the repository are the only
 inputs; no PyTorch header is included, so the build takes seconds
-rather than minutes.  The library
-name carries a hash of the sources, so an edited kernel is never served
-from a stale build.  Each C entry point returns `cudaGetLastError()`
-after its launch, and `check` raises when that is not 0: a launch the
-CUDA runtime refused never runs, and no later synchronise reports it.
+rather than minutes.  The library name carries a hash of the sources and
+of the `csrc/*.cuh` headers they share, so an edited kernel or header is
+never served from a stale build.  Each C entry point returns
+`cudaGetLastError()` after its launch, and `check` raises when that is
+not 0: a launch the CUDA runtime refused never runs, and no later
+synchronise reports it.
 """
 
 from __future__ import annotations
@@ -59,6 +60,22 @@ _SIGNATURES = {
     # B, C, T, U, H1, H2, K, HP, D, beta, stream
     "vqhmm_fused_train": [_P, _P, _L, _L, _L, _P] + [_P] * 18 + [_P] * 5
     + [_I] * 9 + [ctypes.c_float, _P],
+    # x, valid_to, 6 encoder weight arrays, logits, B, C, T, H1, H2, K,
+    # stream
+    "vqhmm_fused_encode": [_P] * 2 + [_P] * 6 + [_P] + [_I] * 6 + [_P],
+    # C, H1, H2, K -> dynamic shared memory bytes per block
+    "vqhmm_fused_encode_smem_bytes": [_I] * 4,
+    # x, u, u strides (batch, channel, time), valid_to, 6 encoder and 4
+    # prior weight arrays, log_obs, log_A, B, C, T, U, H1, H2, K, HP, stream
+    "vqhmm_fused_evidence": [_P, _P, _L, _L, _L, _P] + [_P] * 10 + [_P] * 2
+    + [_I] * 8 + [_P],
+    # x, u, u strides, valid_to, lengths (or null), log_pi, 10 weight
+    # arrays, backpointer scratch, states, B, C, T, U, H1, H2, K, HP, stream
+    "vqhmm_fused_decode": [_P, _P, _L, _L, _L, _P, _P, _P] + [_P] * 10
+    + [_P] * 2 + [_I] * 8 + [_P],
+    # C, H1, H2, K, U, HP -> dynamic shared memory bytes per block
+    "vqhmm_fused_evidence_smem_bytes": [_I] * 6,
+    "vqhmm_fused_decode_smem_bytes": [_I] * 6,
 }
 # entry points returning a long long: B, C, T, U, H1, H2, K, HP, D, what
 _SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 10}
@@ -85,6 +102,12 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    """The `csrc/*.cuh` headers the sources include; they enter the
+    build's digest beside the sources."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of every entry point of `lib`."""
     for name, argtypes in _SIGNATURES.items():
@@ -108,7 +131,7 @@ def library() -> ctypes.CDLL:
             return _lib
         srcs = sources()
         digest = hashlib.sha256()
-        for s in srcs:
+        for s in srcs + headers():
             digest.update(s.name.encode())
             digest.update(s.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())

@@ -1,0 +1,232 @@
+"""The HMM evidence in one kernel, and the one-kernel Viterbi decode.
+
+Port of the two TPU kernels of vqvaehmm_tpu/ops/pallas_decode.py to
+hand-written CUDA kernels for Hopper (csrc/fused_decode.cu, whose header
+sets out their designs and the bounds they meet):
+
+* `fused_evidence` (replaces `_evidence_kernel`): the one-kernel twin of
+  `VAEHMM.prior` plus `VAEHMM._hmm_evidence`, returning `(log_pi (K,),
+  log_A (B, T, K, K), log_obs (B, T, K))` ready for ops/hmm.py and the
+  Viterbi kernel.  No length masking: ops/hmm.py applies it downstream.
+* `fused_viterbi_states` (replaces `_kernel`): the MAP path (B, T) int32
+  from raw (x, u) in one launch, the evidence never reaching device
+  memory.  Past each sequence's length the path is frozen at its last
+  valid state.  Where two paths tie to float rounding the states may
+  differ from a decode fed by another evidence computation; the scores
+  agree.
+
+`fused_evidence_reference` and `fused_viterbi_states_reference` are their
+plain PyTorch versions and `supported` their gate.  Both bound the
+encoder at the scalar max(lengths), as the model's exact modes do.
+
+Dispatch is that of ops/fused_infer.py: `use_kernel=None` takes the
+kernel for a CUDA tensor and the plain version for a CPU tensor,
+`use_kernel=True` on a CPU tensor raises, `use_kernel=False` computes
+the plain version.  There is no fallback.  `fused_evidence` refuses, as
+`fused_encode` does, where grad mode is on and an input or weight requires
+grad (the decode returns integer states, which carry none anyway).
+`fused_evidence.launches` and
+`fused_viterbi_states.launches` count the kernels' launches.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .fused_encoder import (TILE_ROW_FLOATS, check_x, encoder_weights,
+                            refuse_grad)
+from .fused_infer import SMEM_LIMIT, valid_to_rows
+from .fused_train import _u_strides
+from .fused_viterbi import MAX_K
+from .hmm import viterbi
+
+# csrc/fused_decode.cu: row floats of the decode chunk (DWS; the evidence
+# tile's are TILE_ROW_FLOATS), and the decode kernel's static shared memory
+# (backpointers and states of one chunk)
+_DECODE_ROW_FLOATS = 72
+_DECODE_STATIC_BYTES = 64 * MAX_K + 64 * 4
+
+_count_lock = threading.Lock()
+
+
+def _rows(cfg) -> int:
+    return (cfg.input_dim + cfg.hidden_dim + cfg.hidden_dim2 + cfg.K
+            + cfg.u_dim + cfg.trans_hidden + cfg.K * cfg.K)
+
+
+def evidence_smem_bytes(cfg) -> int:
+    return 4 * TILE_ROW_FLOATS * _rows(cfg)
+
+
+def decode_smem_bytes(cfg) -> int:
+    return 4 * _DECODE_ROW_FLOATS * _rows(cfg)
+
+
+def supported(cfg, B: int, T: int) -> bool:
+    """True when the evidence and decode kernels take this model on
+    Hopper: float32 compute, u-conditioned transitions, at most MAX_K
+    regimes (int8 backpointers, delta in registers) and one block's rows
+    within a block's shared memory.  Both walk or tile the time axis, so T
+    sets no bound."""
+    return (cfg.compute_dtype == "float32" and cfg.u_dim is not None
+            and B >= 0 and T >= 0 and 1 <= cfg.K <= MAX_K
+            and decode_smem_bytes(cfg) + _DECODE_STATIC_BYTES <= SMEM_LIMIT)
+
+
+def fused_evidence_reference(model, x: torch.Tensor, u: torch.Tensor,
+                             lengths: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain version: the model's prior and encoder evidence."""
+    log_pi, log_A = model.prior(u)
+    return log_pi, log_A, model._hmm_evidence(x, lengths)
+
+
+def fused_viterbi_states_reference(model, x: torch.Tensor, u: torch.Tensor,
+                                   lengths: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """Plain version: the plain evidence, then the sequential decode of
+    ops/hmm.py."""
+    return viterbi(*fused_evidence_reference(model, x, u, lengths),
+                   lengths).states
+
+
+def _prepare(model, x, u, lengths, what: str):
+    """Checks shared by the two kernels; (x, lengths int32 or None,
+    valid_to (B,) int32, the ten weight arrays)."""
+    cfg = model.cfg
+    check_x(model, x, what)
+    B, C, T = x.shape
+    if not supported(cfg, B, T):
+        raise ValueError(
+            f"{what} unsupported for {cfg}: it takes float32, 1 <= K <= "
+            f"{MAX_K} and at most {SMEM_LIMIT} bytes of shared memory a "
+            f"block (needs {decode_smem_bytes(cfg)}; see supported)")
+    if u.dtype != torch.float32 or u.device != x.device:
+        raise ValueError(f"u must be float32 on {x.device}, got {u.dtype} "
+                         f"on {u.device}")
+    if u.dim() != 3 or u.shape[0] != B or not (
+            tuple(u.shape[1:]) == (cfg.u_dim, T)
+            or tuple(u.shape[1:]) == (T, cfg.u_dim)):
+        raise ValueError(f"u must be (B, U={cfg.u_dim}, T) or (B, T, U), "
+                         f"got {tuple(u.shape)} for x {tuple(x.shape)}")
+    lens = None
+    if lengths is not None:
+        lens = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+        if tuple(lens.shape) != (B,):
+            raise ValueError(f"lengths must be ({B},), got "
+                             f"{tuple(lens.shape)}")
+    # the encoder's bound is one scalar for the batch, kept on the device
+    vt = valid_to_rows(None if lens is None or B == 0 else lens.max(), B, T,
+                       x.device)
+    net = model.prior_module.transition_net
+    weights = encoder_weights(model, x.device)
+    for w in (net[0].weight, net[0].bias, net[2].weight, net[2].bias):
+        w = w.detach()
+        if w.device != x.device or w.dtype != torch.float32 \
+                or not w.is_contiguous():
+            raise ValueError("model weights must be contiguous float32 on "
+                             f"{x.device} (got {w.dtype} on {w.device})")
+        weights.append(w)
+    return x.contiguous(), lens, vt, weights
+
+
+def _dims(cfg, B: int, T: int):
+    return (B, cfg.input_dim, T, cfg.u_dim, cfg.hidden_dim, cfg.hidden_dim2,
+            cfg.K, cfg.trans_hidden)
+
+
+def _smem_args(cfg):
+    return (cfg.input_dim, cfg.hidden_dim, cfg.hidden_dim2, cfg.K, cfg.u_dim,
+            cfg.trans_hidden)
+
+
+def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
+                   lengths: Optional[torch.Tensor] = None,
+                   use_kernel: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(log_pi (K,), log_A (B, T, K, K), log_obs (B, T, K)) for x (B, C, T)
+    and u (B, U, T) or (B, T, U), the encoder bounded at max(lengths)."""
+    if use_kernel is None:
+        use_kernel = x.is_cuda
+    if not use_kernel:
+        return fused_evidence_reference(model, x, u, lengths)
+    if not x.is_cuda:
+        raise ValueError("use_kernel=True needs CUDA tensors; the fused "
+                         "evidence is a CUDA kernel")
+    cfg = model.cfg
+    refuse_grad("fused evidence", x, [
+        *model.encoder.parameters(), *model.prior_module.parameters(), u])
+    x, _, vt, weights = _prepare(model, x, u, lengths, "fused evidence")
+    B, _, T = x.shape
+    K = cfg.K
+    lib = _build.library()
+    if lib.vqhmm_fused_evidence_smem_bytes(*_smem_args(cfg)) \
+            != evidence_smem_bytes(cfg):
+        raise RuntimeError("fused_evidence kernel and wrapper disagree on "
+                           "the shared-memory layout")
+    # K values used in no product: the TPU wrapper computes them outside
+    # its kernel too (vqvaehmm_tpu/ops/pallas_train.py:382)
+    log_pi = torch.log_softmax(model.prior_module.log_prior.detach(), dim=0)
+    log_obs = torch.empty((B, T, K), dtype=torch.float32, device=x.device)
+    log_A = torch.empty((B, T, K, K), dtype=torch.float32, device=x.device)
+    if B == 0 or T == 0:
+        return log_pi, log_A, log_obs
+    err = lib.vqhmm_fused_evidence(
+        x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u), vt.data_ptr(),
+        *[w.data_ptr() for w in weights], log_obs.data_ptr(),
+        log_A.data_ptr(), *_dims(cfg, B, T),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_evidence kernel launch")
+    with _count_lock:
+        fused_evidence.launches += 1
+    return log_pi, log_A, log_obs
+
+
+fused_evidence.launches = 0
+
+
+def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
+                         lengths: Optional[torch.Tensor] = None,
+                         use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """MAP regime path (B, T) int32 from raw x (B, C, T) and u (B, U, T) or
+    (B, T, U) in one launch for any T."""
+    if use_kernel is None:
+        use_kernel = x.is_cuda
+    if not use_kernel:
+        return fused_viterbi_states_reference(model, x, u, lengths)
+    if not x.is_cuda:
+        raise ValueError("use_kernel=True needs CUDA tensors; the fused "
+                         "decode is a CUDA kernel")
+    cfg = model.cfg
+    x, lens, vt, weights = _prepare(model, x, u, lengths, "fused decode")
+    B, _, T = x.shape
+    if T == 0:
+        raise ValueError("Viterbi decode of an empty sequence (T=0)")
+    lib = _build.library()
+    if lib.vqhmm_fused_decode_smem_bytes(*_smem_args(cfg)) \
+            != decode_smem_bytes(cfg):
+        raise RuntimeError("fused_decode kernel and wrapper disagree on "
+                           "the shared-memory layout")
+    log_pi = torch.log_softmax(model.prior_module.log_prior.detach(),
+                               dim=0).contiguous()
+    states = torch.empty((B, T), dtype=torch.int32, device=x.device)
+    if B == 0:
+        return states
+    bp = torch.empty((B, T, cfg.K), dtype=torch.int8, device=x.device)
+    err = lib.vqhmm_fused_decode(
+        x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u), vt.data_ptr(),
+        None if lens is None else lens.data_ptr(), log_pi.data_ptr(),
+        *[w.data_ptr() for w in weights], bp.data_ptr(), states.data_ptr(),
+        *_dims(cfg, B, T), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_decode kernel launch")
+    with _count_lock:
+        fused_viterbi_states.launches += 1
+    return states
+
+
+fused_viterbi_states.launches = 0

@@ -50,7 +50,7 @@ def fused_forward_reference(model, x: torch.Tensor, valid_to=None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Plain version: (mu, logvar, q), each (B, C|K, T)."""
-    logits = model.encode(x, valid_to=valid_to)
+    logits = model.encode(x, valid_to=valid_to, fused=False)
     q = torch.softmax(logits, dim=1)
     mu, logvar = model.decode(q, valid_to=valid_to)
     return mu, logvar, q

@@ -1,10 +1,11 @@
 """Exact HMM inference in log space: forward, backward, marginals, Viterbi.
 
-Counterpart of vqvaehmm_tpu/ops/hmm.py:43-229 in plain PyTorch.  The JAX
+Counterpart of vqvaehmm_tpu/ops/hmm.py in plain PyTorch.  The JAX
 recursions are `lax.scan`s outside any Pallas kernel; here they are
-Python loops over time.  The Viterbi decode on a CUDA tensor runs in
-the hand-written kernel of ops/fused_viterbi.py instead; `viterbi` below
-is its plain version.
+Python loops over time, and its `lax.associative_scan`s are doubling
+scans (log2 T rounds of one batched log-space product each).  The Viterbi
+decode on a CUDA tensor runs in the hand-written kernel of
+ops/fused_viterbi.py instead; `viterbi` below is its plain version.
 
 Conventions (those of the JAX module):
   log_pi  : (K,)          initial state log-probs
@@ -117,6 +118,45 @@ def filtered_marginals(log_pi, log_A, log_obs,
                          dim=-1)
 
 
+def pairwise_marginals(log_pi, log_A, log_obs,
+                       lengths: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """xi (B, T-1, K, K) = p(z_t=i, z_{t+1}=j | x) for t = 0..T-2."""
+    return smoothing(log_pi, log_A, log_obs, lengths).xi
+
+
+class SmoothingResult(NamedTuple):
+    gamma: torch.Tensor           # (B, T, K) smoothed marginals
+    xi: torch.Tensor              # (B, T-1, K, K) pairwise marginals
+    log_likelihood: torch.Tensor  # (B,)
+
+
+def smoothing(log_pi, log_A, log_obs,
+              lengths: Optional[torch.Tensor] = None) -> SmoothingResult:
+    """All smoothing statistics from one forward and one backward pass.
+
+    With lengths, xi is zeroed at invalid pairs (t >= L-1): the masked
+    identity transition would otherwise put gamma_{L-1} on the diagonal of
+    every padded step, and a sum of xi over time would overcount
+    self-transitions.  gamma rows at padded steps repeat the last valid
+    row."""
+    B, T, K = log_obs.shape
+    log_Am, log_obsm = _mask_inputs(_as_time_varying(log_A, B, T), log_obs,
+                                    lengths)
+    fwd = forward(log_pi, log_Am, log_obsm, None)
+    log_beta = backward(log_Am, log_obsm, None)
+    gamma = torch.softmax(fwd.log_alpha + log_beta, dim=-1)
+    log_xi = (fwd.log_alpha[:, :-1, :, None] + log_Am[:, 1:]
+              + (log_obsm + log_beta)[:, 1:, None, :])
+    xi = torch.exp(log_xi - fwd.log_likelihood[:, None, None, None])
+    if lengths is not None:
+        valid = torch.arange(T, device=log_obs.device)[None, :] \
+            < lengths.to(log_obs.device)[:, None]
+        pair_valid = valid[:, 1:] & valid[:, :-1]
+        xi = xi * pair_valid[:, :, None, None]
+    return SmoothingResult(gamma, xi, fwd.log_likelihood)
+
+
 class ViterbiResult(NamedTuple):
     states: torch.Tensor  # (B, T) int32 MAP path (frozen past L-1)
     score: torch.Tensor   # (B,) log p(z*, x)
@@ -144,3 +184,89 @@ def viterbi(log_pi, log_A, log_obs,
         states.append(last)
     return ViterbiResult(torch.stack(states[::-1], dim=1).to(torch.int32),
                          score)
+
+
+# ---------------------------------------------------------------------------
+# Associative-scan (parallel-in-time) variants
+# ---------------------------------------------------------------------------
+
+
+def _prefix_products(ops: torch.Tensor, reduce) -> torch.Tensor:
+    """Inclusive prefix products of the (B, N, K, K) operators along N
+    under the semiring product P[i, j] = reduce_k a[i, k] + b[k, j], as a
+    doubling scan: round s combines element t with element t - s."""
+    N = ops.shape[1]
+    s = 1
+    while s < N:
+        left, right = ops[:, :-s], ops[:, s:]
+        comb = reduce(left[..., :, :, None] + right[..., None, :, :], -2)
+        ops = torch.cat([ops[:, :s], comb], dim=1)
+        s *= 2
+    return ops
+
+
+def _max(a: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.max(a, dim=dim).values
+
+
+def forward_assoc(log_pi, log_A, log_obs,
+                  lengths: Optional[torch.Tensor] = None) -> ForwardResult:
+    """Forward pass as a prefix scan of the operators M_t[i, j] =
+    log_A_t[i, j] + log_obs_t[j]: O(log T) depth, parallel in T."""
+    B, T, K = log_obs.shape
+    log_A, log_obs = _mask_inputs(_as_time_varying(log_A, B, T), log_obs,
+                                  lengths)
+    alpha0 = log_pi[None, :] + log_obs[:, 0]
+    if T == 1:
+        return ForwardResult(alpha0[:, None],
+                             torch.logsumexp(alpha0, dim=-1))
+    prefix = _prefix_products(log_A[:, 1:] + log_obs[:, 1:, None, :],
+                              torch.logsumexp)
+    rest = torch.logsumexp(alpha0[:, None, :, None] + prefix, dim=2)
+    log_alpha = torch.cat([alpha0[:, None], rest], dim=1)
+    return ForwardResult(log_alpha, torch.logsumexp(log_alpha[:, -1], dim=-1))
+
+
+def viterbi_assoc_scores(log_pi, log_A, log_obs,
+                         lengths: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Max-plus prefix scan giving the Viterbi deltas (B, T, K) and the MAP
+    score (B,), with no backtrace."""
+    B, T, K = log_obs.shape
+    log_A, log_obs = _mask_inputs(_as_time_varying(log_A, B, T), log_obs,
+                                  lengths)
+    delta0 = log_pi[None, :] + log_obs[:, 0]
+    if T == 1:
+        return delta0[:, None], _max(delta0, -1)
+    prefix = _prefix_products(log_A[:, 1:] + log_obs[:, 1:, None, :], _max)
+    rest = _max(delta0[:, None, :, None] + prefix, 2)
+    deltas = torch.cat([delta0[:, None], rest], dim=1)
+    return deltas, _max(deltas[:, -1], -1)
+
+
+def _categorical(log_p: torch.Tensor, generator: torch.Generator
+                 ) -> torch.Tensor:
+    """One draw a row of (B, K) log-probabilities, by the inverse CDF of a
+    uniform drawn on the generator's device (so a seed gives the same path
+    wherever log_p lives)."""
+    p = torch.softmax(log_p, dim=-1)
+    r = torch.rand((p.shape[0], 1), generator=generator,
+                   device=generator.device).to(p.device)
+    idx = (torch.cumsum(p, dim=-1) < r).sum(dim=-1)
+    return idx.clamp(max=p.shape[-1] - 1)
+
+
+def sample(generator: torch.Generator, log_pi, log_A, num_steps: int,
+           batch: int = 1) -> torch.Tensor:
+    """Ancestral sampling of state paths: (batch, num_steps) int32, drawn
+    from an explicit generator."""
+    log_A = _as_time_varying(log_A, batch, num_steps)
+    K = log_pi.shape[-1]
+    z = _categorical(log_pi.expand(batch, K), generator)
+    path = [z]
+    for t in range(1, num_steps):
+        rows = torch.gather(log_A[:, t], 1,
+                            z[:, None, None].expand(batch, 1, K))[:, 0]
+        z = _categorical(rows, generator)
+        path.append(z)
+    return torch.stack(path, dim=1).to(torch.int32)

@@ -14,9 +14,10 @@ load_portfolio_head, get_model) with the same request contract:
 * A configured checkpoint that is missing is served with random weights
   and a warning, or refused when VQHMM_REQUIRE_CHECKPOINT is set.
 
-On a CUDA device the mean-field forward and the Viterbi decode run in
-the port's CUDA kernels; the smoothed and filtered modes run the plain
-HMM recursions of ops/hmm.py.  There is no CPU fallback: device="cuda"
+On a CUDA device the mean-field forward, the evidence of the three exact
+modes and the Viterbi recursion run in the port's CUDA kernels; the
+smoothed and filtered modes then run the plain HMM recursions of
+ops/hmm.py on that evidence.  There is no CPU fallback: device="cuda"
 on a machine without CUDA raises.  Micro-batching, /stream, hot reload
 and the VQ family are still to be ported (ROADMAP.md).
 """
@@ -99,8 +100,18 @@ class InferenceModel:
         self.bind_metrics()
 
     def bind_metrics(self) -> None:
+        from ..ops.fused_decode import fused_evidence
+        from ..ops.fused_infer import fused_forward
+        from ..ops.fused_viterbi import viterbi_fused
         from .metrics import METRICS
 
+        for name, fn in (("fused_infer", fused_forward),
+                         ("viterbi", viterbi_fused),
+                         ("fused_evidence", fused_evidence)):
+            METRICS.register_gauge(
+                f"vqhmm_kernel_launches_{name}",
+                lambda fn=fn: float(fn.launches),
+                f"Launches of the {name} CUDA kernel in this process.")
         METRICS.register_gauge(
             "vqhmm_checkpoint_loaded",
             lambda: 1.0 if self.checkpoint_loaded else 0.0,
@@ -188,7 +199,7 @@ class InferenceModel:
         return self._head
 
 
-def load_portfolio_head(cfg, device="cpu"):
+def load_portfolio_head(cfg, device="cuda"):
     """The configured RegimePortfolioOptimizer, with its `.npz` checkpoint
     loaded when one is configured and present, else random-init (seed 0)
     with a warning if a path was configured."""
@@ -199,7 +210,8 @@ def load_portfolio_head(cfg, device="cpu"):
     head = RegimePortfolioOptimizer(
         HeadConfig(K=cfg.model.K, n_assets=cfg.portfolio.n_assets,
                    hidden_dim=cfg.portfolio.hidden_dim),
-        device=device, generator=torch.Generator().manual_seed(0))
+        device=resolve_device(device),
+        generator=torch.Generator().manual_seed(0))
     path = str(cfg.head_checkpoint_path or "")
     if path.endswith((".pt", ".pth")):
         raise NotImplementedError(
