@@ -104,6 +104,37 @@ exiting non-zero before a result is printed:
    `Backtester.run`, split into its parts, and of one whole-panel decode
    three ways.
 
+17. kernel 9 (nearest code of the VQ family) against its plain version
+   with the committed VQ archive's encoder and codebook: the latents of
+   the fixture panel's windows, and random latents at (B, T) in {(1, 37),
+   (64, 200), (460, 20), (1, 2327)}, each in the model's (B, D, T) layout
+   and flat, a codebook with a duplicated row, and a random (M, D) =
+   (64, 32) codebook.  The indices equal, or at each mismatch the two
+   codes' float64 scores within 1e-4 or 32 float32 roundings of the score;
+   z_q bit-equal to codebook[idx]; a second call bit-equal; a duplicated
+   row never chosen over its lower twin.
+18. VQ training through TrainPipeline with artifacts/config_vq.json on the
+   card (the synthetic pool, 4 epochs of 15 steps, save_freq 2, the EM fit
+   cut to 20 iterations): kernel 9 launches once a step and once a panel
+   pass, kernel D once a step (counts reset just before, exact); every
+   epoch loss finite and within 1e-4 relative of the same run with
+   device="cpu", or the first step at which a code parts the two runs
+   shown to be a near-tie; a run stopped by SIGTERM after epoch 2 and
+   resumed ends bit-equal to the uninterrupted run (parameters, history,
+   the archive's vq_* and hmm_* arrays); the archive loads back.
+19. VQ serving: artifacts/checkpoints_vq/vq_stack.npz behind the stdlib
+   server on the card; /health, /infer in smoothed, filtered, viterbi and
+   mean_field (served as smoothed), /predict, a wrong-shape 400; each
+   answer held against the same request with device="cpu" in this process
+   (codes equal or a near-tie, probabilities and weights <= 1e-4, states
+   equal or a score tie); kernel 9 launches exactly once a request and
+   kernel B once a viterbi request.
+20. times: kernel 9 and its plain version at the four shapes, back to back
+   and as device-busy time; a VQ training step's wall and its device time
+   by part, from a profiler trace of one steady epoch; the same step with
+   its convolutions through cuDNN, deterministic and default, and whether
+   two runs from one seed repeat; the EM fit's wall.
+
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
 of its operations over 67 TFLOP/s of fp32 and its input and output bytes
@@ -135,6 +166,9 @@ QUALITY_CHECKPOINT = os.path.join(ROOT, "artifacts", "checkpoints_quality",
                                   "vae_hmm_trained.npz")
 HEAD_CHECKPOINT = os.path.join(ROOT, "artifacts", "portfolio_head.npz")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "market_fixture.csv")
+VQ_CONFIG = os.path.join(ROOT, "artifacts", "config_vq.json")
+VQ_ARCHIVE = os.path.join(ROOT, "artifacts", "checkpoints_vq",
+                          "vq_stack.npz")
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -185,9 +219,10 @@ def weight_bytes(*modules) -> int:
     return sum(4 * p.numel() for m in modules for p in m.parameters())
 
 
-def kernel_bounds(model, B, T):
+def kernel_bounds(model, B, T, vq=(8, 16)):
     """bound_ms and bound_by of every kernel at (B, T) with the published
-    widths: each input read once, each output written once."""
+    widths (vq: the VQ family's codes and code width): each input read
+    once, each output written once."""
     cfg = model.cfg
     C, U, K = cfg.input_dim, cfg.u_dim, cfg.K
     enc, prior, dec = token_flops(cfg)
@@ -219,6 +254,9 @@ def kernel_bounds(model, B, T):
             N * (enc + prior + 4 * (K + K * K)) + B * (T - 1) * (2 * K * K
                                                                  + K),
             4 * N * (C + U + 1) + 8 * B + w_enc + w_pri),
+        # z, codebook -> z_q, idx
+        "vq_nearest": bound_ms(2 * N * vq[0] * vq[1],
+                               4 * (2 * N * vq[1] + N + vq[0] * vq[1])),
     }
 
 
@@ -1437,6 +1475,585 @@ def gather_library_ms(torch, np):
                                      pos[:, None, :]])[0]
 
 
+def _code_ties(torch, z, cb, got, want):
+    """(tokens whose two indices differ, largest gap of the two codes'
+    float64 scores over its tolerance) for tokens z (N, D): two
+    nearest-code searches may part only where the scores tie to float32
+    rounding."""
+    got, want = got.reshape(-1).long().cpu(), want.reshape(-1).long().cpu()
+    bad = got != want
+    if not bool(bad.any()):
+        return 0, 0.0
+    zf, cbf = z.reshape(-1, z.shape[-1]).double().cpu()[bad], cb.double().cpu()
+    s = zf @ cbf.T - 0.5 * (cbf * cbf).sum(-1)
+    a, b = s.gather(1, got[bad][:, None]), s.gather(1, want[bad][:, None])
+    tol = torch.clamp(TIE_ULPS * torch.finfo(torch.float32).eps * b.abs(),
+                      min=TIE_ATOL)
+    return int(bad.sum()), float(((a - b).abs() / tol).max())
+
+
+def vq_panel_windows(np, max_len=200):
+    """The fixture panel's features as full-coverage windows (N, 5, 200)."""
+    from vqvaehmm_tpu_torch.data import market
+    from vqvaehmm_tpu_torch.train.vq_pipeline import panel_windows
+
+    prices, regime, _ = market.load_fixture_frames(FIXTURE)
+    x, _, _, _ = market.prepare_sequences(prices, regime)
+    return panel_windows([np.transpose(x).astype(np.float32)], max_len)
+
+
+VQ_SHAPES = ((1, 37), (64, 200), (460, 20), (1, 2327))
+
+
+def phase_kernel_9(torch, np, stack):
+    from vqvaehmm_tpu_torch.ops.vq import vq_nearest, vq_nearest_reference
+
+    model = stack.model
+    dev = model.device
+    cb = model.codebook.detach()
+    M, D = cb.shape
+    rng = np.random.default_rng(17)
+    xw, _ = vq_panel_windows(np)
+    with torch.no_grad():
+        z_panel = model.encode(torch.from_numpy(xw).to(dev))
+    scale = float(z_panel.std())
+    cb_dup = cb.clone()
+    cb_dup[5] = cb_dup[2]
+    cb_wide = _randn(torch, np, rng, (64, 32), dev) * 0.5
+    cases = [("panel latents", z_panel, cb),
+             ("panel latents, row 5 = row 2", z_panel, cb_dup),
+             ("random (64, 32) codebook",
+              _randn(torch, np, rng, (64, 32, 200), dev), cb_wide)]
+    cases += [(f"random B={B} T={T}",
+               _randn(torch, np, rng, (B, D, T), dev) * scale, cb)
+              for B, T in VQ_SHAPES]
+    worst, mismatches, calls = 0.0, 0, 0
+    n0 = vq_nearest.launches
+    for what, z, book in cases:
+        flat = z.transpose(1, 2).contiguous()                # (B, T, D)
+        _, want = vq_nearest_reference(z, book, channels_first=True)
+        for layout, arg, cf in (("(B, D, T)", z, True), ("flat", flat,
+                                                         False)):
+            zq, idx = vq_nearest(arg, book, channels_first=cf,
+                                 use_kernel=True)
+            zq2, idx2 = vq_nearest(arg, book, channels_first=cf,
+                                   use_kernel=True)
+            torch.cuda.synchronize()
+            calls += 2
+            tag = f"{what}, {layout}"
+            if idx.dtype != torch.int32 or idx.shape != want.shape or \
+                    int(idx.min()) < 0 or int(idx.max()) >= book.shape[0]:
+                fail(f"kernel 9 indices misshapen or out of range ({tag})")
+            n, excess = _code_ties(torch, flat, book, idx, want)
+            mismatches += n
+            if excess > 1.0:
+                fail(f"kernel 9 differs from plain at {n} tokens, the two "
+                     f"codes' scores {excess:.1f} times the tolerance of a "
+                     f"tie apart ({tag})")
+            rows = book[idx.long()]
+            if not torch.equal(zq, rows.transpose(1, 2) if cf else rows):
+                fail(f"kernel 9 z_q is not codebook[idx] bit for bit "
+                     f"({tag})")
+            worst = max(worst, max_abs(zq, rows.transpose(1, 2) if cf
+                                       else rows))
+            if not torch.equal(idx, idx2) or not torch.equal(zq, zq2):
+                fail(f"kernel 9 is not bit-equal across two calls ({tag})")
+            if book is cb_dup and bool((idx == 5).any()):
+                fail(f"kernel 9 chose the duplicated row 5 over row 2 "
+                     f"({tag})")
+    if vq_nearest.launches - n0 != calls:
+        fail(f"kernel 9 launched {vq_nearest.launches - n0} times for "
+             f"{calls} calls")
+    say("kernel 9", f"{len(cases)} cases in both layouts: indices equal to "
+        f"plain except {mismatches} near-ties (tol {TIE_ATOL:g} or "
+        f"{TIE_ULPS} float32 roundings of the score), z_q bit-equal to "
+        "codebook[idx], second call bit-equal, the lower of two equal rows "
+        "chosen")
+    return worst
+
+
+VQ_EM_ITERS = 20       # of config_vq.json's 50, in the training phases
+
+
+def _vq_cfg(ckpt_dir, *extra, **training):
+    from vqvaehmm_tpu_torch.core.config import apply_overrides, load_config
+
+    over = [f"training.checkpoint_dir={ckpt_dir}", "training.num_epochs=4",
+            "training.save_freq=2", f"vq.hmm_iters={VQ_EM_ITERS}", *extra]
+    over += [f"training.{k}={json.dumps(v)}" for k, v in training.items()]
+    return apply_overrides(load_config(VQ_CONFIG), over)
+
+
+def _first_code_flip(torch, np, cfg, devices=("cuda", "cpu")):
+    """Train the two devices' models in lockstep, from one seed on one
+    index stream and with the restarts train_vq_stack would make, until a
+    step's codes differ.  Returns (epoch, step, tokens that differ, the
+    largest gap of the two codes' scores over the tolerance of a tie), or
+    None if no code parts them."""
+    from vqvaehmm_tpu_torch.data.device_sampler import DeviceEpochSampler
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+    from vqvaehmm_tpu_torch.train.vq_pipeline import (
+        _sample_valid_positions, make_code_reinit, make_vq_model,
+        make_vq_optimizer)
+
+    t, v = cfg.training, cfg.vq
+    dataset = TrainPipeline(cfg, device="cpu").load_data()
+    rng = np.random.default_rng(t.seed + 1)
+    side = []
+    for d in devices:
+        model = make_vq_model(cfg, device=d, generator=torch.Generator()
+                              .manual_seed(t.seed))
+        side.append((model, make_vq_optimizer(
+            model, t.learning_rate, t.gradient_clip,
+            float(v.codebook_lr_scale)), DeviceEpochSampler(dataset, d),
+            make_code_reinit(model)))
+    nb = len(dataset) // t.batch_size
+    for ep in range(t.num_epochs):
+        triples = side[0][2].sample_indices_fast(t.batch_size, nb)
+        up = [s[2].upload(*triples) for s in side]
+        counts = torch.zeros(v.num_codes, dtype=torch.int64)
+        for i in range(nb):
+            xs = [s[2].gather(*(a[i] for a in u))[0]
+                  for s, u in zip(side, up)]
+            if ep == 0 and i == 0 and v.data_init:
+                rows, ts = _sample_valid_positions(rng, triples[2][0],
+                                                   v.num_codes)
+                for s, x in zip(side, xs):
+                    s[3](x, rows, ts, np.ones(v.num_codes, bool))
+            if i == 0:
+                first = xs
+            parts = [s[0].compute_loss(x, u[2][i])
+                     for s, x, u in zip(side, xs, up)]
+            codes = [s[0].codes(x) for s, x in zip(side, xs)]
+            if not torch.equal(codes[0].cpu(), codes[1].cpu()):
+                with torch.no_grad():
+                    z = side[1][0].encode(xs[1]).transpose(1, 2)
+                valid = (torch.arange(z.shape[1])[None, :]
+                         < up[1][2][i].cpu()[:, None])
+                n, excess = _code_ties(
+                    torch, z[valid.to(z.device)], side[1][0].codebook
+                    .detach(), codes[0].cpu()[valid], codes[1].cpu()[valid])
+                return ep + 1, i + 1, n, excess
+            for s, p in zip(side, parts):
+                s[1].zero_grad(set_to_none=True)
+                p.total.backward()
+                s[1].update()
+            counts += parts[0].counts.cpu()
+        if v.dead_code_reinit and ep < t.num_epochs - 1:
+            c = counts.numpy()
+            dead = c < max(1.0, v.dead_code_min_usage * c.sum() / v.num_codes)
+            if dead.any():
+                rows, ts = _sample_valid_positions(rng, triples[2][0],
+                                                   v.num_codes)
+                for s, x in zip(side, first):
+                    s[3](x, rows, ts, dead)
+    return None
+
+
+def _npz(np, path):
+    with np.load(path) as z:
+        return {k: z[k].copy() for k in z.files}
+
+
+def phase_vq_train(torch, np):
+    from vqvaehmm_tpu_torch.data.checkpoint import load_metadata
+    from vqvaehmm_tpu_torch.ops.gather import gather_windows
+    from vqvaehmm_tpu_torch.ops.vq import vq_nearest
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+    from vqvaehmm_tpu_torch.train.vq_pipeline import VQStack
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vq_")
+    try:
+        logs = []
+        cfg = _vq_cfg(os.path.join(tmp, "gpu"))
+        t = cfg.training
+        per_epoch = cfg.data.samples_per_epoch // t.batch_size
+        pipe = TrainPipeline(cfg, device="cuda")
+        vq_nearest.launches = 0
+        gather_windows.launches = 0
+        state = pipe.train(log_fn=lambda m: logs.append(
+            (time.perf_counter(), m)))
+        torch.cuda.synchronize()
+        launches = {"vq_nearest": vq_nearest.launches,
+                    "gather": gather_windows.launches}
+        # a step is one gather and one nearest-code search; the panel is
+        # encoded once after training and once more after a polish epoch
+        polish = sum(m.startswith("Polish epoch") for _, m in logs)
+        steps = per_epoch * (t.num_epochs + polish)
+        expected = {"vq_nearest": steps + 1 + polish, "gather": steps}
+        if launches != expected or state.step != steps:
+            fail(f"VQ training launched {launches} and made {state.step} "
+                 f"updates; {t.num_epochs} epochs and {polish} polish "
+                 f"epochs of {per_epoch} steps imply {expected}")
+        gpu_hist = pipe.history
+        if len(gpu_hist) != t.num_epochs + polish or \
+                not np.isfinite(gpu_hist).all():
+            fail(f"VQ epoch losses {gpu_hist}")
+        stamps = [ts for ts, m in logs if m.startswith("Epoch ")]
+        goodput = (len(stamps) - 1) * per_epoch * t.batch_size \
+            / (stamps[-1] - stamps[0])
+        say("vq train", f"TrainPipeline(config_vq.json) on the card: "
+            f"{steps} steps, kernel launches {launches}, epoch losses "
+            f"{gpu_hist}; EM cut to {VQ_EM_ITERS} of its 50 "
+            f"iterations: {[m for _, m in logs if 'EM' in m]}")
+
+        # the same pipeline on the CPU: plain versions, same index stream
+        cpu = TrainPipeline(_vq_cfg(os.path.join(tmp, "cpu"),
+                                    input_pipeline="device"), device="cpu")
+        cpu.train(log_fn=None)
+        rel = [abs(a - b) / abs(b) for a, b in zip(gpu_hist, cpu.history)]
+        if len(cpu.history) != len(gpu_hist) or max(rel) > 1e-4:
+            flip = _first_code_flip(torch, np, cfg)
+            if flip is None or flip[3] > 1.0:
+                fail(f"card VQ epoch losses {gpu_hist} vs CPU {cpu.history} "
+                     f"(relative {rel}) and no near-tie explains it: first "
+                     f"code flip (epoch, step, tokens, gap over tolerance) "
+                     f"= {flip}")
+            say("vq train", f"card and CPU epoch losses part (relative "
+                f"{rel}) after a code flip at epoch {flip[0]} step "
+                f"{flip[1]}: {flip[2]} tokens whose two codes' scores tie "
+                f"within {flip[3]:.3f} of the tolerance")
+        else:
+            say("vq train", f"CPU plain run: epoch losses {cpu.history}, "
+                f"largest relative difference {max(rel):.3e} (tol 1e-4)")
+
+        # exact resume: SIGTERM after epoch 2, then a rerun
+        rcfg = _vq_cfg(os.path.join(tmp, "resume"))
+
+        def preempt_at_2(msg):
+            if msg.startswith("Epoch 2/"):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        first = TrainPipeline(rcfg, device="cuda")
+        part = first.train(log_fn=preempt_at_2)
+        meta = load_metadata(os.path.join(tmp, "resume", "vq_periodic"))
+        if not first.preempted or part.step != 2 * per_epoch or not meta \
+                or not meta.get("preempted") or os.path.exists(
+                    os.path.join(tmp, "resume", "vq_stack.npz")):
+            fail(f"SIGTERM did not stop VQ training at epoch 2 (step "
+                 f"{part.step}, metadata {meta})")
+        second = TrainPipeline(rcfg, device="cuda")
+        resumed = second.train(log_fn=None)
+        if second.preempted or resumed.step != steps or \
+                second.history != gpu_hist:
+            fail(f"the resumed VQ run ended at step {resumed.step} with "
+                 f"losses {second.history} vs {gpu_hist}")
+        ref = state.model.state_dict()
+        for name, val in resumed.model.state_dict().items():
+            if not torch.equal(val, ref[name]):
+                fail(f"resumed VQ run differs from the uninterrupted run "
+                     f"at {name}")
+        a = _npz(np, os.path.join(tmp, "gpu", "vq_stack.npz"))
+        b = _npz(np, os.path.join(tmp, "resume", "vq_stack.npz"))
+        for k in a:
+            if k.startswith(("vq_", "hmm_")) and not np.array_equal(a[k],
+                                                                    b[k]):
+                fail(f"resumed VQ archive differs at {k}")
+        say("vq train", "SIGTERM at epoch 2 and resume: parameters, "
+            "history and the archive's vq_* and hmm_* arrays bit-equal to "
+            "the uninterrupted run")
+
+        # the archive loads back and decodes as the trained model does
+        stack = VQStack.load(os.path.join(tmp, "gpu", "vq_stack.npz"),
+                             device="cuda")
+        x = _randn(torch, np, np.random.default_rng(18), (4, 5, 200), "cuda")
+        g = stack.regime_marginals(x)
+        if not torch.equal(stack.codes(x), state.model.codes(x)) or \
+                tuple(g.shape) != (4, 200, cfg.model.K) or \
+                not torch.isfinite(g).all() or stack.usage is None:
+            fail("the archive the card wrote does not load back to the "
+                 "trained model")
+        say("vq train", f"vq_stack.npz loads back: codes equal to the "
+            f"trained model's, usage {stack.usage}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, goodput
+
+
+def phase_vq_serve(torch, np):
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
+    from vqvaehmm_tpu_torch.ops.vq import vq_nearest
+    from vqvaehmm_tpu_torch.serve.httpd import serve
+    from vqvaehmm_tpu_torch.serve.vq import VQInferenceModel
+
+    with open(VQ_CONFIG) as f:
+        raw = json.load(f)
+    raw["checkpoint_path"] = VQ_ARCHIVE
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vq_serve_")
+    cfg_path = os.path.join(tmp, "inference_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    os.environ["VQHMM_REQUIRE_CHECKPOINT"] = "1"
+    cpu = VQInferenceModel(cfg_path, device="cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    httpd = serve(cfg_path, host="127.0.0.1", port=port, background=True,
+                  device="cuda")
+    url = f"http://127.0.0.1:{port}"
+    reps = 5
+    try:
+        served = httpd.vqhmm_model
+        if not isinstance(served, VQInferenceModel) or \
+                not served.checkpoint_loaded:
+            fail("the server did not load the VQ archive")
+        rng = np.random.default_rng(19)
+        C = raw["model"]["input_dim"]
+        reqs = [("/infer", "smoothed", 37), ("/infer", "smoothed", 200),
+                ("/infer", "filtered", 200), ("/infer", "mean_field", 200),
+                ("/infer", "viterbi", 200), ("/infer", "viterbi", 1500),
+                ("/infer", None, 512), ("/predict", "predict", 200)]
+        payloads = []
+        for path, mode, T in reqs:
+            p = {"x": rng.normal(size=(C, T)).astype(np.float32).tolist()}
+            if path == "/infer" and mode is not None:
+                p["mode"] = mode
+            payloads.append(p)
+        vq_nearest.launches = 0
+        viterbi_fused.launches = 0
+        status, body, _ = _request(url + "/health")
+        if status != 200 or body != {"status": "ok"}:
+            fail(f"/health answered {status} {body}")
+        responses, lat = [], {}
+        for (path, mode, T), p in zip(reqs, payloads):
+            times = []
+            for _ in range(reps):
+                status, body, dt = _request(url + path, p)
+                if status != 200:
+                    fail(f"VQ {path} {mode} T={T} answered {status}")
+                times.append(dt)
+            responses.append(body)
+            lat.setdefault(f"{mode or 'default'} T={T}", []).extend(times)
+        try:
+            _request(url + "/infer", {"x": [[1.0, 2.0]]})
+            fail("a VQ request with the wrong C was not refused")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                fail(f"a VQ request with the wrong C got {e.code}, not 400")
+        launches = {"vq_nearest": vq_nearest.launches,
+                    "viterbi": viterbi_fused.launches}
+        expected = {"vq_nearest": reps * len(reqs), "viterbi": reps * sum(
+            mode == "viterbi" for _, mode, _ in reqs)}
+        if launches != expected:
+            fail(f"VQ serving launched {launches}; {reps} x {len(reqs)} "
+                 f"requests imply {expected}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    worst, ties = {}, 0
+    hmm, model = cpu.stack.hmm, cpu.stack.model
+    for (path, mode, T), p, got in zip(reqs, payloads, responses):
+        if path == "/predict":
+            want = cpu.predict(p["x"])
+            checks = ("weights", "regime_probs")
+        else:
+            want = cpu.infer(p["x"], mode=mode or "mean_field")
+            served_mode = mode if mode in ("filtered", "viterbi") \
+                else "smoothed"
+            if got.get("mode") != served_mode or set(got) != set(want):
+                fail(f"VQ /infer {mode} T={T}: keys {sorted(got)} mode "
+                     f"{got.get('mode')!r}")
+            checks = () if mode == "viterbi" else ("regime_probs",)
+            if got["codes"] != want["codes"]:
+                xp, _ = cpu._padded(p["x"])
+                with torch.no_grad():
+                    z = model.encode(xp)[0, :, :T].T
+                n, excess = _code_ties(
+                    torch, z, model.codebook.detach(),
+                    torch.tensor(got["codes"]), torch.tensor(want["codes"]))
+                if excess > 1.0:
+                    fail(f"VQ /infer {mode} T={T}: {n} codes differ from "
+                         f"the CPU's, {excess:.1f} times the tolerance of "
+                         "a tie")
+                say("vq serve", f"{mode} T={T}: {n} codes differ on a "
+                    "near-tie; probabilities not compared")
+                ties += n
+                continue
+        for key in checks:
+            g, w = np.asarray(got[key]), np.asarray(want[key])
+            if g.shape != w.shape or not np.isfinite(g).all():
+                fail(f"VQ {path} {mode} T={T} {key}: shape {g.shape} vs "
+                     f"{w.shape} or non-finite")
+            err = float(np.abs(g - w).max())
+            name = f"{mode or 'default'}.{key}"
+            worst[name] = max(worst.get(name, 0.0), err)
+            if err > 1e-4:
+                fail(f"VQ {path} {mode} T={T} {key} differs from the CPU "
+                     f"by {err:.3e} > 1e-4")
+        if mode == "viterbi" and got["states"] != want["states"]:
+            codes = torch.tensor(want["codes"])[None]
+            ev = (hmm.log_pi, hmm.log_A.expand(1, T, hmm.K, hmm.K),
+                  cpu.stack.log_obs(codes))
+            gap, excess = _tie_gap(
+                torch, ev, torch.tensor(got["states"])[None],
+                torch.tensor(want["states"])[None], None)
+            if excess > 1.0:
+                fail(f"VQ viterbi T={T}: the served path scores {gap:.3e} "
+                     f"from the CPU's, {excess:.1f} times the tolerance of "
+                     "a tie")
+            say("vq serve", f"viterbi T={T}: states differ on a score tie "
+                f"({gap:.3e})")
+    say("vq serve", "the VQ archive served on the card matches the CPU: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+        + f"; codes equal except {ties} near-ties; states equal or tied")
+    say("vq serve", f"kernel launches while serving: {launches}; p50 "
+        "latency ms: " + ", ".join(
+            f"{m} {statistics.median(v) * 1e3:.3f}" for m, v in lat.items()))
+    return launches
+
+
+def _vq_step_three_ways(torch, np, cfg):
+    """A VQ training step at the configuration's widths with its
+    convolutions three ways: as matrix products (what the model runs),
+    and through cuDNN with and without torch.backends.cudnn.deterministic.
+    For each: wall and device-busy ms a step over epochs of 15 steps, and
+    whether two runs of 30 steps from one seed give the same losses."""
+    from vqvaehmm_tpu_torch.ops import nn as ops
+    from vqvaehmm_tpu_torch.train.vq_pipeline import (make_vq_epoch_step,
+                                                      make_vq_model,
+                                                      make_vq_optimizer)
+
+    rng = np.random.default_rng(21)
+    t = cfg.training
+    shape = (15, t.batch_size, cfg.model.input_dim, cfg.data.max_len)
+    xs = _randn(torch, np, rng, shape, "cuda")
+    lens = torch.from_numpy(rng.integers(
+        cfg.data.min_len, cfg.data.max_len + 1, size=shape[:2]).astype(
+            np.int32)).to("cuda")
+
+    def run(epochs):
+        model = make_vq_model(cfg, device="cuda", generator=torch.Generator()
+                              .manual_seed(0))
+        step = make_vq_epoch_step(model, make_vq_optimizer(
+            model, t.learning_rate, t.gradient_clip))
+        return step, [float(step(xs, lens)[0]) for _ in range(epochs)]
+
+    shipped = ops.conv1d_same_matmul
+    try:
+        for name, conv, det in (
+                ("matrix products (the model's)", shipped, False),
+                ("cuDNN, cudnn.deterministic", ops.conv1d_same, True),
+                ("cuDNN, default", ops.conv1d_same, False)):
+            ops.conv1d_same_matmul = conv
+            torch.backends.cudnn.deterministic = det
+            _, first = run(2)
+            step, second = run(2)
+            wall = _wall(torch, lambda: float(step(xs, lens)[0]), repeats=3)
+            dev_ms = _device_ms(torch, lambda: step(xs, lens), calls=1)
+            say("times", f"VQ step, convolutions as {name}: "
+                f"{wall[0] / 15:.4f} ms [{wall[1] / 15:.4f}, "
+                f"{wall[2] / 15:.4f}] of wall a step, device busy "
+                f"{_ms(None if dev_ms is None else dev_ms / 15)} a step; "
+                f"two runs of 30 steps from one seed "
+                f"{'equal' if first == second else 'DIFFER'}: {first} "
+                f"{second}")
+            if conv is shipped and first != second:
+                fail("VQ training on the card is not repeatable from one "
+                     f"seed: {first} vs {second}")
+    finally:
+        ops.conv1d_same_matmul = shipped
+        torch.backends.cudnn.deterministic = False
+
+
+def phase_vq_times(torch, np, stack):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from vqvaehmm_tpu_torch.models.hmm import fit_categorical_em
+    from vqvaehmm_tpu_torch.ops.vq import vq_nearest, vq_nearest_reference
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+    from vqvaehmm_tpu_torch.train.vq_pipeline import panel_windows
+
+    model = stack.model
+    dev = model.device
+    cb = model.codebook.detach()
+    rng = np.random.default_rng(20)
+    res = {}
+    for B, T in VQ_SHAPES:
+        z = _randn(torch, np, rng, (B, cb.shape[1], T), dev)
+        for use, fn in ((False, lambda: vq_nearest_reference(
+                z, cb, channels_first=True)), (True, lambda: vq_nearest(
+                    z, cb, channels_first=True, use_kernel=True))):
+            res[(B, T, use)] = _time(torch, fn) + (_device_ms(torch, fn),)
+    for (B, T, use), (med, lo, hi, dev_ms) in res.items():
+        say("times", f"vq_nearest {'kernel' if use else 'plain '} B={B} "
+            f"T={T}: {med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back; "
+            f"device busy {_ms(dev_ms)} a call (profiler)")
+
+    # a steady epoch of VQ training on the card, traced on the card alone
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    stamps, begin = [], []
+
+    def log(msg):
+        if not msg.startswith("Epoch "):
+            return
+        stamps.append(time.perf_counter())
+        if msg.startswith("Epoch 5/"):
+            prof.start()
+            begin.append(time.perf_counter())
+        elif msg.startswith("Epoch 6/"):
+            prof.stop()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vq_profile_")
+    try:
+        cfg = _vq_cfg(tmp, "vq.hmm_iters=2", num_epochs=6, save_freq=0)
+        pipe = TrainPipeline(cfg, device="cuda")
+        pipe.train(log_fn=log)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t = cfg.training
+    steps = cfg.data.samples_per_epoch // t.batch_size
+    gaps = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    untraced = gaps[1:4]                                 # epochs 3-5
+    steady = len(untraced) * steps * t.batch_size / (sum(untraced) / 1e3)
+    plain_step = statistics.median(untraced) / steps
+    traced = 1e3 * (stamps[5] - begin[0]) / steps
+    parts = {"kernel 9": ("vq_nearest",), "kernel D": ("gather_kernel",),
+             "matrix products (convolutions, one-hot)": (
+                 "gemm", "gemv", "xmma", "cutlass", "cublas"),
+             "Adam": ("multi_tensor", "adam", "foreach")}
+    rest = "other (shifted copies, ReLU, loss, masks)"
+    cats = {k: [] for k in list(parts) + [rest]}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        name = e.name.lower()
+        key = next((k for k, pats in parts.items()
+                    if any(p in name for p in pats)), rest)
+        cats[key].append((e.time_range.start, e.time_range.end))
+    busy = _busy_us(iv for ivs in cats.values() for iv in ivs) / 1e3 / steps
+    if busy <= 0.0:
+        fail("the profiler saw no device time in the traced VQ epoch")
+    say("times", f"VQ TrainPipeline, save_freq 0, 6 epochs: ms between "
+        f"epoch log lines {[round(g, 3) for g in gaps]}; goodput of the "
+        f"untraced epochs 3-5: {steady:.1f} seqs/s, {plain_step:.4f} ms a "
+        f"step; traced epoch 6: {traced:.4f} ms a step; device busy "
+        f"{busy:.4f} ms a step, {100 * busy / plain_step:.2f}% of an "
+        "untraced step (inferred)")
+    for key, ivs in cats.items():
+        say("times", f"  device {key}: {_busy_us(ivs) / 1e3 / steps:.4f} ms "
+            f"a step, {len(ivs)} ops in {steps} steps")
+
+    _vq_step_three_ways(torch, np, cfg)
+
+    # the EM fit at the configuration's depth on the synthetic pool's panel
+    v = cfg.vq
+    xw, lw = panel_windows(pipe.load_data().x_seqs, cfg.data.max_len)
+    codes = stack.codes(torch.from_numpy(xw).to(dev))
+    lens = torch.from_numpy(lw).to(dev)
+    em = _wall(torch, lambda: fit_categorical_em(
+        codes, K=cfg.model.K, V=v.num_codes, n_iters=50, seed=0,
+        lengths=lens, n_init=v.hmm_restarts, sticky=v.hmm_sticky),
+        repeats=3)
+    say("times", f"fit_categorical_em on the card ({tuple(codes.shape)} "
+        f"codes, {v.hmm_restarts} restarts folded into the batch, 50 "
+        f"iterations): {em[0]:.1f} ms [{em[1]:.1f}, {em[2]:.1f}] of wall, "
+        f"{em[0] / 50:.2f} ms an iteration (median of 3)")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1449,7 +2066,8 @@ def main() -> int:
         return 2
     if not os.path.isdir(os.path.join(ROOT, "vqvaehmm_tpu_torch")) or \
             not all(os.path.exists(f) for f in (
-                CHECKPOINT, QUALITY_CHECKPOINT, HEAD_CHECKPOINT, FIXTURE)):
+                CHECKPOINT, QUALITY_CHECKPOINT, HEAD_CHECKPOINT, FIXTURE,
+                VQ_CONFIG, VQ_ARCHIVE)):
         print("FAIL: run chip_smoke.py from a checkout of the repository "
               "(vqvaehmm_tpu_torch/, the checkpoints and the fixture panel)",
               flush=True)
@@ -1509,6 +2127,18 @@ def main() -> int:
     bulk_launches, bulk = phase_bulk(torch, np)
     # 16. times
     btimes = phase_bulk_times(torch, np, model, bulk)
+    # 17. kernel 9 against its plain version
+    from vqvaehmm_tpu_torch.train.vq_pipeline import VQStack
+
+    vq_stack = VQStack.load(VQ_ARCHIVE, device="cuda")
+    err_9 = phase_kernel_9(torch, np, vq_stack)
+    # 18, 19: the VQ family trained and served
+    vq_train_launches, vq_goodput = phase_vq_train(torch, np)
+    vq_serve_launches = phase_vq_serve(torch, np)
+    # 20. times
+    vtimes = phase_vq_times(torch, np, vq_stack)
+    say("times", f"VQ training goodput (TrainPipeline, config_vq.json, "
+        f"save_freq 2, epochs 2-4): {vq_goodput:.1f} seqs/s")
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -1580,6 +2210,33 @@ def main() -> int:
         if name in launches:
             entry["serve_launches"] = launches[name]
         kernels.append(entry)
+    entry = {"name": "vq_nearest", "route": "cuda",
+             "source": "vqvaehmm_tpu_torch/csrc/vq.cu",
+             "replaces": "vqvaehmm_tpu/ops/vq.py:60",
+             "launches": vq_train_launches["vq_nearest"],
+             "max_abs_err": err_9,
+             "ms": vtimes[(64, 200, True)][0],
+             "plain_ms": vtimes[(64, 200, False)][0],
+             "bound_ms": bounds["vq_nearest"][0],
+             "bound_by": bounds["vq_nearest"][1], "library_ms": None,
+             "shape": "B=64 T=200 M=8 D=16",
+             "device_ms": vtimes[(64, 200, True)][3],
+             "plain_device_ms": vtimes[(64, 200, False)][3],
+             "serve_launches": vq_serve_launches["vq_nearest"]}
+    for B, T in VQ_SHAPES:
+        if (B, T) != (64, 200):
+            entry[f"ms_{B}x{T}"] = vtimes[(B, T, True)][0]
+            entry[f"plain_ms_{B}x{T}"] = vtimes[(B, T, False)][0]
+            entry[f"device_ms_{B}x{T}"] = vtimes[(B, T, True)][3]
+            entry[f"bound_ms_{B}x{T}"] = kernel_bounds(
+                model, B, T)["vq_nearest"][0]
+    kernels.append(entry)
+    for k in kernels:
+        # the VQ family's paths through the kernels of earlier slices
+        if k["name"] == "gather":
+            k["vq_train_launches"] = vq_train_launches["gather"]
+        elif k["name"] == "viterbi":
+            k["vq_serve_launches"] = vq_serve_launches["viterbi"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

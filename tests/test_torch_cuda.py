@@ -475,3 +475,78 @@ def test_plain_versions_launch_no_kernel(cuda):
     model.posterior(x, fused=False)
     torch.cuda.synchronize()
     assert [w.launches for w in wrappers] == before
+
+
+def _near_tie(z, cb, got, want):
+    """Every token whose two indices differ has the two codes' plain
+    float64 scores within 32 float32 roundings of the score, or 1e-6."""
+    bad = (got != want).reshape(-1)
+    if not bad.any():
+        return True
+    zf = z.reshape(-1, z.shape[-1])[bad].double()
+    s = zf @ cb.double().T - 0.5 * (cb.double() ** 2).sum(-1)
+    a = s.gather(1, got.reshape(-1)[bad].long()[:, None])
+    b = s.gather(1, want.reshape(-1)[bad].long()[:, None])
+    tol = torch.clamp(32 * torch.finfo(torch.float32).eps * b.abs(),
+                      min=1e-6)
+    return bool(((a - b).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("B,T,D,M", [(1, 1, 16, 8), (3, 37, 16, 8),
+                                     (64, 200, 16, 8), (2, 50, 5, 3),
+                                     (4, 33, 64, 40), (1, 2327, 32, 64)])
+def test_vq_nearest_matches_plain(cuda, B, T, D, M):
+    from vqvaehmm_tpu_torch.ops.vq import vq_nearest, vq_nearest_reference
+
+    rng = np.random.default_rng(B * 1000 + T + D)
+    z = torch.from_numpy(rng.normal(size=(B, D, T)).astype(np.float32)
+                         ).to(cuda)
+    cb = torch.from_numpy((0.5 * rng.normal(size=(M, D))).astype(np.float32)
+                          ).to(cuda)
+    before = vq_nearest.launches
+    zq, idx = vq_nearest(z, cb, channels_first=True)
+    _, want = vq_nearest_reference(z, cb, channels_first=True)
+    assert idx.dtype == torch.int32 and idx.shape == (B, T)
+    assert _near_tie(z.transpose(1, 2), cb, idx, want)
+    assert torch.equal(zq, cb[idx.long()].transpose(1, 2))
+    flat = z.transpose(1, 2).contiguous()                    # (B, T, D)
+    zq2, idx2 = vq_nearest(flat, cb)
+    assert torch.equal(idx2, idx) and torch.equal(zq2, cb[idx.long()])
+    assert vq_nearest.launches == before + 2
+
+
+def test_vq_nearest_exact_tie_gate_and_model_path(cuda):
+    from vqvaehmm_tpu_torch.models.vqvae_hmm import VQVAEConfig, VQVAEHMM
+    from vqvaehmm_tpu_torch.ops.vq import vq_nearest
+
+    rng = np.random.default_rng(11)
+    z = torch.from_numpy(rng.normal(size=(500, 16)).astype(np.float32)
+                         ).to(cuda)
+    cb = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)
+                          ).to(cuda)
+    cb[5] = cb[2]                      # an exact tie: the lower index wins
+    idx = vq_nearest(z, cb)[1]
+    assert bool((idx == 2).any()) and not bool((idx == 5).any())
+    with pytest.raises(ValueError, match="vq_supported"):
+        vq_nearest(z.double(), cb.double())
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        vq_nearest(torch.zeros((4, 65), device=cuda),
+                   torch.zeros((3, 65), device=cuda))
+    # the model's loss and codes go through the kernel, once each, and the
+    # loss carries gradients to all 13 parameters
+    model = VQVAEHMM(VQVAEConfig(), device=cuda,
+                     generator=torch.Generator().manual_seed(0))
+    x = torch.randn((4, 5, 60), device=cuda)
+    lengths = torch.tensor([60, 20, 33, 47], device=cuda)
+    n = vq_nearest.launches
+    parts = model.compute_loss(x, lengths)
+    parts.total.backward()
+    codes = model.codes(x)
+    assert vq_nearest.launches == n + 2
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+    plain = model.compute_loss(x, lengths, use_kernel=False)
+    assert vq_nearest.launches == n + 2
+    torch.testing.assert_close(parts.total, plain.total, rtol=1e-5, atol=0)
+    assert torch.equal(parts.counts, plain.counts)
+    assert torch.equal(codes, model.codes(x, use_kernel=False))

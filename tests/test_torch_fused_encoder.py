@@ -97,9 +97,9 @@ def test_shared_header_enters_the_build_digest():
     users = [s.name for s in _build.sources()
              if '#include "encoder_tile.cuh"' in s.read_text()]
     assert users == ["fused_decode.cu", "fused_encoder.cu"]
-    assert len(_build.sources()) == 6
+    assert len(_build.sources()) == 7
     for entry in ("vqhmm_fused_encode", "vqhmm_fused_evidence",
-                  "vqhmm_fused_decode"):
+                  "vqhmm_fused_decode", "vqhmm_vq_nearest"):
         assert entry in _build._SIGNATURES
         assert f'extern "C" int {entry}(' in "".join(
             s.read_text() for s in _build.sources())

@@ -1,9 +1,11 @@
 """Typed configuration, shared by the JAX package and this port.
 
-A verbatim copy of vqvaehmm_tpu/core/config.py: that package's
-`__init__` imports JAX eagerly, and the machine the port runs on has no
-JAX.  The copy goes once those imports are lazy (ROADMAP.md queue 1,
-item 0).  Both packages read the same JSON files.
+A copy of vqvaehmm_tpu/core/config.py: that package's `__init__` imports
+JAX eagerly, and the machine the port runs on has no JAX.  The copy goes
+once those imports are lazy (ROADMAP.md queue 1, item 0).  Both packages
+read the same JSON files.  It is verbatim but for one comment: that of
+`VQConfig.codebook_lr_scale`, which here says what the knob does (it
+scales the codebook's update, not its gradient).
 
 One dataclass-based config system replacing the reference's three ad-hoc
 mechanisms (YAML dicts in configs/config.yaml, JSON dicts in
@@ -70,8 +72,9 @@ class VQConfig:
     num_codes: int = 8
     latent_dim: int = 16
     commitment_beta: float = 0.25
-    # multiplies the codebook gradient before the optimizer (a separate
-    # effective codebook lr without a second optimizer)
+    # multiplies the codebook's update after the optimizer step (a
+    # separate effective codebook lr without a second optimizer; on the
+    # gradient it would cancel inside Adam), train/vq_pipeline.py
     codebook_lr_scale: float = 1.0
     # Baum-Welch over code indices (models/hmm.fit_categorical_em)
     hmm_iters: int = 50

@@ -7,6 +7,12 @@ transpose.  Its `.npz` files hold flat `/`-joined keys
 state_dict keys (`encoder.conv1.weight`), so a reference `.pt` file loads
 into them directly.
 
+The VQ family's parameters (models/vqvae_hmm.py) cross by the same
+renaming (`vq_params_from_numpy`, `vq_params_to_numpy`).  Its archive
+`vq_stack.npz` holds them as `vq_0..vq_12`, the leaves of the JAX pytree
+in `jax.tree_util.tree_flatten` order, which sorts dictionary keys:
+`VQ_LEAF_ORDER` is that order in state_dict keys.
+
 A training checkpoint (save_checkpoint) holds the model, the Adam state
 and the step, so a run resumes exactly; it is the port's own format
 (torch.save), with the JAX package's `.meta.json` sidecar beside it.
@@ -123,6 +129,48 @@ def params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = v.detach().cpu().numpy()
+    return out
+
+
+# jax.tree_util.tree_flatten of {"encoder": {conv1, conv2, to_latent},
+# "codebook", "decoder": {conv1, conv2, to_out}}, each conv {weight, bias}:
+# keys sorted at every level
+VQ_LEAF_ORDER = ("codebook",) + tuple(
+    f"{part}.{conv}.{leaf}"
+    for part, last in (("decoder", "to_out"), ("encoder", "to_latent"))
+    for conv in ("conv1", "conv2", last) for leaf in ("bias", "weight"))
+
+
+def vq_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
+    """The JAX package's VQVAEHMM pytree (nested dicts of numpy arrays, or
+    the archive's list of leaves in VQ_LEAF_ORDER) -> a float32 state_dict
+    for the port's VQVAEHMM."""
+    if isinstance(tree, Mapping):
+        flat = {k.replace("/", "."): v for k, v in _flatten("", tree).items()}
+    else:
+        leaves = list(tree)
+        if len(leaves) != len(VQ_LEAF_ORDER):
+            raise ValueError(f"{len(leaves)} arrays given but a VQVAEHMM "
+                             f"has {len(VQ_LEAF_ORDER)}")
+        flat = dict(zip(VQ_LEAF_ORDER, leaves))
+    unknown = sorted(set(flat) ^ set(VQ_LEAF_ORDER))
+    if unknown:
+        raise KeyError(f"not a VQVAEHMM pytree; unmatched paths: {unknown}")
+    return {k: torch.from_numpy(np.array(flat[k], dtype=np.float32,
+                                         copy=True)) for k in VQ_LEAF_ORDER}
+
+
+def vq_params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Inverse of vq_params_from_numpy: the JAX package's nested pytree of
+    numpy arrays, its dictionaries in sorted-key order, so that its leaves
+    read in order are the archive's `vq_i`."""
+    out: Dict = {}
+    for key in VQ_LEAF_ORDER:
+        node = out
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = state_dict[key].detach().cpu().numpy()
     return out
 
 

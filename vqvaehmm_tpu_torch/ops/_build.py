@@ -76,6 +76,9 @@ _SIGNATURES = {
     # C, H1, H2, K, U, HP -> dynamic shared memory bytes per block
     "vqhmm_fused_evidence_smem_bytes": [_I] * 6,
     "vqhmm_fused_decode_smem_bytes": [_I] * 6,
+    # z, z strides (batch, channel, time), codebook, z_q, idx, B, T, M, D,
+    # stream
+    "vqhmm_vq_nearest": [_P, _L, _L, _L, _P, _P, _P] + [_I] * 4 + [_P],
 }
 # entry points returning a long long: B, C, T, U, H1, H2, K, HP, D, what
 _SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 10}

@@ -8,7 +8,8 @@ decode on a CUDA tensor runs in the hand-written kernel of
 ops/fused_viterbi.py instead; `viterbi` below is its plain version.
 
 Conventions (those of the JAX module):
-  log_pi  : (K,)          initial state log-probs
+  log_pi  : (K,)          initial state log-probs; `forward` and
+                          `smoothing` also take (B, K), one row a sequence
   log_A   : (B, T, K, K)  row-normalised; log_A[:, t, i, j] is the
                           transition i->j into step t (index 0 unused),
                           or (T, K, K) shared across the batch, or (K, K)
@@ -72,11 +73,14 @@ class ForwardResult(NamedTuple):
 
 def forward(log_pi, log_A, log_obs,
             lengths: Optional[torch.Tensor] = None) -> ForwardResult:
-    """Log-space forward recursion."""
+    """Log-space forward recursion.  log_pi is (K,), or (B, K) where the
+    rows of the batch are different chains (the folded restarts of
+    models/hmm.py's EM fits)."""
     B, T, K = log_obs.shape
     log_A, log_obs = _mask_inputs(_as_time_varying(log_A, B, T), log_obs,
                                   lengths)
-    alpha = log_pi[None, :] + log_obs[:, 0]
+    alpha = (log_pi if log_pi.dim() == 2 else log_pi[None, :]) \
+        + log_obs[:, 0]
     alphas = [alpha]
     for t in range(1, T):
         alpha = torch.logsumexp(alpha[:, :, None] + log_A[:, t], dim=1) \

@@ -59,6 +59,29 @@ def conv1d_same(weight: torch.Tensor, bias: torch.Tensor,
     return F.conv1d(x, weight, bias, padding=k // 2)
 
 
+def conv1d_same_matmul(weight: torch.Tensor, bias: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """conv1d_same as one matrix product over the k shifted copies of x
+    (the JAX package's `impl="matmul"` lowering): (O, k*I) @ (B, k*I, T).
+
+    For training on the card where a run must repeat bit for bit: the
+    gradient of the weight is then one matrix product with a fixed
+    summation order, where cuDNN's default convolution backward adds with
+    atomics, and its deterministic algorithm (an FFT) costs many times the
+    device time at this model's channel counts."""
+    O, I, k = weight.shape
+    if k % 2 == 0:
+        raise ValueError(f"conv1d_same requires an odd kernel width, got {k}")
+    if k == 1:
+        cols, w2 = x, weight[:, :, 0]
+    else:
+        T = x.shape[-1]
+        xp = F.pad(x, (k // 2, k // 2))
+        cols = torch.cat([xp[:, :, tap:tap + T] for tap in range(k)], dim=1)
+        w2 = weight.permute(0, 2, 1).reshape(O, k * I)       # [o, tap*I + i]
+    return torch.matmul(w2, cols) + bias[None, :, None]
+
+
 def linear(weight: torch.Tensor, bias: torch.Tensor,
            x: torch.Tensor) -> torch.Tensor:
     """x: (..., in) -> (..., out); weight stored (out, in)."""

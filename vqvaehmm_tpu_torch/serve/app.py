@@ -18,8 +18,9 @@ On a CUDA device the mean-field forward, the evidence of the three exact
 modes and the Viterbi recursion run in the port's CUDA kernels; the
 smoothed and filtered modes then run the plain HMM recursions of
 ops/hmm.py on that evidence.  There is no CPU fallback: device="cuda"
-on a machine without CUDA raises.  Micro-batching, /stream, hot reload
-and the VQ family are still to be ported (ROADMAP.md).
+on a machine without CUDA raises.  `get_model` returns serve/vq.py's
+VQInferenceModel for a `model.family: vqvae` config.  Micro-batching,
+/stream and hot reload are still to be ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -68,9 +69,10 @@ class InferenceModel:
         self.device = resolve_device(device)
         self.cfg = load_config(config_path)
         if self.cfg.model.family != "vae":
-            raise NotImplementedError(
-                f"model family {self.cfg.model.family!r} is not ported yet "
-                "(ROADMAP.md, queue 1)")
+            raise ValueError(
+                f"InferenceModel serves model.family='vae', not "
+                f"{self.cfg.model.family!r}; get_model picks the family's "
+                "serving model")
         ckpt = self.cfg.checkpoint_path or ""
         npz = ckpt if ckpt.endswith(".npz") else ckpt + ".npz"
         if ckpt and os.path.exists(npz):
@@ -232,5 +234,13 @@ def load_portfolio_head(cfg, device="cuda"):
 @lru_cache(maxsize=None)
 def get_model(config_path: str = "inference_config.json", device="cuda"):
     """The process-wide model for one (config, device), built on first
-    use."""
+    use: InferenceModel, or serve/vq.py's VQInferenceModel for a
+    `model.family: vqvae` config (codes and regime posteriors on the same
+    /infer and /predict routes)."""
+    from ..core.config import load_config
+
+    if load_config(config_path).model.family == "vqvae":
+        from .vq import VQInferenceModel
+
+        return VQInferenceModel(config_path, device=device)
     return InferenceModel(config_path, device=device)

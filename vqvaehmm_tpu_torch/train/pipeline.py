@@ -18,9 +18,10 @@ defaults train through the fused train kernel and the device input
 pipeline (train/trainer.py::resolve_fused, resolve_input_pipeline).
 `training.steps_per_call` bounds one jitted dispatch in the JAX package;
 PyTorch dispatches each step eagerly, so it is accepted and changes
-nothing.  Not ported, and refused with NotImplementedError: the VQ family
-(ROADMAP.md queue 1 item 10), `ensemble_seeds` (item 11), the device mesh
-(item 13) and `profile_dir`.
+nothing.  `model.family: vqvae` trains the true-VQ family through
+train/vq_pipeline.py (its own trainer and archive, `vq_stack.npz`).  Not
+ported, and refused with NotImplementedError: `ensemble_seeds`
+(ROADMAP.md queue 1 item 11), the device mesh (item 13) and `profile_dir`.
 """
 
 from __future__ import annotations
@@ -139,9 +140,12 @@ class TrainPipeline:
         an automatic resume from the latest periodic checkpoint."""
         t = self.cfg.training
         if self.cfg.model.family == "vqvae":
-            raise NotImplementedError(
-                "model.family='vqvae': the VQ family is not ported "
-                "(ROADMAP.md queue 1, item 10)")
+            # the true-VQ family has its own trainer and archive format;
+            # the knobs it honours are documented on train_vq_stack
+            from .vq_pipeline import train_vq_pipeline
+
+            self.preempted = False
+            return train_vq_pipeline(self, log_fn=log_fn, resume=resume)
         if t.ensemble_seeds:
             raise NotImplementedError(
                 "training.ensemble_seeds: ensembles are not ported "
@@ -293,7 +297,8 @@ class TrainPipeline:
 def main(argv: Optional[list] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m vqvaehmm_tpu_torch.train.pipeline",
-        description="Train the VAE-HMM from a config file.")
+        description="Train the VAE-HMM, or the VQ family, from a config "
+        "file.")
     parser.add_argument("config", help="config .json or .yaml")
     parser.add_argument("overrides", nargs="*",
                         help="section.key=value overrides")
