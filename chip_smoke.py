@@ -2,9 +2,18 @@
 """Drive the PyTorch/CUDA port (vqvaehmm_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare OLD NEW
+    python3 chip_smoke.py --kernel-times DIR
 
 Run from the root of a checkout, on a machine with one CUDA card.  It
-imports nothing of JAX.  Phases, each printing one line, any failure
+imports nothing of JAX.  With --compare it times the serving forward
+(kernel A) and the fused training step (kernel C) of two checkouts of the
+port in turns (OLD, NEW, NEW, OLD, each built and run in a process of its
+own: two versions are compared only on one card within one run) and
+prints the four JSON lines and the ratio of the device-busy times; a
+checkout without git history is enough (`git archive <commit> | tar -x -C
+OLD`).  --kernel-times DIR is one such process.  Without arguments it
+runs these phases, each printing one line, any failure
 exiting non-zero before a result is printed:
 
 1. device: requires CUDA; prints the card's name and power limit.
@@ -14,7 +23,9 @@ exiting non-zero before a result is printed:
    {37, 200, 512}, scalar and per-sequence valid_to, non-zero tails;
    max-abs error <= 1e-5 on q and <= 1e-4 on mu and logvar (both float32,
    different summation orders).  Row i of a B=8 call must be bit-equal to
-   the same row computed alone.
+   the same row computed alone, and the kernel at each of its tile
+   widths (16, 32, 64) bit-equal to the others on the same inputs, also
+   at widths whose 2C rows of output exceed every hidden width.
 4. kernel B (Viterbi) against its plain version at (B, T) in
    {(1, 200), (64, 200), (1, 2327)}, K=3, ragged lengths, and log_A
    given per sequence, per step and stationary: states equal, score
@@ -32,7 +43,9 @@ exiting non-zero before a result is printed:
    forward, the Viterbi kernel and the evidence kernel are reset before
    this phase and must be non-zero after it.
 6. times: each kernel and its plain version with CUDA events, median of 5
-   windows with [min, max].
+   windows with [min, max]; kernel A at (64, 200), (1, 200), (1, 37) and
+   (8, 512) also as device-busy time a call on the profiler, with its
+   share of the bound.
 7. kernel C (fused loss and all 18 gradients) against its plain version
    (compute_loss plus autograd) on the card: the published weights at
    (B, T) in {(64, 200), (8, 200)} with ragged lengths, a case with every
@@ -56,7 +69,9 @@ exiting non-zero before a result is printed:
    trained .npz serves a mean-field request through the port's
    InferenceModel on the card, matching the CPU within 1e-4.
 10. times: kernels C and D and their plain versions (kernel C's plain
-   version is the forward plus the autograd backward), and the
+   version is the forward plus the autograd backward; kernel C at
+   (64, 200), (8, 200) and the probe shape, back to back and as
+   device-busy time a call with its share of the bound), and the
    pipeline's training goodput in seqs/s from the log timestamps of the
    steady epochs (2-4).
 11. profile: an 8-epoch TrainPipeline run without periodic checkpoints,
@@ -64,7 +79,8 @@ exiting non-zero before a result is printed:
    goodput of the untraced steady epochs (3-7), the profiler's overhead
    on the host, the device's busy share of the traced epoch's wall and
    (inferred) of an untraced step's, and the device time a step of
-   kernel C, kernel D and the rest (clip, Adam).
+   kernel C (and of each of its five kernels), kernel D and the rest
+   (clip, Adam).
 
 12. kernel 8 (fused encoder) against its plain version with the published
    weights at (B, T) in {(1, 37), (8, 200), (64, 200), (460, 20),
@@ -260,6 +276,31 @@ def kernel_bounds(model, B, T, vq=(8, 16)):
     }
 
 
+def kernel_resources(build_log: str, names):
+    """'name: N registers, S bytes smem, spills' of each named kernel, from
+    what ptxas printed (nvcc -Xptxas -v)."""
+    import re
+
+    lines = build_log.splitlines()
+    out = []
+    for name in names:
+        at = next((i for i, line in enumerate(lines)
+                   if "Compiling entry function" in line and name in line),
+                  None)
+        if at is None:
+            fail(f"ptxas printed nothing for {name}")
+        text = " ".join(lines[at:at + 4])
+        regs = re.search(r"Used (\d+) registers", text)
+        smem = re.search(r"(\d+) bytes smem", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", text)
+        out.append(f"{name}: {regs.group(1) if regs else '?'} registers, "
+                   f"{smem.group(1) if smem else 0} bytes smem, spills "
+                   f"{spill.group(1) if spill else '?'}/"
+                   f"{spill.group(2) if spill else '?'} bytes")
+    return out
+
+
 def phase_kernel_a(torch, np, model):
     from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
 
@@ -311,6 +352,53 @@ def phase_kernel_a(torch, np, model):
                 fail(f"kernel A row {i} {name}: batched != solo")
     say("kernel A", f"batched rows bit-equal to solo rows (B={B}, T={T}, "
         "per-sequence valid_to)")
+
+    # every tile width computes the same bits (the wrapper's own launch
+    # function; these launches are not counted)
+    from vqvaehmm_tpu_torch.ops import fused_infer
+
+    from vqvaehmm_tpu_torch.core.config import ModelConfig
+    from vqvaehmm_tpu_torch.models.vae_hmm import VAEHMM
+
+    # with more (mu, logvar) rows than any hidden width, those 2C rows are
+    # the widest thing a block holds: fresh weights from a seed
+    wide = [VAEHMM(ModelConfig(u_dim=4, trans_hidden=8, **kw), device=dev,
+                   generator=torch.Generator().manual_seed(11)).eval()
+            for kw in (dict(input_dim=40, hidden_dim=64, K=3, hidden_dim2=32),
+                       dict(input_dim=5, hidden_dim=8, K=3, hidden_dim2=8))]
+    n0 = fused_forward.launches
+    for m in [model] + wide:
+        C, K = m.cfg.input_dim, m.cfg.K
+        for B, T in ((3, 200), (2, 37), (1, 1), (2, 130)):
+            x = torch.from_numpy(rng.normal(size=(B, C, T)).astype(
+                np.float32)).to(dev)
+            vt = torch.from_numpy(rng.integers(1, T + 1, size=B).astype(
+                np.int32)).to(dev)
+            outs = []
+            for tile in fused_infer.TILES:
+                out = tuple(torch.empty((B, c, T), device=dev)
+                            for c in (C, C, K))
+                fused_infer._launch(m, x, vt, tile, out)
+                outs.append(out)
+            torch.cuda.synchronize()
+            want = fused_forward(m, x, valid_to=vt, use_kernel=False)
+            at = (f"B={B} T={T} C={C} hidden={m.cfg.hidden_dim}/"
+                  f"{m.cfg.hidden_dim2}")
+            for tile, out in zip(fused_infer.TILES, outs):
+                for name, g, first, w in zip(tol, out, outs[0], want):
+                    if not torch.equal(g, first):
+                        fail(f"kernel A {name} at tile {tile} differs from "
+                             f"tile {fused_infer.TILES[0]} at {at}")
+                    if max_abs(g, w) > tol[name]:
+                        fail(f"kernel A {name} at tile {tile}: max-abs error "
+                             f"{max_abs(g, w):.3e} at {at}")
+    if fused_forward.launches != n0:
+        fail("the tile-width check changed kernel A's launch count")
+    say("kernel A", f"tile widths {fused_infer.TILES} bit-equal to each "
+        "other and within tolerance of the plain version at 4 shapes, "
+        "ragged last tiles and T=1 among them, with the published weights "
+        "and at C=40 hidden 64/32 and C=5 hidden 8/8 (2C rows of output "
+        "above every hidden width)")
     return max(worst.values())
 
 
@@ -523,31 +611,51 @@ def _time(torch, fn, iters=50, windows=5):
     return statistics.median(out), min(out), max(out)
 
 
+A_SHAPES = ((64, 200), (1, 200), (1, 37), (8, 512))
+
+
 def phase_times(torch, np, model):
+    from vqvaehmm_tpu_torch.ops import fused_infer
     from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
     from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
 
     dev = model.device
+    cfg = model.cfg
     rng = np.random.default_rng(3)
     res = {}
     with torch.inference_mode():
-        for B in (64, 1):
-            T = 200
-            x = torch.from_numpy(rng.normal(size=(B, model.cfg.input_dim, T))
+        for B, T in A_SHAPES:
+            x = torch.from_numpy(rng.normal(size=(B, cfg.input_dim, T))
                                  .astype(np.float32)).to(dev)
             for use in (False, True):
-                res[("fused_infer", B, use)] = _time(
-                    torch, lambda: fused_forward(model, x, valid_to=T,
-                                                 use_kernel=use))
-            args = viterbi_inputs(torch, np, rng, B, T, model.cfg.K, dev,
-                                  (B, T))
+                fn = lambda: fused_forward(model, x, valid_to=T,  # noqa: E731
+                                           use_kernel=use)
+                res[("fused_infer", B, T, use)] = _time(torch, fn) + (
+                    _device_ms(torch, fn, 10 if use else 3),)
+        for B in (64, 1):
+            T = 200
+            args = viterbi_inputs(torch, np, rng, B, T, cfg.K, dev, (B, T))
             for use in (False, True):
-                res[("viterbi", B, use)] = _time(
+                res[("viterbi", B, T, use)] = _time(
                     torch, lambda: viterbi_fused(*args, use_kernel=use),
-                    iters=50 if use else 3)
-    for (name, B, use), (med, lo, hi) in res.items():
-        say("times", f"{name} {'kernel' if use else 'plain '} B={B} T=200: "
-            f"{med:.4f} ms [{lo:.4f}, {hi:.4f}]")
+                    iters=50 if use else 3) + (None,)
+    for (name, B, T, use), (med, lo, hi, dev_ms) in res.items():
+        line = (f"{name} {'kernel' if use else 'plain '} B={B} T={T}: "
+                f"{med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back")
+        if name == "fused_infer":
+            line += f"; device busy {_ms(dev_ms)} a call (profiler)"
+            if use:
+                bound = kernel_bounds(model, B, T)[name][0]
+                plan = fused_infer.launch_plan(
+                    B, T, cfg.input_dim, cfg.hidden_dim, cfg.hidden_dim2,
+                    cfg.K, cfg.hidden_dim, torch.cuda.get_device_properties(
+                        0).multi_processor_count)
+                line += (f", bound {bound:.5f} ms"
+                         + ("" if dev_ms is None else
+                            f" ({100 * bound / dev_ms:.1f}% of it)")
+                         + f"; tile {plan.tile}, {plan.blocks} blocks, "
+                         f"{plan.smem} bytes of shared memory")
+        say("times", line)
     return res
 
 
@@ -800,7 +908,11 @@ def phase_train(torch, np):
     return launches, goodput
 
 
+C_SHAPES = ((64, 200), (8, 200), (256, 512))      # the last: the probe
+
+
 def phase_train_times(torch, np, model):
+    from vqvaehmm_tpu_torch.ops import fused_train
     from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
     from vqvaehmm_tpu_torch.ops.gather import build_pools, gather_windows
 
@@ -808,14 +920,22 @@ def phase_train_times(torch, np, model):
     rng = np.random.default_rng(9)
     res = {}
     probe = probe_model(torch, dev)
-    for m, B, T, iters in ((model, 64, 200, 20), (probe, 256, 512, 2)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, T in C_SHAPES:
+        m, iters = (probe, 2) if (B, T) == C_SHAPES[-1] else (model, 20)
         x, u, lens = train_inputs(torch, np, rng, B, T, m.cfg.input_dim,
                                   m.cfg.u_dim, dev)
         for use in (False, True):
+            fn = lambda: fused_loss_and_grads(m, x, u, lens, 1.0,  # noqa: E731
+                                              use_kernel=use)
             res[("fused_train", B, T, use)] = _time(
-                torch, lambda: fused_loss_and_grads(m, x, u, lens, 1.0,
-                                                    use_kernel=use),
-                iters=iters)
+                torch, fn, iters=iters) + (_device_ms(torch, fn, 3),)
+        bound = kernel_bounds(m, B, T)["fused_train"][0]
+        dev_ms = res[("fused_train", B, T, True)][3]
+        say("times", f"fused_train B={B} T={T}: bound {bound:.5f} ms"
+            + ("" if dev_ms is None else
+               f" ({100 * bound / dev_ms:.1f}% of the device time)")
+            + f"; {fused_train.train_plan(m.cfg, B, T, sms)}")
     xs, us, lens = synthetic_pool(np, rng, 5, 4)
     px, pu = (torch.from_numpy(a).to(dev) for a in build_pools(xs, us))
     idx = [torch.from_numpy(a).to(dev)
@@ -823,10 +943,12 @@ def phase_train_times(torch, np, model):
     for use in (False, True):
         res[("gather", 64, 200, use)] = _time(
             torch, lambda: gather_windows(px, pu, *idx, 200,
-                                          use_kernel=use))
-    for (name, B, T, use), (med, lo, hi) in res.items():
+                                          use_kernel=use)) + (None,)
+    for (name, B, T, use), (med, lo, hi, dev_ms) in res.items():
         say("times", f"{name} {'kernel' if use else 'plain '} B={B} "
-            f"T={T}: {med:.4f} ms [{lo:.4f}, {hi:.4f}]")
+            f"T={T}: {med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back"
+            + ("" if name == "gather" else
+               f"; device busy {_ms(dev_ms)} a call (profiler)"))
     return res
 
 
@@ -891,10 +1013,19 @@ def phase_train_profile(torch, np):
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     cats = {"kernel C": [], "kernel D": [], "other (clip, Adam, sums)": []}
+    parts = {f"train_{p}_kernel": [] for p in (
+        "pack", "forward", "backward", "weight_grad", "reduce")}
     for e in ops:
-        key = ("kernel C" if "fused_train" in e.name else "kernel D"
+        part = next((p for p in parts if p in e.name), None)
+        key = ("kernel C" if part else "kernel D"
                if "gather_kernel" in e.name else "other (clip, Adam, sums)")
         cats[key].append((e.time_range.start, e.time_range.end))
+        if part:
+            parts[part].append((e.time_range.start, e.time_range.end))
+    if any(len(ivs) != steps for ivs in parts.values()):
+        say("profile", "the traced epoch does not hold one launch a step of "
+            "each of kernel C's kernels: "
+            f"{ {p: len(v) for p, v in parts.items()} }")
     busy = _busy_us(iv for ivs in cats.values() for iv in ivs) / 1e3 / steps
     if busy <= 0.0:
         fail("the profiler saw no device time in the traced epoch")
@@ -905,7 +1036,7 @@ def phase_train_profile(torch, np):
         f"{traced / plain_step:.3f}x); device busy {busy:.4f} ms a step: "
         f"{100 * busy / traced:.2f}% of the traced wall, "
         f"{100 * busy / plain_step:.2f}% of an untraced step (inferred)")
-    for key, ivs in cats.items():
+    for key, ivs in list(cats.items()) + list(parts.items()):
         say("profile", f"  device {key}: {_busy_us(ivs) / 1e3 / steps:.4f} "
             f"ms a step, {len(ivs)} ops in {steps} steps")
 
@@ -2054,6 +2185,66 @@ def phase_vq_times(torch, np, stack):
     return res
 
 
+def kernel_times(torch, np, root: str) -> dict:
+    """Kernel A at A_SHAPES and kernel C at C_SHAPES with the package of
+    the checkout at `root` (its kernels built there): back-to-back
+    CUDA-event ms and device-busy ms a call, the published weights (fresh
+    weights from a seed at the probe shape)."""
+    sys.path.insert(0, root)
+    from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+
+    dev = torch.device("cuda")
+    model = load_published(torch, dev)
+    probe = probe_model(torch, dev)
+    rng = np.random.default_rng(0)
+    out = {"root": root, "card": torch.cuda.get_device_name(0)}
+    with torch.inference_mode():
+        for B, T in A_SHAPES:
+            x = torch.from_numpy(rng.normal(
+                size=(B, model.cfg.input_dim, T)).astype(np.float32)).to(dev)
+            fn = lambda: fused_forward(model, x, valid_to=T,  # noqa: E731
+                                       use_kernel=True)
+            out[f"A {B}x{T}"] = {"events_ms": _time(torch, fn)[0],
+                                 "device_ms": _device_ms(torch, fn)}
+    for B, T in C_SHAPES:
+        m, iters = (probe, 2) if (B, T) == C_SHAPES[-1] else (model, 20)
+        x, u, lens = train_inputs(torch, np, rng, B, T, m.cfg.input_dim,
+                                  m.cfg.u_dim, dev)
+        fn = lambda: fused_loss_and_grads(m, x, u, lens, 1.0,  # noqa: E731
+                                          use_kernel=True)
+        out[f"C {B}x{T}"] = {"events_ms": _time(torch, fn, iters=iters)[0],
+                             "device_ms": _device_ms(torch, fn, 3)}
+    return out
+
+
+def compare_checkouts(old: str, new: str) -> int:
+    """kernel_times of two checkouts in the order old, new, new, old, each
+    in a process of its own on the same card, and the ratio of the medians
+    of the device-busy times."""
+    runs = []
+    for root in (old, new, new, old):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--kernel-times", root], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, flush=True)
+            return proc.returncode or 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip(), flush=True)
+    for key in [k for k in runs[0] if k[:2] in ("A ", "C ")]:
+        o = [runs[0][key]["device_ms"], runs[3][key]["device_ms"]]
+        n = [runs[1][key]["device_ms"], runs[2][key]["device_ms"]]
+        print(f"{key}: device ms old {o} new {n}: "
+              f"{statistics.median(o) / statistics.median(n):.2f}x",
+              flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2072,8 +2263,20 @@ def main() -> int:
               "(vqvaehmm_tpu_torch/, the checkpoints and the fixture panel)",
               flush=True)
         return 2
-    sys.path.insert(0, ROOT)
     import numpy as np
+
+    if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
+        print(json.dumps(kernel_times(torch, np,
+                                      os.path.abspath(sys.argv[2]))),
+              flush=True)
+        return 0
+    if sys.argv[1:2] == ["--compare"] and len(sys.argv) == 4:
+        return compare_checkouts(*map(os.path.abspath, sys.argv[2:]))
+    if sys.argv[1:]:
+        print("usage: chip_smoke.py [--kernel-times DIR | --compare OLD NEW]",
+              flush=True)
+        return 2
+    sys.path.insert(0, ROOT)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2096,6 +2299,13 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", line.strip())
+
+    say("build", "registers, static shared memory and spills of the "
+        "serving forward's and the training step's kernels: "
+        + "; ".join(kernel_resources(_build.build_log, (
+            "fused_infer_kernel", "infer_pack_kernel", "train_pack_kernel",
+            "train_forward_kernel", "train_backward_kernel",
+            "train_weight_grad_kernel", "train_reduce_kernel"))))
 
     dev = torch.device("cuda")
     model = load_published(torch, dev)
@@ -2146,8 +2356,8 @@ def main() -> int:
          "source": "vqvaehmm_tpu_torch/csrc/fused_infer.cu",
          "replaces": "vqvaehmm_tpu/ops/pallas_infer.py:45",
          "launches": launches["fused_infer"], "max_abs_err": err_a,
-         "ms": times[("fused_infer", 64, True)][0],
-         "plain_ms": times[("fused_infer", 64, False)][0],
+         "ms": times[("fused_infer", 64, 200, True)][0],
+         "plain_ms": times[("fused_infer", 64, 200, False)][0],
          "bound_ms": bounds["fused_infer"][0],
          "bound_by": bounds["fused_infer"][1], "library_ms": None,
          "shape": "B=64 T=200"},
@@ -2157,8 +2367,8 @@ def main() -> int:
          "also_replaces": ["vqvaehmm_tpu/ops/pallas_hmm.py:274",
                            "vqvaehmm_tpu/ops/pallas_hmm.py:333"],
          "launches": launches["viterbi"], "max_abs_err": err_b,
-         "ms": times[("viterbi", 64, True)][0],
-         "plain_ms": times[("viterbi", 64, False)][0],
+         "ms": times[("viterbi", 64, 200, True)][0],
+         "plain_ms": times[("viterbi", 64, 200, False)][0],
          "bound_ms": bounds["viterbi"][0],
          "bound_by": bounds["viterbi"][1], "library_ms": None,
          "shape": "B=64 T=200"},
@@ -2172,7 +2382,9 @@ def main() -> int:
          "bound_by": bounds["fused_train"][1], "library_ms": None,
          "shape": "B=64 T=200",
          "probe_ms": ttimes[("fused_train", 256, 512, True)][0],
-         "probe_plain_ms": ttimes[("fused_train", 256, 512, False)][0]},
+         "probe_plain_ms": ttimes[("fused_train", 256, 512, False)][0],
+         "probe_bound_ms": kernel_bounds(
+             probe_model(torch, dev), 256, 512)["fused_train"][0]},
         {"name": "gather", "route": "cuda",
          "source": "vqvaehmm_tpu_torch/csrc/gather.cu",
          "replaces": "vqvaehmm_tpu/ops/pallas_gather.py:140",
@@ -2231,6 +2443,19 @@ def main() -> int:
             entry[f"bound_ms_{B}x{T}"] = kernel_bounds(
                 model, B, T)["vq_nearest"][0]
     kernels.append(entry)
+    for k, res, shapes in ((kernels[0], times, A_SHAPES),
+                           (kernels[2], ttimes, C_SHAPES)):
+        k["device_ms"] = res[(k["name"], 64, 200, True)][3]
+        k["plain_device_ms"] = res[(k["name"], 64, 200, False)][3]
+        for B, T in shapes[1:]:
+            k[f"ms_{B}x{T}"] = res[(k["name"], B, T, True)][0]
+            k[f"device_ms_{B}x{T}"] = res[(k["name"], B, T, True)][3]
+            k[f"plain_device_ms_{B}x{T}"] = res[(k["name"], B, T, False)][3]
+            if k["name"] == "fused_infer":
+                k[f"bound_ms_{B}x{T}"] = kernel_bounds(model, B, T)[
+                    "fused_infer"][0]
+    kernels[2]["bound_ms_8x200"] = kernel_bounds(model, 8, 200)[
+        "fused_train"][0]
     for k in kernels:
         # the VQ family's paths through the kernels of earlier slices
         if k["name"] == "gather":

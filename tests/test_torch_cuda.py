@@ -74,6 +74,67 @@ def test_fused_forward_rows_independent(cuda):
                 assert torch.equal(g[i:i + 1], s)
 
 
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 37), (2, 130), (3, 200)])
+def test_fused_forward_tile_widths_bit_equal(cuda, B, T):
+    """Each output's summation order is fixed, so the kernel gives the same
+    bits at each of its tile widths (the wrapper's own launch function;
+    it does not count a launch)."""
+    from vqvaehmm_tpu_torch.ops import fused_infer
+
+    model = _model(cuda, seed=2, hidden_dim=64, hidden_dim2=32)
+    rng = np.random.default_rng(B * 31 + T)
+    x = torch.from_numpy(rng.normal(size=(B, 5, T)).astype(np.float32)
+                         ).to(cuda)
+    vt = torch.from_numpy(rng.integers(1, T + 1, size=B).astype(np.int32)
+                          ).to(cuda)
+    before = fused_forward.launches
+    outs = []
+    with torch.inference_mode():
+        for tile in fused_infer.TILES:
+            out = tuple(torch.empty((B, c, T), device=cuda) for c in (5, 5, 3))
+            fused_infer._launch(model, x, vt, tile, out)
+            outs.append(out)
+        want = fused_forward_reference(model, x, valid_to=vt)
+    torch.cuda.synchronize()
+    assert fused_forward.launches == before
+    for out in outs:
+        for g, first, w, tol in zip(out, outs[0], want, (1e-4, 1e-4, 1e-5)):
+            assert torch.equal(g, first)
+            torch.testing.assert_close(g, w, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("widths", [
+    dict(input_dim=40, hidden_dim=64, hidden_dim2=32),
+    dict(input_dim=5, hidden_dim=8, hidden_dim2=8),
+    dict(input_dim=7, hidden_dim=12, hidden_dim2=4, K=5)])
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 37), (2, 200)])
+def test_fused_forward_more_outputs_than_hidden_rows(cuda, widths, B, T):
+    """2 * input_dim above every hidden width: the last layer's 2C rows of
+    (mu, logvar) are the widest thing a block holds.  Every tile width
+    against the plain version, and bit-equal to the others."""
+    from vqvaehmm_tpu_torch.ops import fused_infer
+
+    model = _model(cuda, seed=3, **widths)
+    C, K = model.cfg.input_dim, model.cfg.K
+    rng = np.random.default_rng(B * 17 + T + C)
+    x = torch.from_numpy(rng.normal(size=(B, C, T)).astype(np.float32)
+                         ).to(cuda)
+    vt = torch.from_numpy(rng.integers(1, T + 1, size=B).astype(np.int32)
+                          ).to(cuda)
+    with torch.inference_mode():
+        want = fused_forward_reference(model, x, valid_to=vt)
+        outs = [fused_forward(model, x, valid_to=vt)]
+        for tile in fused_infer.TILES:
+            out = tuple(torch.empty((B, c, T), device=cuda) for c in (C, C, K))
+            fused_infer._launch(model, x, vt, tile, out)
+            outs.append(out)
+    torch.cuda.synchronize()
+    for out in outs:
+        for g, first, w, tol in zip(out, outs[0], want, (1e-4, 1e-4, 1e-5)):
+            assert torch.equal(g, first)
+            torch.testing.assert_close(g, w, rtol=0, atol=tol)
+
+
 def test_fused_forward_shared_memory_bound(cuda):
     model = _model(cuda, hidden_dim=1024, hidden_dim2=8)
     x = torch.zeros((1, 5, 8), device=cuda)
@@ -191,6 +252,36 @@ def test_fused_train_matches_plain(cuda, B, T, beta, short, btu):
         assert err <= 1e-4 * float(w.abs().max()), (name, err)
     # the same inputs give the same bits
     loss2, grads2 = fused_loss_and_grads(model, x, u, lens, beta)
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(grads[n], grads2[n]) for n in grads)
+
+
+@pytest.mark.parametrize("B,T,widths", [
+    # a last tile of one step at each tile width; whole tiles past valid_to
+    (2, 17, {}), (20, 33, {}), (70, 129, {}),
+    # layers of several weight slabs, (mu, logvar) the widest rows
+    (2, 37, dict(input_dim=16, hidden_dim=256, hidden_dim2=128, K=8,
+                 trans_hidden=256)),
+    (3, 40, dict(input_dim=12, hidden_dim=16, hidden_dim2=8, K=2,
+                 trans_hidden=20))])
+def test_fused_train_tile_edges_and_widths(cuda, B, T, widths):
+    from vqvaehmm_tpu_torch.ops.fused_train import (
+        fused_loss_and_grads, fused_loss_and_grads_reference, train_plan)
+
+    cfg = dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128)
+    cfg.update(widths)
+    model = _model(cuda, seed=6, **cfg)
+    assert train_plan(model.cfg, B, T) is not None
+    x, u, lens = _train_inputs(cuda, B, T, B + T, C=model.cfg.input_dim,
+                               short=T - T // 4)
+    loss, grads = fused_loss_and_grads(model, x, u, lens, 0.5)
+    want_loss, want = fused_loss_and_grads_reference(model, x, u, lens, 0.5)
+    torch.cuda.synchronize()
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for name, w in want.items():
+        err = float((grads[name] - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+    loss2, grads2 = fused_loss_and_grads(model, x, u, lens, 0.5)
     assert torch.equal(loss, loss2)
     assert all(torch.equal(grads[n], grads2[n]) for n in grads)
 

@@ -93,12 +93,16 @@ def test_shared_header_enters_the_build_digest():
     from vqvaehmm_tpu_torch.ops import _build
 
     names = [h.name for h in _build.headers()]
-    assert names == ["encoder_tile.cuh"]
+    assert names == ["encoder_tile.cuh", "tile_fma.cuh"]
     users = [s.name for s in _build.sources()
              if '#include "encoder_tile.cuh"' in s.read_text()]
     assert users == ["fused_decode.cu", "fused_encoder.cu"]
+    users = [s.name for s in _build.sources()
+             if '#include "tile_fma.cuh"' in s.read_text()]
+    assert users == ["fused_infer.cu", "fused_train.cu"]
     assert len(_build.sources()) == 7
-    for entry in ("vqhmm_fused_encode", "vqhmm_fused_evidence",
+    for entry in ("vqhmm_fused_infer", "vqhmm_fused_train",
+                  "vqhmm_fused_encode", "vqhmm_fused_evidence",
                   "vqhmm_fused_decode", "vqhmm_vq_nearest"):
         assert entry in _build._SIGNATURES
         assert f'extern "C" int {entry}(' in "".join(

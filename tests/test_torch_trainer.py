@@ -112,6 +112,11 @@ def test_resolve_on_cpu():
             resolve_fused(value, big_k, 64, 200, torch.device("cuda"))
     with pytest.raises(ValueError):
         resolve_fused("yes", cfg, 64, 200, "cpu")
+    # the device has no default: nothing resolves to the CPU path unasked
+    with pytest.raises(TypeError):
+        resolve_input_pipeline("auto")
+    with pytest.raises(TypeError):
+        resolve_fused("auto", cfg, 64, 200)
 
 
 def _small_training_set():

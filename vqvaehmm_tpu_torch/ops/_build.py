@@ -45,21 +45,21 @@ _L = ctypes.c_longlong
 # C signatures: every pointer and the stream are c_void_p (ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the address)
 _SIGNATURES = {
-    # x, valid_to, 13 weight arrays, mu, logvar, q,
-    # B, C, T, H1, H2, K, D, stream
-    "vqhmm_fused_infer": [_P] * 2 + [_P] * 13 + [_P] * 3 + [_I] * 7 + [_P],
-    # C, H1, H2, K, D -> dynamic shared memory bytes per block
-    "vqhmm_fused_infer_smem_bytes": [_I] * 5,
+    # x, valid_to, 13 weight arrays, packed weights, mu, logvar, q,
+    # B, C, T, H1, H2, K, D, tile, stream
+    "vqhmm_fused_infer": [_P] * 2 + [_P] * 13 + [_P] * 4 + [_I] * 8 + [_P],
+    # C, H1, H2, K, D, tile -> dynamic shared memory bytes per block
+    "vqhmm_fused_infer_smem_bytes": [_I] * 6,
     # log_pi, log_A, a_stride_b, a_stride_t, log_obs, lengths,
     # bp scratch, states, score, B, T, K, stream
     "vqhmm_viterbi": [_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # pool_x, pool_u, si, st, ln, x, u, N, C, U, Tmax, B, T, stream
     "vqhmm_gather": [_P] * 7 + [_I] * 6 + [_P],
     # x, u, u strides (batch, channel, time), lengths, 18 weight arrays,
-    # scratch, partials, loss partials, grads, loss,
-    # B, C, T, U, H1, H2, K, HP, D, beta, stream
-    "vqhmm_fused_train": [_P, _P, _L, _L, _L, _P] + [_P] * 18 + [_P] * 5
-    + [_I] * 9 + [ctypes.c_float, _P],
+    # packed weights, scratch, partials, loss partials, grads, loss,
+    # B, C, T, U, H1, H2, K, HP, D, tile, splits, beta, stream
+    "vqhmm_fused_train": [_P, _P, _L, _L, _L, _P] + [_P] * 18 + [_P] * 6
+    + [_I] * 11 + [ctypes.c_float, _P],
     # x, valid_to, 6 encoder weight arrays, logits, B, C, T, H1, H2, K,
     # stream
     "vqhmm_fused_encode": [_P] * 2 + [_P] * 6 + [_P] + [_I] * 6 + [_P],
@@ -80,8 +80,11 @@ _SIGNATURES = {
     # stream
     "vqhmm_vq_nearest": [_P, _L, _L, _L, _P, _P, _P] + [_I] * 4 + [_P],
 }
-# entry points returning a long long: B, C, T, U, H1, H2, K, HP, D, what
-_SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 10}
+# entry points returning a long long: B, C, T, U, H1, H2, K, HP, D, tile,
+# what
+_SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 11,
+                    # C, H1, H2, K, D -> floats of the packed weights
+                    "vqhmm_fused_infer_packed_floats": [_I] * 5}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -168,6 +171,23 @@ def library() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
         _lib = lib
         return lib
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch plans size
+    their grids by it), read once a device."""
+    import torch
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def check(err: int, what: str) -> None:

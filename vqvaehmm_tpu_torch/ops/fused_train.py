@@ -2,16 +2,27 @@
 gradients in one kernel call.
 
 Port of the TPU kernel vqvaehmm_tpu/ops/pallas_train.py::_kernel (and the
-loss assembly and log_prior chain of its wrapper) to a hand-written CUDA
-kernel for Hopper, csrc/fused_train.cu, whose header sets out its design
+loss assembly and log_prior chain of its wrapper) to hand-written CUDA
+kernels for Hopper, csrc/fused_train.cu, whose header sets out the design
 and the bound it meets.
 
 * `fused_loss_and_grads(model, x, u, lengths, beta)` -> (loss, grads):
   the counterpart of jax.value_and_grad(model.compute_loss), with `grads`
   a dict keyed like `model.state_dict()`.  On CUDA tensors it is one call
-  of the kernel; on CPU tensors it is the plain version
-  (`fused_loss_and_grads_reference`: compute_loss plus
-  torch.autograd.grad).  `use_kernel=True` on a CPU tensor raises.
+  of the C entry point (five kernels on the current stream: the weights
+  packed for staging, the forward by time tiles, the activation gradients
+  by time tiles, the weight gradients as a tiled reduction, and a
+  fixed-order sum); on CPU tensors
+  it is the plain version (`fused_loss_and_grads_reference`:
+  compute_loss plus torch.autograd.grad).  `use_kernel=True` on a CPU
+  tensor raises.
+* `fused_loss_and_grads_tiled`: a second plain version that computes the
+  loss and the gradients the way the kernels do (time tiles with halos,
+  the closed-form backward, partial sums per split), so that the halo
+  widths and the masks at tile edges are tested on the CPU.  Nothing on
+  the card calls it.
+* `train_plan(cfg, B, T)`: the launch plan (tile width, blocks, shared
+  memory, scratch and partials sizes), pure Python.
 * `FusedELBO`, a torch.autograd.Function: its forward runs the kernel and
   keeps the gradients, its backward hands them out scaled by the
   incoming gradient, so `loss.backward()` fills every parameter's `.grad`
@@ -20,23 +31,42 @@ and the bound it meets.
 * `train_step_supported(cfg, B, T)`: the gate the trainer consults before
   it chooses the kernel.
 
-`fused_loss_and_grads.launches` counts the kernel's calls (each call is
-one launch of the per-sequence kernel and one of its fixed-order
-reduction).
+`fused_loss_and_grads.launches` counts the calls of the C entry point.
 """
 
 from __future__ import annotations
 
+import math
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
+from .fused_infer import H100_SMS, ROW_PAD, SMEM_LIMIT, WBUF, _packed
 
 # the kernel keeps K regimes a thread in registers (csrc/fused_train.cu)
 KMAX = 16
 _INT32_MAX = 2 ** 31 - 1
+# time tiles the forward and backward kernels take; their halos (one step
+# a k=3 convolution: four forward, three backward); steps a thread
+TILES = (64, 32, 16)
+HALO_FWD = 4
+HALO_BWD = 3
+JB = 4
+# the weight-gradient kernel: a block owns WG_TILE x WG_TILE (output,
+# input) pairs and walks slabs of WG_SLAB time steps
+WG_TILE = 32
+WG_SLAB = 32
+# static shared memory of the forward and backward kernels (the doubles of
+# the loss sums over MAX_THREADS threads), and an SM's shared memory: a
+# resident block takes its own and 1 KB more of it
+_STATIC_SMEM = 8 * 512 + 128
+_SM_SMEM = 228 * 1024
+# a block's fixed work (staging the weights, the barriers of 16 layers)
+# in steps of a window, from the solo-block times of the serving forward
+_FIXED_STEPS = 32
 
 _count_lock = threading.Lock()
 
@@ -55,26 +85,174 @@ PARAM_NAMES = (
 )
 
 
+def _widths(cfg):
+    """(C, U, H1, H2, K, HP, D) of a model configuration."""
+    return (cfg.input_dim, cfg.u_dim, cfg.hidden_dim, cfg.hidden_dim2,
+            cfg.K, cfg.trans_hidden, cfg.hidden_dim)
+
+
+def scratch_layout(cfg) -> Dict[str, Tuple[int, int]]:
+    """name -> (first row, rows) of one sequence's scratch, rows of T
+    floats (the same order as csrc/fused_train.cu::Rows): what the forward
+    kernel leaves for the other two, then the activation gradients."""
+    C, U, H1, H2, K, HP, D = _widths(cfg)
+    out, at = {}, 0
+    for name, rows in (("xm", C), ("uu", U), ("h1", H1), ("hp", HP),
+                       ("h2", H2), ("q", K), ("lq", K), ("la", K * K),
+                       ("e", D), ("hd1", D), ("hd2", D), ("dout", 2 * C),
+                       ("dhd2", D), ("dhd1", D), ("de", D), ("dl", K),
+                       ("dap", K * K), ("dh2", H2), ("dhp", HP),
+                       ("dh1", H1)):
+        out[name] = (at, rows)
+        at += rows
+    return out
+
+
 def scratch_rows(cfg) -> int:
-    """Rows of T floats of one sequence's activation scratch (the same
-    count as csrc/fused_train.cu::scratch_rows)."""
-    D, H1, H2, HP, K, C = (cfg.hidden_dim, cfg.hidden_dim, cfg.hidden_dim2,
-                           cfg.trans_hidden, cfg.K, cfg.input_dim)
-    G = max(D, H1, H2, HP)
-    return H1 + H2 + 3 * K + HP + 2 * K * K + 3 * D + 2 * C + 2 * G
+    """Rows of T floats of one sequence's scratch (the same count as
+    csrc/fused_train.cu::scratch_rows)."""
+    at, rows = scratch_layout(cfg)["dh1"]
+    return at + rows
+
+
+def weight_grad_jobs(cfg):
+    """(gradient, dy rows, input rows, O, I, taps, has a bias) of the nine
+    weight-gradient reductions gw[o][i][k] = sum_t dy[o][t] in[i][t-1+k],
+    in the order of csrc/fused_train.cu::make_jobs."""
+    C, U, H1, H2, K, HP, D = _widths(cfg)
+    return (("encoder.conv1", "dh1", "xm", H1, C, 3, True),
+            ("encoder.conv2", "dh2", "h1", H2, H1, 3, True),
+            ("encoder.to_logits", "dl", "h2", K, H2, 1, True),
+            ("prior.transition_net.0", "dhp", "uu", HP, U, 1, True),
+            ("prior.transition_net.2", "dap", "hp", K * K, HP, 1, True),
+            ("decoder.embeddings", "q", "de", K, D, 1, False),
+            ("decoder.conv1", "dhd1", "e", D, D, 3, True),
+            ("decoder.conv2", "dhd2", "hd1", D, D, 3, True),
+            ("decoder.to_params", "dout", "hd2", 2 * C, D, 1, True))
+
+
+class TrainPlan(NamedTuple):
+    tile: int              # time steps a block of the forward and backward
+    tiles: int             # ceil(T / tile)
+    blocks: int            # B * tiles, of each of the two
+    smem_fwd: int          # dynamic shared memory a block, bytes
+    smem_bwd: int
+    wg_tiles: int          # (output, input) tiles of the nine reductions
+    splits: int            # fixed splits of the (sequence, slab) units
+    units_per_split: int
+    packed: int            # floats of the packed weights
+    scratch_rows: int      # rows of T floats a sequence
+    partials: int          # floats: splits * P
+    loss_partials: int     # doubles: 3 a forward/backward block
+
+
+def _buffer_rows(cfg) -> int:
+    """Rows of one of the two ping-pong buffers: the widest layer, (mu,
+    logvar) among them, the prior's hidden layer lying across both."""
+    C, U, H1, H2, K, HP, D = _widths(cfg)
+    return max(H1, H2, D, (HP + 1) // 2, 2 * C)
+
+
+def packed_floats(cfg) -> int:
+    """Floats of the packed weights a call allocates (the same count as
+    csrc/fused_train.cu::packed): the forward's nine layers, then the seven
+    the backward convolves with."""
+    C, U, H1, H2, K, HP, D = _widths(cfg)
+    KK = K * K
+    fwd = (_packed(H1, C, 3) + _packed(H2, H1, 3) + _packed(K, H2, 1)
+           + _packed(D, K, 1) + 2 * _packed(D, D, 3) + _packed(2 * C, D, 1)
+           + _packed(HP, U, 1) + _packed(KK, HP, 1))
+    bwd = (_packed(D, 2 * C, 1) + 2 * _packed(D, D, 3) + _packed(K, D, 1)
+           + _packed(H2, K, 1) + _packed(H1, H2, 3) + _packed(HP, KK, 1))
+    return fwd + bwd
+
+
+def _smem(tile: int, halo: int, rows: int) -> int:
+    stride = (tile + 2 * halo + JB + 3) // 4 * 4      # 16-byte rows
+    return 4 * (2 * WBUF + ROW_PAD + stride * rows)
+
+
+def smem_fwd_bytes(cfg, tile: int) -> int:
+    """Dynamic shared memory of a forward block: two weight buffers, then
+    x, u, two ping-pong buffers of the widest layer, q, log q, log_A."""
+    C, U, H1, H2, K, HP, D = _widths(cfg)
+    G = _buffer_rows(cfg)
+    return _smem(tile, HALO_FWD, C + U + 2 * G + 2 * K + K * K)
+
+
+def smem_bwd_bytes(cfg, tile: int) -> int:
+    """Dynamic shared memory of a backward block: two weight buffers, two
+    ping-pong buffers, d(mu, logvar), q, log q, E de, d logits, log_A and
+    d log_A."""
+    C, U, H1, H2, K, HP, D = _widths(cfg)
+    G = _buffer_rows(cfg)
+    return _smem(tile, HALO_BWD, 2 * G + 2 * C + 4 * K + 2 * K * K)
+
+
+def param_count(cfg) -> int:
+    C, U, H1, H2, K, HP, D = _widths(cfg)
+    return (H1 * C * 3 + H1 + H2 * H1 * 3 + H2 + K * H2 + K + K + HP * U + HP
+            + K * K * HP + K * K + K * D + 2 * (D * D * 3 + D) + 2 * C * D
+            + 2 * C)
+
+
+def train_plan(cfg, B: int, T: int, sms: int = H100_SMS
+               ) -> Optional[TrainPlan]:
+    """The launch plan at (B, T), or None where no tile fits a block's
+    shared memory.  The tile is the one whose forward and backward grids
+    cost least: waves of resident blocks (as many an SM as its shared
+    memory holds) times the steps a block computes, its window and a fixed
+    part; the wider of two that cost the same.  At B=64, T=200 that is 256
+    blocks of 64 steps, one wave at two blocks an SM, not 448 of 32 steps
+    in two.  The weight gradients' (sequence, slab) units are cut into
+    the fewest equal splits that give the grid eight blocks of 64 threads
+    for every SM."""
+    def fits(t):
+        return max(smem_fwd_bytes(cfg, t), smem_bwd_bytes(cfg, t)) \
+            + _STATIC_SMEM
+
+    def cost(t):
+        resident = sms * (_SM_SMEM // (fits(t) + 1024))
+        waves = -(-B * -(-T // t) // resident)
+        return waves * (t + 2 * HALO_FWD + _FIXED_STEPS)
+
+    tiles_ok = [t for t in TILES if fits(t) <= SMEM_LIMIT]
+    if not tiles_ok:
+        return None
+    tile = min(tiles_ok, key=lambda t: (cost(t), -t))
+    tiles = -(-T // tile)
+    wg_tiles = sum(-(-O // WG_TILE) * -(-I // WG_TILE)
+                   for _, _, _, O, I, _, _ in weight_grad_jobs(cfg))
+    units = B * -(-T // WG_SLAB)
+    per = -(-units // max(1, min(units, 8 * sms // wg_tiles)))
+    splits = -(-units // per)
+    return TrainPlan(tile, tiles, B * tiles, smem_fwd_bytes(cfg, tile),
+                     smem_bwd_bytes(cfg, tile), wg_tiles, splits, per,
+                     packed_floats(cfg), scratch_rows(cfg),
+                     splits * param_count(cfg), 3 * B * tiles)
+
+
+_supported: dict = {}
 
 
 def train_step_supported(cfg, B: int, T: int) -> bool:
-    """True when the fused train kernel takes these shapes on Hopper:
+    """True when the fused train kernels take these shapes on Hopper:
     float32 compute, u-conditioned transitions, at most KMAX regimes (a
-    thread keeps K values in registers), and one sequence's scratch and
-    the per-block indexing within 32-bit offsets.  The kernel uses about
-    12 KB of static shared memory a block at any shape, so shared memory
-    sets no bound."""
-    return (cfg.compute_dtype == "float32" and cfg.u_dim is not None
-            and B > 0 and T > 0 and 1 <= cfg.K <= KMAX
+    thread keeps K values in registers), a slab of every layer's weights
+    within a weight buffer, a time tile whose block fits the card's 227 KB
+    of shared memory, and one sequence's scratch within 32-bit offsets.
+    The trainer asks once a step, so the answer is kept a shape."""
+    key = (_widths(cfg), cfg.compute_dtype, B, T)
+    if key not in _supported:
+        C, U, H1, H2, K, HP, D = _widths(cfg)
+        _supported[key] = bool(
+            cfg.compute_dtype == "float32" and U is not None
+            and B > 0 and T > 0 and 1 <= K <= KMAX
+            and 3 * ((max(_buffer_rows(cfg), HP) + 3) // 4 * 4) <= WBUF
             and scratch_rows(cfg) * T <= _INT32_MAX
-            and max(cfg.hidden_dim, cfg.trans_hidden) * T <= _INT32_MAX)
+            and B * -(-T // TILES[-1]) <= _INT32_MAX
+            and train_plan(cfg, B, T) is not None)
+    return _supported[key]
 
 
 def _u_strides(cfg, u: torch.Tensor) -> Tuple[int, int, int]:
@@ -96,6 +274,195 @@ def fused_loss_and_grads_reference(model, x: torch.Tensor, u: torch.Tensor,
         loss = model.compute_loss(x, u, lengths, beta)
         grads = torch.autograd.grad(loss, params)
     return loss.detach(), dict(zip(names, grads))
+
+
+def _window(full: torch.Tensor, p0: int, W: int) -> torch.Tensor:
+    """Steps [p0, p0 + W) of (B, R, T), zero outside [0, T)."""
+    T = full.shape[-1]
+    lo, hi = max(p0, 0), min(p0 + W, T)
+    return F.pad(full[..., lo:hi], (lo - p0, p0 + W - hi))
+
+
+def _conv_t(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The transposed k=3 convolution on a window, without padding:
+    din[i][s] = sum_{o,k} w[o][i][k] dy[o][s + 1 - k] for s in [1, W - 1)."""
+    return F.conv1d(dy, w.transpose(0, 1).flip(-1))
+
+
+def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
+                               lengths: torch.Tensor, beta, tile: int,
+                               splits: Optional[int] = None
+                               ) -> Tuple[torch.Tensor,
+                                          Dict[str, torch.Tensor]]:
+    """(loss, grads) computed the way csrc/fused_train.cu computes them, in
+    plain PyTorch without autograd: the forward by time tiles of `tile`
+    steps with a halo of 4, the closed-form activation gradients by tiles
+    with a halo of 3 (reading the forward's activations and the
+    neighbouring tiles' q and log_A from the scratch), the nine weight
+    gradients as sums over (sequence, slab) units grouped into `splits`
+    fixed splits, the loss from per-tile sums in double."""
+    cfg = model.cfg
+    _check_inputs(model, x, u, lengths)
+    C, U, H1, H2, K, HP, D = _widths(cfg)
+    B, _, T = x.shape
+    shapes = {n: w.shape for n, w in model.named_parameters()}
+    # the 1x1 convolutions as matrices
+    p = {n: w.detach().reshape(w.shape[0], -1)
+         if n.endswith("weight") and w.dim() == 3 and w.shape[2] == 1
+         else w.detach() for n, w in model.named_parameters()}
+    if u.shape[1] != cfg.u_dim:
+        u = u.transpose(1, 2)
+    lens = lengths.to(torch.int64)
+    vt = int(min(int(lens.max()), T))
+    msum = float(lens.clamp(0, T).sum())
+    s_r = 1.0 / max(msum * C, 1.0)
+    s_p, s_h = -float(beta) / B, float(beta) / B
+    log_pi = torch.log_softmax(p["prior.log_prior"], 0)
+    sc = {name: torch.zeros(B, rows, T)
+          for name, (_, rows) in scratch_layout(cfg).items()}
+    sums = torch.zeros(3, dtype=torch.float64)
+    steps = torch.arange(T)
+
+    def relu_conv(a, name):
+        return torch.relu(F.conv1d(a, p[name + ".weight"], p[name + ".bias"]))
+
+    # ---- forward, a tile with its halo of 4 at a time ----
+    for t0 in range(0, T, tile):
+        n = min(tile, T - t0)
+        W, p0 = n + 2 * HALO_FWD, t0 - HALO_FWD
+        pos = p0 + torch.arange(W)
+        keep = ((pos >= 0) & (pos < T) & (pos < vt)).to(x.dtype)
+        own = slice(t0, t0 + n)
+        xs = _window(x, p0, W) * keep
+        h1 = relu_conv(xs, "encoder.conv1") * keep[1:-1]
+        h2 = relu_conv(h1, "encoder.conv2")
+        logits = torch.einsum("ki,bit->bkt", p["encoder.to_logits.weight"],
+                              h2) + p["encoder.to_logits.bias"][:, None]
+        lq = torch.log_softmax(logits, 1)
+        q = torch.exp(lq)
+        e = torch.einsum("kd,bkt->bdt", p["decoder.embeddings.weight"],
+                         q) * keep[2:-2]
+        hd1 = relu_conv(e, "decoder.conv1") * keep[3:-3]
+        hd2 = relu_conv(hd1, "decoder.conv2")
+        out = torch.einsum("oi,bit->bot", p["decoder.to_params.weight"],
+                           hd2) + p["decoder.to_params.bias"][:, None]
+        mu, lv = out[:, :C], out[:, C:]
+        ev = torch.exp(lv)
+        var = ev.clamp(min=1e-8)
+        diff = mu - x[:, :, own]
+        r = diff * diff / var
+        mf = (steps[own][None, :] < lens[:, None]).to(x.dtype)[:, None, :]
+        sums[0] += (0.5 * (math.log(2 * math.pi) + torch.log(var) + r)
+                    * mf).double().sum()
+        dmu = s_r * mf * diff / var
+        dlv = torch.where(ev > 1e-8, s_r * mf * 0.5 * (1.0 - r),
+                          torch.zeros(()))
+        uu = u[:, :, own]
+        hp = torch.relu(torch.einsum(
+            "ju,but->bjt", p["prior.transition_net.0.weight"], uu)
+            + p["prior.transition_net.0.bias"][:, None])
+        la = torch.einsum("rj,bjt->brt", p["prior.transition_net.2.weight"],
+                          hp) + p["prior.transition_net.2.bias"][:, None]
+        la = torch.log_softmax(la.view(B, K, K, n), 2).reshape(B, K * K, n)
+        for name, val in (("xm", xs[:, :, 4:-4]), ("uu", uu),
+                          ("h1", h1[:, :, 3:-3]), ("hp", hp),
+                          ("h2", h2[:, :, 2:-2]), ("q", q[:, :, 2:-2]),
+                          ("lq", lq[:, :, 2:-2]), ("la", la),
+                          ("e", e[:, :, 2:-2]), ("hd1", hd1[:, :, 1:-1]),
+                          ("hd2", hd2), ("dout", torch.cat([dmu, dlv], 1))):
+            sc[name][:, :, own] = val
+
+    # ---- activation gradients, a tile with its halo of 3 at a time ----
+    emb = p["decoder.embeddings.weight"]
+    for t0 in range(0, T, tile):
+        n = min(tile, T - t0)
+        W, p0 = n + 2 * HALO_BWD, t0 - HALO_BWD
+        pos = p0 + torch.arange(W)
+        inside = (pos >= 0) & (pos < T)
+        own = slice(t0, t0 + n)
+        win = lambda name, a=0, b=0: _window(sc[name], p0 + a, W - a - b)  # noqa: E731
+        dhd2 = torch.einsum("oi,bot->bit", p["decoder.to_params.weight"],
+                            win("dout")) * (win("hd2") > 0)
+        dhd1 = _conv_t(dhd2, p["decoder.conv2.weight"]) \
+            * (win("hd1", 1, 1) > 0)
+        de = _conv_t(dhd1, p["decoder.conv1.weight"]) \
+            * (inside & (pos < vt))[2:-2].to(x.dtype)
+        # the per-step stage on window positions [2, W - 2)
+        ts = pos[2:-2]
+        ok = inside[2:-2].to(x.dtype)
+        mf = (ts[None, :] < lens[:, None]).to(x.dtype)[:, None, :] * ok
+        pm = mf * (ts >= 1).to(x.dtype)
+        pmn = ((ts[None, :] + 1 < lens[:, None]) & (ts[None, :] + 1 < T)
+               ).to(x.dtype)[:, None, :] * ok
+        qt, lqt = win("q", 2, 2), win("lq", 2, 2)
+        qp, qn = win("q", 1, 3), win("q", 3, 1)
+        la = win("la", 2, 2).view(B, K, K, -1)
+        lan = win("la", 3, 1).view(B, K, K, -1)
+        gd = torch.einsum("kd,bdt->bkt", emb, de)
+        in_t = torch.einsum("bit,bikt->bkt", qp, la)
+        out_t = torch.einsum("bjt,bkjt->bkt", qn, lan)
+        gq = gd + s_p * pm * in_t + s_p * pmn * out_t + s_h * mf * lqt
+        gq = gq + s_p * log_pi[None, :, None] * (ts == 0).to(x.dtype)
+        g = s_h * mf * qt + gq * qt
+        dl = (g - qt * g.sum(1, keepdim=True)) * ok
+        pair = s_p * pm[:, None] * qp[:, :, None, :] * qt[:, None, :, :]
+        dap = ((pair - torch.exp(la) * pair.sum(2, keepdim=True)) * ok
+               ).reshape(B, K * K, -1)
+        mine = slice(1, 1 + n)                   # the tile's own steps
+        init = (qt * log_pi[None, :, None]).sum(1) * (ts == 0).to(x.dtype)
+        trans = torch.einsum("bit,bjt,bijt->bt", qp, qt, la) * pm[:, 0]
+        sums[1] += (init + trans)[:, mine].double().sum()
+        sums[2] += ((qt * lqt).sum(1) * mf[:, 0])[:, mine].double().sum()
+        dh2 = torch.einsum("ki,bkt->bit", p["encoder.to_logits.weight"],
+                           dl) * (win("h2", 2, 2) > 0)
+        dh1 = _conv_t(dh2, p["encoder.conv2.weight"]) * (win("h1", 3, 3) > 0)
+        dhp = torch.einsum("rj,brt->bjt", p["prior.transition_net.2.weight"],
+                           dap[:, :, mine]) * (sc["hp"][:, :, own] > 0)
+        for name, val in (("dhd2", dhd2[:, :, 3:-3]),
+                          ("dhd1", dhd1[:, :, 2:-2]), ("de", de[:, :, 1:-1]),
+                          ("dl", dl[:, :, mine]), ("dap", dap[:, :, mine]),
+                          ("dh2", dh2[:, :, mine]), ("dhp", dhp),
+                          ("dh1", dh1)):
+            sc[name][:, :, own] = val
+
+    # ---- weight gradients: (sequence, slab) units in fixed splits ----
+    nslab = -(-T // WG_SLAB)
+    units = B * nslab
+    if splits is None:
+        splits = train_plan(cfg, B, T).splits
+    per = -(-units // splits)
+
+    def by_unit(a, shift):
+        """(B, R, T) -> (units, R, WG_SLAB) of a[..., t + shift]."""
+        a = _window(a, shift, nslab * WG_SLAB)
+        return a.view(B, -1, nslab, WG_SLAB).transpose(1, 2).reshape(
+            units, -1, WG_SLAB)
+
+    def in_splits(partial):
+        """Sum the units of each split, then the splits, in order."""
+        partial = F.pad(partial, (0, 0) * (partial.dim() - 1)
+                        + (0, per * -(-units // per) - units))
+        return partial.view(-1, per, *partial.shape[1:]).sum(1).sum(0)
+
+    grads = {}
+    for name, dy, inp, O, I, taps, bias in weight_grad_jobs(cfg):
+        d = by_unit(sc[dy], 0)
+        gw = torch.stack([torch.einsum("uot,uit->uoi", d,
+                                       by_unit(sc[inp], k - taps // 2))
+                          for k in range(taps)], -1)
+        if name == "decoder.embeddings":
+            grads[name + ".weight"] = in_splits(gw[..., 0])
+            continue
+        grads[name + ".weight"] = in_splits(gw if taps == 3 else gw[..., 0])
+        if bias:
+            grads[name + ".bias"] = in_splits(d.sum(-1))
+    # the log_prior chain: g - softmax(log_prior) * sum(g)
+    g = s_p * sc["q"][:, :, 0].sum(0)
+    grads["prior.log_prior"] = g - torch.softmax(p["prior.log_prior"], 0) \
+        * g.sum()
+    loss = sums[0] / max(msum * C, 1.0) + float(beta) * (sums[2] - sums[1]) / B
+    return loss.to(torch.float32), {n: grads[n].reshape(shapes[n])
+                                    for n in PARAM_NAMES}
 
 
 def _check_inputs(model, x, u, lengths):
@@ -120,11 +487,11 @@ def _check_inputs(model, x, u, lengths):
             raise ValueError("x, u and lengths must be on one device")
 
 
-def _kernel_call(lib, model, x, u, lengths, beta, stream
+def _kernel_call(lib, model, params, x, u, lengths, beta, stream
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One call of the kernel through `lib`: (loss (), flat grads (P,))."""
+    """One call of the kernel through `lib` with params =
+    dict(model.named_parameters()): (loss (), flat grads (P,))."""
     cfg = model.cfg
-    params = dict(model.named_parameters())
     weights = [params[n].detach() for n in PARAM_NAMES]
     for n, w in zip(PARAM_NAMES, weights):
         if w.device != x.device or w.dtype != torch.float32 \
@@ -132,42 +499,64 @@ def _kernel_call(lib, model, x, u, lengths, beta, stream
             raise ValueError(f"parameter {n} must be contiguous float32 on "
                              f"{x.device} (got {w.dtype} on {w.device})")
     B, C, T = x.shape
-    U, H1, H2, K, HP, D = (cfg.u_dim, cfg.hidden_dim, cfg.hidden_dim2,
-                           cfg.K, cfg.trans_hidden, cfg.hidden_dim)
-    dims = (B, C, T, U, H1, H2, K, HP, D)
-    P = lib.vqhmm_fused_train_sizes(*dims, 0)
-    rows = lib.vqhmm_fused_train_sizes(*dims, 1)
-    if rows != scratch_rows(cfg) or P != sum(w.numel() for w in weights):
-        raise RuntimeError("fused_train kernel and wrapper disagree on the "
-                           "scratch or gradient layout")
+    dims = (B, C, T, cfg.u_dim, cfg.hidden_dim, cfg.hidden_dim2, cfg.K,
+            cfg.trans_hidden, cfg.hidden_dim)
+    plan = _checked_plan(lib, cfg, B, T, _build.sm_count(x.device))
     x = x.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     dev = x.device
-    scratch = torch.empty(B * rows * T, dtype=torch.float32, device=dev)
-    partials = torch.empty(B * P, dtype=torch.float32, device=dev)
-    loss_partials = torch.empty(B * 3, dtype=torch.float64, device=dev)
-    grads = torch.empty(P, dtype=torch.float32, device=dev)
+    # one allocation: the packed weights, the scratch, the partials
+    n_scratch = B * plan.scratch_rows * T
+    work = torch.empty(plan.packed + n_scratch + plan.partials,
+                       dtype=torch.float32, device=dev)
+    loss_partials = torch.empty(plan.loss_partials, dtype=torch.float64,
+                                device=dev)
+    grads = torch.empty(param_count(cfg), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
+    base = work.data_ptr()
     err = lib.vqhmm_fused_train(
         x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u), lengths.data_ptr(),
-        *[w.data_ptr() for w in weights], scratch.data_ptr(),
-        partials.data_ptr(), loss_partials.data_ptr(), grads.data_ptr(),
-        loss.data_ptr(),
-        *dims, float(beta), stream)
+        *[w.data_ptr() for w in weights], base, base + 4 * plan.packed,
+        base + 4 * (plan.packed + n_scratch), loss_partials.data_ptr(),
+        grads.data_ptr(), loss.data_ptr(), *dims, plan.tile, plan.splits,
+        float(beta), stream)
     _build.check(err, "fused_train kernel launch")
     return loss, grads
 
 
-def split_grads(model, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+_plans: dict = {}
+
+
+def _checked_plan(lib, cfg, B: int, T: int, sms: int) -> TrainPlan:
+    """train_plan at these shapes, held once against the sizes the built
+    library reports (the scratch, gradient and packed layouts, the shared
+    memory of the two tiled kernels)."""
+    key = (_widths(cfg), B, T, sms)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = train_plan(cfg, B, T, sms)
+        if plan is None:
+            raise ValueError(f"fused train step: no time tile of {cfg} fits "
+                             f"a block's {SMEM_LIMIT} bytes of shared memory")
+        dims = (B, cfg.input_dim, T, cfg.u_dim, cfg.hidden_dim,
+                cfg.hidden_dim2, cfg.K, cfg.trans_hidden, cfg.hidden_dim)
+        sizes = [lib.vqhmm_fused_train_sizes(*dims, plan.tile, what)
+                 for what in range(6)]
+        if sizes != [param_count(cfg), plan.scratch_rows, plan.smem_fwd,
+                     plan.smem_bwd, plan.wg_tiles, plan.packed]:
+            raise RuntimeError(f"fused_train kernel and wrapper disagree on "
+                               f"the launch plan: {sizes} vs {plan}")
+        _plans[key] = plan
+    return plan
+
+
+def split_grads(params, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The kernel's flat gradient vector as views shaped like the
-    parameters, keyed like state_dict()."""
-    params = dict(model.named_parameters())
-    out, at = {}, 0
-    for n in PARAM_NAMES:
-        p = params[n]
-        out[n] = flat[at:at + p.numel()].view(p.shape)
-        at += p.numel()
-    return out
+    parameters (params = dict(model.named_parameters())), keyed like
+    state_dict()."""
+    shapes = [params[n].shape for n in PARAM_NAMES]
+    parts = flat.split([s.numel() for s in shapes])
+    return {n: p.view(s) for n, p, s in zip(PARAM_NAMES, parts, shapes)}
 
 
 def fused_loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
@@ -190,11 +579,13 @@ def fused_loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"fused train step unsupported at B={B}, T={T} "
                          f"for {model.cfg} (see train_step_supported)")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    loss, flat = _kernel_call(_build.library(), model, x, u, lengths, beta,
-                              stream)
+    # one walk of the module tree a call
+    params = dict(model.named_parameters())
+    loss, flat = _kernel_call(_build.library(), model, params, x, u, lengths,
+                              beta, stream)
     with _count_lock:
         fused_loss_and_grads.launches += 1
-    return loss, split_grads(model, flat)
+    return loss, split_grads(params, flat)
 
 
 fused_loss_and_grads.launches = 0

@@ -33,9 +33,11 @@ from ..data.dataset import RandomChunkDataset, epoch_arrays
 from ..ops.fused_train import fused_loss_and_grads, train_step_supported
 
 
-def resolve_input_pipeline(value: str = "auto", device="cpu") -> str:
+def resolve_input_pipeline(value: str, device) -> str:
     """'host' or 'device': explicit values pass through, 'auto' (the
-    config default) is 'device' on a CUDA device and 'host' elsewhere."""
+    config default) is 'device' on a CUDA device and 'host' elsewhere.
+    The device is the caller's to name: nothing resolves to the CPU path
+    unasked."""
     if value in ("host", "device"):
         return value
     if value not in ("auto", None):
@@ -45,7 +47,7 @@ def resolve_input_pipeline(value: str = "auto", device="cpu") -> str:
 
 
 def resolve_fused(value, model_cfg, batch_size: int, max_len: int,
-                  device="cpu", log_fn=print) -> bool:
+                  device, log_fn=print) -> bool:
     """Whether the fused train kernel runs, decided before training.
     False -> the plain path.  'auto'/None -> the kernel on a CUDA device,
     the plain path on the CPU.  True -> the kernel (on the CPU its plain
