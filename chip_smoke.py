@@ -7,12 +7,17 @@
 
 Run from the root of a checkout, on a machine with one CUDA card.  It
 imports nothing of JAX.  With --compare it times the serving forward
-(kernel A) and the fused training step (kernel C) of two checkouts of the
-port in turns (OLD, NEW, NEW, OLD, each built and run in a process of its
-own: two versions are compared only on one card within one run) and
-prints the four JSON lines and the ratio of the device-busy times; a
-checkout without git history is enough (`git archive <commit> | tar -x -C
-OLD`).  --kernel-times DIR is one such process.  Without arguments it
+(kernel A), the fused training step (kernel C), the encoder (kernel 8) and
+the HMM evidence (kernel 11) of two checkouts of the port in turns (OLD,
+NEW, NEW, OLD, each built and run in a process of its own: two versions
+are compared only on one card within one run) and prints the four JSON
+lines, the ratio of the device-busy times and, for kernels 8 and 11 at
+(64, 200), (1, 200), (460, 20) and (1, 2327), whether the two checkouts'
+outputs on fixed seeded inputs agree bit for bit (a SHA-256 of the output
+bytes); a checkout without git history is enough (`git archive <commit> |
+tar -x -C OLD`).  --kernel-times DIR is one such process; where the
+checkout's evidence wrapper takes a forced tile and split, it also times
+every (tile, split) of kernel 11 at those shapes.  Without arguments it
 runs these phases, each printing one line, any failure
 exiting non-zero before a result is printed:
 
@@ -86,10 +91,17 @@ exiting non-zero before a result is printed:
    weights at (B, T) in {(1, 37), (8, 200), (64, 200), (460, 20),
    (1, 2327)}, valid_to None, scalar and per-sequence, non-zero tails:
    logits within 1e-5 max-abs (both float32, different summation orders);
-   a row of a batched call bit-equal to the row alone.
+   a row of a batched call bit-equal to the row alone; each tile width the
+   plan can choose (16, 32, 64) bit-equal to the others and within 1e-5
+   of the plain version at five shapes, with the published weights and at
+   widths where H2 exceeds H1.
 13. kernel 11 (HMM evidence) against its plain version at (64, 200) with
-   ragged lengths and (1, 2327), u in both layouts: log_obs and log_A
-   within 1e-5 max-abs.
+   ragged lengths, (1, 2327), (1, 200) and (460, 20), u in both layouts:
+   log_obs and log_A within 1e-5 max-abs; batched rows bit-equal to solo
+   rows, split and not; each (tile, split) bit-equal to the others and
+   within 1e-5 of the plain version at five shapes with a live valid_to
+   bound, with the published weights (HP above H1) and at widths where H2
+   or K * K exceed the other hidden widths.
 14. kernel 10 (one-kernel decode) against its plain version and against
    kernel 11 feeding kernel B: states equal, or the path's score under
    the plain evidence within 1e-4 absolute of the optimum's, or 32
@@ -114,7 +126,7 @@ exiting non-zero before a result is printed:
    8 is also held against its plain version on the backtest's own stack
    of windows with the quality weights.
 16. times: the three kernels and their plain versions at (64, 200),
-   (460, 20) and (1, 2327), back to back with CUDA events (which holds
+   (460, 20), (1, 2327) and (1, 200), back to back with CUDA events (which holds
    the host's launch rate for a kernel of a few tens of microseconds)
    and as device-busy time a call on the profiler; the wall time of one
    `Backtester.run`, split into its parts, and of one whole-panel decode
@@ -1056,7 +1068,26 @@ def _randn(torch, np, rng, shape, dev):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
 
+def _seeded_model(torch, dev, seed, **widths):
+    """A VAE-HMM of the given widths with fresh weights from a seed."""
+    from vqvaehmm_tpu_torch.core.config import ModelConfig
+    from vqvaehmm_tpu_torch.models.vae_hmm import VAEHMM
+
+    cfg = dict(input_dim=5, hidden_dim=64, K=3, hidden_dim2=32, u_dim=4,
+               trans_hidden=128)
+    cfg.update(widths)
+    return VAEHMM(ModelConfig(**cfg), device=dev,
+                  generator=torch.Generator().manual_seed(seed)).eval()
+
+
+# widths at which one stage's output is wider than the others: H2 above
+# H1; HP and K * K above both hidden widths
+ENC_WIDTHS = (dict(hidden_dim=8, hidden_dim2=32, K=5),
+              dict(hidden_dim=16, hidden_dim2=8, K=8, trans_hidden=256))
+
+
 def phase_kernel_8(torch, np, model):
+    from vqvaehmm_tpu_torch.ops import fused_encoder
     from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
 
     dev = model.device
@@ -1097,6 +1128,43 @@ def phase_kernel_8(torch, np, model):
     say("kernel 8", f"logits max-abs error vs plain over {cases} cases: "
         f"{worst:.3e} (tol 1e-5); batched rows bit-equal to solo rows "
         f"(B={B}, T={T}, per-sequence valid_to)")
+
+    # every tile width the plan can choose computes the same bits (the
+    # wrapper's own launch function; these launches are not counted), also
+    # where H2 is wider than H1
+    n0 = fused_encode.launches
+    models = [model] + [_seeded_model(torch, dev, 12, **w)
+                        for w in ENC_WIDTHS]
+    tiled = 0
+    for m in models:
+        K = m.cfg.K
+        for B, T in ((3, 200), (2, 37), (1, 1), (460, 20), (1, 130)):
+            x = _randn(torch, np, rng, (B, C, T), dev)
+            vt = torch.from_numpy(rng.integers(1, T + 1, size=B).astype(
+                np.int32)).to(dev)
+            outs = []
+            for tile in fused_encoder.TILES:
+                out = torch.empty((B, K, T), device=dev)
+                fused_encoder._launch(m, x, vt, tile, out)
+                outs.append(out)
+            torch.cuda.synchronize()
+            want = fused_encode(m, x, valid_to=vt, use_kernel=False)
+            at = (f"B={B} T={T} hidden={m.cfg.hidden_dim}/"
+                  f"{m.cfg.hidden_dim2} K={K}")
+            for tile, out in zip(fused_encoder.TILES, outs):
+                if not torch.equal(out, outs[0]):
+                    fail(f"kernel 8 at tile {tile} differs from tile "
+                         f"{fused_encoder.TILES[0]} at {at}")
+                if max_abs(out, want) > 1e-5:
+                    fail(f"kernel 8 at tile {tile}: max-abs error "
+                         f"{max_abs(out, want):.3e} at {at}")
+            tiled += 1
+    if fused_encode.launches != n0:
+        fail("the tile-width check changed kernel 8's launch count")
+    say("kernel 8", f"tile widths {fused_encoder.TILES} bit-equal to each "
+        f"other and within 1e-5 of the plain version in {tiled} cases "
+        "(ragged last tiles and T=1 among them), with the published weights "
+        "and at hidden 8/32 K=5 (H2 above H1) and 16/8 K=8")
     return worst
 
 
@@ -1110,12 +1178,14 @@ def decode_inputs(torch, np, rng, model, B, T, ragged, btu):
 
 
 def phase_kernel_11(torch, np, model):
+    from vqvaehmm_tpu_torch.ops import fused_decode, fused_encoder
     from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
 
     rng = np.random.default_rng(13)
     worst = 0.0
     cases = [(64, 200, True, False), (64, 200, True, True),
-             (1, 2327, False, False), (1, 2327, False, True)]
+             (1, 2327, False, False), (1, 2327, False, True),
+             (1, 200, True, False), (460, 20, False, True)]
     n0 = fused_evidence.launches
     for B, T, ragged, btu in cases:
         x, u, lens = decode_inputs(torch, np, rng, model, B, T, ragged, btu)
@@ -1137,6 +1207,63 @@ def phase_kernel_11(torch, np, model):
              f"{len(cases)} cases")
     say("kernel 11", f"log_obs and log_A max-abs error vs plain over "
         f"{len(cases)} cases: {worst:.3e} (tol 1e-5)")
+
+    # a row of a batch is bit-equal to the row alone (no lengths: the
+    # encoder's bound max(lengths) is the batch's), split and not
+    for B, T in ((8, 200), (160, 64)):
+        x, u, _ = decode_inputs(torch, np, rng, model, B, T, False, False)
+        _, log_A, log_obs = fused_evidence(model, x, u, use_kernel=True)
+        for i in range(B) if B <= 8 else (0, 1, B - 1):
+            _, a, o = fused_evidence(model, x[i:i + 1], u[i:i + 1],
+                                     use_kernel=True)
+            if not (torch.equal(log_A[i:i + 1], a)
+                    and torch.equal(log_obs[i:i + 1], o)):
+                fail(f"kernel 11 row {i} of B={B} T={T}: batched != solo")
+    say("kernel 11", "batched rows bit-equal to solo rows (B=8, T=200 and "
+        "B=160, T=64)")
+
+    # every tile width the plan can choose, split and not, computes the
+    # same bits (not counted), also where HP, K * K or H2 exceed the other
+    # hidden widths
+    n0 = fused_evidence.launches
+    models = [model] + [_seeded_model(torch, model.device, 13, **w)
+                        for w in ENC_WIDTHS]
+    tiled = 0
+    for m in models:
+        K = m.cfg.K
+        for B, T, btu in ((3, 200, False), (2, 37, True), (1, 1, False),
+                          (64, 20, True), (1, 130, False)):
+            x, u, lens = decode_inputs(torch, np, rng, m, B, T, True, btu)
+            lens = lens.clamp(max=max(1, T - 3))     # a live bound
+            outs = []
+            for tile in fused_encoder.TILES:
+                for split in (False, True):
+                    out = (torch.empty((B, T, K), device=m.device),
+                           torch.empty((B, T, K, K), device=m.device))
+                    fused_decode._launch_evidence(m, x, u, lens, tile,
+                                                  split, out)
+                    outs.append(((tile, split), out))
+            torch.cuda.synchronize()
+            _, want_A, want_obs = fused_evidence(m, x, u, lens,
+                                                 use_kernel=False)
+            at = (f"B={B} T={T} hidden={m.cfg.hidden_dim}/"
+                  f"{m.cfg.hidden_dim2} K={K} HP={m.cfg.trans_hidden}")
+            for how, (o, a) in outs:
+                if not (torch.equal(o, outs[0][1][0])
+                        and torch.equal(a, outs[0][1][1])):
+                    fail(f"kernel 11 at (tile, split) {how} differs from "
+                         f"{outs[0][0]} at {at}")
+                err = max(max_abs(o, want_obs), max_abs(a, want_A))
+                if err > 1e-5:
+                    fail(f"kernel 11 at (tile, split) {how}: max-abs error "
+                         f"{err:.3e} at {at}")
+            tiled += 1
+    if fused_evidence.launches != n0:
+        fail("the tile-width check changed kernel 11's launch count")
+    say("kernel 11", f"tile widths {fused_encoder.TILES}, split and not, "
+        f"bit-equal to each other and within 1e-5 of the plain version in "
+        f"{tiled} cases, with the published weights (HP 128 above H1 64) "
+        "and at hidden 8/32 K=5 and 16/8 K=8 HP 256 (K * K 64)")
     return worst
 
 
@@ -1520,7 +1647,7 @@ def phase_bulk_times(torch, np, model, bulk):
     rng = np.random.default_rng(16)
     res = {}
     with torch.inference_mode():
-        for B, T in ((64, 200), (460, 20), (1, 2327)):
+        for B, T in ((64, 200), (460, 20), (1, 2327), (1, 200)):
             x, u, _ = decode_inputs(torch, np, rng, model, B, T, False,
                                     False)
             slow = 2 if T > 1000 else 10
@@ -2185,12 +2312,33 @@ def phase_vq_times(torch, np, stack):
     return res
 
 
+# the shapes of kernels 8 and 11 on the main paths: a batch of requests,
+# one exact-mode request, the bulk scorer's windows, the whole panel
+BULK_SHAPES = ((64, 200), (1, 200), (460, 20), (1, 2327))
+
+
+def _sha(torch, *tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def kernel_times(torch, np, root: str) -> dict:
-    """Kernel A at A_SHAPES and kernel C at C_SHAPES with the package of
-    the checkout at `root` (its kernels built there): back-to-back
-    CUDA-event ms and device-busy ms a call, the published weights (fresh
-    weights from a seed at the probe shape)."""
+    """Kernel A at A_SHAPES, kernel C at C_SHAPES and kernels 8 and 11 at
+    BULK_SHAPES with the package of the checkout at `root` (its kernels
+    built there): back-to-back CUDA-event ms and device-busy ms a call, the
+    published weights (fresh weights from a seed at the probe shape); for
+    8 and 11 also a SHA-256 of the output bytes from fixed seeded inputs.
+    Where the checkout's wrappers take a forced tile (and split), every
+    tile of kernel 8 and (tile, split) of kernel 11 is timed at each bulk
+    shape too."""
     sys.path.insert(0, root)
+    from vqvaehmm_tpu_torch.ops import fused_decode, fused_encoder
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
     from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
     from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
 
@@ -2215,13 +2363,54 @@ def kernel_times(torch, np, root: str) -> dict:
                                           use_kernel=True)
         out[f"C {B}x{T}"] = {"events_ms": _time(torch, fn, iters=iters)[0],
                              "device_ms": _device_ms(torch, fn, 3)}
+    forced = hasattr(fused_decode, "_launch_evidence")
+    with torch.inference_mode():
+        for B, T in BULK_SHAPES:
+            g = np.random.default_rng(B * 10007 + T)
+            x, u, lens = train_inputs(torch, np, g, B, T,
+                                      model.cfg.input_dim, model.cfg.u_dim,
+                                      dev, short=max(1, T - 3))
+            for key, fn in (
+                    (f"8 {B}x{T}", lambda: fused_encode(
+                        model, x, valid_to=lens, use_kernel=True)),
+                    (f"11 {B}x{T}", lambda: fused_evidence(
+                        model, x, u, lens, use_kernel=True))):
+                res = fn()
+                out[key] = {"events_ms": _time(torch, fn)[0],
+                            "device_ms": _device_ms(torch, fn),
+                            "sha256": _sha(torch, *(
+                                res if isinstance(res, tuple) else (res,)))}
+            if not forced:
+                continue
+            plan = fused_decode.evidence_plan(
+                model.cfg, B, T, torch.cuda.get_device_properties(
+                    0).multi_processor_count)
+            out[f"11 {B}x{T}"]["plan"] = [plan.tile, plan.blocks,
+                                          plan.split]
+            out[f"8 {B}x{T}"]["plan"] = list(fused_encoder.encode_plan(
+                model.cfg, B, T, torch.cuda.get_device_properties(
+                    0).multi_processor_count)[:2])
+            K = model.cfg.K
+            lg = torch.empty((B, K, T), device=dev)
+            ev = (torch.empty((B, T, K), device=dev),
+                  torch.empty((B, T, K, K), device=dev))
+            for tile in fused_encoder.TILES:
+                fn = lambda: fused_encoder._launch(  # noqa: E731
+                    model, x, lens, tile, lg)
+                out[f"8 {B}x{T} tile {tile}"] = _device_ms(torch, fn)
+                for split in (False, True):
+                    fn = lambda: fused_decode._launch_evidence(  # noqa: E731
+                        model, x, u, lens, tile, split, ev)
+                    out[f"11 {B}x{T} tile {tile} split {int(split)}"] = \
+                        _device_ms(torch, fn)
     return out
 
 
 def compare_checkouts(old: str, new: str) -> int:
     """kernel_times of two checkouts in the order old, new, new, old, each
-    in a process of its own on the same card, and the ratio of the medians
-    of the device-busy times."""
+    in a process of its own on the same card, the ratio of the medians of
+    the device-busy times, and whether kernels 8 and 11 of the two give the
+    same output bytes."""
     runs = []
     for root in (old, new, new, old):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -2236,12 +2425,18 @@ def compare_checkouts(old: str, new: str) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip(), flush=True)
-    for key in [k for k in runs[0] if k[:2] in ("A ", "C ")]:
+    for key in [k for k in runs[0] if isinstance(runs[0][k], dict)]:
         o = [runs[0][key]["device_ms"], runs[3][key]["device_ms"]]
         n = [runs[1][key]["device_ms"], runs[2][key]["device_ms"]]
-        print(f"{key}: device ms old {o} new {n}: "
-              f"{statistics.median(o) / statistics.median(n):.2f}x",
-              flush=True)
+        line = f"{key}: device ms old {o} new {n}"
+        if None not in o + n:
+            line += f": {statistics.median(o) / statistics.median(n):.2f}x"
+        if "sha256" in runs[0][key]:
+            same = len({r[key]["sha256"] for r in runs}) == 1
+            line += ("; outputs bit-equal" if same else
+                     "; OUTPUTS DIFFER: " + ", ".join(
+                         r[key]["sha256"][:16] for r in runs))
+        print(line, flush=True)
     return 0
 
 
@@ -2301,11 +2496,14 @@ def main() -> int:
             say("build", line.strip())
 
     say("build", "registers, static shared memory and spills of the "
-        "serving forward's and the training step's kernels: "
+        "kernels on tile_fma.cuh (the serving forward's, the training "
+        "step's, the encoder's and the evidence's): "
         + "; ".join(kernel_resources(_build.build_log, (
             "fused_infer_kernel", "infer_pack_kernel", "train_pack_kernel",
             "train_forward_kernel", "train_backward_kernel",
-            "train_weight_grad_kernel", "train_reduce_kernel"))))
+            "train_weight_grad_kernel", "train_reduce_kernel",
+            "fused_encoder_kernel", "encoder_pack_kernel",
+            "fused_evidence_kernel"))))
 
     dev = torch.device("cuda")
     model = load_published(torch, dev)
@@ -2414,7 +2612,7 @@ def main() -> int:
                  "library_ms": None, "shape": "B=64 T=200"}
         entry["device_ms"] = btimes[(name, 64, 200, True)][3]
         entry["plain_device_ms"] = btimes[(name, 64, 200, False)][3]
-        for B, T in ((460, 20), (1, 2327)):
+        for B, T in ((460, 20), (1, 2327), (1, 200)):
             entry[f"ms_{B}x{T}"] = btimes[(name, B, T, True)][0]
             entry[f"plain_ms_{B}x{T}"] = btimes[(name, B, T, False)][0]
             entry[f"device_ms_{B}x{T}"] = btimes[(name, B, T, True)][3]

@@ -188,16 +188,27 @@ def test_model_paths_launch_kernels(cuda):
 
 def test_launch_counters_under_threads(cuda):
     """The launch counters are shared by the server's handler threads: no
-    launch may be lost under contention."""
+    launch may be lost under contention.  Kernels 8 and 11 of a model not
+    yet packed: the threads race to its packed-weight cache and every one
+    gets the bits of a call made alone."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
     model = _model(cuda, seed=3)
+    fresh = _model(cuda, seed=4)
     x = torch.randn((1, 5, 40), device=cuda)
+    u = torch.randn((1, 4, 40), device=cuda)
     log_pi = torch.log_softmax(torch.randn(3, device=cuda), 0)
     log_A = torch.log_softmax(torch.randn((3, 3), device=cuda), -1)
     log_obs = torch.randn((1, 40, 3), device=cuda)
     a, b = fused_forward.launches, viterbi_fused.launches
+    c, d = fused_encode.launches, fused_evidence.launches
+    results = []
 
     def work():
         with torch.inference_mode():
+            results.append((fused_encode(fresh, x),
+                            fused_evidence(fresh, x, u)[1]))
             for _ in range(25):
                 fused_forward(model, x)
                 viterbi_fused(log_pi, log_A, log_obs)
@@ -216,6 +227,13 @@ def test_launch_counters_under_threads(cuda):
     torch.cuda.synchronize()
     assert fused_forward.launches - a == 16 * 25
     assert viterbi_fused.launches - b == 16 * 25
+    assert (fused_encode.launches - c, fused_evidence.launches - d) == \
+        (16, 16)
+    with torch.inference_mode():
+        want = (fused_encode(fresh, x), fused_evidence(fresh, x, u)[1])
+    assert len(results) == 16
+    for got in results:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _train_inputs(dev, B, T, seed, C=5, U=4, short=None, btu=False):
@@ -464,6 +482,139 @@ def test_bulk_kernels_gates_raise(cuda):
                 fn(many, x, u)
         with pytest.raises(TypeError, match="float32"):
             fused_encode(_model(cuda), x.double())
+
+
+@pytest.mark.parametrize("widths", [
+    dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128),
+    dict(hidden_dim=8, hidden_dim2=32, K=5, trans_hidden=8),
+    dict(hidden_dim=16, hidden_dim2=8, K=8, trans_hidden=256)])
+@pytest.mark.parametrize("B,T,btu", [(1, 1, False), (3, 37, True),
+                                     (2, 200, False), (1, 300, True)])
+def test_encoder_and_evidence_tile_widths_bit_equal(cuda, widths, B, T, btu):
+    """Kernels 8 and 11 at every tile width the plan can choose, and kernel
+    11 split and not, give the same bits (each output's FMA chain is
+    fixed), within 1e-5 of the plain versions: the published widths, H2
+    above H1, and HP and K * K above both hidden widths.  The wrappers'
+    own launch functions; they do not count a launch."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+
+    model = _model(cuda, seed=4, **widths)
+    K = model.cfg.K
+    x, u, lens = _train_inputs(cuda, B, T, B * 13 + T, btu=btu,
+                               short=max(1, T - 3))
+    counts = (fe.fused_encode.launches, fd.fused_evidence.launches)
+    with torch.inference_mode():
+        want_lg = fe.fused_encode_reference(model, x, valid_to=lens)
+        want_ev = fd.fused_evidence_reference(model, x, u, lens)
+        logits, evidence = [], []
+        for tile in fe.TILES:
+            out = torch.empty((B, K, T), device=cuda)
+            fe._launch(model, x, lens.to(torch.int32), tile, out)
+            logits.append(out)
+            for split in (False, True):
+                ev = (torch.empty((B, T, K), device=cuda),
+                      torch.empty((B, T, K, K), device=cuda))
+                fd._launch_evidence(model, x, u, lens, tile, split, ev)
+                evidence.append(ev)
+    torch.cuda.synchronize()
+    assert (fe.fused_encode.launches, fd.fused_evidence.launches) == counts
+    for out in logits:
+        assert torch.equal(out, logits[0])
+        torch.testing.assert_close(out, want_lg, rtol=0, atol=1e-5)
+    for log_obs, log_A in evidence:
+        assert torch.equal(log_obs, evidence[0][0])
+        assert torch.equal(log_A, evidence[0][1])
+        torch.testing.assert_close(log_A, want_ev[1], rtol=0, atol=1e-5)
+        torch.testing.assert_close(log_obs, want_ev[2], rtol=0, atol=1e-5)
+
+
+def test_fused_evidence_rows_independent(cuda):
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+
+    model = _model(cuda, seed=5, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128)
+    for B, T in ((6, 130), (160, 64)):      # split and not
+        x, u, _ = _train_inputs(cuda, B, T, B + T)
+        with torch.inference_mode():
+            _, log_A, log_obs = fused_evidence(model, x, u)
+            for i in (0, 1, B - 1):
+                _, a, o = fused_evidence(model, x[i:i + 1], u[i:i + 1])
+                assert torch.equal(log_A[i:i + 1], a)
+                assert torch.equal(log_obs[i:i + 1], o)
+
+
+def test_packed_weights_follow_in_place_updates(cuda):
+    """The packed weights are kept a model and keyed on the parameters'
+    versions: after an in-place update, and after load_state_dict, the
+    kernels answer with the new weights, bit-equal to a fresh model."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+
+    model = _model(cuda, seed=6, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128)
+    x, u, lens = _train_inputs(cuda, 3, 50, 11)
+    with torch.inference_mode():
+        before = model.encode(x, valid_to=lens)
+        ev_before = fused_evidence(model, x, u, lens)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.5)
+    other = _model(cuda, seed=7, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128)
+    for update in ("in place", "load_state_dict"):
+        if update == "load_state_dict":
+            model.load_state_dict(other.state_dict())
+        fresh = _model(cuda, seed=8, hidden_dim=64, hidden_dim2=32,
+                       trans_hidden=128)
+        fresh.load_state_dict(model.state_dict())
+        with torch.inference_mode():
+            got = model.encode(x, valid_to=lens)
+            ev = fused_evidence(model, x, u, lens)
+            assert torch.equal(got, fresh.encode(x, valid_to=lens)), update
+            for g, w in zip(ev, fused_evidence(fresh, x, u, lens)):
+                assert torch.equal(g, w), update
+        assert not torch.equal(got, before)
+        assert not torch.equal(ev[1], ev_before[1])
+    # a model made under inference_mode keeps no versions: its weights are
+    # packed every call, so an update in place is seen too
+    widths = dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128)
+    with torch.inference_mode():
+        frozen = _model(cuda, seed=9, **widths)
+        first = frozen.encode(x, valid_to=lens)
+        for p in frozen.parameters():
+            p.mul_(2.0)
+        second = frozen.encode(x, valid_to=lens)
+        ev_second = fused_evidence(frozen, x, u, lens)
+    fresh = _model(cuda, seed=9, **widths)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.mul_(2.0)
+    with torch.inference_mode():
+        assert torch.equal(second, fresh.encode(x, valid_to=lens))
+        for g, w in zip(ev_second, fused_evidence(fresh, x, u, lens)):
+            assert torch.equal(g, w)
+    assert not torch.equal(first, second)
+
+
+def test_encoder_gates_refuse_layers_wider_than_a_weight_buffer(cuda):
+    """A k=3 layer of more than WBUF / 3 outputs, or a prior layer of more
+    than WBUF: the gates raise, and the C launcher refuses such widths and
+    a tile the plan cannot choose by itself."""
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+
+    x = torch.zeros((1, 5, 8), device=cuda)
+    u = torch.zeros((1, 4, 8), device=cuda)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="unsupported"):
+            fe.fused_encode(_model(cuda, hidden_dim=8, hidden_dim2=2052), x)
+        with pytest.raises(ValueError, match="unsupported"):
+            fused_evidence(_model(cuda, trans_hidden=6148), x, u)
+        model = _model(cuda)
+        out = torch.empty((1, 3, 8), device=cuda)
+        vt = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fe._launch(model, x, vt, 48, out)
 
 
 def test_inference_kernels_refuse_autograd(cuda):

@@ -21,9 +21,13 @@ from vqvaehmm_tpu.ops.pallas_decode import \
     fused_viterbi_states as jax_viterbi_states
 from vqvaehmm_tpu_torch import ModelConfig
 from vqvaehmm_tpu_torch.ops.fused_decode import (
-    decode_smem_bytes, evidence_smem_bytes, fused_evidence,
+    decode_smem_bytes, evidence_plan, evidence_smem_bytes, fused_evidence,
     fused_evidence_reference, fused_viterbi_states,
     fused_viterbi_states_reference, supported)
+from vqvaehmm_tpu_torch.ops.fused_infer import SMEM_LIMIT
+
+PUBLISHED = ModelConfig(input_dim=5, hidden_dim=64, K=3, hidden_dim2=32,
+                        u_dim=4, trans_hidden=128)
 
 
 def _case(B, T, seed, layout, ragged):
@@ -121,7 +125,11 @@ def test_dispatch_and_gate_on_cpu():
                                fn(x, u, lengths, use_kernel=False))
     assert supported(tm.cfg, 64, 200) and supported(tm.cfg, 1, 2327)
     rows = 5 + 8 + 4 + 3 + 4 + 8 + 9
-    assert evidence_smem_bytes(tm.cfg) == 4 * 40 * rows
+    # the evidence: two weight buffers, a pad, the stage region (x, h1, h2
+    # or u, hp: max(5 + 8 + 4, 4 + 8) rows), K rows of log_obs and K * K of
+    # log_A, each of tile + 2 halos + JB floats
+    assert evidence_smem_bytes(tm.cfg, 32) == \
+        4 * (2 * 6144 + 8 + 40 * (17 + 3 + 9))
     assert decode_smem_bytes(tm.cfg) == 4 * 72 * rows
     small = dict(input_dim=5, hidden_dim=8, hidden_dim2=4, u_dim=4,
                  trans_hidden=8)
@@ -130,3 +138,40 @@ def test_dispatch_and_gate_on_cpu():
                          1, 8)
     assert not supported(ModelConfig(K=3, compute_dtype="bfloat16", **small),
                          1, 8)
+
+
+@pytest.mark.parametrize("B,T,tile,blocks,split", [
+    # published widths: max(101, 132) + 3 + 9 = 144 rows.  One wave of 256
+    # blocks of 64 steps at (64, 200) (split, they would be two); the
+    # encoder and the prior in blocks of their own where that keeps the
+    # waves (a request at B = 1: the narrowest tile) or adds one wave of
+    # blocks of 0.6 the cost (the bulk windows: 920 blocks in three waves
+    # of 396 against 460 in two)
+    (64, 200, 64, 256, False), (460, 20, 32, 920, True),
+    (1, 200, 16, 26, True), (1, 37, 16, 6, True), (1, 1500, 16, 188, True),
+    (1, 2327, 16, 292, True)])
+def test_evidence_plan(B, T, tile, blocks, split):
+    plan = evidence_plan(PUBLISHED, B, T)
+    assert (plan.tile, plan.blocks, plan.split) == (tile, blocks, split)
+    assert plan.smem == evidence_smem_bytes(PUBLISHED, tile) == \
+        4 * (2 * 6144 + 8 + (tile + 8) * 144) <= SMEM_LIMIT
+    # the widest register-tiled layer is the prior's hidden one, HP = 128
+    assert plan.threads == {64: 288, 32: 320, 16: 192}[tile]
+
+
+def test_gate_and_rows_where_the_prior_is_the_widest():
+    """HP and K * K above H1 and H2: the prior's rows are sized by its own
+    widths, not by the encoder's (a buffer of max(H1, H2) rows would be
+    overrun).  The WBUF bound of each layer is part of the gate."""
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+
+    cfg = ModelConfig(input_dim=5, hidden_dim=8, K=8, hidden_dim2=4, u_dim=4,
+                      trans_hidden=64)
+    assert supported(cfg, 1, 200)
+    assert evidence_smem_bytes(cfg, 16) == \
+        4 * (2 * 6144 + 8 + 24 * (max(5 + 8 + 4, 4 + 64) + 8 + 64))
+    assert evidence_plan(cfg, 1, 200).split
+    assert not fe.layers_fit(5, 8, 4, 8, 4, 6148)
+    assert not supported(ModelConfig(
+        input_dim=5, hidden_dim=8, K=3, hidden_dim2=4, u_dim=4,
+        trans_hidden=6148), 1, 8)

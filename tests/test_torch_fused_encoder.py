@@ -14,11 +14,16 @@ import torch
 from tests.torch_port import close, inputs, model_pair, t
 from vqvaehmm_tpu_torch import ModelConfig
 from vqvaehmm_tpu.ops.pallas_encoder import fused_encode as jax_fused_encode
-from vqvaehmm_tpu_torch.ops.fused_encoder import (encode_supported,
+from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+from vqvaehmm_tpu_torch.ops.fused_encoder import (encode_plan,
+                                                  encode_supported,
                                                   fused_encode,
                                                   fused_encode_reference,
                                                   smem_bytes)
 from vqvaehmm_tpu_torch.ops.fused_infer import SMEM_LIMIT
+
+PUBLISHED = ModelConfig(input_dim=5, hidden_dim=64, K=3, hidden_dim2=32,
+                        u_dim=4, trans_hidden=128)
 
 
 @pytest.mark.parametrize("kind", ["none", "scalar", "vector"])
@@ -77,33 +82,42 @@ def test_dispatch_and_gate_on_cpu():
         tm.posterior(x, fused=True)
     assert encode_supported(tm.cfg, 460, 20)
     assert encode_supported(tm.cfg, 1, 2327)
-    assert smem_bytes(tm.cfg) == 4 * 40 * (5 + 8 + 4 + 3)
+    # two weight buffers, a pad, then C + H1 + H2 + K rows of tile + 2
+    # halos + JB floats
+    assert smem_bytes(tm.cfg, 64) == 4 * (2 * 6144 + 8 + 72 * (5 + 8 + 4 + 3))
     big = ModelConfig(input_dim=5, hidden_dim=2048, K=3, hidden_dim2=4,
                       u_dim=4, trans_hidden=8)
-    assert smem_bytes(big) > SMEM_LIMIT and not encode_supported(big, 1, 8)
+    assert smem_bytes(big, 16) > SMEM_LIMIT and not encode_supported(big, 1, 8)
     bf16 = ModelConfig(input_dim=5, hidden_dim=8, K=3, hidden_dim2=4,
                        u_dim=4, trans_hidden=8, compute_dtype="bfloat16")
     assert not encode_supported(bf16, 1, 8)
 
 
 def test_shared_header_enters_the_build_digest():
-    """The encoder stages live in a header that two sources include: an
+    """The encoder stages live in headers that several sources include: an
     edited header must change the library's name, so the build hashes the
-    headers beside the sources."""
+    headers beside the sources.  Kernels 8 and 11 share encoder_fma.cuh
+    (on tile_fma.cuh); encoder_tile.cuh is left to kernel 10."""
     from vqvaehmm_tpu_torch.ops import _build
 
     names = [h.name for h in _build.headers()]
-    assert names == ["encoder_tile.cuh", "tile_fma.cuh"]
+    assert names == ["encoder_fma.cuh", "encoder_tile.cuh", "tile_fma.cuh"]
     users = [s.name for s in _build.sources()
              if '#include "encoder_tile.cuh"' in s.read_text()]
+    assert users == ["fused_decode.cu"]
+    users = [s.name for s in _build.sources()
+             if '#include "encoder_fma.cuh"' in s.read_text()]
     assert users == ["fused_decode.cu", "fused_encoder.cu"]
+    assert '#include "tile_fma.cuh"' in (
+        _build.CSRC / "encoder_fma.cuh").read_text()
     users = [s.name for s in _build.sources()
              if '#include "tile_fma.cuh"' in s.read_text()]
     assert users == ["fused_infer.cu", "fused_train.cu"]
     assert len(_build.sources()) == 7
     for entry in ("vqhmm_fused_infer", "vqhmm_fused_train",
                   "vqhmm_fused_encode", "vqhmm_fused_evidence",
-                  "vqhmm_fused_decode", "vqhmm_vq_nearest"):
+                  "vqhmm_fused_decode", "vqhmm_vq_nearest",
+                  "vqhmm_encoder_pack"):
         assert entry in _build._SIGNATURES
         assert f'extern "C" int {entry}(' in "".join(
             s.read_text() for s in _build.sources())
@@ -132,3 +146,84 @@ def test_kernel_path_refuses_autograd():
     assert q.requires_grad
     q.sum().backward()
     assert tm.encoder.conv1.weight.grad is not None
+
+
+@pytest.mark.parametrize("B,T,tile,blocks,threads,smem", [
+    # published widths: C + H1 + H2 + K = 104 rows
+    (64, 200, 64, 256, 288, 4 * (2 * 6144 + 8 + 72 * 104)),
+    (1, 200, 16, 13, 128, 4 * (2 * 6144 + 8 + 24 * 104)),
+    (460, 20, 64, 460, 288, 4 * (2 * 6144 + 8 + 72 * 104)),
+    (1, 2327, 16, 146, 128, 4 * (2 * 6144 + 8 + 24 * 104)),
+    (1, 37, 16, 3, 128, 4 * (2 * 6144 + 8 + 24 * 104)),
+    (8, 512, 16, 256, 128, 4 * (2 * 6144 + 8 + 24 * 104))])
+def test_encode_plan(B, T, tile, blocks, threads, smem):
+    """The tile whose grid costs least in waves of resident blocks times a
+    block's steps: one wave of 256 blocks of 64 steps at (64, 200) (two
+    an SM), the narrowest tile where even it leaves SMs idle; for the bulk
+    scorer's windows of 20, 460 blocks of 20 steps are two waves at tile
+    64 (two an SM) and at 32 (three), and the wider tile, with more
+    threads a block for the same steps, wins the tie (16 would need three
+    waves)."""
+    plan = encode_plan(PUBLISHED, B, T)
+    assert (plan.tile, plan.blocks, plan.threads, plan.smem) == \
+        (tile, blocks, threads, smem)
+    assert not plan.split and plan.per_sm == (2 if tile == 64 else 3)
+    assert plan.smem == smem_bytes(PUBLISHED, tile) <= SMEM_LIMIT
+
+
+def test_launch_plan_bounds_and_source_constants():
+    """The wrapper's counts are the kernels' own: the constants of
+    csrc/encoder_fma.cuh, tile_fma.cuh and fused_encoder.cu, the row and
+    packed-float formulas, the launch bound behind the register count."""
+    import re
+
+    from vqvaehmm_tpu_torch.ops import _build
+
+    header = (_build.CSRC / "encoder_fma.cuh").read_text()
+    tile_fma = (_build.CSRC / "tile_fma.cuh").read_text()
+    src = (_build.CSRC / "fused_encoder.cu").read_text()
+    assert re.search(rf"constexpr int HALO = {fe.HALO};", header)
+    assert re.search(rf"constexpr int JB = {fe.JB};", header)
+    assert re.search(rf"constexpr int MAX_THREADS = {fe.MAX_THREADS};",
+                     header)
+    assert re.search(rf"constexpr int SMEM_LIMIT = {SMEM_LIMIT};", header)
+    assert re.search(rf"constexpr int WBUF = {fe.WBUF};", tile_fma)
+    assert re.search(rf"constexpr int ROW_PAD = {fe.ROW_PAD};", tile_fma)
+    assert "tile == 16 || tile == 32 || tile == 64" in header
+    assert sorted(fe.TILES) == [16, 32, 64]
+    assert "return tile + 2 * HALO + JB;" in header
+    assert "return region_rows(d) + d.K + (d.HP > 0 ? d.K * d.K : 0);" \
+        in header
+    assert "const int e = d.C + d.H1 + d.H2, p = d.U + d.HP;" in header
+    assert "(G + 3) / 4 * (tile / JB + 2)" in header
+    # 64 registers a thread: 65536 / (MAX_THREADS * 2)
+    assert "__launch_bounds__(encfma::MAX_THREADS, 2) fused_encoder_kernel" \
+        in src
+    assert fe._REGS == 65536 // (2 * fe.MAX_THREADS)
+    # conv1 5 x 3 x 64, conv2 64 x 3 x 32, to_logits 32 x 4; the prior
+    # 4 x 128 and 128 x round4(9)
+    assert fe.packed_floats(5, 64, 32, 3) == 960 + 6144 + 128
+    assert fe.packed_floats(5, 64, 32, 3, 4, 128) == 7232 + 512 + 1536
+    assert fe.smem_dims_bytes(16, (5, 8, 8, 5, 4, 64)) == 4 * (
+        2 * 6144 + 8 + 24 * (max(21, 68) + 5 + 25))
+    for t in fe.TILES:
+        assert fe.row_stride(t) % 4 == 0
+        assert fe.block_threads(t, 64) % 32 == 0
+        assert 128 <= fe.block_threads(t, 2048) <= fe.MAX_THREADS
+
+
+def test_gate_refuses_layers_wider_than_a_weight_buffer():
+    """A k=3 layer of more than WBUF / 3 outputs has no slab of one input
+    channel: the gate refuses it (so does the shared memory it would
+    take), and so does a narrower model in bfloat16."""
+    assert fe.layers_fit(5, 2048, 8, 3)
+    assert not fe.layers_fit(5, 8, 2052, 3)
+    wide = ModelConfig(input_dim=5, hidden_dim=8, K=3, hidden_dim2=2052,
+                       u_dim=4, trans_hidden=8)
+    assert not encode_supported(wide, 1, 8)
+    assert encode_supported(PUBLISHED, 0, 0)
+    # H2 above H1: rows sized by each stage's own width
+    deep = ModelConfig(input_dim=5, hidden_dim=8, K=5, hidden_dim2=32,
+                       u_dim=4, trans_hidden=8)
+    assert encode_supported(deep, 1, 8)
+    assert smem_bytes(deep, 16) == 4 * (2 * 6144 + 8 + 24 * (5 + 8 + 32 + 5))

@@ -1,9 +1,13 @@
-// Device functions shared by the encoder kernel (fused_encoder.cu) and the
-// evidence and one-kernel-decode kernels (fused_decode.cu): the VAE-HMM's
-// encoder stack and prior MLP on one tile of time steps of one sequence,
-// every intermediate in shared memory.
+// Device functions of the one-kernel Viterbi decode
+// (fused_decode.cu::fused_decode_kernel, kernel 10), its only user: the
+// VAE-HMM's encoder stack and prior MLP on one chunk of time steps of one
+// sequence, every intermediate in shared memory, a thread an output channel
+// and 4 steps, the weights read through the read-only cache.  The encoder
+// and evidence kernels (8 and 11) moved to encoder_fma.cuh, on
+// tile_fma.cuh's register tile; this header goes when kernel 10 is
+// redesigned (ROADMAP.md, queue 2b).
 //
-// A tile is n output steps starting at time t0.  The encoder stages x on
+// A chunk is n output steps starting at time t0.  The encoder stages x on
 // the window [t0 - 2, t0 + n + 2): each of the two k=3 convolutions
 // consumes one step of halo on each side.  Window index j is time p0 + j
 // with p0 = t0 - ENC_HALO; rows have a stride of ws floats, at least
@@ -29,11 +33,6 @@ namespace vqhmm {
 
 constexpr int ENC_HALO = 2;   // one step per k=3 convolution
 constexpr int ENC_JB = 4;     // time steps per thread in a convolution
-// the tile of the encoder and evidence kernels: output steps a block, the
-// row stride of its shared-memory buffers, and its threads
-constexpr int TILE = 32;
-constexpr int WS = TILE + 2 * ENC_HALO + ENC_JB;
-constexpr int THREADS = 256;
 constexpr float NEG_CLAMP = -1e30f;
 
 struct EncoderWeights {

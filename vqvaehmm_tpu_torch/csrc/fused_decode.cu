@@ -8,12 +8,17 @@
 //   _kernel -> fused_decode_kernel: the same evidence, inert padding past
 //     each sequence's length, the max-plus recursion and the backtrace.
 // The Python wrappers and their plain PyTorch versions are in
-// vqvaehmm_tpu_torch/ops/fused_decode.py; the encoder and prior stages are
-// the device functions of encoder_tile.cuh.
+// vqvaehmm_tpu_torch/ops/fused_decode.py.  The evidence kernel's encoder
+// and prior stages are the device functions of encoder_fma.cuh (shared
+// with the encoder kernel, on tile_fma.cuh's register tile); the decode
+// kernel's are those of encoder_tile.cuh, which computes the same FMA
+// chains, so the two kernels' evidence is bit-equal.
 //
 // Layout: x (B, C, T) float32 contiguous; u (B, U, T) or (B, T, U), read
-// through its strides; valid_to (B,) int32, every entry max(lengths) (the
-// evidence bounds the encoder at one scalar); lengths (B,) int32 or null;
+// through its strides; lengths (B,) int32 or null (the evidence kernel
+// bounds the encoder at one scalar, max(lengths), T where null, which each
+// warp reduces for itself); valid_to (B,) int32 (the decode: every entry
+// max(lengths));
 // log_obs (B, T, K) and log_A (B, T, K, K) float32 contiguous, the layouts
 // ops/hmm.py and the Viterbi kernel read; states (B, T) int32.
 //
@@ -27,10 +32,17 @@
 // states may differ from a decode fed by another evidence computation;
 // their scores agree.
 //
-// Design, evidence.  One block a tile of TILE steps of one sequence, B *
-// ceil(T / TILE) blocks.  Both outputs of a tile are contiguous in device
-// memory (n * K and n * K * K floats), so they are written coalesced from
-// shared memory with no transpose pass after.
+// Design, evidence.  One block a tile of `tile` steps of one sequence
+// (16, 32 or 64, chosen by the wrapper from the waves of resident
+// blocks), B * ceil(T / tile) blocks; with `split`, two blocks a tile,
+// one for the encoder and its log-softmax, one for the prior's, which
+// write disjoint outputs: twice the blocks and half the chain of layers a
+// block, for grids that leave most SMs idle.  The five layers go through
+// tile_fma.cuh's register tile, the packed weights through its
+// double-buffered cp.async slabs (the prior's first slab is in flight
+// while the encoder's last layer runs).  Both outputs of a tile are
+// contiguous in device memory (n * K and n * K * K floats), so they are
+// written coalesced from shared memory with no transpose pass after.
 //
 // Design, decode.  One block of 512 threads a sequence walks the time
 // axis in chunks of CH steps.  All threads compute the chunk's evidence
@@ -44,22 +56,21 @@
 // Bound.  A token costs about 17.7 kFLOP of fp32 FMA (the encoder 14.4,
 // the prior MLP 3.3) against 36 bytes read and 48 written by the evidence
 // kernel, or 4 written by the decode: both are bound by arithmetic and
-// its shared-memory loads, and the decode at small B also by the serial
-// recursion (K * K adds and compares a step on one thread) and by the
-// single SM a sequence occupies.
+// its shared-memory loads, and at small B by one block's chain of layers
+// (the evidence) or by the serial recursion (K * K adds and compares a
+// step on one thread) and the single SM a sequence occupies (the decode).
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstddef>
 #include <cstdint>
 
+#include "encoder_fma.cuh"
 #include "encoder_tile.cuh"
 
 namespace {
 
 using namespace vqhmm;
-
-// evidence: TILE, WS and THREADS are encoder_tile.cuh's
 
 constexpr int CH = 64;                               // decode: steps a chunk
 constexpr int DWS = CH + 2 * ENC_HALO + ENC_JB;
@@ -89,33 +100,73 @@ __device__ __forceinline__ Buffers carve(float* smem, const Dims& d, int ws) {
   return s;
 }
 
-__global__ void __launch_bounds__(THREADS) fused_evidence_kernel(
-    const float* __restrict__ x, const float* __restrict__ u, long long u_sb,
-    long long u_sc, long long u_st, const int* __restrict__ valid_to,
-    EncoderWeights EW, PriorWeights PW, float* __restrict__ log_obs,
-    float* __restrict__ log_A, Dims d, int tiles) {
-  extern __shared__ float smem[];
-  const Buffers s = carve(smem, d, WS);
-  const int K = d.K, KK = d.K * d.K, T = d.T;
-  const int b = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x - b * tiles) * TILE;
-  const int n = min(TILE, T - t0);
+// max(lengths[0..B)), or T where lengths is null: every lane of a warp
+// gets it, with no barrier (every lane of the block calls it).
+__device__ __forceinline__ int batch_bound(const int* __restrict__ lengths,
+                                           int B, int T) {
+  if (lengths == nullptr) return T;
+  int m = INT_MIN;
+  for (int i = threadIdx.x & 31; i < B; i += 32) m = max(m, lengths[i]);
+  for (int o = 16; o > 0; o >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
 
-  encoder_tile(x + (size_t)b * d.C * T, EW, d.C, T, d.H1, d.H2, K, t0, n, WS,
-               valid_to[b], s.xs, s.h1, s.h2, s.lg);
-  prior_tile(u + b * u_sb, u_sc, u_st, PW, d.U, d.HP, KK, t0, n, WS, s.us,
-             s.hp, s.ap);
-  evidence_log_softmax(s.lg, s.ap, K, n, WS);
+__global__ void __launch_bounds__(encfma::MAX_THREADS, 2)
+    fused_evidence_kernel(const float* __restrict__ x,
+                          const float* __restrict__ u, long long u_sb,
+                          long long u_sc, long long u_st,
+                          const int* __restrict__ lengths, encfma::Weights W,
+                          float* __restrict__ log_obs,
+                          float* __restrict__ log_A, encfma::Dims d, int B,
+                          int T, int tile, int tiles, int split) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int H = encfma::HALO;
+  const int WS = encfma::row_stride(tile);
+  const encfma::Rows s = encfma::carve(smem, d, WS);
+  tilefma::Pipe pipe{smem, 0, false};
+  const int K = d.K, KK = d.K * d.K;
+  // stage 0: the encoder, 1: the prior, 2: both
+  const int unit = split ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+  const int stage = split ? (int)(blockIdx.x & 1) : 2;
+  const int b = unit / tiles;
+  const int t0 = (unit - b * tiles) * tile;
+  const int n = min(tile, T - t0);
 
-  float* ob = log_obs + ((size_t)b * T + t0) * K;
-  for (int idx = threadIdx.x; idx < n * K; idx += blockDim.x) {
-    const int j = idx / K, k = idx - j * K;
-    ob[idx] = s.lg[k * WS + ENC_HALO + j];
+  if (stage != 1)
+    encfma::encoder_stage(x + (size_t)b * d.C * T, W, d, T, t0, n, WS,
+                          batch_bound(lengths, B, T), s, pipe,
+                          stage == 2 ? encfma::prior_first(W, d)
+                                     : tilefma::no_next());
+  if (stage != 0)
+    encfma::prior_stage(u + b * u_sb, u_sc, u_st, W, d, t0, n, WS, s, pipe);
+  // a (step, row) a thread: row K the regimes, row r < K the transitions
+  // out of regime r
+  const int rlo = stage == 0 ? K : 0, rhi = stage == 1 ? K : K + 1;
+  const int per = rhi - rlo;
+  for (int idx = threadIdx.x; idx < n * per; idx += blockDim.x) {
+    const int j = idx / per, r = rlo + idx - j * per;
+    if (r == K)
+      encfma::log_softmax_biased(s.lg + H + j, W.eb3, K, WS);
+    else
+      encfma::log_softmax_biased(s.ap + (size_t)r * K * WS + H + j,
+                                 W.pb2 + r * K, K, WS);
   }
-  float* ab = log_A + ((size_t)b * T + t0) * KK;
-  for (int idx = threadIdx.x; idx < n * KK; idx += blockDim.x) {
-    const int j = idx / KK, r = idx - j * KK;
-    ab[idx] = s.ap[r * WS + j];
+  __syncthreads();
+
+  if (stage != 1) {
+    float* ob = log_obs + ((size_t)b * T + t0) * K;
+    for (int idx = threadIdx.x; idx < n * K; idx += blockDim.x) {
+      const int j = idx / K, k = idx - j * K;
+      ob[idx] = s.lg[k * WS + H + j];
+    }
+  }
+  if (stage != 0) {
+    float* ab = log_A + ((size_t)b * T + t0) * KK;
+    for (int idx = threadIdx.x; idx < n * KK; idx += blockDim.x) {
+      const int j = idx / KK, r = idx - j * KK;
+      ab[idx] = s.ap[r * WS + H + j];
+    }
   }
 }
 
@@ -243,10 +294,10 @@ cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
 
 }  // namespace
 
+// Dynamic shared memory of an evidence block at tile width `tile`.
 extern "C" int vqhmm_fused_evidence_smem_bytes(int C, int H1, int H2, int K,
-                                               int U, int HP) {
-  const Dims d{C, 0, U, H1, H2, K, HP};
-  return (int)(sizeof(float) * WS * evidence_rows(d));
+                                               int U, int HP, int tile) {
+  return encfma::smem_bytes(encfma::Dims{C, H1, H2, K, U, HP}, tile);
 }
 
 extern "C" int vqhmm_fused_decode_smem_bytes(int C, int H1, int H2, int K,
@@ -255,29 +306,33 @@ extern "C" int vqhmm_fused_decode_smem_bytes(int C, int H1, int H2, int K,
   return (int)(sizeof(float) * DWS * evidence_rows(d));
 }
 
+// packed_weights: vqhmm_encoder_pack's layout with the prior (HP > 0);
+// lengths may be null.
 extern "C" int vqhmm_fused_evidence(
     const float* x, const float* u, long long u_sb, long long u_sc,
-    long long u_st, const int* valid_to, const float* ew1, const float* eb1,
-    const float* ew2, const float* eb2, const float* ew3, const float* eb3,
-    const float* pw1, const float* pb1, const float* pw2, const float* pb2,
-    float* log_obs, float* log_A, int B, int C, int T, int U, int H1, int H2,
-    int K, int HP, void* stream) {
-  const Dims d{C, T, U, H1, H2, K, HP};
-  const int smem = vqhmm_fused_evidence_smem_bytes(C, H1, H2, K, U, HP);
-  const int tiles = (T + TILE - 1) / TILE;
-  const long long blocks = (long long)tiles * B;
-  if (B <= 0 || T <= 0 || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_evidence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const EncoderWeights EW{ew1, eb1, ew2, eb2, ew3, eb3};
-  const PriorWeights PW{pw1, pb1, pw2, pb2};
-  fused_evidence_kernel<<<(unsigned)blocks, THREADS, smem,
-                          (cudaStream_t)stream>>>(
-      x, u, u_sb, u_sc, u_st, valid_to, EW, PW, log_obs, log_A, d, tiles);
+    long long u_st, const int* lengths, const float* packed_weights,
+    const float* eb1, const float* eb2, const float* eb3, const float* pb1,
+    const float* pb2, float* log_obs, float* log_A, int B, int C, int T,
+    int U, int H1, int H2, int K, int HP, int tile, int split, void* stream) {
+  const encfma::Dims d{C, H1, H2, K, U, HP};
+  const int smem = encfma::smem_bytes(d, tile);
+  if (!encfma::tile_ok(tile) || B <= 0 || T <= 0 || U <= 0 || HP <= 0 ||
+      !encfma::layers_fit(d) || smem > encfma::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (T + tile - 1) / tile;
+  const long long blocks = (long long)tiles * B * (split ? 2 : 1);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_evidence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const encfma::Weights W{packed_weights, eb1, eb2, eb3, pb1, pb2};
+  int G = H1 > H2 ? H1 : H2;
+  G = G > HP ? G : HP;
+  fused_evidence_kernel<<<(unsigned)blocks, encfma::block_threads(tile, G),
+                          smem, (cudaStream_t)stream>>>(
+      x, u, u_sb, u_sc, u_st, lengths, W, log_obs, log_A, d, B, T, tile,
+      tiles, split ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

@@ -1,87 +1,126 @@
 // Fused encoder of the VAE-HMM for Hopper (sm_90a):
 //   conv3+ReLU -> mask -> conv3+ReLU -> 1x1 -> regime logits
-// in one launch, x read once and the logits written once.
+// in one launch, x read once and the logits written once; and the pack
+// kernel that lays out the weights of this kernel and of the evidence
+// kernel (fused_decode.cu) in staging order.
 //
 // Replaces the TPU kernel
-// vqvaehmm_tpu/ops/pallas_encoder.py::_encoder_kernel.  The Python wrapper
-// and its plain PyTorch version are in
-// vqvaehmm_tpu_torch/ops/fused_encoder.py; the stages themselves are the
-// device functions of encoder_tile.cuh, which the evidence and decode
-// kernels share.
+// vqvaehmm_tpu/ops/pallas_encoder.py::_encoder_kernel.  The Python wrapper,
+// its launch plan, the packed-weight cache and the plain PyTorch version
+// are in vqvaehmm_tpu_torch/ops/fused_encoder.py; the stages are the device
+// functions of encoder_fma.cuh, which the evidence kernel shares.
 //
 // Layout: x (B, C, T), logits (B, K, T), float32, contiguous along T;
-// valid_to (B,) int32; the weights are the torch modules' own tensors.
+// valid_to (B,) int32; the weights packed once a model by
+// vqhmm_encoder_pack (tile_fma.cuh's order), the biases the torch tensors.
 //
-// Design.  One block computes TILE steps of one sequence, so the grid is
-// B * ceil(T / TILE) blocks: the bulk scorer's stack of many short windows
-// and a whole panel of one long sequence both spread over the card, and
-// nothing depends on B.  x is staged with a halo of 2 steps a side, h1 and
-// h2 stay in shared memory (about 17 KB a block at the published widths),
-// the weights (about 29 KB) come through the read-only cache.
+// Design.  One block computes `tile` steps of one sequence, tile one of
+// 16, 32 or 64 chosen by the wrapper from the waves of resident blocks,
+// so the grid is B * ceil(T / tile) blocks: the bulk scorer's stack of
+// many short windows and a whole panel of one long sequence both spread
+// over the card.  The three layers go through tile_fma.cuh's register
+// tile (4 output channels x 4 steps a thread for the two convolutions, a
+// (step, regime) a thread for the 1x1), the weights through the two
+// double-buffered cp.async slabs; the first slab is in flight while x is
+// staged.  All intermediates stay in shared memory.
 //
 // Bound.  A token costs about 14.4 kFLOP (fp32 FMA on the CUDA cores)
 // against 32 bytes of input and output at the published widths, so the
 // kernel is bound by arithmetic and by the shared-memory loads that feed
-// it, not by device memory.  A thread computes 4 neighbouring steps of one
-// output channel, so a weight feeds 4 FMAs and neighbouring taps share
-// their loads.
+// it, not by device memory; at small B, by one block's chain of three
+// layers and their barriers.
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstddef>
 
-#include "encoder_tile.cuh"
+#include "encoder_fma.cuh"
 
 namespace {
 
-using namespace vqhmm;
+using encfma::Dims;
 
-// TILE, WS and THREADS are encoder_tile.cuh's
+constexpr int NPACK = 5;
+struct PackJobs {
+  tilefma::PackJob j[NPACK];
+};
 
-__global__ void __launch_bounds__(THREADS) fused_encoder_kernel(
+__global__ void __launch_bounds__(256) encoder_pack_kernel(PackJobs jobs,
+                                                           int njobs,
+                                                           float* __restrict__ dst) {
+  tilefma::pack_weights(jobs.j, njobs, dst);
+}
+
+__global__ void __launch_bounds__(encfma::MAX_THREADS, 2) fused_encoder_kernel(
     const float* __restrict__ x, const int* __restrict__ valid_to,
-    EncoderWeights W, float* __restrict__ logits, int C, int T, int H1,
-    int H2, int K, int tiles) {
-  extern __shared__ float smem[];
-  float* xs = smem;               // C rows
-  float* h1 = xs + C * WS;        // H1 rows
-  float* h2 = h1 + H1 * WS;       // H2 rows
-  float* lg = h2 + H2 * WS;       // K rows
-
+    encfma::Weights W, float* __restrict__ logits, Dims d, int T, int tile,
+    int tiles) {
+  extern __shared__ __align__(16) float smem[];
+  const int WS = encfma::row_stride(tile);
+  const encfma::Rows s = encfma::carve(smem, d, WS);
+  tilefma::Pipe pipe{smem, 0, false};
   const int b = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x - b * tiles) * TILE;
-  const int n = min(TILE, T - t0);
-  encoder_tile(x + (size_t)b * C * T, W, C, T, H1, H2, K, t0, n, WS,
-               valid_to[b], xs, h1, h2, lg);
-  for (int idx = threadIdx.x; idx < K * n; idx += blockDim.x) {
+  const int t0 = (blockIdx.x - b * tiles) * tile;
+  const int n = min(tile, T - t0);
+  encfma::encoder_stage(x + (size_t)b * d.C * T, W, d, T, t0, n, WS,
+                        valid_to[b], s, pipe, tilefma::no_next());
+  for (int idx = threadIdx.x; idx < d.K * n; idx += blockDim.x) {
     const int k = idx / n, jj = idx - k * n;
-    logits[((size_t)b * K + k) * T + t0 + jj] = lg[k * WS + ENC_HALO + jj];
+    logits[((size_t)b * d.K + k) * T + t0 + jj] =
+        s.lg[k * WS + encfma::HALO + jj] + __ldg(W.eb3 + k);
   }
 }
 
 }  // namespace
 
-extern "C" int vqhmm_fused_encode_smem_bytes(int C, int H1, int H2, int K) {
-  return (int)(sizeof(float) * WS * (C + H1 + H2 + K));
+// Floats of the packed weights: the encoder's three layers, then, where
+// HP > 0, the prior's two.
+extern "C" long long vqhmm_encoder_packed_floats(int C, int H1, int H2, int K,
+                                                 int U, int HP) {
+  return encfma::packed(Dims{C, H1, H2, K, U, HP}).total;
+}
+
+// Pack the torch weights (Conv1d (O, I, 3) / (K, H2, 1), Linear (HP, U) /
+// (K*K, HP); pw1 and pw2 unused where HP = 0) into dst.
+extern "C" int vqhmm_encoder_pack(const float* ew1, const float* ew2,
+                                  const float* ew3, const float* pw1,
+                                  const float* pw2, float* dst, int C, int H1,
+                                  int H2, int K, int U, int HP, void* stream) {
+  const Dims d{C, H1, H2, K, U, HP};
+  PackJobs jobs;
+  const int njobs = encfma::pack_jobs(d, ew1, ew2, ew3, pw1, pw2, jobs.j);
+  const long long total = encfma::packed(d).total;
+  if (total <= 0) return (int)cudaErrorInvalidValue;
+  encoder_pack_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                        (cudaStream_t)stream>>>(jobs, njobs, dst);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a block at tile width `tile`.
+extern "C" int vqhmm_fused_encode_smem_bytes(int C, int H1, int H2, int K,
+                                             int tile) {
+  return encfma::smem_bytes(Dims{C, H1, H2, K, 0, 0}, tile);
 }
 
 extern "C" int vqhmm_fused_encode(
-    const float* x, const int* valid_to, const float* ew1, const float* eb1,
-    const float* ew2, const float* eb2, const float* ew3, const float* eb3,
-    float* logits, int B, int C, int T, int H1, int H2, int K, void* stream) {
-  const int smem = vqhmm_fused_encode_smem_bytes(C, H1, H2, K);
-  const int tiles = (T + TILE - 1) / TILE;
+    const float* x, const int* valid_to, const float* packed_weights,
+    const float* eb1, const float* eb2, const float* eb3, float* logits,
+    int B, int C, int T, int H1, int H2, int K, int tile, void* stream) {
+  const Dims d{C, H1, H2, K, 0, 0};
+  const int smem = encfma::smem_bytes(d, tile);
+  if (!encfma::tile_ok(tile) || B <= 0 || T <= 0 || !encfma::layers_fit(d) ||
+      smem > encfma::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (T + tile - 1) / tile;
   const long long blocks = (long long)tiles * B;
-  if (B <= 0 || T <= 0 || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_encoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  EncoderWeights W{ew1, eb1, ew2, eb2, ew3, eb3};
-  fused_encoder_kernel<<<(unsigned)blocks, THREADS, smem,
-                         (cudaStream_t)stream>>>(x, valid_to, W, logits, C, T,
-                                                 H1, H2, K, tiles);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_encoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const encfma::Weights W{packed_weights, eb1, eb2, eb3, nullptr, nullptr};
+  const int G = H1 > H2 ? H1 : H2;
+  fused_encoder_kernel<<<(unsigned)blocks, encfma::block_threads(tile, G),
+                         smem, (cudaStream_t)stream>>>(x, valid_to, W, logits,
+                                                       d, T, tile, tiles);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,8 @@ One process a source makes the build as long as its slowest source
 (fused_train.cu) rather than the sum of all: on an H100 machine, 7.5 s
 against 15.2 s for a single nvcc over the first four sources.
 `build_log` keeps what ptxas printed (registers, shared memory and
-spills of each kernel).  The sources in the repository are the only
+spills of each kernel), also written beside the library and read back
+where a process finds the library built.  The sources in the repository are the only
 inputs; no PyTorch header is included, so the build takes seconds
 rather than minutes.  The library name carries a hash of the sources and
 of the `csrc/*.cuh` headers they share, so an edited kernel or header is
@@ -60,21 +61,26 @@ _SIGNATURES = {
     # B, C, T, U, H1, H2, K, HP, D, tile, splits, beta, stream
     "vqhmm_fused_train": [_P, _P, _L, _L, _L, _P] + [_P] * 18 + [_P] * 6
     + [_I] * 11 + [ctypes.c_float, _P],
-    # x, valid_to, 6 encoder weight arrays, logits, B, C, T, H1, H2, K,
-    # stream
-    "vqhmm_fused_encode": [_P] * 2 + [_P] * 6 + [_P] + [_I] * 6 + [_P],
-    # C, H1, H2, K -> dynamic shared memory bytes per block
-    "vqhmm_fused_encode_smem_bytes": [_I] * 4,
-    # x, u, u strides (batch, channel, time), valid_to, 6 encoder and 4
-    # prior weight arrays, log_obs, log_A, B, C, T, U, H1, H2, K, HP, stream
-    "vqhmm_fused_evidence": [_P, _P, _L, _L, _L, _P] + [_P] * 10 + [_P] * 2
-    + [_I] * 8 + [_P],
+    # 3 encoder and 2 prior weight arrays (or null), packed weights, C, H1,
+    # H2, K, U, HP, stream
+    "vqhmm_encoder_pack": [_P] * 6 + [_I] * 6 + [_P],
+    # x, valid_to, packed weights, 3 encoder biases, logits, B, C, T, H1,
+    # H2, K, tile, stream
+    "vqhmm_fused_encode": [_P] * 3 + [_P] * 3 + [_P] + [_I] * 7 + [_P],
+    # C, H1, H2, K, tile -> dynamic shared memory bytes per block
+    "vqhmm_fused_encode_smem_bytes": [_I] * 5,
+    # x, u, u strides (batch, channel, time), lengths (or null), packed
+    # weights, 3 encoder and 2 prior biases, log_obs, log_A, B, C, T, U,
+    # H1, H2, K, HP, tile, split, stream
+    "vqhmm_fused_evidence": [_P, _P, _L, _L, _L, _P, _P] + [_P] * 5
+    + [_P] * 2 + [_I] * 10 + [_P],
     # x, u, u strides, valid_to, lengths (or null), log_pi, 10 weight
     # arrays, backpointer scratch, states, B, C, T, U, H1, H2, K, HP, stream
     "vqhmm_fused_decode": [_P, _P, _L, _L, _L, _P, _P, _P] + [_P] * 10
     + [_P] * 2 + [_I] * 8 + [_P],
+    # C, H1, H2, K, U, HP, tile -> dynamic shared memory bytes per block
+    "vqhmm_fused_evidence_smem_bytes": [_I] * 7,
     # C, H1, H2, K, U, HP -> dynamic shared memory bytes per block
-    "vqhmm_fused_evidence_smem_bytes": [_I] * 6,
     "vqhmm_fused_decode_smem_bytes": [_I] * 6,
     # z, z strides (batch, channel, time), codebook, z_q, idx, B, T, M, D,
     # stream
@@ -84,7 +90,9 @@ _SIGNATURES = {
 # what
 _SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 11,
                     # C, H1, H2, K, D -> floats of the packed weights
-                    "vqhmm_fused_infer_packed_floats": [_I] * 5}
+                    "vqhmm_fused_infer_packed_floats": [_I] * 5,
+                    # C, H1, H2, K, U, HP -> floats of the packed weights
+                    "vqhmm_encoder_packed_floats": [_I] * 6}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -166,7 +174,10 @@ def library() -> ctypes.CDLL:
                                    + proc.stdout + proc.stderr)
             for o in objs:
                 o.unlink()
+            out.with_suffix(".log").write_text(build_log)
             os.replace(tmp, out)
+        elif out.with_suffix(".log").exists():
+            build_log = out.with_suffix(".log").read_text()
         lib = bind(ctypes.CDLL(str(out)))
         build_seconds = time.perf_counter() - t0
         _lib = lib

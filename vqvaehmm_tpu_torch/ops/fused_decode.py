@@ -16,8 +16,13 @@ sets out their designs and the bounds they meet):
   agree.
 
 `fused_evidence_reference` and `fused_viterbi_states_reference` are their
-plain PyTorch versions and `supported` their gate.  Both bound the
-encoder at the scalar max(lengths), as the model's exact modes do.
+plain PyTorch versions, `supported` their gate and `evidence_plan` the
+evidence kernel's launch plan (ops/fused_encoder.py::plan_for, with the
+encoder and the prior in blocks of their own where the grid is small).
+Both bound the encoder at the scalar max(lengths), as the model's exact
+modes do.  The evidence kernel reads the weights the encoder kernel's
+pack kernel lays out, kept a model (ops/fused_encoder.py::kernel_cache);
+the decode kernel reads the torch tensors.
 
 Dispatch is that of ops/fused_infer.py: `use_kernel=None` takes the
 kernel for a CUDA tensor and the plain version for a CPU tensor,
@@ -37,16 +42,17 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .fused_encoder import (TILE_ROW_FLOATS, check_x, encoder_weights,
-                            refuse_grad)
-from .fused_infer import SMEM_LIMIT, valid_to_rows
+from .fused_encoder import (TILES, check_x, encoder_dims, kernel_cache,
+                            layers_fit, plan_for, refuse_grad,
+                            smem_dims_bytes)
+from .fused_infer import H100_SMS, SMEM_LIMIT, valid_to_rows
 from .fused_train import _u_strides
 from .fused_viterbi import MAX_K
 from .hmm import viterbi
 
-# csrc/fused_decode.cu: row floats of the decode chunk (DWS; the evidence
-# tile's are TILE_ROW_FLOATS), and the decode kernel's static shared memory
-# (backpointers and states of one chunk)
+# csrc/fused_decode.cu: row floats of the decode chunk (DWS), and the
+# decode kernel's static shared memory (backpointers and states of one
+# chunk)
 _DECODE_ROW_FLOATS = 72
 _DECODE_STATIC_BYTES = 64 * MAX_K + 64 * 4
 
@@ -58,8 +64,14 @@ def _rows(cfg) -> int:
             + cfg.u_dim + cfg.trans_hidden + cfg.K * cfg.K)
 
 
-def evidence_smem_bytes(cfg) -> int:
-    return 4 * TILE_ROW_FLOATS * _rows(cfg)
+def evidence_smem_bytes(cfg, tile: int) -> int:
+    """Shared memory an evidence block uses at tile width `tile`
+    (csrc/fused_decode.cu::vqhmm_fused_evidence_smem_bytes)."""
+    return smem_dims_bytes(tile, encoder_dims(cfg, prior=True))
+
+
+def evidence_plan(cfg, B: int, T: int, sms: int = H100_SMS):
+    return plan_for(B, T, encoder_dims(cfg, prior=True), sms, can_split=True)
 
 
 def decode_smem_bytes(cfg) -> int:
@@ -69,12 +81,16 @@ def decode_smem_bytes(cfg) -> int:
 def supported(cfg, B: int, T: int) -> bool:
     """True when the evidence and decode kernels take this model on
     Hopper: float32 compute, u-conditioned transitions, at most MAX_K
-    regimes (int8 backpointers, delta in registers) and one block's rows
-    within a block's shared memory.  Both walk or tile the time axis, so T
+    regimes (int8 backpointers, delta in registers), every layer's slab of
+    one input channel within a weight buffer of the evidence kernel, and
+    one block's rows within a block's shared memory (the decode's chunk,
+    the evidence's narrowest tile).  Both walk or tile the time axis, so T
     sets no bound."""
     return (cfg.compute_dtype == "float32" and cfg.u_dim is not None
             and B >= 0 and T >= 0 and 1 <= cfg.K <= MAX_K
-            and decode_smem_bytes(cfg) + _DECODE_STATIC_BYTES <= SMEM_LIMIT)
+            and decode_smem_bytes(cfg) + _DECODE_STATIC_BYTES <= SMEM_LIMIT
+            and layers_fit(*encoder_dims(cfg, prior=True))
+            and evidence_smem_bytes(cfg, TILES[-1]) <= SMEM_LIMIT)
 
 
 def fused_evidence_reference(model, x: torch.Tensor, u: torch.Tensor,
@@ -96,16 +112,18 @@ def fused_viterbi_states_reference(model, x: torch.Tensor, u: torch.Tensor,
 
 
 def _prepare(model, x, u, lengths, what: str):
-    """Checks shared by the two kernels; (x, lengths int32 or None,
-    valid_to (B,) int32, the ten weight arrays)."""
+    """Checks shared by the two kernels; (x, lengths int32 or None)."""
     cfg = model.cfg
     check_x(model, x, what)
     B, C, T = x.shape
-    if not supported(cfg, B, T):
+    if not kernel_cache(model).supported("decode", cfg, supported):
         raise ValueError(
             f"{what} unsupported for {cfg}: it takes float32, 1 <= K <= "
-            f"{MAX_K} and at most {SMEM_LIMIT} bytes of shared memory a "
-            f"block (needs {decode_smem_bytes(cfg)}; see supported)")
+            f"{MAX_K}, layers whose slab of one input channel fits a weight "
+            f"buffer and at most {SMEM_LIMIT} bytes of shared memory a "
+            f"block (needs {decode_smem_bytes(cfg)} for the decode, "
+            f"{evidence_smem_bytes(cfg, TILES[-1])} for the evidence; see "
+            "supported)")
     if u.dtype != torch.float32 or u.device != x.device:
         raise ValueError(f"u must be float32 on {x.device}, got {u.dtype} "
                          f"on {u.device}")
@@ -120,19 +138,23 @@ def _prepare(model, x, u, lengths, what: str):
         if tuple(lens.shape) != (B,):
             raise ValueError(f"lengths must be ({B},), got "
                              f"{tuple(lens.shape)}")
-    # the encoder's bound is one scalar for the batch, kept on the device
-    vt = valid_to_rows(None if lens is None or B == 0 else lens.max(), B, T,
-                       x.device)
-    net = model.prior_module.transition_net
-    weights = encoder_weights(model, x.device)
-    for w in (net[0].weight, net[0].bias, net[2].weight, net[2].bias):
-        w = w.detach()
-        if w.device != x.device or w.dtype != torch.float32 \
+    return x.contiguous(), lens
+
+
+def _torch_weights(model, device):
+    """The ten arrays the decode kernel reads, in its order: the encoder's
+    (weight, bias) pairs, then the prior's."""
+    enc, net = model.encoder, model.prior_module.transition_net
+    weights = [w.detach() for w in (
+        enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias,
+        enc.to_logits.weight, enc.to_logits.bias, net[0].weight,
+        net[0].bias, net[2].weight, net[2].bias)]
+    for w in weights:
+        if w.device != device or w.dtype != torch.float32 \
                 or not w.is_contiguous():
             raise ValueError("model weights must be contiguous float32 on "
-                             f"{x.device} (got {w.dtype} on {w.device})")
-        weights.append(w)
-    return x.contiguous(), lens, vt, weights
+                             f"{device} (got {w.dtype} on {w.device})")
+    return weights
 
 
 def _dims(cfg, B: int, T: int):
@@ -161,14 +183,9 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
     cfg = model.cfg
     refuse_grad("fused evidence", x, [
         *model.encoder.parameters(), *model.prior_module.parameters(), u])
-    x, _, vt, weights = _prepare(model, x, u, lengths, "fused evidence")
+    x, lens = _prepare(model, x, u, lengths, "fused evidence")
     B, _, T = x.shape
     K = cfg.K
-    lib = _build.library()
-    if lib.vqhmm_fused_evidence_smem_bytes(*_smem_args(cfg)) \
-            != evidence_smem_bytes(cfg):
-        raise RuntimeError("fused_evidence kernel and wrapper disagree on "
-                           "the shared-memory layout")
     # K values used in no product: the TPU wrapper computes them outside
     # its kernel too (vqvaehmm_tpu/ops/pallas_train.py:382)
     log_pi = torch.log_softmax(model.prior_module.log_prior.detach(), dim=0)
@@ -176,15 +193,31 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
     log_A = torch.empty((B, T, K, K), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
         return log_pi, log_A, log_obs
-    err = lib.vqhmm_fused_evidence(
-        x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u), vt.data_ptr(),
-        *[w.data_ptr() for w in weights], log_obs.data_ptr(),
-        log_A.data_ptr(), *_dims(cfg, B, T),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fused_evidence kernel launch")
+    plan = kernel_cache(model).plan("evidence", encoder_dims(cfg, prior=True),
+                                    B, T, x.device, can_split=True)
+    _launch_evidence(model, x, u, lens, plan.tile, plan.split,
+                     (log_obs, log_A))
     with _count_lock:
         fused_evidence.launches += 1
     return log_pi, log_A, log_obs
+
+
+def _launch_evidence(model, x, u, lens, tile: int, split: bool,
+                     out) -> None:
+    """One launch of the evidence kernel at tile width `tile`, the encoder
+    and the prior in blocks of their own with `split`, into out = (log_obs,
+    log_A); lens (B,) int32 contiguous or None, whose maximum the kernel
+    bounds the encoder at.  It does not count: fused_evidence does."""
+    cfg = model.cfg
+    B, _, T = x.shape
+    packed, bs = kernel_cache(model).weights(model, x.device)
+    err = _build.library().vqhmm_fused_evidence(
+        x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u),
+        None if lens is None else lens.data_ptr(),
+        packed.data_ptr(), *[b.data_ptr() for b in bs], out[0].data_ptr(),
+        out[1].data_ptr(), *_dims(cfg, B, T), tile, int(split),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_evidence kernel launch")
 
 
 fused_evidence.launches = 0
@@ -203,8 +236,12 @@ def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "
                          "decode is a CUDA kernel")
     cfg = model.cfg
-    x, lens, vt, weights = _prepare(model, x, u, lengths, "fused decode")
+    x, lens = _prepare(model, x, u, lengths, "fused decode")
+    weights = _torch_weights(model, x.device)
     B, _, T = x.shape
+    # the encoder's bound is one scalar for the batch, kept on the device
+    vt = valid_to_rows(None if lens is None or B == 0 else lens.max(), B, T,
+                       x.device)
     if T == 0:
         raise ValueError("Viterbi decode of an empty sequence (T=0)")
     lib = _build.library()
