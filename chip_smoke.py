@@ -4,20 +4,26 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OLD NEW
     python3 chip_smoke.py --kernel-times DIR
+    python3 chip_smoke.py --scan-clocks
 
 Run from the root of a checkout, on a machine with one CUDA card.  It
 imports nothing of JAX.  With --compare it times the serving forward
-(kernel A), the fused training step (kernel C), the encoder (kernel 8) and
-the HMM evidence (kernel 11) of two checkouts of the port in turns (OLD,
+(kernel A), the fused training step (kernel C), the encoder (kernel 8),
+the HMM evidence (kernel 11), the one-kernel decode (kernel 10) and the
+Viterbi decode (kernel B) of two checkouts of the port in turns (OLD,
 NEW, NEW, OLD, each built and run in a process of its own: two versions
 are compared only on one card within one run) and prints the four JSON
-lines, the ratio of the device-busy times and, for kernels 8 and 11 at
-(64, 200), (1, 200), (460, 20) and (1, 2327), whether the two checkouts'
-outputs on fixed seeded inputs agree bit for bit (a SHA-256 of the output
-bytes); a checkout without git history is enough (`git archive <commit> |
-tar -x -C OLD`).  --kernel-times DIR is one such process; where the
+lines, the ratio of the device-busy times and, for kernels 8, 11, 10 and
+B (Viterbi) at (64, 200), (1, 200), (460, 20) and (1, 2327), whether the
+two checkouts' outputs on fixed seeded inputs agree bit for bit (a
+SHA-256 of the output bytes); a checkout without git history is enough
+(`git archive <commit> | tar -x -C OLD`).  --kernel-times DIR is one such process; where the
 checkout's evidence wrapper takes a forced tile and split, it also times
-every (tile, split) of kernel 11 at those shapes.  Without arguments it
+every (tile, split) of kernel 11 at those shapes.  --scan-clocks builds
+the kernels again into build/scan_clocks with kernels B and 10
+instrumented (thread 0 of block 0 reads the SM's clock after each phase of
+the scan) and prints the cycles of each phase at B = 1 over T and at the
+bulk shapes.  Without arguments it
 runs these phases, each printing one line, any failure
 exiting non-zero before a result is printed:
 
@@ -31,11 +37,15 @@ exiting non-zero before a result is printed:
    the same row computed alone, and the kernel at each of its tile
    widths (16, 32, 64) bit-equal to the others on the same inputs, also
    at widths whose 2C rows of output exceed every hidden width.
-4. kernel B (Viterbi) against its plain version at (B, T) in
-   {(1, 200), (64, 200), (1, 2327)}, K=3, ragged lengths, and log_A
-   given per sequence, per step and stationary: states equal, score
-   within 1e-5 relative (the two run the same float operations in the
-   same order).
+4. kernel B (Viterbi, the segmented max-plus scan of maxplus_scan.cuh)
+   at (B, T) in {(1, 200), (64, 200), (1, 2327), (460, 20)}, K=3, ragged
+   lengths, and log_A given per sequence, per step and stationary: states
+   and score bit-equal to its plain version (the segmented scan in plain
+   PyTorch, on the CPU) and to a second call; against the sequential
+   decode the score within 1e-4 absolute or 32 float32 roundings of it
+   (the scan reassociates the sums at segment boundaries), the states
+   equal or a path scoring within that of the optimum; a row of a batch
+   bit-equal to the row alone.
 5. serving: the published checkpoint behind the stdlib HTTP server on the
    card; /health, /infer in all four modes, /predict, and a wrong-shape
    request that must get a 400.  Every response is held against the same
@@ -48,9 +58,10 @@ exiting non-zero before a result is printed:
    forward, the Viterbi kernel and the evidence kernel are reset before
    this phase and must be non-zero after it.
 6. times: each kernel and its plain version with CUDA events, median of 5
-   windows with [min, max]; kernel A at (64, 200), (1, 200), (1, 37) and
-   (8, 512) also as device-busy time a call on the profiler, with its
-   share of the bound.
+   windows with [min, max], and as device-busy time a call on the
+   profiler, with the kernel's share of its bound: kernel A at (64, 200),
+   (1, 200), (1, 37) and (8, 512), kernel B at (64, 200), (1, 200),
+   (460, 20) and (1, 2327).
 7. kernel C (fused loss and all 18 gradients) against its plain version
    (compute_loss plus autograd) on the card: the published weights at
    (B, T) in {(64, 200), (8, 200)} with ragged lengths, a case with every
@@ -102,11 +113,13 @@ exiting non-zero before a result is printed:
    within 1e-5 of the plain version at five shapes with a live valid_to
    bound, with the published weights (HP above H1) and at widths where H2
    or K * K exceed the other hidden widths.
-14. kernel 10 (one-kernel decode) against its plain version and against
-   kernel 11 feeding kernel B: states equal, or the path's score under
-   the plain evidence within 1e-4 absolute of the optimum's, or 32
-   float32 roundings of that score, where two paths tie; the path frozen
-   past each length.
+14. kernel 10 (one-kernel decode: kernel 11's evidence on persistent
+   blocks of a cooperative launch, kernel B's segmented scan) at (64,
+   200), (8, 200), (1, 2327), (460, 20) and (1, 200): states bit-equal to
+   kernel 11 feeding kernel B and to a second call; against its plain
+   version equal, or the path's score under the plain evidence within
+   1e-4 absolute of the optimum's, or 32 float32 roundings of that score,
+   where two paths tie; the path frozen past each length.
 15. bulk scoring at full width with the quality checkpoint and the
    committed Improved head: features from the fixture panel through
    data/market.py; `evaluate`; `Backtester.run(rebalance_freq=5)` with the
@@ -117,20 +130,21 @@ exiting non-zero before a result is printed:
    within 1e-5 relative, the weight schedule within 1e-5, every metric
    within 1e-4 relative (the ledger is float64 on the host in both), the
    decoded panel equal or explained by a score tie.  The launch counters
-   of kernels 8, 10 and 11 are reset before the entry points are called
-   and read just after them; nothing else launches a kernel in between
-   (the decoded panels are recorded inside the closures the entry points
-   call), and the counts must be exactly what those calls imply: kernel 8
-   once a Backtester.run that trades and once an argmax decode of the
-   panel, kernels 10 and 11 once each.  After the counts are read, kernel
+   of kernels 8, 10, 11 and B are reset before the entry points are
+   called and read just after them; nothing else launches a kernel in
+   between (the decoded panels are recorded inside the closures the entry
+   points call), and the counts must be exactly what those calls imply:
+   kernel 8 once a Backtester.run that trades and once an argmax decode
+   of the panel, kernels 10, 11 and B once each.  After the counts are read, kernel
    8 is also held against its plain version on the backtest's own stack
    of windows with the quality weights.
-16. times: the three kernels and their plain versions at (64, 200),
-   (460, 20), (1, 2327) and (1, 200), back to back with CUDA events (which holds
-   the host's launch rate for a kernel of a few tens of microseconds)
-   and as device-busy time a call on the profiler; the wall time of one
-   `Backtester.run`, split into its parts, and of one whole-panel decode
-   three ways.
+16. times: the three kernels, kernel B on kernel 11's evidence, and
+   their plain versions at (64, 200), (460, 20), (1, 2327) and (1, 200),
+   back to back with CUDA events (which holds the host's launch rate for
+   a kernel of a few tens of microseconds) and as device-busy time a call
+   on the profiler, kernels B and 10 with their share of the bound; the
+   wall time of one `Backtester.run`, split into its parts, and of one
+   whole-panel decode three ways.
 
 17. kernel 9 (nearest code of the VQ family) against its plain version
    with the committed VQ archive's encoder and codebook: the latents of
@@ -427,35 +441,65 @@ def viterbi_inputs(torch, np, rng, B, T, K, dev, a_shape):
 
 
 def phase_kernel_b(torch, np, dev):
-    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import (
+        viterbi_fused, viterbi_segmented_reference)
 
     rng = np.random.default_rng(1)
     K = 3
-    worst = 0.0
+    worst, ties = 0.0, 0
     n0 = viterbi_fused.launches
     cases = [(1, 200, "B,T"), (64, 200, "B,T"), (1, 2327, "B,T"),
-             (64, 200, "T"), (64, 200, "stationary")]
+             (460, 20, "B,T"), (64, 200, "T"), (64, 200, "stationary")]
     for B, T, kind in cases:
         a_shape = {"B,T": (B, T), "T": (T,), "stationary": ()}[kind]
         args = viterbi_inputs(torch, np, rng, B, T, K, dev, a_shape)
         got = viterbi_fused(*args, use_kernel=True)
+        again = viterbi_fused(*args, use_kernel=True)
         want = viterbi_fused(*args, use_kernel=False)
         torch.cuda.synchronize()
-        if not torch.equal(got.states, want.states):
-            n = int((got.states != want.states).sum())
-            fail(f"kernel B states differ at {n} steps (B={B} T={T} "
-                 f"log_A {kind})")
-        rel = float(((got.score.double() - want.score.double()).abs()
-                     / want.score.double().abs().clamp(min=1.0)).max())
+        what = f"B={B} T={T} log_A {kind}"
+        seg = viterbi_segmented_reference(*(a.cpu() for a in args))
+        if not (torch.equal(got.states.cpu(), seg.states)
+                and torch.equal(got.score.cpu(), seg.score)):
+            fail(f"kernel B differs from its plain version (the segmented "
+                 f"scan) at {int((got.states.cpu() != seg.states).sum())} "
+                 f"steps or in its score at {what}")
+        if not (torch.equal(again.states, got.states)
+                and torch.equal(again.score, got.score)):
+            fail(f"kernel B: a second call gave other bits at {what}")
+        # against the sequential decode: the score to float roundings, the
+        # states equal or tied
+        tol = torch.clamp(TIE_ULPS * torch.finfo(torch.float32).eps
+                          * want.score.double().abs(), min=TIE_ATOL)
+        excess = float(((got.score.double() - want.score.double()).abs()
+                        / tol).max())
         worst = max(worst, max_abs(got.score, want.score))
-        if rel > 1e-5:
-            fail(f"kernel B score relative error {rel:.3e} > 1e-5 "
-                 f"(B={B} T={T})")
-    if viterbi_fused.launches - n0 != len(cases):
+        evidence = (args[0], args[1].expand(B, T, K, K), args[2])
+        gap, tie_excess = _tie_gap(torch, evidence, got.states, want.states,
+                                   args[3])
+        ties += int((got.states != want.states).any(dim=1).sum())
+        if max(excess, tie_excess) > 1.0:
+            fail(f"kernel B against the sequential decode at {what}: score "
+                 f"{excess:.2f} and path {tie_excess:.2f} times the "
+                 f"tolerance of a tie ({TIE_ATOL:g} or {TIE_ULPS} float32 "
+                 "roundings of the score)")
+    if viterbi_fused.launches - n0 != 2 * len(cases):
         fail(f"kernel B launched {viterbi_fused.launches - n0} times for "
-             f"{len(cases)} cases")
-    say("kernel B", f"states equal and scores within 1e-5 relative in "
-        f"{len(cases)} cases (max-abs score error {worst:.3e})")
+             f"{2 * len(cases)} calls")
+    # a row of a batch is bit-equal to the row alone (not counted)
+    args = viterbi_inputs(torch, np, rng, 64, 200, K, dev, (64, 200))
+    batched = viterbi_fused(*args, use_kernel=True)
+    for i in (0, 1, 31, 63):
+        solo = viterbi_fused(args[0], args[1][i:i + 1], args[2][i:i + 1],
+                             args[3][i:i + 1], use_kernel=True)
+        if not (torch.equal(batched.states[i:i + 1], solo.states)
+                and torch.equal(batched.score[i:i + 1], solo.score)):
+            fail(f"kernel B row {i} of B=64 T=200: batched != solo")
+    say("kernel B", f"bit-equal to its plain version (the segmented scan) "
+        f"and to a second call in {len(cases)} cases; against the "
+        f"sequential decode the scores within the tie tolerance (max-abs "
+        f"{worst:.3e}) and {ties} rows' paths tied within it; batched rows "
+        "bit-equal to solo rows")
     return worst
 
 
@@ -629,7 +673,8 @@ A_SHAPES = ((64, 200), (1, 200), (1, 37), (8, 512))
 def phase_times(torch, np, model):
     from vqvaehmm_tpu_torch.ops import fused_infer
     from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
-    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import (viterbi_fused,
+                                                      viterbi_plan)
 
     dev = model.device
     cfg = model.cfg
@@ -644,18 +689,29 @@ def phase_times(torch, np, model):
                                            use_kernel=use)
                 res[("fused_infer", B, T, use)] = _time(torch, fn) + (
                     _device_ms(torch, fn, 10 if use else 3),)
-        for B in (64, 1):
-            T = 200
+        for B, T in BULK_SHAPES:
             args = viterbi_inputs(torch, np, rng, B, T, cfg.K, dev, (B, T))
             for use in (False, True):
+                fn = lambda: viterbi_fused(*args, use_kernel=use)  # noqa
                 res[("viterbi", B, T, use)] = _time(
-                    torch, lambda: viterbi_fused(*args, use_kernel=use),
-                    iters=50 if use else 3) + (None,)
+                    torch, fn, iters=50 if use else 1) + (
+                    _device_ms(torch, fn, 10 if use else 1),)
     for (name, B, T, use), (med, lo, hi, dev_ms) in res.items():
         line = (f"{name} {'kernel' if use else 'plain '} B={B} T={T}: "
-                f"{med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back")
+                f"{med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back; device "
+                f"busy {_ms(dev_ms)} a call (profiler)")
+        if name == "viterbi" and use:
+            bound = kernel_bounds(model, B, T)[name][0]
+            plan = viterbi_plan(B, T, cfg.K, False,
+                                torch.cuda.get_device_properties(
+                                    0).multi_processor_count)
+            line += (f", bound {bound:.3e} ms"
+                     + ("" if dev_ms is None else
+                        f" ({100 * bound / dev_ms:.2f}% of it)")
+                     + f"; {plan.blocks} blocks of {plan.threads} threads, "
+                     f"{plan.lanes} a sequence, {plan.smem} bytes of shared "
+                     "memory")
         if name == "fused_infer":
-            line += f"; device busy {_ms(dev_ms)} a call (profiler)"
             if use:
                 bound = kernel_bounds(model, B, T)[name][0]
                 plan = fused_infer.launch_plan(
@@ -1295,18 +1351,22 @@ def _tie_gap(torch, evidence, got, want, lens):
 
 
 def phase_kernel_10(torch, np, model):
-    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+    from vqvaehmm_tpu_torch.ops.fused_decode import (decode_plan,
+                                                     fused_evidence,
                                                      fused_viterbi_states)
     from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
 
     rng = np.random.default_rng(14)
     cases = [(64, 200, True, False), (8, 200, True, True),
-             (1, 2327, False, False)]
+             (1, 2327, False, False), (460, 20, True, True),
+             (1, 200, True, False)]
     worst, ties = 0.0, 0
     n0 = fused_viterbi_states.launches
+    plans = []
     for B, T, ragged, btu in cases:
         x, u, lens = decode_inputs(torch, np, rng, model, B, T, ragged, btu)
         got = fused_viterbi_states(model, x, u, lens, use_kernel=True)
+        again = fused_viterbi_states(model, x, u, lens, use_kernel=True)
         plain = fused_viterbi_states(model, x, u, lens, use_kernel=False)
         ev = fused_evidence(model, x, u, lens, use_kernel=True)
         staged = viterbi_fused(*ev, lens, use_kernel=True).states
@@ -1315,16 +1375,19 @@ def phase_kernel_10(torch, np, model):
         if got.dtype != torch.int32 or tuple(got.shape) != (B, T) or \
                 int(got.min()) < 0 or int(got.max()) >= model.cfg.K:
             fail(f"kernel 10 states misshapen or out of range at {what}")
-        plain_ev = fused_evidence(model, x, u, lens, use_kernel=False)
-        for name, other in (("plain", plain), ("kernel 11 -> kernel B",
-                                               staged)):
-            if torch.equal(got, other):
-                continue
-            gap, excess = _tie_gap(torch, plain_ev, got, other, lens)
+        # the evidence of kernel 11 and the scan of kernel B: their bits
+        if not torch.equal(got, staged):
+            fail(f"kernel 10 differs from kernel 11 -> kernel B at "
+                 f"{int((got != staged).sum())} steps at {what}")
+        if not torch.equal(again, got):
+            fail(f"kernel 10: a second call gave other states at {what}")
+        if not torch.equal(got, plain):
+            plain_ev = fused_evidence(model, x, u, lens, use_kernel=False)
+            gap, excess = _tie_gap(torch, plain_ev, got, plain, lens)
             worst, ties = max(worst, gap), ties + 1
             if excess > 1.0:
-                fail(f"kernel 10 differs from {name} at "
-                     f"{int((got != other).sum())} steps and scores "
+                fail(f"kernel 10 differs from its plain version at "
+                     f"{int((got != plain).sum())} steps and scores "
                      f"{gap:.3e} apart, {excess:.1f} times the tolerance "
                      f"of a tie, at {what}")
         if lens is not None:
@@ -1333,13 +1396,17 @@ def phase_kernel_10(torch, np, model):
                 if not bool((got[b, L:] == got[b, L - 1]).all()):
                     fail(f"kernel 10 path not frozen past length {L} in "
                          f"row {b} at {what}")
-    if fused_viterbi_states.launches - n0 != len(cases):
+        p = decode_plan(model, B, T, x.device)
+        plans.append(f"({B}, {T}): tile {p.tile}, {p.grid} blocks of "
+                     f"{p.threads}, {p.ntb} tile(s) a block, {p.smem} bytes")
+    if fused_viterbi_states.launches - n0 != 2 * len(cases):
         fail(f"kernel 10 launched {fused_viterbi_states.launches - n0} "
-             f"times for {len(cases)} cases")
-    say("kernel 10", f"{len(cases)} cases against plain and against kernel "
-        f"11 -> kernel B: states equal except {ties} comparisons tied "
-        f"within {worst:.3e} of score (tol {TIE_ATOL:g} or {TIE_ULPS} "
-        "float32 roundings of the score); tails frozen")
+             f"times for {2 * len(cases)} calls")
+    say("kernel 10", f"{len(cases)} cases: states bit-equal to kernel 11 -> "
+        f"kernel B and to a second call; against the plain version equal "
+        f"except {ties} cases tied within {worst:.3e} of score (tol "
+        f"{TIE_ATOL:g} or {TIE_ULPS} float32 roundings of the score); tails "
+        "frozen; plans " + "; ".join(plans))
     return worst
 
 
@@ -1407,6 +1474,7 @@ def phase_bulk(torch, np):
     from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
                                                      fused_viterbi_states)
     from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
 
     t0 = time.perf_counter()
     prices, regime, _ = market.load_fixture_frames(FIXTURE)
@@ -1430,6 +1498,7 @@ def phase_bulk(torch, np):
     fused_encode.launches = 0
     fused_evidence.launches = 0
     fused_viterbi_states.launches = 0
+    viterbi_fused.launches = 0
     tmp = tempfile.mkdtemp(prefix="chip_smoke_bulk_")
     try:
         mse = {d: evaluate(QUALITY_CONFIG, QUALITY_CHECKPOINT, seqs,
@@ -1537,9 +1606,10 @@ def phase_bulk(torch, np):
     # touches a kernel
     launches = {"fused_encode": fused_encode.launches,
                 "fused_evidence": fused_evidence.launches,
-                "fused_decode": fused_viterbi_states.launches}
+                "fused_decode": fused_viterbi_states.launches,
+                "viterbi": viterbi_fused.launches}
     expected = {"fused_encode": runs + panel_decodes, "fused_evidence": 1,
-                "fused_decode": 1}
+                "fused_decode": 1, "viterbi": 1}
     if launches != expected:
         fail(f"the bulk path launched {launches}; its {runs} trading "
              f"Backtester.run calls, {panel_decodes} argmax decode of the "
@@ -1643,6 +1713,7 @@ def phase_bulk_times(torch, np, model, bulk):
     from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
                                                      fused_viterbi_states)
     from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
 
     rng = np.random.default_rng(16)
     res = {}
@@ -1665,10 +1736,22 @@ def phase_bulk_times(torch, np, model, bulk):
             fn = lambda: model.viterbi_decode(x, u)          # noqa: E731
             res[("two_stage", B, T, True)] = _time(torch, fn, iters=20) \
                 + (_device_ms(torch, fn),)
+            # kernel B on kernel 11's evidence: the two-stage decode's second
+            # launch
+            ev = fused_evidence(model, x, u)
+            for use in (False, True):
+                fn = lambda: viterbi_fused(*ev, use_kernel=use)  # noqa: E731
+                res[("viterbi", B, T, use)] = _time(
+                    torch, fn, iters=50 if use else 1) + (
+                    _device_ms(torch, fn, 10 if use else 1),)
     for (name, B, T, use), (med, lo, hi, dev_ms) in res.items():
-        say("times", f"{name} {'kernel' if use else 'plain '} B={B} T={T}: "
-            f"{med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back; device busy "
-            f"{_ms(dev_ms)} a call (profiler)")
+        line = (f"{name} {'kernel' if use else 'plain '} B={B} T={T}: "
+                f"{med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back; device "
+                f"busy {_ms(dev_ms)} a call (profiler)")
+        if use and name in ("viterbi", "fused_decode") and dev_ms:
+            bound = kernel_bounds(model, B, T)[name][0]
+            line += f", bound {bound:.3e} ms ({100 * bound / dev_ms:.2f}%)"
+        say("times", line)
 
     # one Backtester.run on the card, and its parts
     gpu, bt, panel = bulk["gpu"], bulk["bt"], bulk["panel"]
@@ -2327,20 +2410,23 @@ def _sha(torch, *tensors) -> str:
 
 
 def kernel_times(torch, np, root: str) -> dict:
-    """Kernel A at A_SHAPES, kernel C at C_SHAPES and kernels 8 and 11 at
-    BULK_SHAPES with the package of the checkout at `root` (its kernels
-    built there): back-to-back CUDA-event ms and device-busy ms a call, the
-    published weights (fresh weights from a seed at the probe shape); for
-    8 and 11 also a SHA-256 of the output bytes from fixed seeded inputs.
+    """Kernel A at A_SHAPES, kernel C at C_SHAPES and kernels 8, 11, 10
+    and B at BULK_SHAPES with the package of the checkout at `root` (its
+    kernels built there): back-to-back CUDA-event ms and device-busy ms a
+    call, the published weights (fresh weights from a seed at the probe
+    shape); for 8, 11, 10 and B also a SHA-256 of the output bytes from
+    fixed seeded inputs.
     Where the checkout's wrappers take a forced tile (and split), every
     tile of kernel 8 and (tile, split) of kernel 11 is timed at each bulk
     shape too."""
     sys.path.insert(0, root)
     from vqvaehmm_tpu_torch.ops import fused_decode, fused_encoder
-    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states)
     from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
     from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
     from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
 
     dev = torch.device("cuda")
     model = load_published(torch, dev)
@@ -2370,11 +2456,17 @@ def kernel_times(torch, np, root: str) -> dict:
             x, u, lens = train_inputs(torch, np, g, B, T,
                                       model.cfg.input_dim, model.cfg.u_dim,
                                       dev, short=max(1, T - 3))
+            vargs = viterbi_inputs(torch, np, g, B, T, model.cfg.K, dev,
+                                   (B, T))
             for key, fn in (
                     (f"8 {B}x{T}", lambda: fused_encode(
                         model, x, valid_to=lens, use_kernel=True)),
                     (f"11 {B}x{T}", lambda: fused_evidence(
-                        model, x, u, lens, use_kernel=True))):
+                        model, x, u, lens, use_kernel=True)),
+                    (f"10 {B}x{T}", lambda: fused_viterbi_states(
+                        model, x, u, lens, use_kernel=True)),
+                    (f"B {B}x{T}", lambda: viterbi_fused(
+                        *vargs, use_kernel=True))):
                 res = fn()
                 out[key] = {"events_ms": _time(torch, fn)[0],
                             "device_ms": _device_ms(torch, fn),
@@ -2440,6 +2532,124 @@ def compare_checkouts(old: str, new: str) -> int:
     return 0
 
 
+# the scan kernels' sources, the barrier each phase of the instrumented
+# copy ends at, and its clocks' symbol (see scan_clocks)
+_CLOCKED = (("viterbi.cu", "viterbi_kernel(", "__syncthreads();", 2,
+             "scan_clk_b"),
+            ("fused_decode.cu", "fused_decode_kernel(const float",
+             "grid.sync();", 1, "scan_clk_10"))
+
+
+def _clocked_source(text, marker, barrier, first, sym):
+    """The kernel at `marker` with thread 0 of block 0 reading clock64()
+    after each of its barriers from the `first`-th on, and at its end: the
+    cycles of each phase go to the device array `sym`."""
+    out, seen, inside = [], 0, False
+    for line in text.split("\n"):
+        inside = inside or marker in line
+        out.append(line)
+        if inside and line.strip().startswith("extern __shared__"):
+            out.append("  long long acc_[8] = {0}; long long last_ = "
+                       "clock64(); const bool rec_ = blockIdx.x == 0 && "
+                       "threadIdx.x == 0;")
+        elif inside and line.strip().startswith(barrier) \
+                and 0 <= seen + 1 - first < 7:
+            seen += 1
+            out.append(f"  if (rec_) {{ long long now_ = clock64(); "
+                       f"acc_[{seen - first}] += now_ - last_; last_ = now_; }}")
+        elif inside and line.strip().startswith(barrier):
+            seen += 1
+        elif inside and line.startswith("}"):
+            out[-1:] = ["  __syncthreads();",
+                        "  if (rec_) { acc_[7] = clock64() - last_; "
+                        f"for (int k = 0; k < 8; ++k) {sym}[k] = acc_[k]; }}",
+                        "}"]
+            inside = False
+    text = "\n".join(out).replace(
+        "namespace {\n", f"__device__ long long {sym}[8];\nnamespace {{\n", 1)
+    return text + (f'\nextern "C" int read_{sym}(long long* out) {{ return '
+                   f'(int)cudaMemcpyFromSymbol(out, {sym}, 64); }}\n')
+
+
+def scan_clocks(torch, np) -> int:
+    """Where the time of kernels B and 10 goes: the library built again into
+    build/scan_clocks with the two scan kernels instrumented (thread 0 of
+    block 0 reads the SM's clock after each phase's barrier), then the
+    cycles of each phase at B = 1 over T and at the bulk shapes, with the
+    device-busy time a call of the uninstrumented kernel B beside them."""
+    import ctypes
+
+    from vqvaehmm_tpu_torch.ops import _build
+    from vqvaehmm_tpu_torch.ops.fused_decode import (decode_plan,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import (viterbi_fused,
+                                                      viterbi_plan)
+
+    dev = torch.device("cuda")
+    plain_lib = _build.library()
+    out_dir = os.path.join(ROOT, "build", "scan_clocks")
+    os.makedirs(out_dir, exist_ok=True)
+    objs, procs = [], []
+    for src in _build.sources():
+        path = str(src)
+        for name, marker, barrier, first, sym in _CLOCKED:
+            if src.name == name:
+                path = os.path.join(out_dir, name)
+                with open(path, "w") as f:
+                    f.write(_clocked_source(src.read_text(), marker, barrier,
+                                            first, sym))
+        objs.append(os.path.join(out_dir, src.name + ".o"))
+        procs.append(subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-c", path, "-o", objs[-1]], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    for proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            fail(f"the instrumented build failed:\n{log[-3000:]}")
+    lib_path = os.path.join(out_dir, "libscan_clocks.so")
+    subprocess.run([_build._nvcc(), "-shared", "-o", lib_path, *objs],
+                   check=True)
+    lib = _build.bind(ctypes.CDLL(lib_path))
+    for _, _, _, _, sym in _CLOCKED:
+        getattr(lib, f"read_{sym}").argtypes = [ctypes.c_void_p]
+    model = load_published(torch, dev)
+    rng = np.random.default_rng(5)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip(), flush=True)
+    shapes = [(1, 40), (1, 200), (1, 600), (1, 1200), (1, 2327), (1, 4654),
+              (64, 200), (460, 20)]
+    with torch.inference_mode():
+        for B, T in shapes:
+            args = viterbi_inputs(torch, np, rng, B, T, model.cfg.K, dev,
+                                  (B, T))
+            _build._lib = plain_lib
+            busy = _device_ms(torch, lambda: viterbi_fused(*args))
+            _build._lib = lib
+            x, u, _ = decode_inputs(torch, np, rng, model, B, T, False, False)
+            for name, fn, sym, what in (
+                    ("B", lambda: viterbi_fused(*args), "scan_clk_b",
+                     "stage, (a), (b), (c), the final state, (d) and (e)"),
+                    ("10", lambda: fused_viterbi_states(model, x, u),
+                     "scan_clk_10", "evidence and (a), (b), (c), (d), (e)")):
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                clk = (ctypes.c_longlong * 8)()
+                getattr(lib, f"read_{sym}")(clk)
+                n = 5 if name == "B" else 4
+                plan = (viterbi_plan(B, T, model.cfg.K, False) if name == "B"
+                        else decode_plan(model, B, T, dev))
+                say("scan clocks", f"kernel {name} B={B} T={T}: cycles of "
+                    f"{what}: {list(clk)[:n] + [clk[7]]}; {plan}"
+                    + (f"; uninstrumented, device busy {_ms(busy)} a call"
+                       if name == "B" else ""))
+    _build._lib = plain_lib
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2467,9 +2677,12 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--compare"] and len(sys.argv) == 4:
         return compare_checkouts(*map(os.path.abspath, sys.argv[2:]))
+    if sys.argv[1:] == ["--scan-clocks"]:
+        sys.path.insert(0, ROOT)
+        return scan_clocks(torch, np)
     if sys.argv[1:]:
-        print("usage: chip_smoke.py [--kernel-times DIR | --compare OLD NEW]",
-              flush=True)
+        print("usage: chip_smoke.py [--kernel-times DIR | --compare OLD NEW "
+              "| --scan-clocks]", flush=True)
         return 2
     sys.path.insert(0, ROOT)
 
@@ -2504,6 +2717,9 @@ def main() -> int:
             "train_weight_grad_kernel", "train_reduce_kernel",
             "fused_encoder_kernel", "encoder_pack_kernel",
             "fused_evidence_kernel"))))
+    say("build", "the scan kernels at K = 3 (Viterbi, one-kernel decode): "
+        + "; ".join(kernel_resources(_build.build_log, (
+            "viterbi_kernelILi3E", "fused_decode_kernelILi3E"))))
 
     dev = torch.device("cuda")
     model = load_published(torch, dev)
@@ -2569,7 +2785,10 @@ def main() -> int:
          "plain_ms": times[("viterbi", 64, 200, False)][0],
          "bound_ms": bounds["viterbi"][0],
          "bound_by": bounds["viterbi"][1], "library_ms": None,
-         "shape": "B=64 T=200"},
+         "shape": "B=64 T=200",
+         "device_ms": times[("viterbi", 64, 200, True)][3],
+         "plain_device_ms": times[("viterbi", 64, 200, False)][3],
+         "bulk_launches": bulk_launches["viterbi"]},
         {"name": "fused_train", "route": "cuda",
          "source": "vqvaehmm_tpu_torch/csrc/fused_train.cu",
          "replaces": "vqvaehmm_tpu/ops/pallas_train.py:82",
@@ -2654,6 +2873,12 @@ def main() -> int:
                     "fused_infer"][0]
     kernels[2]["bound_ms_8x200"] = kernel_bounds(model, 8, 200)[
         "fused_train"][0]
+    for B, T in BULK_SHAPES[1:]:
+        k = kernels[1]
+        k[f"ms_{B}x{T}"] = times[("viterbi", B, T, True)][0]
+        k[f"plain_ms_{B}x{T}"] = times[("viterbi", B, T, False)][0]
+        k[f"device_ms_{B}x{T}"] = times[("viterbi", B, T, True)][3]
+        k[f"bound_ms_{B}x{T}"] = kernel_bounds(model, B, T)["viterbi"][0]
     for k in kernels:
         # the VQ family's paths through the kernels of earlier slices
         if k["name"] == "gather":

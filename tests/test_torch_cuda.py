@@ -18,8 +18,8 @@ import torch
 from vqvaehmm_tpu_torch import ModelConfig, VAEHMM
 from vqvaehmm_tpu_torch.ops.fused_infer import (SMEM_LIMIT, fused_forward,
                                                 fused_forward_reference)
-from vqvaehmm_tpu_torch.ops.fused_viterbi import (viterbi_fused,
-                                                  viterbi_reference)
+from vqvaehmm_tpu_torch.ops.fused_viterbi import (
+    viterbi_fused, viterbi_reference, viterbi_segmented_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -142,26 +142,107 @@ def test_fused_forward_shared_memory_bound(cuda):
         fused_forward(model, x)
 
 
+def _assert_map_path(evidence, got, want, lengths):
+    """got.score within 1e-4 absolute or 32 float32 roundings of
+    want.score, and got.states equal to want.states or a path that scores
+    within that tolerance of want's under the same evidence (a tie)."""
+    log_pi, log_A, log_obs = evidence
+    B, T, K = log_obs.shape
+    log_A = log_A.expand(B, T, K, K)
+    full = torch.full((B,), T, device=log_obs.device) if lengths is None \
+        else lengths.long()
+    tol = torch.clamp(32 * torch.finfo(torch.float32).eps
+                      * want.score.double().abs(), min=1e-4)
+    assert bool(((got.score.double() - want.score.double()).abs()
+                 <= tol).all()), (got.score, want.score)
+    if not torch.equal(got.states, want.states):
+        sg = _path_scores(log_pi, log_A, log_obs, got.states, full).double()
+        sw = _path_scores(log_pi, log_A, log_obs, want.states, full).double()
+        assert bool(((sg - sw).abs() <= tol).all()), (sg, sw)
+
+
+def _viterbi_case(dev, K, B, T):
+    rng = np.random.default_rng(K * 100 + T)
+    log_pi = torch.log_softmax(torch.randn(K, generator=torch.Generator()
+                                           .manual_seed(K)), 0).to(dev)
+    log_A = torch.from_numpy(np.log(rng.dirichlet(np.ones(K),
+                                                  size=(B, T, K)))
+                             .astype(np.float32)).to(dev)
+    log_obs = torch.from_numpy((2 * rng.normal(size=(B, T, K)))
+                               .astype(np.float32)).to(dev)
+    lens = torch.from_numpy(rng.integers(1, T + 1, size=B)
+                            .astype(np.int32)).to(dev)
+    return log_pi, log_A, log_obs, lens
+
+
 @pytest.mark.parametrize("K", [1, 2, 3, 5, 8])
 @pytest.mark.parametrize("B,T", [(1, 1), (4, 129), (33, 300)])
 def test_viterbi_matches_plain(cuda, K, B, T):
-    rng = np.random.default_rng(K * 100 + T)
-    log_pi = torch.log_softmax(torch.randn(K, generator=torch.Generator()
-                                           .manual_seed(K)), 0).to(cuda)
-    log_A = torch.from_numpy(np.log(rng.dirichlet(np.ones(K),
-                                                  size=(B, T, K)))
-                             .astype(np.float32)).to(cuda)
-    log_obs = torch.from_numpy((2 * rng.normal(size=(B, T, K)))
-                               .astype(np.float32)).to(cuda)
-    lens = torch.from_numpy(rng.integers(1, T + 1, size=B)
-                            .astype(np.int32)).to(cuda)
+    """Kernel B runs the segmented scan: bit-equal to its plain version
+    (viterbi_segmented_reference, on the CPU), and against the sequential
+    decode the scores agree to float roundings and the states are equal
+    or tie; a second call gives the same bits."""
+    log_pi, log_A, log_obs, lens = _viterbi_case(cuda, K, B, T)
     for la in (log_A, log_A[0], log_A[0, 0]):
         for ln in (None, lens):
             got = viterbi_fused(log_pi, la, log_obs, ln)
-            want = viterbi_reference(log_pi, la, log_obs, ln)
-            assert torch.equal(got.states, want.states)
-            torch.testing.assert_close(got.score, want.score, rtol=1e-6,
-                                       atol=0)
+            seg = viterbi_segmented_reference(
+                log_pi.cpu(), la.cpu(), log_obs.cpu(),
+                None if ln is None else ln.cpu())
+            assert torch.equal(got.states.cpu(), seg.states)
+            assert torch.equal(got.score.cpu(), seg.score)
+            _assert_map_path((log_pi, la, log_obs), got,
+                             viterbi_reference(log_pi, la, log_obs, ln), ln)
+            again = viterbi_fused(log_pi, la, log_obs, ln)
+            assert torch.equal(again.states, got.states)
+            assert torch.equal(again.score, got.score)
+
+
+@pytest.mark.parametrize("B,T,K", [(64, 200, 3), (460, 20, 3),
+                                   (3, 2327, 3), (5, 300, 8)])
+def test_viterbi_rows_independent(cuda, B, T, K):
+    """A row of a batch is bit-equal to the row decoded alone: the
+    segments and the fold are functions of T alone, whatever the plan puts
+    in a block."""
+    log_pi, log_A, log_obs, lens = _viterbi_case(cuda, K, B, T)
+    batched = viterbi_fused(log_pi, log_A, log_obs, lens)
+    for i in range(B) if B <= 8 else (0, 1, B // 2, B - 1):
+        solo = viterbi_fused(log_pi, log_A[i:i + 1], log_obs[i:i + 1],
+                             lens[i:i + 1])
+        assert torch.equal(batched.states[i:i + 1], solo.states)
+        assert torch.equal(batched.score[i:i + 1], solo.score)
+
+
+@pytest.mark.parametrize("B,T,K", [(2, 1000, 8), (2, 2327, 8), (2, 2327, 3),
+                                   (1, 1040, 3), (3, 4654, 3)])
+def test_viterbi_rounds_and_fold_chunks(cuda, B, T, K):
+    """The plan's rounds and the fold's two levels: a single chunk carried
+    across two rounds (K = 8, T = 1000: 63 segments, 35 a round), chunks
+    of 8 in rounds of 32 (K = 8, T = 2327) and in one round (K = 3), the
+    smallest two-level fold (T = 1040: 65 segments) and two rounds of 208
+    (T = 4654): bit-equal to the segmented reference."""
+    log_pi, log_A, log_obs, lens = _viterbi_case(cuda, K, B, T)
+    got = viterbi_fused(log_pi, log_A, log_obs, lens)
+    seg = viterbi_segmented_reference(log_pi.cpu(), log_A.cpu(),
+                                      log_obs.cpu(), lens.cpu())
+    assert torch.equal(got.states.cpu(), seg.states)
+    assert torch.equal(got.score.cpu(), seg.score)
+
+
+def test_viterbi_refuses_a_plan_over_the_shared_memory_bound(cuda):
+    """A sequence keeps 5 bytes of maps and end states a segment in shared
+    memory: at K = 8 and T = 200000 the plan needs more than a block has,
+    and the wrapper raises before a launch."""
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_plan
+
+    K, T = 8, 200000
+    assert viterbi_plan(1, T, K, True).smem > SMEM_LIMIT
+    before = viterbi_fused.launches
+    with pytest.raises(ValueError, match=str(SMEM_LIMIT)):
+        viterbi_fused(torch.zeros(K, device=cuda),
+                      torch.zeros((K, K), device=cuda),
+                      torch.zeros((1, T, K), device=cuda))
+    assert viterbi_fused.launches == before
 
 
 def test_viterbi_rejects_large_K(cuda):
@@ -182,8 +263,16 @@ def test_model_paths_launch_kernels(cuda):
         model.infer_forward(x, valid_to=lengths)
         states = model.viterbi_decode(x, u, lengths)
         plain = model.viterbi_decode(x, u, lengths, use_kernel=False)
+        evidence = (*model.prior(u), model._hmm_evidence(x, lengths))
     assert (fused_forward.launches, viterbi_fused.launches) == (a + 1, b + 1)
-    assert torch.equal(states, plain)
+    # the kernel's scan against the sequential decode: equal, or a tie
+    if not torch.equal(states, plain):
+        full = lengths.long()
+        sg = _path_scores(*evidence, states, full).double()
+        sw = _path_scores(*evidence, plain, full).double()
+        tol = torch.clamp(32 * torch.finfo(torch.float32).eps * sw.abs(),
+                          min=1e-4)
+        assert bool(((sg - sw).abs() <= tol).all()), (sg, sw)
 
 
 def test_launch_counters_under_threads(cuda):
@@ -419,7 +508,7 @@ def test_fused_encode_rows_independent(cuda):
 
 @pytest.mark.parametrize("B,T,btu,ragged", [
     (1, 1, False, False), (3, 37, False, True), (5, 64, True, True),
-    (2, 200, True, False), (1, 2327, False, False)])
+    (2, 200, True, False), (1, 2327, False, False), (3, 1040, True, True)])
 def test_fused_evidence_and_decode_match_plain(cuda, B, T, btu, ragged):
     from vqvaehmm_tpu_torch.ops.fused_decode import (
         fused_evidence, fused_evidence_reference, fused_viterbi_states,
@@ -440,11 +529,15 @@ def test_fused_evidence_and_decode_match_plain(cuda, B, T, btu, ragged):
         states = fused_viterbi_states(model, x, u, lens)
         plain = fused_viterbi_states_reference(model, x, u, lens)
         two_stage = viterbi_fused(*got, lens).states
+        again = fused_viterbi_states(model, x, u, lens)
     assert (fused_evidence.launches, fused_viterbi_states.launches) == \
-        (a + 1, b + 1)
+        (a + 1, b + 2)
     assert states.dtype == torch.int32 and states.shape == (B, T)
-    # the one-kernel decode computes the evidence kernel's bits
+    # the one-kernel decode computes the evidence kernel's bits and runs
+    # the Viterbi kernel's scan: kernel 11 followed by kernel B, bit for
+    # bit; a second call gives the same bits
     assert torch.equal(states, two_stage)
+    assert torch.equal(again, states)
     full = torch.full((B,), T, device=cuda) if lens is None else lens.long()
     if not torch.equal(states, plain):
         # a tie to float rounding: the path must score as the optimum, to
@@ -459,6 +552,41 @@ def test_fused_evidence_and_decode_match_plain(cuda, B, T, btu, ragged):
     for i in range(B):
         L = int(full[i])
         assert bool((states[i, L:] == states[i, L - 1]).all())
+
+
+@pytest.mark.parametrize("B,T", [(8, 200), (6, 2327), (160, 20)])
+def test_fused_decode_rows_independent(cuda, B, T):
+    """A row of a batched one-kernel decode is bit-equal to the row decoded
+    alone (no lengths: the encoder's bound max(lengths) is the batch's),
+    however the plan spreads the tiles over the persistent blocks."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import (decode_plan,
+                                                     fused_viterbi_states)
+
+    model = _model(cuda, seed=7, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128)
+    x, u, _ = _train_inputs(cuda, B, T, B * 3 + T)
+    with torch.inference_mode():
+        batched = fused_viterbi_states(model, x, u)
+        for i in (0, 1, B - 1):
+            solo = fused_viterbi_states(model, x[i:i + 1], u[i:i + 1])
+            assert torch.equal(batched[i:i + 1], solo)
+    plan = decode_plan(model, B, T, cuda)
+    assert plan.grid * plan.ntb >= B * -(-T // plan.tile)
+
+
+def test_fused_decode_refuses_a_grid_it_cannot_keep_resident(cuda):
+    """The decode keeps every tile of the batch in shared memory of
+    resident blocks: past that the wrapper raises before a launch."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_viterbi_states
+
+    model = _model(cuda, K=8)
+    x = torch.zeros((256, 5, 2000), device=cuda)
+    u = torch.zeros((256, 4, 2000), device=cuda)
+    before = fused_viterbi_states.launches
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="resident"):
+            fused_viterbi_states(model, x, u)
+    assert fused_viterbi_states.launches == before
 
 
 def test_bulk_kernels_gates_raise(cuda):

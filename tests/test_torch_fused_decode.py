@@ -124,13 +124,19 @@ def test_dispatch_and_gate_on_cpu():
             assert torch.equal(fn(x, u, lengths),
                                fn(x, u, lengths, use_kernel=False))
     assert supported(tm.cfg, 64, 200) and supported(tm.cfg, 1, 2327)
-    rows = 5 + 8 + 4 + 3 + 4 + 8 + 9
     # the evidence: two weight buffers, a pad, the stage region (x, h1, h2
     # or u, hp: max(5 + 8 + 4, 4 + 8) rows), K rows of log_obs and K * K of
     # log_A, each of tile + 2 halos + JB floats
     assert evidence_smem_bytes(tm.cfg, 32) == \
         4 * (2 * 6144 + 8 + 40 * (17 + 3 + 9))
-    assert decode_smem_bytes(tm.cfg) == 4 * 72 * rows
+    # the decode: that stage (a multiple of 16 bytes here), then each of
+    # its tiles' log_obs, log_A and backpointer words (K + K * K + 1 words
+    # a step), then the fold's and reverse pass's scratch: 2048 floats of
+    # staging (64 * K * K from K = 6), 32 chunk products and deltas
+    # (K * K + K), 68 words
+    assert decode_smem_bytes(tm.cfg, 32, 2) == \
+        4 * (2 * 6144 + 8 + 40 * (17 + 3 + 9)) \
+        + 4 * (2 * 32 * 13 + 2048 + 32 * 12 + 68)
     small = dict(input_dim=5, hidden_dim=8, hidden_dim2=4, u_dim=4,
                  trans_hidden=8)
     assert not supported(ModelConfig(K=9, **small), 1, 8)

@@ -96,15 +96,13 @@ def test_dispatch_and_gate_on_cpu():
 def test_shared_header_enters_the_build_digest():
     """The encoder stages live in headers that several sources include: an
     edited header must change the library's name, so the build hashes the
-    headers beside the sources.  Kernels 8 and 11 share encoder_fma.cuh
-    (on tile_fma.cuh); encoder_tile.cuh is left to kernel 10."""
+    headers beside the sources.  Kernels 8, 10 and 11 share
+    encoder_fma.cuh (on tile_fma.cuh); kernels B and 10 share the scan of
+    maxplus_scan.cuh."""
     from vqvaehmm_tpu_torch.ops import _build
 
     names = [h.name for h in _build.headers()]
-    assert names == ["encoder_fma.cuh", "encoder_tile.cuh", "tile_fma.cuh"]
-    users = [s.name for s in _build.sources()
-             if '#include "encoder_tile.cuh"' in s.read_text()]
-    assert users == ["fused_decode.cu"]
+    assert names == ["encoder_fma.cuh", "maxplus_scan.cuh", "tile_fma.cuh"]
     users = [s.name for s in _build.sources()
              if '#include "encoder_fma.cuh"' in s.read_text()]
     assert users == ["fused_decode.cu", "fused_encoder.cu"]
@@ -112,7 +110,7 @@ def test_shared_header_enters_the_build_digest():
         _build.CSRC / "encoder_fma.cuh").read_text()
     users = [s.name for s in _build.sources()
              if '#include "tile_fma.cuh"' in s.read_text()]
-    assert users == ["fused_infer.cu", "fused_train.cu"]
+    assert users == ["fused_infer.cu", "fused_train.cu", "viterbi.cu"]
     assert len(_build.sources()) == 7
     for entry in ("vqhmm_fused_infer", "vqhmm_fused_train",
                   "vqhmm_fused_encode", "vqhmm_fused_evidence",

@@ -1,8 +1,9 @@
 // The VAE-HMM's encoder stack and prior MLP on one time tile of one
 // sequence through tile_fma.cuh's register-tiled layer: the stages the
 // encoder kernel (fused_encoder.cu, kernel 8) and the evidence kernel
-// (fused_decode.cu::fused_evidence_kernel, kernel 11) share, and the
-// packing of their weights.
+// (fused_decode.cu::fused_evidence_kernel, kernel 11) and the one-kernel
+// decode (fused_decode.cu::fused_decode_kernel, kernel 10) share, and
+// the packing of their weights.
 //
 //   encoder  x -> conv3 C->H1 + ReLU, masked -> conv3 H1->H2 + ReLU
 //            -> 1x1 H2->K (raw regime logits)
@@ -30,10 +31,9 @@
 //    after its ReLU; h2 is not masked;
 //  * each output is one fixed chain of FMAs, tile_fma.cuh's: input
 //    channels ascending, taps 0, 1, 2 nested, from 0, the bias added last
-//    (the order of encoder_tile.cuh, so kernels 8 and 11 give the bits
-//    their earlier designs gave and kernel 10's evidence equals kernel
-//    11's).  A row of a batch is bit-equal to the row alone, at any tile
-//    width, split or not.
+//    (kernel 10 computes its evidence with these same stages, so it
+//    equals kernel 11's bit for bit).  A row of a batch is bit-equal to
+//    the row alone, at any tile width, split or not.
 
 #pragma once
 
@@ -59,11 +59,11 @@ inline bool tile_ok(int tile) { return tile == 16 || tile == 32 || tile == 64; }
 
 // Threads of a block: the (4 output channels, JB steps) tiles of the
 // widest register-tiled layer (G outputs) over the widest convolution's
-// range, spread evenly over the fewest rounds of at most MAX_THREADS
-// threads; four warps at least (fused_infer.cu's rule).
-inline int block_threads(int tile, int G) {
+// range, spread evenly over the fewest rounds of at most `most` threads;
+// four warps at least (fused_infer.cu's rule).
+inline int block_threads(int tile, int G, int most = MAX_THREADS) {
   const int items = (G + 3) / 4 * (tile / JB + 2);
-  const int rounds = (items + MAX_THREADS - 1) / MAX_THREADS;
+  const int rounds = (items + most - 1) / most;
   const int t = ((items + rounds - 1) / rounds + 31) / 32 * 32;
   return t < 128 ? 128 : t;
 }
@@ -216,9 +216,7 @@ __device__ __forceinline__ void prior_stage(
 
 // In place over the `rows` values p[r * stride]: v = p + bias[r], then
 // v - logsumexp(v), with expf and logf and the maximum clamped at -1e30 as
-// the TPU kernel clamps it (vqvaehmm_tpu/ops/pallas_decode.py:81-84): the
-// operations, in their order, of encoder_tile.cuh's log_softmax_strided on
-// the biased values.
+// the TPU kernel clamps it (vqvaehmm_tpu/ops/pallas_decode.py:81-84).
 __device__ __forceinline__ void log_softmax_biased(
     float* p, const float* __restrict__ bias, int rows, int stride) {
   float m = -INFINITY;

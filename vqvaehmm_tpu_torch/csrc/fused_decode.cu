@@ -2,35 +2,31 @@
 // states, of the VAE-HMM for Hopper (sm_90a).
 //
 // Replaces two TPU kernels of vqvaehmm_tpu/ops/pallas_decode.py:
-//   _evidence_kernel -> fused_evidence_kernel: encoder -> log-softmax over
-//     the K regimes (log_obs); prior MLP -> log-softmax over each row of K
-//     transitions (log_A);
-//   _kernel -> fused_decode_kernel: the same evidence, inert padding past
-//     each sequence's length, the max-plus recursion and the backtrace.
+//   _evidence_kernel -> fused_evidence_kernel (kernel 11): encoder ->
+//     log-softmax over the K regimes (log_obs); prior MLP -> log-softmax
+//     over each row of K transitions (log_A);
+//   _kernel -> fused_decode_kernel (kernel 10): the same evidence, inert
+//     padding past each sequence's length, the max-plus recursion and the
+//     backtrace.
 // The Python wrappers and their plain PyTorch versions are in
-// vqvaehmm_tpu_torch/ops/fused_decode.py.  The evidence kernel's encoder
-// and prior stages are the device functions of encoder_fma.cuh (shared
-// with the encoder kernel, on tile_fma.cuh's register tile); the decode
-// kernel's are those of encoder_tile.cuh, which computes the same FMA
-// chains, so the two kernels' evidence is bit-equal.
+// vqvaehmm_tpu_torch/ops/fused_decode.py.  Both kernels compute the
+// evidence with the device functions of encoder_fma.cuh (shared with the
+// encoder kernel, on tile_fma.cuh's register tile) from the weights
+// vqhmm_encoder_pack lays out, and the decode runs the segmented max-plus
+// scan of maxplus_scan.cuh, as the Viterbi kernel (viterbi.cu, kernel B)
+// does: kernel 10 gives the bits of kernel 11 followed by kernel B.
 //
 // Layout: x (B, C, T) float32 contiguous; u (B, U, T) or (B, T, U), read
-// through its strides; lengths (B,) int32 or null (the evidence kernel
-// bounds the encoder at one scalar, max(lengths), T where null, which each
-// warp reduces for itself); valid_to (B,) int32 (the decode: every entry
-// max(lengths));
-// log_obs (B, T, K) and log_A (B, T, K, K) float32 contiguous, the layouts
-// ops/hmm.py and the Viterbi kernel read; states (B, T) int32.
+// through its strides; lengths (B,) int32 or null (both kernels bound the
+// encoder at one scalar, max(lengths), T where null, which each warp
+// reduces for itself); log_obs (B, T, K) and log_A (B, T, K, K) float32
+// contiguous, the layouts ops/hmm.py and the Viterbi kernel read; states
+// (B, T) int32.
 //
 // Semantics.  The evidence applies no length masking: ops/hmm.py masks
 // downstream.  The decode makes a step t >= L inert (a zero observation
 // and an identity transition), so the path freezes at t = L - 1; delta_0 =
-// log_pi + obs_0 and log_A at t = 0 is unused; scores[i][j] = delta[i] +
-// A[i][j], the first maximum over i wins (strict >), then delta[j] = best +
-// obs[j]: the order of vqvaehmm_tpu_torch/ops/hmm.py::viterbi and of
-// csrc/viterbi.cu.  Where two paths tie to float rounding the decoded
-// states may differ from a decode fed by another evidence computation;
-// their scores agree.
+// log_pi + obs_0 and log_A at t = 0 is unused (maxplus_scan.cuh).
 //
 // Design, evidence.  One block a tile of `tile` steps of one sequence
 // (16, 32 or 64, chosen by the wrapper from the waves of resident
@@ -44,61 +40,49 @@
 // contiguous in device memory (n * K and n * K * K floats), so they are
 // written coalesced from shared memory with no transpose pass after.
 //
-// Design, decode.  One block of 512 threads a sequence walks the time
-// axis in chunks of CH steps.  All threads compute the chunk's evidence
-// into shared memory (parallel along T and the channels); then one
-// thread runs the recursion over the chunk with delta in registers,
-// reading log_A and log_obs from shared memory: they never reach device
-// memory.  Only the int8 backpointers do (B * T * K bytes, a scratch the
-// wrapper allocates), and the backtrace reads them back chunk by chunk,
-// as csrc/viterbi.cu does.
+// Design, decode.  A cooperative launch of persistent blocks, all
+// resident at once (the launcher sizes the grid by the occupancy the
+// runtime reports), with four grid-wide barriers.  Each block takes the
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... (`ntb` at most) and
+// keeps each tile's log_obs, log_A and backpointer words in shared memory
+// from the first phase to the last (about 1.5 KB a tile of 32 at K = 3),
+// so the evidence of a sequence is computed on as many SMs as it has
+// tiles and never reaches device memory.  Phases: the tile's evidence as
+// kernel 11 computes it, then (a) of its segments (a tile holds whole
+// segments); barrier; (b) the fold of each sequence on the first warp of
+// one block, its products staged into shared memory a chunk at a time
+// (chunk_floats), a chunk of the two-level fold a lane; barrier; (c) the
+// rerun of the
+// tile's segments; barrier; (d) the reverse pass of each sequence on the
+// same warp, the selector maps staged the same way; barrier; (e) the
+// tile's backtrace.  Only the per-segment aggregates
+// cross blocks, through a small scratch in device memory (products,
+// incoming deltas, the end delta, selector maps, end states: under 60
+// bytes a segment at K = 3), read with ld.global.cg so that no stale L1
+// line is seen.  A thread-block cluster a sequence was the other design:
+// at most 8 (16) blocks, so at (1, 2327) its 73 tiles of 32 would take
+// 9 rounds of a block's chain of layers, where kernel 11 takes one.
 //
 // Bound.  A token costs about 17.7 kFLOP of fp32 FMA (the encoder 14.4,
 // the prior MLP 3.3) against 36 bytes read and 48 written by the evidence
 // kernel, or 4 written by the decode: both are bound by arithmetic and
-// its shared-memory loads, and at small B by one block's chain of layers
-// (the evidence) or by the serial recursion (K * K adds and compares a
-// step on one thread) and the single SM a sequence occupies (the decode).
+// its shared-memory loads, and at small B by one block's chain of layers;
+// the decode adds the scan's serial depth (the fold and the reverse pass
+// on one warp) and its four grid barriers, and keeps every tile of the
+// batch resident, which bounds B * T (the launcher refuses a plan whose
+// tiles do not fit).
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstddef>
 #include <cstdint>
 
+#include <cooperative_groups.h>
+
 #include "encoder_fma.cuh"
-#include "encoder_tile.cuh"
+#include "maxplus_scan.cuh"
 
 namespace {
-
-using namespace vqhmm;
-
-constexpr int CH = 64;                               // decode: steps a chunk
-constexpr int DWS = CH + 2 * ENC_HALO + ENC_JB;
-constexpr int DTHREADS = 512;
-
-struct Dims {
-  int C, T, U, H1, H2, K, HP;
-};
-
-__host__ __device__ inline int evidence_rows(const Dims& d) {
-  return d.C + d.H1 + d.H2 + d.K + d.U + d.HP + d.K * d.K;
-}
-
-struct Buffers {
-  float *xs, *h1, *h2, *lg, *us, *hp, *ap;
-};
-
-__device__ __forceinline__ Buffers carve(float* smem, const Dims& d, int ws) {
-  Buffers s;
-  s.xs = smem;
-  s.h1 = s.xs + d.C * ws;
-  s.h2 = s.h1 + d.H1 * ws;
-  s.lg = s.h2 + d.H2 * ws;
-  s.us = s.lg + d.K * ws;
-  s.hp = s.us + d.U * ws;
-  s.ap = s.hp + d.HP * ws;
-  return s;
-}
 
 // max(lengths[0..B)), or T where lengths is null: every lane of a warp
 // gets it, with no barrier (every lane of the block calls it).
@@ -112,6 +96,44 @@ __device__ __forceinline__ int batch_bound(const int* __restrict__ lengths,
   return m;
 }
 
+// Bias and log-softmax in place, a (step, row) a thread, rows [rlo, rhi):
+// row K the regimes, row r < K the transitions out of regime r.  Ends
+// with a __syncthreads.
+__device__ __forceinline__ void tile_log_softmax(const encfma::Rows& s,
+                                                 const encfma::Weights& W,
+                                                 int K, int n, int WS,
+                                                 int rlo, int rhi) {
+  const int per = rhi - rlo;
+  for (int idx = threadIdx.x; idx < n * per; idx += blockDim.x) {
+    const int j = idx / per, r = rlo + idx - j * per;
+    if (r == K)
+      encfma::log_softmax_biased(s.lg + encfma::HALO + j, W.eb3, K, WS);
+    else
+      encfma::log_softmax_biased(s.ap + (size_t)r * K * WS + encfma::HALO + j,
+                                 W.pb2 + r * K, K, WS);
+  }
+  __syncthreads();
+}
+
+// A tile's n steps of log_obs (n * K) and log_A (n * K * K), each
+// step-major and contiguous, from the window rows to obs and trans (null:
+// the stage did not run here).
+__device__ __forceinline__ void write_tile(const encfma::Rows& s, int K,
+                                           int n, int WS, float* obs,
+                                           float* trans) {
+  const int KK = K * K;
+  if (obs != nullptr)
+    for (int idx = threadIdx.x; idx < n * K; idx += blockDim.x) {
+      const int j = idx / K;
+      obs[idx] = s.lg[(idx - j * K) * WS + encfma::HALO + j];
+    }
+  if (trans != nullptr)
+    for (int idx = threadIdx.x; idx < n * KK; idx += blockDim.x) {
+      const int j = idx / KK;
+      trans[idx] = s.ap[(idx - j * KK) * WS + encfma::HALO + j];
+    }
+}
+
 __global__ void __launch_bounds__(encfma::MAX_THREADS, 2)
     fused_evidence_kernel(const float* __restrict__ x,
                           const float* __restrict__ u, long long u_sb,
@@ -121,7 +143,6 @@ __global__ void __launch_bounds__(encfma::MAX_THREADS, 2)
                           float* __restrict__ log_A, encfma::Dims d, int B,
                           int T, int tile, int tiles, int split) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int H = encfma::HALO;
   const int WS = encfma::row_stride(tile);
   const encfma::Rows s = encfma::carve(smem, d, WS);
   tilefma::Pipe pipe{smem, 0, false};
@@ -140,156 +161,324 @@ __global__ void __launch_bounds__(encfma::MAX_THREADS, 2)
                                      : tilefma::no_next());
   if (stage != 0)
     encfma::prior_stage(u + b * u_sb, u_sc, u_st, W, d, t0, n, WS, s, pipe);
-  // a (step, row) a thread: row K the regimes, row r < K the transitions
-  // out of regime r
-  const int rlo = stage == 0 ? K : 0, rhi = stage == 1 ? K : K + 1;
-  const int per = rhi - rlo;
-  for (int idx = threadIdx.x; idx < n * per; idx += blockDim.x) {
-    const int j = idx / per, r = rlo + idx - j * per;
-    if (r == K)
-      encfma::log_softmax_biased(s.lg + H + j, W.eb3, K, WS);
-    else
-      encfma::log_softmax_biased(s.ap + (size_t)r * K * WS + H + j,
-                                 W.pb2 + r * K, K, WS);
-  }
-  __syncthreads();
+  tile_log_softmax(s, W, K, n, WS, stage == 0 ? K : 0,
+                   stage == 1 ? K : K + 1);
+  write_tile(s, K, n, WS,
+             stage != 1 ? log_obs + ((size_t)b * T + t0) * K : nullptr,
+             stage != 0 ? log_A + ((size_t)b * T + t0) * KK : nullptr);
+}
 
-  if (stage != 1) {
-    float* ob = log_obs + ((size_t)b * T + t0) * K;
-    for (int idx = threadIdx.x; idx < n * K; idx += blockDim.x) {
-      const int j = idx / K, k = idx - j * K;
-      ob[idx] = s.lg[k * WS + H + j];
+// Floats of a block of the decode before the tile store: the evidence
+// stage's shared memory, rounded to 16 bytes.
+__host__ __device__ inline int decode_stage_floats(const encfma::Dims& d,
+                                                   int tile) {
+  return (encfma::smem_bytes(d, tile) / 4 + 3) & ~3;
+}
+
+// Floats of one tile in the store: log_obs (tile * K), log_A
+// (tile * K * K), the backpointer words (tile).
+__host__ __device__ inline int tile_floats(int K, int tile) {
+  return tile * (K + K * K + 1);
+}
+
+// Floats of the chunk through which the fold stages the products of a
+// group of its chunks, and the reverse pass the selector maps (that many
+// at a time): the products of the 64 segments of a one-level fold, and
+// at least 2048 (at K = 3 the 146 segments of T = 2327 in one load).
+__host__ __device__ inline int chunk_floats(int K) {
+  return 64 * K * K > 2048 ? 64 * K * K : 2048;
+}
+
+// Floats of a decode block's scratch for the fold and the reverse pass:
+// the chunk, then 32 chunk products and 32 chunk deltas (one each a lane
+// of the first warp), then the reverse pass's 2 * 32 + 1 words.
+__host__ __device__ inline int scratch_floats(int K) {
+  return chunk_floats(K) + 32 * (K * K + K) + 68;
+}
+
+// Threads a decode block at most: with __launch_bounds__(DECODE_THREADS,
+// 2) a thread keeps up to 102 registers (at the 64 of kernel 11 the
+// scan's state spilled) and two blocks share an SM.
+constexpr int DECODE_THREADS = 320;
+
+// Dynamic shared memory of a decode block holding ntb tiles: the stage,
+// the tile store, the scratch.
+inline long long decode_smem(const encfma::Dims& d, int tile, int ntb) {
+  return 4LL * (decode_stage_floats(d, tile) +
+                (long long)ntb * tile_floats(d.K, tile) + scratch_floats(d.K));
+}
+
+// One tile's place: sequence b, first step t0, n steps.
+struct TileAt {
+  int b, t0, n;
+};
+
+__device__ __forceinline__ TileAt tile_at(int unit, int tiles, int tile,
+                                          int T) {
+  TileAt at;
+  at.b = unit / tiles;
+  at.t0 = (unit - at.b * tiles) * tile;
+  at.n = min(tile, T - at.t0);
+  return at;
+}
+
+template <int K>
+__global__ void __launch_bounds__(DECODE_THREADS, 2)
+    fused_decode_kernel(const float* __restrict__ x,
+                        const float* __restrict__ u, long long u_sb,
+                        long long u_sc, long long u_st,
+                        const int* __restrict__ lengths, encfma::Weights W,
+                        const float* __restrict__ log_pi, float* agg,
+                        unsigned* sel, int* ends, int* __restrict__ states,
+                        encfma::Dims d, int B, int T, int tile, int tiles,
+                        int ntb) {
+  extern __shared__ __align__(16) float smem[];
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  constexpr int KK = K * K;
+  constexpr int AG = KK + K;          // scratch floats a segment
+  const int WS = encfma::row_stride(tile);
+  const encfma::Rows s = encfma::carve(smem, d, WS);
+  const int tf = tile_floats(K, tile);
+  float* store = smem + decode_stage_floats(d, tile);
+  float* chunk = store + ntb * tf;
+  const int S = mpscan::seg_len(T), G = mpscan::num_segments(T);
+  const int units = B * tiles;
+  const int vt = batch_bound(lengths, B, T);
+
+  // the evidence of each tile, then (a) on its segments
+  for (int k = 0; k < ntb; ++k) {
+    const int unit = blockIdx.x + k * gridDim.x;
+    if (unit >= units) break;
+    const TileAt at = tile_at(unit, tiles, tile, T);
+    tilefma::Pipe pipe{smem, 0, false};
+    encfma::encoder_stage(x + (size_t)at.b * d.C * T, W, d, T, at.t0, at.n,
+                          WS, vt, s, pipe, encfma::prior_first(W, d));
+    encfma::prior_stage(u + at.b * u_sb, u_sc, u_st, W, d, at.t0, at.n, WS,
+                        s, pipe);
+    tile_log_softmax(s, W, K, at.n, WS, 0, K + 1);
+    float* so = store + k * tf;
+    float* sa = so + tile * K;
+    write_tile(s, K, at.n, WS, so, sa);
+    __syncthreads();
+    unsigned* sb = reinterpret_cast<unsigned*>(sa + tile * KK);
+    const int L = lengths ? lengths[at.b] : T;
+    for (int i = threadIdx.x; i * S < at.n; i += blockDim.x) {
+      const int gs = at.t0 + i * S, g = gs / S, gn = min(S, T - gs);
+      const float* a = sa + i * S * KK;
+      const float* o = so + i * S * K;
+      float* ab = agg + (size_t)at.b * G * AG;
+      if (g == 0) {
+        float dd[K];
+        mpscan::seed<K>(dd, log_pi, o, L);
+        mpscan::segment_rerun<K>(dd, a + KK, KK, o + K, 1, gn - 1, L, sb + 1);
+        // delta_{T-1} where G == 1, else the incoming delta of segment 1
+        float* dst = G == 1 ? ab : ab + AG + KK;
+#pragma unroll
+        for (int j = 0; j < K; ++j) dst[j] = dd[j];
+      } else if (g < G - 1) {
+        mpscan::segment_product<K>(a, KK, o, gs, gn, L, ab + (size_t)g * AG);
+      }
     }
   }
-  if (stage != 0) {
-    float* ab = log_A + ((size_t)b * T + t0) * KK;
-    for (int idx = threadIdx.x; idx < n * KK; idx += blockDim.x) {
-      const int j = idx / KK, r = idx - j * KK;
-      ab[idx] = s.ap[r * WS + H + j];
+  grid.sync();
+
+  // (b) the fold of each sequence, on the first warp of one block, a
+  // group of up to 32 of its chunks (maxplus_scan.cuh::fold_chunk) at a
+  // time, a chunk a lane: the group's products staged into the chunk;
+  // (b1) each chunk's product but the last chunk's; (b2) on the first lane
+  // the chunks' incoming deltas, folded over the chunk products; (b3) each
+  // chunk's incoming deltas, folded over its own products
+  const int nchunk = chunk_floats(K);
+  float* qbuf = chunk + nchunk;
+  float* cin = qbuf + 32 * KK;
+  if (threadIdx.x < 32 && G >= 3)
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      float* ab = agg + (size_t)b * G * AG;
+      const int C = mpscan::fold_chunk(G), nc = (G + C - 1) / C;
+      const int per = min(32, nchunk / (C * KK));
+      const int lane = threadIdx.x;
+      float x[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) x[j] = __ldcg(ab + AG + KK + j);
+      for (int c0 = 0; c0 < nc; c0 += per) {
+        const int c1 = min(nc, c0 + per);
+        const int g0 = max(1, c0 * C), g1 = min(c1 * C, G - 1);
+        for (int idx = lane; idx < (g1 - g0) * KK; idx += 32) {
+          const int i = idx / KK;
+          chunk[idx] = __ldcg(ab + (size_t)(g0 + i) * AG + (idx - i * KK));
+        }
+        __syncwarp();
+        const int c = c0 + lane;
+        const int first = max(1, c * C), end = min(c * C + C, G);
+        if (c < nc - 1 && c < c1) {
+          float Q[K][K];
+#pragma unroll
+          for (int i = 0; i < K; ++i)
+#pragma unroll
+            for (int j = 0; j < K; ++j) Q[i][j] = chunk[(first - g0) * KK + i * K + j];
+          for (int g = first + 1; g < end; ++g)
+#pragma unroll
+            for (int i = 0; i < K; ++i)
+              mpscan::fold<K>(Q[i], chunk + (g - g0) * KK);
+#pragma unroll
+          for (int i = 0; i < K; ++i)
+#pragma unroll
+            for (int j = 0; j < K; ++j) qbuf[lane * KK + i * K + j] = Q[i][j];
+        }
+        __syncwarp();
+        if (lane == 0)
+          for (int cc = c0; cc < c1; ++cc) {
+#pragma unroll
+            for (int j = 0; j < K; ++j) cin[(cc - c0) * K + j] = x[j];
+            if (cc < nc - 1) mpscan::fold<K>(x, qbuf + (cc - c0) * KK);
+          }
+        __syncwarp();
+        if (c < c1) {
+          float y[K];
+#pragma unroll
+          for (int j = 0; j < K; ++j) y[j] = cin[lane * K + j];
+          for (int g = first; g < end; ++g) {
+            float* in = ab + (size_t)g * AG + KK;
+#pragma unroll
+            for (int j = 0; j < K; ++j) in[j] = y[j];
+            if (g + 1 < end) mpscan::fold<K>(y, chunk + (g - g0) * KK);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  grid.sync();
+
+  // (c) the rerun of each tile's segments 1..
+  for (int k = 0; k < ntb; ++k) {
+    const int unit = blockIdx.x + k * gridDim.x;
+    if (unit >= units) break;
+    const TileAt at = tile_at(unit, tiles, tile, T);
+    const float* so = store + k * tf;
+    const float* sa = so + tile * K;
+    unsigned* sb = reinterpret_cast<unsigned*>(store + k * tf + tile * (K + KK));
+    const int L = lengths ? lengths[at.b] : T;
+    float* ab = agg + (size_t)at.b * G * AG;
+    for (int i = threadIdx.x; i * S < at.n; i += blockDim.x) {
+      const int gs = at.t0 + i * S, g = gs / S, gn = min(S, T - gs);
+      if (g == 0) continue;
+      float dd[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) dd[j] = __ldcg(ab + (size_t)g * AG + KK + j);
+      sel[(size_t)at.b * G + g] = mpscan::segment_rerun<K>(
+          dd, sa + i * S * KK, KK, so + i * S * K, gs, gn, L, sb + i * S);
+      if (g == G - 1) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) ab[(size_t)g * AG + j] = dd[j];
+      }
+    }
+  }
+  grid.sync();
+
+  // (d) the final state of each sequence, then its segments' end states,
+  // on the first warp of one block, the selector maps staged a chunk at a
+  // time
+  unsigned* rev = reinterpret_cast<unsigned*>(cin + 32 * K);
+  if (threadIdx.x < 32)
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      const float* fin = agg + ((size_t)b * G + G - 1) * AG;
+      unsigned* words = reinterpret_cast<unsigned*>(chunk);
+      int* eb = ends + (size_t)b * G;
+      int st = 0;
+      if (threadIdx.x == 0) {
+        float dd[K], best;
+#pragma unroll
+        for (int j = 0; j < K; ++j) dd[j] = __ldcg(fin + j);
+        st = mpscan::first_argmax<K>(dd, &best);
+        eb[G - 1] = st;
+      }
+      for (int hi = G - 1; hi >= 1; hi -= nchunk) {
+        const int lo = max(1, hi - nchunk + 1);
+        for (int i = threadIdx.x; i <= hi - lo; i += 32)
+          words[i] = __ldcg(sel + (size_t)b * G + lo + i);
+        __syncwarp();
+        const int nl = mpscan::reverse_threads(hi - lo + 1, 32);
+        st = mpscan::reverse_pass<K>(words, lo, hi, st, threadIdx.x, nl, rev,
+                                     reinterpret_cast<int*>(rev + nl), eb,
+                                     [] { __syncwarp(); });
+      }
+    }
+  grid.sync();
+
+  // (e) each tile's backtrace
+  for (int k = 0; k < ntb; ++k) {
+    const int unit = blockIdx.x + k * gridDim.x;
+    if (unit >= units) break;
+    const TileAt at = tile_at(unit, tiles, tile, T);
+    const unsigned* sb =
+        reinterpret_cast<const unsigned*>(store + k * tf + tile * (K + KK));
+    for (int i = threadIdx.x; i * S < at.n; i += blockDim.x) {
+      const int gs = at.t0 + i * S;
+      mpscan::segment_backtrace(__ldcg(ends + (size_t)at.b * G + gs / S),
+                                sb + i * S, min(S, T - gs),
+                                states + (size_t)at.b * T + gs);
     }
   }
 }
 
+// The decode's launch plan at tile width `tile`: the fewest tiles a block
+// (ntb) for which the resident blocks (the runtime's occupancy of this
+// kernel at that shared memory, on every SM) cover the B * ceil(T / tile)
+// tiles.  out = {grid, ntb, threads, smem}.
 template <int K>
-__global__ void __launch_bounds__(DTHREADS) fused_decode_kernel(
-    const float* __restrict__ x, const float* __restrict__ u, long long u_sb,
-    long long u_sc, long long u_st, const int* __restrict__ valid_to,
-    const int* __restrict__ lengths, const float* __restrict__ log_pi,
-    EncoderWeights EW, PriorWeights PW, int8_t* __restrict__ bp,
-    int* __restrict__ states, Dims d) {
-  extern __shared__ float smem[];
-  __shared__ int8_t sB[CH * K];
-  __shared__ int sS[CH];
-  const Buffers s = carve(smem, d, DWS);
-  constexpr int KK = K * K;
-  const int T = d.T;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int L = lengths ? lengths[b] : T;
-  const int vt = valid_to[b];
-  const float* xb = x + (size_t)b * d.C * T;
-  const float* ub = u + b * u_sb;
-  int8_t* bpb = bp + (size_t)b * T * K;
-  int* sb = states + (size_t)b * T;
-
-  float delta[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) delta[k] = 0.f;
-
-  for (int c0 = 0; c0 < T; c0 += CH) {
-    const int n = min(CH, T - c0);
-    encoder_tile(xb, EW, d.C, T, d.H1, d.H2, K, c0, n, DWS, vt, s.xs, s.h1,
-                 s.h2, s.lg);
-    prior_tile(ub, u_sc, u_st, PW, d.U, d.HP, KK, c0, n, DWS, s.us, s.hp,
-               s.ap);
-    evidence_log_softmax(s.lg, s.ap, K, n, DWS);
-    if (tid == 0) {
-      for (int tt = 0; tt < n; ++tt) {
-        const int t = c0 + tt;
-        const bool valid = t < L;
-        const float* obs = s.lg + ENC_HALO + tt;     // obs[j * DWS]
-        const float* a = s.ap + tt;                  // a[(i * K + j) * DWS]
-        if (t == 0) {
-#pragma unroll
-          for (int j = 0; j < K; ++j) {
-            delta[j] = log_pi[j] + (valid ? obs[j * DWS] : 0.f);
-            sB[j] = 0;
-          }
-          continue;
-        }
-        float nd[K];
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          float best =
-              delta[0] + (valid ? a[j * DWS] : (j == 0 ? 0.f : -INFINITY));
-          int arg = 0;
-#pragma unroll
-          for (int i = 1; i < K; ++i) {
-            const float sc =
-                delta[i] +
-                (valid ? a[(i * K + j) * DWS] : (i == j ? 0.f : -INFINITY));
-            if (sc > best) { best = sc; arg = i; }
-          }
-          nd[j] = best + (valid ? obs[j * DWS] : 0.f);
-          sB[tt * K + j] = (int8_t)arg;
-        }
-#pragma unroll
-        for (int j = 0; j < K; ++j) delta[j] = nd[j];
-      }
+cudaError_t decode_plan(const encfma::Dims& d, int B, int T, int tile,
+                        int* out) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_decode_kernel<K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               encfma::SMEM_LIMIT);
+  if (err != cudaSuccess) return err;
+  int G = d.H1 > d.H2 ? d.H1 : d.H2;
+  G = G > d.HP ? G : d.HP;
+  const int threads = encfma::block_threads(tile, G, DECODE_THREADS);
+  const long long units = (long long)B * ((T + tile - 1) / tile);
+  for (int ntb = 1;; ++ntb) {
+    const long long smem = decode_smem(d, tile, ntb);
+    if (smem > encfma::SMEM_LIMIT) return cudaErrorInvalidValue;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_decode_kernel<K>, threads, (size_t)smem);
+    if (err != cudaSuccess) return err;
+    if ((long long)per_sm * sms * ntb >= units) {
+      out[0] = (int)((units + ntb - 1) / ntb);
+      out[1] = ntb;
+      out[2] = threads;
+      out[3] = (int)smem;
+      return cudaSuccess;
     }
-    __syncthreads();
-    for (int idx = tid; idx < n * K; idx += DTHREADS)
-      bpb[(size_t)c0 * K + idx] = sB[idx];
-    __syncthreads();
-  }
-
-  // The backtrace is one warp's work, as in csrc/viterbi.cu.  The
-  // __syncthreads above ordered every backpointer store before these loads.
-  if (tid >= 32) return;
-  int st = 0;
-  if (tid == 0) {
-    float best = delta[0];
-#pragma unroll
-    for (int k = 1; k < K; ++k)
-      if (delta[k] > best) { best = delta[k]; st = k; }
-    sb[T - 1] = st;
-  }
-  __syncwarp();
-  for (int hi = T; hi > 1; hi -= CH) {
-    const int lo = max(1, hi - CH);
-    const int n = hi - lo;
-    for (int idx = tid; idx < n * K; idx += 32)
-      sB[idx] = bpb[(size_t)lo * K + idx];
-    __syncwarp();
-    if (tid == 0) {
-      for (int t = hi - 1; t >= lo; --t) {
-        st = sB[(t - lo) * K + st];
-        sS[t - lo] = st;   // state at t - 1
-      }
-    }
-    __syncwarp();
-    for (int idx = tid; idx < n; idx += 32) sb[lo - 1 + idx] = sS[idx];
-    __syncwarp();
   }
 }
 
 template <int K>
 cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
-                          long long u_sc, long long u_st, const int* valid_to,
-                          const int* lengths, const float* log_pi,
-                          EncoderWeights EW, PriorWeights PW, int8_t* bp,
-                          int* states, Dims d, int B, int smem,
+                          long long u_sc, long long u_st, const int* lengths,
+                          encfma::Weights W, const float* log_pi, float* agg,
+                          unsigned* sel, int* ends, int* states,
+                          encfma::Dims d, int B, int T, int tile,
                           cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_decode_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-  }
-  fused_decode_kernel<K><<<B, DTHREADS, smem, stream>>>(
-      x, u, u_sb, u_sc, u_st, valid_to, lengths, log_pi, EW, PW, bp, states,
-      d);
-  return cudaGetLastError();
+  int plan[4];
+  const cudaError_t err = decode_plan<K>(d, B, T, tile, plan);
+  if (err != cudaSuccess) return err;
+  int tiles = (T + tile - 1) / tile, ntb = plan[1];
+  void* args[] = {(void*)&x,       (void*)&u,    (void*)&u_sb,
+                  (void*)&u_sc,    (void*)&u_st, (void*)&lengths,
+                  (void*)&W,       (void*)&log_pi, (void*)&agg,
+                  (void*)&sel,     (void*)&ends, (void*)&states,
+                  (void*)&d,       (void*)&B,    (void*)&T,
+                  (void*)&tile,    (void*)&tiles, (void*)&ntb};
+  return cudaLaunchCooperativeKernel((const void*)fused_decode_kernel<K>,
+                                     dim3(plan[0]), dim3(plan[2]), args,
+                                     (size_t)plan[3], stream);
 }
 
 }  // namespace
@@ -298,12 +487,6 @@ cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
 extern "C" int vqhmm_fused_evidence_smem_bytes(int C, int H1, int H2, int K,
                                                int U, int HP, int tile) {
   return encfma::smem_bytes(encfma::Dims{C, H1, H2, K, U, HP}, tile);
-}
-
-extern "C" int vqhmm_fused_decode_smem_bytes(int C, int H1, int H2, int K,
-                                             int U, int HP) {
-  const Dims d{C, 0, U, H1, H2, K, HP};
-  return (int)(sizeof(float) * DWS * evidence_rows(d));
 }
 
 // packed_weights: vqhmm_encoder_pack's layout with the prior (HP > 0);
@@ -336,36 +519,55 @@ extern "C" int vqhmm_fused_evidence(
   return (int)cudaGetLastError();
 }
 
-// K is bounded by the int8 backpointers and by the template instances.
+#define VQHMM_DECODE_SWITCH(CALL)                                        \
+  switch (K) {                                                           \
+    case 1: return (int)CALL(1);                                         \
+    case 2: return (int)CALL(2);                                         \
+    case 3: return (int)CALL(3);                                         \
+    case 4: return (int)CALL(4);                                         \
+    case 5: return (int)CALL(5);                                         \
+    case 6: return (int)CALL(6);                                         \
+    case 7: return (int)CALL(7);                                         \
+    case 8: return (int)CALL(8);                                         \
+    default: return (int)cudaErrorInvalidValue;                          \
+  }
+
+static bool decode_dims_ok(const encfma::Dims& d, int B, int T, int tile) {
+  return encfma::tile_ok(tile) && B > 0 && T > 0 && d.U > 0 && d.HP > 0 &&
+         encfma::layers_fit(d) && (long long)B * T <= INT_MAX;
+}
+
+// The decode's plan for the current device: out = {grid, ntb, threads,
+// smem}; an error where no number of tiles a block fits a block's shared
+// memory with every tile resident.
+extern "C" int vqhmm_fused_decode_plan(int B, int C, int T, int U, int H1,
+                                       int H2, int K, int HP, int tile,
+                                       int* out) {
+  const encfma::Dims d{C, H1, H2, K, U, HP};
+  if (!decode_dims_ok(d, B, T, tile)) return (int)cudaErrorInvalidValue;
+#define VQHMM_PLAN(KV) decode_plan<KV>(d, B, T, tile, out)
+  VQHMM_DECODE_SWITCH(VQHMM_PLAN)
+#undef VQHMM_PLAN
+}
+
+// packed_weights as for the evidence; lengths may be null; agg a scratch
+// of B * G * (K * K + K) floats, sel and ends of B * G words (G the
+// segments of maxplus_scan.cuh).  K is bounded by the 4-bit backpointers
+// and the template instances.
 extern "C" int vqhmm_fused_decode(
     const float* x, const float* u, long long u_sb, long long u_sc,
-    long long u_st, const int* valid_to, const int* lengths,
-    const float* log_pi, const float* ew1, const float* eb1, const float* ew2,
-    const float* eb2, const float* ew3, const float* eb3, const float* pw1,
-    const float* pb1, const float* pw2, const float* pb2, int8_t* bp,
-    int* states, int B, int C, int T, int U, int H1, int H2, int K, int HP,
-    void* stream) {
-  if (B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  const Dims d{C, T, U, H1, H2, K, HP};
-  const int smem = vqhmm_fused_decode_smem_bytes(C, H1, H2, K, U, HP);
-  const EncoderWeights EW{ew1, eb1, ew2, eb2, ew3, eb3};
-  const PriorWeights PW{pw1, pb1, pw2, pb2};
+    long long u_st, const int* lengths, const float* packed_weights,
+    const float* eb1, const float* eb2, const float* eb3, const float* pb1,
+    const float* pb2, const float* log_pi, float* agg, unsigned* sel,
+    int* ends, int* states, int B, int C, int T, int U, int H1, int H2, int K,
+    int HP, int tile, void* stream) {
+  const encfma::Dims d{C, H1, H2, K, U, HP};
+  if (!decode_dims_ok(d, B, T, tile)) return (int)cudaErrorInvalidValue;
+  const encfma::Weights W{packed_weights, eb1, eb2, eb3, pb1, pb2};
   cudaStream_t st = (cudaStream_t)stream;
-#define VQHMM_DECODE_CASE(KV)                                               \
-  case KV:                                                                  \
-    return (int)launch_decode<KV>(x, u, u_sb, u_sc, u_st, valid_to,         \
-                                  lengths, log_pi, EW, PW, bp, states, d,   \
-                                  B, smem, st);
-  switch (K) {
-    VQHMM_DECODE_CASE(1)
-    VQHMM_DECODE_CASE(2)
-    VQHMM_DECODE_CASE(3)
-    VQHMM_DECODE_CASE(4)
-    VQHMM_DECODE_CASE(5)
-    VQHMM_DECODE_CASE(6)
-    VQHMM_DECODE_CASE(7)
-    VQHMM_DECODE_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VQHMM_DECODE_CASE
+#define VQHMM_LAUNCH(KV)                                                   \
+  launch_decode<KV>(x, u, u_sb, u_sc, u_st, lengths, W, log_pi, agg, sel, \
+                    ends, states, d, B, T, tile, st)
+  VQHMM_DECODE_SWITCH(VQHMM_LAUNCH)
+#undef VQHMM_LAUNCH
 }

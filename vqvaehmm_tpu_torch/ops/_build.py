@@ -52,8 +52,10 @@ _SIGNATURES = {
     # C, H1, H2, K, D, tile -> dynamic shared memory bytes per block
     "vqhmm_fused_infer_smem_bytes": [_I] * 6,
     # log_pi, log_A, a_stride_b, a_stride_t, log_obs, lengths,
-    # bp scratch, states, score, B, T, K, stream
-    "vqhmm_viterbi": [_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # backpointer words, states, score, B, T, K, lanes, seqs, stream
+    "vqhmm_viterbi": [_P, _P, _L, _L, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+    # T, K, stationary, lanes, seqs -> dynamic shared memory bytes a block
+    "vqhmm_viterbi_smem_bytes": [_I] * 5,
     # pool_x, pool_u, si, st, ln, x, u, N, C, U, Tmax, B, T, stream
     "vqhmm_gather": [_P] * 7 + [_I] * 6 + [_P],
     # x, u, u strides (batch, channel, time), lengths, 18 weight arrays,
@@ -74,14 +76,16 @@ _SIGNATURES = {
     # H1, H2, K, HP, tile, split, stream
     "vqhmm_fused_evidence": [_P, _P, _L, _L, _L, _P, _P] + [_P] * 5
     + [_P] * 2 + [_I] * 10 + [_P],
-    # x, u, u strides, valid_to, lengths (or null), log_pi, 10 weight
-    # arrays, backpointer scratch, states, B, C, T, U, H1, H2, K, HP, stream
-    "vqhmm_fused_decode": [_P, _P, _L, _L, _L, _P, _P, _P] + [_P] * 10
-    + [_P] * 2 + [_I] * 8 + [_P],
+    # x, u, u strides (batch, channel, time), lengths (or null), packed
+    # weights, 3 encoder and 2 prior biases, log_pi, the segment scratch
+    # (aggregates, selector maps, end states), states, B, C, T, U, H1, H2,
+    # K, HP, tile, stream
+    "vqhmm_fused_decode": [_P, _P, _L, _L, _L, _P, _P] + [_P] * 5
+    + [_P] * 5 + [_I] * 9 + [_P],
+    # B, C, T, U, H1, H2, K, HP, tile, out[4] -> error code
+    "vqhmm_fused_decode_plan": [_I] * 9 + [_P],
     # C, H1, H2, K, U, HP, tile -> dynamic shared memory bytes per block
     "vqhmm_fused_evidence_smem_bytes": [_I] * 7,
-    # C, H1, H2, K, U, HP -> dynamic shared memory bytes per block
-    "vqhmm_fused_decode_smem_bytes": [_I] * 6,
     # z, z strides (batch, channel, time), codebook, z_q, idx, B, T, M, D,
     # stream
     "vqhmm_vq_nearest": [_P, _L, _L, _L, _P, _P, _P] + [_I] * 4 + [_P],

@@ -11,18 +11,20 @@ sets out their designs and the bounds they meet):
 * `fused_viterbi_states` (replaces `_kernel`): the MAP path (B, T) int32
   from raw (x, u) in one launch, the evidence never reaching device
   memory.  Past each sequence's length the path is frozen at its last
-  valid state.  Where two paths tie to float rounding the states may
-  differ from a decode fed by another evidence computation; the scores
-  agree.
+  valid state.  Its evidence is kernel 11's and its recursion the
+  segmented max-plus scan of the Viterbi kernel (csrc/maxplus_scan.cuh),
+  so its states are bit-equal to `fused_evidence` followed by
+  ops/fused_viterbi.py::viterbi_fused.
 
 `fused_evidence_reference` and `fused_viterbi_states_reference` are their
-plain PyTorch versions, `supported` their gate and `evidence_plan` the
+plain PyTorch versions, `supported` their gate, `evidence_plan` the
 evidence kernel's launch plan (ops/fused_encoder.py::plan_for, with the
-encoder and the prior in blocks of their own where the grid is small).
+encoder and the prior in blocks of their own where the grid is small) and
+`decode_plan` the decode's (a cooperative launch of persistent blocks,
+each holding `ntb` tiles, sized by the occupancy the runtime reports).
 Both bound the encoder at the scalar max(lengths), as the model's exact
-modes do.  The evidence kernel reads the weights the encoder kernel's
-pack kernel lays out, kept a model (ops/fused_encoder.py::kernel_cache);
-the decode kernel reads the torch tensors.
+modes do, and read the weights the encoder kernel's pack kernel lays out,
+kept a model (ops/fused_encoder.py::kernel_cache).
 
 Dispatch is that of ops/fused_infer.py: `use_kernel=None` takes the
 kernel for a CUDA tensor and the plain version for a CPU tensor,
@@ -36,8 +38,9 @@ grad (the decode returns integer states, which carry none anyway).
 
 from __future__ import annotations
 
+import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,23 +48,19 @@ from . import _build
 from .fused_encoder import (TILES, check_x, encoder_dims, kernel_cache,
                             layers_fit, plan_for, refuse_grad,
                             smem_dims_bytes)
-from .fused_infer import H100_SMS, SMEM_LIMIT, valid_to_rows
+from .fused_infer import H100_SMS, SMEM_LIMIT
 from .fused_train import _u_strides
-from .fused_viterbi import MAX_K
+from .fused_viterbi import MAX_K, num_segments
 from .hmm import viterbi
 
-# csrc/fused_decode.cu: row floats of the decode chunk (DWS), and the
-# decode kernel's static shared memory (backpointers and states of one
-# chunk)
-_DECODE_ROW_FLOATS = 72
-_DECODE_STATIC_BYTES = 64 * MAX_K + 64 * 4
+
+
+def _chunk_floats(K: int) -> int:
+    """Floats of a decode block's chunk (csrc/fused_decode.cu::
+    chunk_floats)."""
+    return max(64 * K * K, 2048)
 
 _count_lock = threading.Lock()
-
-
-def _rows(cfg) -> int:
-    return (cfg.input_dim + cfg.hidden_dim + cfg.hidden_dim2 + cfg.K
-            + cfg.u_dim + cfg.trans_hidden + cfg.K * cfg.K)
 
 
 def evidence_smem_bytes(cfg, tile: int) -> int:
@@ -74,23 +73,40 @@ def evidence_plan(cfg, B: int, T: int, sms: int = H100_SMS):
     return plan_for(B, T, encoder_dims(cfg, prior=True), sms, can_split=True)
 
 
-def decode_smem_bytes(cfg) -> int:
-    return 4 * _DECODE_ROW_FLOATS * _rows(cfg)
+def decode_smem_bytes(cfg, tile: int, ntb: int = 1) -> int:
+    """Shared memory of a decode block at tile width `tile` holding `ntb`
+    tiles (csrc/fused_decode.cu::decode_smem): the evidence stage, rounded
+    to 16 bytes; each tile's log_obs, log_A and backpointer words; the
+    scratch of the fold and the reverse pass (the chunk that stages
+    products and selector maps, 32 chunk products and deltas, 68 words)."""
+    K = cfg.K
+    stage = -(-evidence_smem_bytes(cfg, tile) // 16) * 16
+    return stage + 4 * (ntb * tile * (K + K * K + 1) + _chunk_floats(K)
+                        + 32 * (K * K + K) + 68)
+
+
+class DecodePlan(NamedTuple):
+    tile: int          # steps a tile
+    grid: int          # persistent blocks, all resident at once
+    ntb: int           # tiles a block at most
+    threads: int       # a block
+    smem: int          # dynamic shared memory a block, bytes
 
 
 def supported(cfg, B: int, T: int) -> bool:
     """True when the evidence and decode kernels take this model on
     Hopper: float32 compute, u-conditioned transitions, at most MAX_K
-    regimes (int8 backpointers, delta in registers), every layer's slab of
-    one input channel within a weight buffer of the evidence kernel, and
-    one block's rows within a block's shared memory (the decode's chunk,
-    the evidence's narrowest tile).  Both walk or tile the time axis, so T
-    sets no bound."""
+    regimes (4-bit backpointers), every layer's slab of one input channel
+    within a weight buffer of the evidence kernel, and a block's rows and
+    one tile within a block's shared memory at the narrowest tile.  The
+    evidence tiles the time axis, so T sets it no bound; the decode keeps
+    every tile resident, so B * T is bounded by its plan (`decode_plan`,
+    which raises)."""
     return (cfg.compute_dtype == "float32" and cfg.u_dim is not None
             and B >= 0 and T >= 0 and 1 <= cfg.K <= MAX_K
-            and decode_smem_bytes(cfg) + _DECODE_STATIC_BYTES <= SMEM_LIMIT
             and layers_fit(*encoder_dims(cfg, prior=True))
-            and evidence_smem_bytes(cfg, TILES[-1]) <= SMEM_LIMIT)
+            and evidence_smem_bytes(cfg, TILES[-1]) <= SMEM_LIMIT
+            and decode_smem_bytes(cfg, TILES[-1]) <= SMEM_LIMIT)
 
 
 def fused_evidence_reference(model, x: torch.Tensor, u: torch.Tensor,
@@ -121,7 +137,7 @@ def _prepare(model, x, u, lengths, what: str):
             f"{what} unsupported for {cfg}: it takes float32, 1 <= K <= "
             f"{MAX_K}, layers whose slab of one input channel fits a weight "
             f"buffer and at most {SMEM_LIMIT} bytes of shared memory a "
-            f"block (needs {decode_smem_bytes(cfg)} for the decode, "
+            f"block (needs {decode_smem_bytes(cfg, TILES[-1])} for the decode, "
             f"{evidence_smem_bytes(cfg, TILES[-1])} for the evidence; see "
             "supported)")
     if u.dtype != torch.float32 or u.device != x.device:
@@ -141,30 +157,9 @@ def _prepare(model, x, u, lengths, what: str):
     return x.contiguous(), lens
 
 
-def _torch_weights(model, device):
-    """The ten arrays the decode kernel reads, in its order: the encoder's
-    (weight, bias) pairs, then the prior's."""
-    enc, net = model.encoder, model.prior_module.transition_net
-    weights = [w.detach() for w in (
-        enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias,
-        enc.to_logits.weight, enc.to_logits.bias, net[0].weight,
-        net[0].bias, net[2].weight, net[2].bias)]
-    for w in weights:
-        if w.device != device or w.dtype != torch.float32 \
-                or not w.is_contiguous():
-            raise ValueError("model weights must be contiguous float32 on "
-                             f"{device} (got {w.dtype} on {w.device})")
-    return weights
-
-
 def _dims(cfg, B: int, T: int):
     return (B, cfg.input_dim, T, cfg.u_dim, cfg.hidden_dim, cfg.hidden_dim2,
             cfg.K, cfg.trans_hidden)
-
-
-def _smem_args(cfg):
-    return (cfg.input_dim, cfg.hidden_dim, cfg.hidden_dim2, cfg.K, cfg.u_dim,
-            cfg.trans_hidden)
 
 
 def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
@@ -223,11 +218,43 @@ def _launch_evidence(model, x, u, lens, tile: int, split: bool,
 fused_evidence.launches = 0
 
 
+def decode_plan(model, B: int, T: int, device) -> DecodePlan:
+    """The decode's launch plan at (B, T), kept a shape: the evidence
+    plan's tile without the split, and the fewest tiles a block for which
+    the blocks the runtime can keep resident cover every tile
+    (csrc/fused_decode.cu::vqhmm_fused_decode_plan).  Raises where no
+    number of tiles a block fits a block's shared memory."""
+    cache = kernel_cache(model)
+    dims = encoder_dims(model.cfg, prior=True)
+    key = ("decode", B, T, _build.sm_count(device))
+    with cache.lock:
+        plan = cache.plans.get(key)
+    if plan is not None:
+        return plan
+    tile = cache.plan("decode", dims, B, T, device).tile
+    out = (ctypes.c_int * 4)()
+    err = _build.library().vqhmm_fused_decode_plan(
+        *_dims(model.cfg, B, T), tile, out)
+    if err != 0:
+        raise ValueError(
+            f"the fused decode cannot keep the {B * -(-T // tile)} tiles of "
+            f"{tile} steps at (B={B}, T={T}) resident: every tile a block "
+            f"more needs {4 * tile * (model.cfg.K + model.cfg.K ** 2 + 1)} "
+            f"bytes of its {SMEM_LIMIT} of shared memory (CUDA error {err})")
+    plan = DecodePlan(tile, out[0], out[1], out[2], out[3])
+    if plan.smem != decode_smem_bytes(model.cfg, tile, plan.ntb):
+        raise RuntimeError("fused_decode kernel and wrapper disagree on "
+                           "the shared-memory layout")
+    with cache.lock:
+        cache.plans[key] = plan
+    return plan
+
+
 def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
                          lengths: Optional[torch.Tensor] = None,
                          use_kernel: Optional[bool] = None) -> torch.Tensor:
     """MAP regime path (B, T) int32 from raw x (B, C, T) and u (B, U, T) or
-    (B, T, U) in one launch for any T."""
+    (B, T, U) in one launch."""
     if use_kernel is None:
         use_kernel = x.is_cuda
     if not use_kernel:
@@ -237,29 +264,30 @@ def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
                          "decode is a CUDA kernel")
     cfg = model.cfg
     x, lens = _prepare(model, x, u, lengths, "fused decode")
-    weights = _torch_weights(model, x.device)
     B, _, T = x.shape
-    # the encoder's bound is one scalar for the batch, kept on the device
-    vt = valid_to_rows(None if lens is None or B == 0 else lens.max(), B, T,
-                       x.device)
     if T == 0:
         raise ValueError("Viterbi decode of an empty sequence (T=0)")
-    lib = _build.library()
-    if lib.vqhmm_fused_decode_smem_bytes(*_smem_args(cfg)) \
-            != decode_smem_bytes(cfg):
-        raise RuntimeError("fused_decode kernel and wrapper disagree on "
-                           "the shared-memory layout")
-    log_pi = torch.log_softmax(model.prior_module.log_prior.detach(),
-                               dim=0).contiguous()
     states = torch.empty((B, T), dtype=torch.int32, device=x.device)
     if B == 0:
         return states
-    bp = torch.empty((B, T, cfg.K), dtype=torch.int8, device=x.device)
-    err = lib.vqhmm_fused_decode(
-        x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u), vt.data_ptr(),
-        None if lens is None else lens.data_ptr(), log_pi.data_ptr(),
-        *[w.data_ptr() for w in weights], bp.data_ptr(), states.data_ptr(),
-        *_dims(cfg, B, T), torch.cuda.current_stream(x.device).cuda_stream)
+    plan = decode_plan(model, B, T, x.device)
+    packed, bs = kernel_cache(model).weights(model, x.device)
+    log_pi = torch.log_softmax(model.prior_module.log_prior.detach(),
+                               dim=0).contiguous()
+    G, K = num_segments(T), cfg.K
+    # the aggregates the blocks exchange: a segment's product and incoming
+    # delta (the end delta in the last segment's product), its selector
+    # map and its end state
+    agg = torch.empty(B * G * (K * K + K), dtype=torch.float32,
+                      device=x.device)
+    words = torch.empty((2, B * G), dtype=torch.int32, device=x.device)
+    err = _build.library().vqhmm_fused_decode(
+        x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u),
+        None if lens is None else lens.data_ptr(), packed.data_ptr(),
+        *[b.data_ptr() for b in bs], log_pi.data_ptr(), agg.data_ptr(),
+        words[0].data_ptr(), words[1].data_ptr(), states.data_ptr(),
+        *_dims(cfg, B, T), plan.tile,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_decode kernel launch")
     with _count_lock:
         fused_viterbi_states.launches += 1
