@@ -10,10 +10,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
 imports nothing of JAX.  With --compare it times the serving forward
 (kernel A), the fused training step (kernel C), the encoder (kernel 8),
 the HMM evidence (kernel 11), the one-kernel decode (kernel 10) and the
-Viterbi decode (kernel B) of two checkouts of the port in turns (OLD,
-NEW, NEW, OLD, each built and run in a process of its own: two versions
-are compared only on one card within one run) and prints the four JSON
-lines, the ratio of the device-busy times and, for kernels 8, 11, 10 and
+Viterbi decode (kernel B), `quantize_st` forward and backward on a VQ
+loss at (64, 200) and (8, 200) (the quantizer, kernel 9) and
+`DeviceEpochSampler.epoch` at the VQ configuration (kernel D) of two
+checkouts of the port in turns (OLD, NEW, NEW, OLD, each built and run in
+a process of its own: two versions are compared only on one card within
+one run) and prints the four JSON lines, the ratio of the device-busy
+times, device operations a call where given, and, for kernels 8, 11, 10 and
 B (Viterbi) at (64, 200), (1, 200), (460, 20) and (1, 2327), whether the
 two checkouts' outputs on fixed seeded inputs agree bit for bit (a
 SHA-256 of the output bytes); a checkout without git history is enough
@@ -74,11 +77,14 @@ exiting non-zero before a result is printed:
 8. kernel D (window gather) against its plain version and the host
    collate at B=64, T=200 on a pool of ragged synthetic sequences, with
    windows at the start and the end of a sequence, ln = min_len and
-   ln = T: exactly equal.
+   ln = T: exactly equal; an epoch of 15 such batches in one launch of
+   `gather_epoch`, and in 5 chunks of 3 batches, a launch each, equal to
+   its plain version, its chunks and the host collate.
 9. training through TrainPipeline with the published configuration on
    the card (4 epochs of 15 steps, save_freq 2): the log shows
-   `input_pipeline=device fused=True`; kernels C and D launch once a step
-   each (counts reset just before the run); every epoch loss is finite;
+   `input_pipeline=device fused=True`; kernel C launches once a step and
+   kernel D once an epoch (counts reset just before the run); every
+   epoch loss is finite;
    the same pipeline on the CPU (plain versions, the same index stream)
    gives per-epoch losses within 1e-4 relative; a run stopped by SIGTERM
    after epoch 2 and resumed ends bit-equal to the uninterrupted run; the
@@ -87,7 +93,8 @@ exiting non-zero before a result is printed:
 10. times: kernels C and D and their plain versions (kernel C's plain
    version is the forward plus the autograd backward; kernel C at
    (64, 200), (8, 200) and the probe shape, back to back and as
-   device-busy time a call with its share of the bound), and the
+   device-busy time a call with its share of the bound; kernel D a batch
+   and an epoch of 15), and the
    pipeline's training goodput in seqs/s from the log timestamps of the
    steady epochs (2-4).
 11. profile: an 8-epoch TrainPipeline run without periodic checkpoints,
@@ -154,11 +161,18 @@ exiting non-zero before a result is printed:
    (64, 32) codebook.  The indices equal, or at each mismatch the two
    codes' float64 scores within 1e-4 or 32 float32 roundings of the score;
    z_q bit-equal to codebook[idx]; a second call bit-equal; a duplicated
-   row never chosen over its lower twin.
+   row never chosen over its lower twin.  The quantizer's forward and
+   backward kernels on the same cases, each with a ragged bool mask, all
+   masked and no mask, in both layouts: idx as above, z_q_st bit-equal to
+   the plain version's where the codes agree, the losses within 1e-5
+   relative, dz_e bit-equal to `quantize_st_backward_reference`,
+   dcodebook within 1e-5 of the sum of its terms' magnitudes (another
+   order of summation), a second call of each bit-equal.
 18. VQ training through TrainPipeline with artifacts/config_vq.json on the
    card (the synthetic pool, 4 epochs of 15 steps, save_freq 2, the EM fit
-   cut to 20 iterations): kernel 9 launches once a step and once a panel
-   pass, kernel D once a step (counts reset just before, exact); every
+   cut to 20 iterations): the quantizer's forward and backward kernels
+   launch once a step each, kernel 9's nearest code once a panel pass,
+   kernel D once an epoch (counts reset just before, exact); every
    epoch loss finite and within 1e-4 relative of the same run with
    device="cpu", or the first step at which a code parts the two runs
    shown to be a near-tie; a run stopped by SIGTERM after epoch 2 and
@@ -172,15 +186,19 @@ exiting non-zero before a result is printed:
    equal or a score tie); kernel 9 launches exactly once a request and
    kernel B once a viterbi request.
 20. times: kernel 9 and its plain version at the four shapes, back to back
-   and as device-busy time; a VQ training step's wall and its device time
-   by part, from a profiler trace of one steady epoch; the same step with
+   and as device-busy time; the quantizer's two kernels and their plain
+   versions at (64, 200) and (8, 200), and `quantize_st` forward and
+   backward end to end with its device operations a call; a VQ training
+   step's wall, its device time by part and its device operations, from a
+   profiler trace of one steady epoch; the same step with
    its convolutions through cuDNN, deterministic and default, and whether
    two runs from one seed repeat; the EM fit's wall.
 
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
 of its operations over 67 TFLOP/s of fp32 and its input and output bytes
-over 3.35 TB/s, from this run's shapes); the last line is
+over 3.35 TB/s, from this run's shapes, and for kernel D from the
+lengths of the windows it timed); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -262,9 +280,9 @@ def weight_bytes(*modules) -> int:
 
 
 def kernel_bounds(model, B, T, vq=(8, 16)):
-    """bound_ms and bound_by of every kernel at (B, T) with the published
-    widths (vq: the VQ family's codes and code width): each input read
-    once, each output written once."""
+    """bound_ms and bound_by of every kernel but kernel D (gather_bound) at
+    (B, T) with the published widths (vq: the VQ family's codes and code
+    width): each input read once, each output written once."""
     cfg = model.cfg
     C, U, K = cfg.input_dim, cfg.u_dim, cfg.K
     enc, prior, dec = token_flops(cfg)
@@ -283,8 +301,6 @@ def kernel_bounds(model, B, T, vq=(8, 16)):
         # and the weights -> the loss and one gradient a weight
         "fused_train": bound_ms(3 * N * (enc + prior + dec),
                                 4 * N * (C + U) + 4 * B + 2 * w_all + 4),
-        # triples and the windows read -> the windows written
-        "gather": bound_ms(0, 2 * 4 * N * (C + U) + 3 * 4 * B),
         # x, valid_to -> logits
         "fused_encode": bound_ms(N * enc, 4 * N * (C + K) + 4 * B + w_enc),
         # x, u -> log_obs, log_A
@@ -299,7 +315,24 @@ def kernel_bounds(model, B, T, vq=(8, 16)):
         # z, codebook -> z_q, idx
         "vq_nearest": bound_ms(2 * N * vq[0] * vq[1],
                                4 * (2 * N * vq[1] + N + vq[0] * vq[1])),
+        # z_e, a bool mask, codebook -> z_q_st, idx, the losses
+        "quantize_forward": bound_ms(
+            2 * N * vq[0] * vq[1] + 5 * N * vq[1],
+            4 * (2 * N * vq[1] + N + vq[0] * vq[1] + 2) + N),
+        # g, z_e, idx, a bool mask, codebook, three scalars -> dz_e,
+        # dcodebook
+        "quantize_backward": bound_ms(
+            6 * N * vq[1],
+            4 * (3 * N * vq[1] + N + 2 * vq[0] * vq[1] + 3) + N),
     }
+
+
+def gather_bound(C, U, T, ln):
+    """bound_ms and bound_by of kernel D for the windows of this run's
+    lengths ln (any shape, a window each): the triples read, each window's
+    ln steps of the pool read and its T steps written (zeros past ln)."""
+    W = ln.size
+    return bound_ms(0, 3 * 4 * W + 4 * (C + U) * (W * T + int(ln.sum())))
 
 
 def kernel_resources(build_log: str, names):
@@ -825,7 +858,10 @@ def gather_case(np, rng, lens, B, T, min_len):
 
 def phase_kernel_d(torch, np, dev):
     from vqvaehmm_tpu_torch.data.dataset import collate_fn
-    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_windows,
+    from vqvaehmm_tpu_torch.ops import gather
+    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_epoch,
+                                               gather_epoch_chunks,
+                                               gather_windows,
                                                validate_triples)
 
     rng = np.random.default_rng(6)
@@ -833,7 +869,7 @@ def phase_kernel_d(torch, np, dev):
     px, pu = (torch.from_numpy(a).to(dev) for a in build_pools(xs, us))
     B, T = 64, 200
     worst = 0.0
-    n0 = gather_windows.launches
+    n0 = gather_epoch.launches
     for _ in range(4):
         trip = gather_case(np, rng, lens, B, T, 20)
         validate_triples(*trip, lens, T)
@@ -850,11 +886,50 @@ def phase_kernel_d(torch, np, dev):
                                                            h):
                 fail(f"kernel D {name} differs from its plain version or "
                      "the host collate")
-    if gather_windows.launches - n0 != 4:
-        fail(f"kernel D launched {gather_windows.launches - n0} times for 4 "
+    if gather_epoch.launches - n0 != 4:
+        fail(f"kernel D launched {gather_epoch.launches - n0} times for 4 "
              "calls")
     say("kernel D", "4 batches at B=64, T=200 equal to the plain version "
         "and the host collate bit for bit")
+
+    # an epoch of 15 batches in one launch, and in chunks of 3 batches
+    trips = [gather_case(np, rng, lens, B, T, 20) for _ in range(15)]
+    trip = [np.stack(a) for a in zip(*trips)]
+    validate_triples(*trip, lens, T)
+    idx = [torch.from_numpy(a).to(dev) for a in trip]
+    n0 = gather_epoch.launches
+    got = gather_epoch(px, pu, *idx, T, use_kernel=True)
+    torch.cuda.synchronize()
+    if gather_epoch.launches - n0 != 1:
+        fail(f"the epoch gather launched {gather_epoch.launches - n0} times")
+    want = gather_epoch(px, pu, *idx, T, use_kernel=False)
+    default = gather.EPOCH_CHUNK_BYTES
+    gather.EPOCH_CHUNK_BYTES = 3 * 4 * B * 9 * T         # 3 batches a chunk
+    try:
+        chunks = list(gather_epoch_chunks(px, pu, *idx, T))
+    finally:
+        gather.EPOCH_CHUNK_BYTES = default
+    torch.cuda.synchronize()
+    if gather_epoch.launches - n0 != 6 or len(chunks) != 5:
+        fail(f"the epoch gather in chunks of 3 batches launched "
+             f"{gather_epoch.launches - n0 - 1} times for 15 batches")
+    for k, name in ((0, "x"), (1, "u")):
+        joined = torch.cat([c[1 + k] for c in chunks])
+        worst = max(worst, max_abs(got[k], want[k]))
+        if not torch.equal(got[k], want[k]) or not torch.equal(joined,
+                                                                got[k]):
+            fail(f"the epoch gather's {name} differs from its plain version "
+                 "or from its chunks")
+    for i, (si, st, ln) in enumerate(trips):
+        host = collate_fn([(xs[j][:, s:s + n], us[j][:, s:s + n], n)
+                           for j, s, n in zip(si, st, ln)], pad_to=T)
+        if not np.array_equal(got[0][i].cpu().numpy(), host[0]) or \
+                not np.array_equal(got[1][i].cpu().numpy(), host[1]):
+            fail(f"the epoch gather's batch {i} differs from the host "
+                 "collate")
+    say("kernel D", "an epoch of 15 batches at B=64, T=200 in one launch "
+        "(and in 5 chunks of 3 batches, a launch each) equal to its plain "
+        "version and the host collate bit for bit")
     return worst
 
 
@@ -870,7 +945,7 @@ def _pipeline_cfg(ckpt_dir, **training):
 def phase_train(torch, np):
     from vqvaehmm_tpu_torch.data.checkpoint import load_metadata
     from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
-    from vqvaehmm_tpu_torch.ops.gather import gather_windows
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
     from vqvaehmm_tpu_torch.serve.app import InferenceModel
     from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
 
@@ -885,21 +960,23 @@ def phase_train(torch, np):
         cfg = _pipeline_cfg(os.path.join(tmp, "gpu"))
         pipe = TrainPipeline(cfg, device="cuda")
         fused_loss_and_grads.launches = 0
-        gather_windows.launches = 0
+        gather_epoch.launches = 0
         state = pipe.train(log_fn=log)
         torch.cuda.synchronize()
         launches = {"fused_train": fused_loss_and_grads.launches,
-                    "gather": gather_windows.launches}
+                    "gather": gather_epoch.launches}
         t = cfg.training
         steps = t.num_epochs * (cfg.data.samples_per_epoch // t.batch_size)
         if not any(m.startswith("input_pipeline=device fused=True")
                    for _, m in logs):
             fail("the training log does not show input_pipeline=device "
                  f"fused=True: {[m for _, m in logs]}")
-        for name, n in launches.items():
-            if n != steps:
-                fail(f"training launched the {name} kernel {n} times in "
-                     f"{steps} steps")
+        # a step is one launch of kernel C; an epoch (one chunk at this
+        # configuration) one of kernel D
+        expected = {"fused_train": steps, "gather": t.num_epochs}
+        if launches != expected:
+            fail(f"training launched {launches} in {steps} steps of "
+                 f"{t.num_epochs} epochs, not {expected}")
         if state.step != steps:
             fail(f"training made {state.step} updates, not {steps}")
         gpu_hist = pipe.history
@@ -982,7 +1059,8 @@ C_SHAPES = ((64, 200), (8, 200), (256, 512))      # the last: the probe
 def phase_train_times(torch, np, model):
     from vqvaehmm_tpu_torch.ops import fused_train
     from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
-    from vqvaehmm_tpu_torch.ops.gather import build_pools, gather_windows
+    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_epoch,
+                                               gather_windows)
 
     dev = model.device
     rng = np.random.default_rng(9)
@@ -1006,18 +1084,35 @@ def phase_train_times(torch, np, model):
             + f"; {fused_train.train_plan(m.cfg, B, T, sms)}")
     xs, us, lens = synthetic_pool(np, rng, 5, 4)
     px, pu = (torch.from_numpy(a).to(dev) for a in build_pools(xs, us))
-    idx = [torch.from_numpy(a).to(dev)
-           for a in gather_case(np, rng, lens, 64, 200, 20)]
+    trip = gather_case(np, rng, lens, 64, 200, 20)
+    idx = [torch.from_numpy(a).to(dev) for a in trip]
     for use in (False, True):
         res[("gather", 64, 200, use)] = _time(
             torch, lambda: gather_windows(px, pu, *idx, 200,
                                           use_kernel=use)) + (None,)
+    # an epoch of the published configuration: 15 batches of 64
+    etrip = [np.stack(a) for a in zip(
+        *(gather_case(np, rng, lens, 64, 200, 20) for _ in range(15)))]
+    eidx = [torch.from_numpy(a).to(dev) for a in etrip]
+    for use in (False, True):
+        fn = lambda: gather_epoch(px, pu, *eidx, 200,  # noqa: E731
+                                  use_kernel=use)
+        res[("gather_epoch", 64, 200, use)] = _time(torch, fn) + (
+            _device_ms(torch, fn),)
+    # kernel D's bounds for these triples
+    C, U = xs[0].shape[0], us[0].shape[0]
+    bounds = {"gather": gather_bound(C, U, 200, trip[2]),
+              "gather_epoch": gather_bound(C, U, 200, etrip[2])}
     for (name, B, T, use), (med, lo, hi, dev_ms) in res.items():
-        say("times", f"{name} {'kernel' if use else 'plain '} B={B} "
+        say("times", f"{name} {'kernel' if use else 'plain '} "
+            f"{'S=15 ' if name == 'gather_epoch' else ''}B={B} "
             f"T={T}: {med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back"
             + ("" if name == "gather" else
-               f"; device busy {_ms(dev_ms)} a call (profiler)"))
-    return res
+               f"; device busy {_ms(dev_ms)} a call (profiler)")
+            + (f"; bound {bounds[name][0]:.6f} ms for these triples' "
+               f"lengths, {100 * bounds[name][0] / dev_ms:.1f}% of it"
+               if name == "gather_epoch" and use and dev_ms else ""))
+    return res, bounds
 
 
 def _busy_us(intervals) -> float:
@@ -1677,13 +1772,19 @@ def _wall(torch, fn, repeats=5):
     return statistics.median(out), min(out), max(out)
 
 
-def _device_ms(torch, fn, calls=10):
-    """Device-busy ms a call of fn(), from a torch.profiler trace of the
-    card alone: the union of its kernels' intervals over `calls` calls.
-    Unlike a back-to-back event time, it does not contain the host's
-    launch rate.  A trace that comes back without device events is taken
+def _device_trace(torch, fn, calls=10, kernels=None):
+    """(device-busy ms a call of fn(), device operations a call), from a
+    torch.profiler trace of the card alone: the union of its kernels'
+    intervals over `calls` calls, and their count.  Unlike a back-to-back
+    event time, the busy time does not contain the host's launch rate.
+    Late in a run the profiler was seen to keep 9 of the 10 events of ten
+    one-kernel calls, an event lost from the middle of the trace, which
+    read a tenth low.  So a trace with fewer events than calls is taken
     again, twice; then the time is None and printed as not measured (the
-    CUDA-event time beside it stands)."""
+    CUDA-event time beside it stands).  kernels: the kernels fn launches a
+    call, where its wrapper counts them; the time a call is then the mean
+    of the kernels the trace holds times that count, which a lost event
+    does not bias."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1694,15 +1795,23 @@ def _device_ms(torch, fn, calls=10):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        busy = _busy_us((e.time_range.start, e.time_range.end)
-                        for e in prof.events()
-                        if e.device_type == DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False))
-        if busy > 0.0:
-            return busy / 1e3 / calls
-        say("times", f"a profiler trace of {calls} calls held no device "
-            f"event (attempt {attempt + 1} of 3)")
-    return None
+        ops = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        busy = _busy_us(ops)
+        if kernels is not None and ops and len(ops) <= calls * kernels:
+            return busy / 1e3 / len(ops) * kernels, len(ops) / calls
+        if busy > 0.0 and len(ops) >= calls:
+            return busy / 1e3 / calls, len(ops) / calls
+        say("times", f"a profiler trace of {calls} calls held "
+            f"{len(ops)} device events, fewer than the calls (attempt "
+            f"{attempt + 1} of 3)")
+    return None, None
+
+
+def _device_ms(torch, fn, calls=10, kernels=None):
+    """Device-busy ms a call of fn() (see _device_trace)."""
+    return _device_trace(torch, fn, calls, kernels)[0]
 
 
 def _ms(value) -> str:
@@ -1797,18 +1906,19 @@ def phase_bulk_times(torch, np, model, bulk):
     return res
 
 
-def gather_library_ms(torch, np):
+def gather_library_ms(torch, np, S=1):
     """One advanced-indexing call over the two pools joined along the
-    channels, for the same triples as the gather's timing (it does not
-    zero the steps past each length)."""
+    channels, for S batches of the same triples as the gather's timing (it
+    does not zero the steps past each length)."""
     from vqvaehmm_tpu_torch.ops.gather import build_pools
 
     rng = np.random.default_rng(9)
     xs, us, lens = synthetic_pool(np, rng, 5, 4)
     pool = torch.cat([torch.from_numpy(a) for a in build_pools(xs, us)],
                      dim=1).cuda()
-    si, st, _ = (torch.from_numpy(a).cuda().long()
-                 for a in gather_case(np, rng, lens, 64, 200, 20))
+    si, st, _ = (torch.from_numpy(np.concatenate(a)).cuda().long()
+                 for a in zip(*(gather_case(np, rng, lens, 64, 200, 20)
+                                for _ in range(S))))
     ch = torch.arange(pool.shape[1], device="cuda")
     pos = (st[:, None] + torch.arange(200, device="cuda")[None, :]).clamp(
         max=pool.shape[2] - 1)
@@ -1844,10 +1954,43 @@ def vq_panel_windows(np, max_len=200):
 
 
 VQ_SHAPES = ((1, 37), (64, 200), (460, 20), (1, 2327))
+# the quantizer's shapes: a training step of config_vq.json, a small batch
+QUANT_SHAPES = ((64, 200), (8, 200))
+
+
+def quantize_step(torch, np, B, T, use_kernel=None, seed=0):
+    """fn() -> quantize_st forward and .backward() of a VQ loss on seeded
+    (B, 16, T) latents of a (8, 16) codebook with a ragged mask, through the
+    package on sys.path (public entry points only, so that the parent's
+    package runs it too), and the tensors whose bytes old and new must
+    share (idx, z_q_st)."""
+    from vqvaehmm_tpu_torch.ops.vq import quantize_st
+
+    rng = np.random.default_rng(seed + B * 1009 + T)
+    dev = torch.device("cuda")
+    z = _randn(torch, np, rng, (B, 16, T), dev).requires_grad_()
+    cb = (0.5 * _randn(torch, np, rng, (8, 16), dev)).requires_grad_()
+    g = _randn(torch, np, rng, (B, 16, T), dev)
+    lens = torch.from_numpy(rng.integers(T // 3, T + 1, size=B)).to(dev)
+    mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    out = []
+
+    def fn():
+        z.grad = cb.grad = None
+        r = quantize_st(z, cb, 0.25, use_kernel=use_kernel, mask=mask,
+                        channels_first=True)
+        ((r.quantized * g).sum() + r.commitment_loss
+         + r.codebook_loss).backward()
+        out[:] = [r.indices, r.quantized.detach()]
+
+    fn()
+    return fn, out
 
 
 def phase_kernel_9(torch, np, stack):
-    from vqvaehmm_tpu_torch.ops.vq import vq_nearest, vq_nearest_reference
+    from vqvaehmm_tpu_torch.ops.vq import (quantize_st_fused_backward,
+                                           quantize_st_fused_forward,
+                                           vq_nearest, vq_nearest_reference)
 
     model = stack.model
     dev = model.device
@@ -1910,7 +2053,108 @@ def phase_kernel_9(torch, np, stack):
         f"{TIE_ULPS} float32 roundings of the score), z_q bit-equal to "
         "codebook[idx], second call bit-equal, the lower of two equal rows "
         "chosen")
-    return worst
+
+    # the straight-through quantizer's forward and backward kernels, each
+    # case with a ragged bool mask, all masked, and none
+    _, lw = vq_panel_windows(np)
+    panel_mask = torch.arange(z_panel.shape[2], device=dev)[None, :] \
+        < torch.from_numpy(lw).to(dev)[:, None]
+    errs = {"forward": 0.0, "backward": 0.0}
+    n0 = (quantize_st_fused_forward.launches,
+          quantize_st_fused_backward.launches)
+    qcalls, mismatches = 0, 0
+    for what, z, book in cases:
+        B, _, T = z.shape
+        lens = torch.from_numpy(rng.integers(0, T + 1, size=B)).to(dev)
+        lens[0] = T
+        ragged = (panel_mask if z is z_panel else
+                  torch.arange(T, device=dev)[None, :] < lens[:, None])
+        g = _randn(torch, np, rng, tuple(z.shape), dev)
+        for mname, mask in (("ragged mask", ragged),
+                            ("all masked", torch.zeros_like(ragged)),
+                            ("no mask", None)):
+            for layout, cf in (("(B, D, T)", True), ("flat", False)):
+                tag = f"{what}, {mname}, {layout}"
+                e, n = _quantize_case(torch, z, book, g, mask, cf, tag)
+                qcalls += 2
+                mismatches += n
+                for k in errs:
+                    errs[k] = max(errs[k], e[k])
+    got = (quantize_st_fused_forward.launches - n0[0],
+           quantize_st_fused_backward.launches - n0[1])
+    if got != (qcalls, qcalls):
+        fail(f"the quantizer launched {got} (forward, backward) for "
+             f"{qcalls} calls of each")
+    say("kernel 9", f"the quantizer, {len(cases)} cases x 3 masks x 2 "
+        f"layouts: idx equal to plain except {mismatches} near-ties, z_q_st "
+        "bit-equal to the plain version's where the codes agree and to "
+        "z + (codebook[idx] - z) everywhere, denom bit-equal, losses within "
+        f"1e-5 relative (largest absolute error {errs['forward']:.3e}), "
+        "dz_e bit-equal to quantize_st_backward_reference, dcodebook within "
+        "1e-5 of the sum of its terms' magnitudes (largest absolute error "
+        f"{errs['backward']:.3e}), a second call of each bit-equal")
+    return worst, errs
+
+
+def _quantize_case(torch, z, book, g, mask, cf, tag):
+    """The quantizer's forward and backward kernels against their plain
+    versions on (B, D, T) latents z, in the model's layout (cf) or flat:
+    ({forward: largest loss error, backward: largest dcodebook error},
+    tokens whose code differs at a near-tie)."""
+    from vqvaehmm_tpu_torch.ops.vq import (
+        quantize_st_backward_reference, quantize_st_forward_reference,
+        quantize_st_fused_backward, quantize_st_fused_forward)
+
+    M, D = book.shape
+    flat = z.transpose(1, 2).contiguous()                    # (B, T, D)
+    zin, gin = (z, g) if cf else (flat, g.transpose(1, 2))
+    gc, gk = (torch.tensor(v, device=z.device) for v in (0.7, 1.3))
+    fwd = quantize_st_fused_forward(zin, book, 0.25, mask, cf)
+    fwd2 = quantize_st_fused_forward(zin, book, 0.25, mask, cf)
+    ref = quantize_st_forward_reference(zin, book, 0.25, mask, cf)
+    zst, idx, denom = fwd[0], fwd[1], fwd[4]
+    bwd = quantize_st_fused_backward(gin, gc, gk, zin, book, idx, mask,
+                                     denom, 0.25, cf)
+    bwd2 = quantize_st_fused_backward(gin, gc, gk, zin, book, idx, mask,
+                                      denom, 0.25, cf)
+    want = quantize_st_backward_reference(gin, gc, gk, zin, book, idx, mask,
+                                          denom, 0.25, cf)
+    torch.cuda.synchronize()
+    if idx.dtype != torch.int32 or idx.shape != ref[1].shape:
+        fail(f"quantizer indices misshapen ({tag})")
+    n, excess = _code_ties(torch, flat, book, idx, ref[1])
+    if excess > 1.0:
+        fail(f"quantizer indices differ from plain at {n} tokens, "
+             f"{excess:.1f} times the tolerance of a tie ({tag})")
+    rows = book[idx.long()]
+    zq = rows.transpose(1, 2) if cf else rows
+    same = (idx == ref[1]).unsqueeze(1 if cf else -1).expand_as(zst)
+    if not torch.equal(zst, zin + (zq - zin)) or \
+            not torch.equal(zst[same], ref[0][same]):
+        fail(f"quantizer z_q_st not bit-equal to the plain version ({tag})")
+    if not torch.equal(denom, ref[4]):
+        fail(f"quantizer denominator {denom} vs plain {ref[4]} ({tag})")
+    loss_err = 0.0
+    for got, exp in zip(fwd[2:4], ref[2:4]):
+        loss_err = max(loss_err, max_abs(got, exp))
+        if abs(float(got) - float(exp)) > 1e-5 * abs(float(exp)):
+            fail(f"quantizer loss {float(got)} vs plain {float(exp)} "
+                 f"({tag})")
+    if not torch.equal(bwd[0], want[0]):
+        fail(f"quantizer dz_e not bit-equal to "
+             f"quantize_st_backward_reference ({tag})")
+    v = flat - rows
+    if mask is not None:
+        v = v * mask[..., None]
+    onehot = torch.nn.functional.one_hot(idx.reshape(-1).long(), M).float()
+    scale = onehot.T @ v.reshape(-1, D).abs() * (2 * 1.3 / denom).abs()
+    if not bool(((bwd[1] - want[1]).abs() <= 1e-5 * scale + 1e-30).all()):
+        fail(f"quantizer dcodebook beyond 1e-5 of its terms' magnitudes "
+             f"({tag}): {max_abs(bwd[1], want[1]):.3e}")
+    for a, b in zip(fwd + bwd, fwd2 + bwd2):
+        if not torch.equal(a, b):
+            fail(f"the quantizer is not bit-equal across two calls ({tag})")
+    return {"forward": loss_err, "backward": max_abs(bwd[1], want[1])}, n
 
 
 VQ_EM_ITERS = 20       # of config_vq.json's 50, in the training phases
@@ -1998,8 +2242,10 @@ def _npz(np, path):
 
 def phase_vq_train(torch, np):
     from vqvaehmm_tpu_torch.data.checkpoint import load_metadata
-    from vqvaehmm_tpu_torch.ops.gather import gather_windows
-    from vqvaehmm_tpu_torch.ops.vq import vq_nearest
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.ops.vq import (quantize_st_fused_backward,
+                                           quantize_st_fused_forward,
+                                           vq_nearest)
     from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
     from vqvaehmm_tpu_torch.train.vq_pipeline import VQStack
 
@@ -2011,17 +2257,24 @@ def phase_vq_train(torch, np):
         per_epoch = cfg.data.samples_per_epoch // t.batch_size
         pipe = TrainPipeline(cfg, device="cuda")
         vq_nearest.launches = 0
-        gather_windows.launches = 0
+        quantize_st_fused_forward.launches = 0
+        quantize_st_fused_backward.launches = 0
+        gather_epoch.launches = 0
         state = pipe.train(log_fn=lambda m: logs.append(
             (time.perf_counter(), m)))
         torch.cuda.synchronize()
         launches = {"vq_nearest": vq_nearest.launches,
-                    "gather": gather_windows.launches}
-        # a step is one gather and one nearest-code search; the panel is
-        # encoded once after training and once more after a polish epoch
+                    "quantize_forward": quantize_st_fused_forward.launches,
+                    "quantize_backward": quantize_st_fused_backward.launches,
+                    "gather": gather_epoch.launches}
+        # a step is one forward and one backward of the quantizer; an
+        # epoch one gather; the panel is encoded once after training and
+        # once more after a polish epoch
         polish = sum(m.startswith("Polish epoch") for _, m in logs)
-        steps = per_epoch * (t.num_epochs + polish)
-        expected = {"vq_nearest": steps + 1 + polish, "gather": steps}
+        epochs = t.num_epochs + polish
+        steps = per_epoch * epochs
+        expected = {"vq_nearest": 1 + polish, "quantize_forward": steps,
+                    "quantize_backward": steps, "gather": epochs}
         if launches != expected or state.step != steps:
             fail(f"VQ training launched {launches} and made {state.step} "
                  f"updates; {t.num_epochs} epochs and {polish} polish "
@@ -2302,7 +2555,10 @@ def phase_vq_times(torch, np, stack):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from vqvaehmm_tpu_torch.models.hmm import fit_categorical_em
-    from vqvaehmm_tpu_torch.ops.vq import vq_nearest, vq_nearest_reference
+    from vqvaehmm_tpu_torch.ops.vq import (
+        quantize_st_backward_reference, quantize_st_forward_reference,
+        quantize_st_fused_backward, quantize_st_fused_forward, vq_nearest,
+        vq_nearest_reference)
     from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
     from vqvaehmm_tpu_torch.train.vq_pipeline import panel_windows
 
@@ -2316,11 +2572,52 @@ def phase_vq_times(torch, np, stack):
         for use, fn in ((False, lambda: vq_nearest_reference(
                 z, cb, channels_first=True)), (True, lambda: vq_nearest(
                     z, cb, channels_first=True, use_kernel=True))):
-            res[(B, T, use)] = _time(torch, fn) + (_device_ms(torch, fn),)
+            res[(B, T, use)] = _time(torch, fn) + (_device_ms(
+                torch, fn, kernels=1 if use else None),)
     for (B, T, use), (med, lo, hi, dev_ms) in res.items():
         say("times", f"vq_nearest {'kernel' if use else 'plain '} B={B} "
             f"T={T}: {med:.4f} ms [{lo:.4f}, {hi:.4f}] back to back; "
             f"device busy {_ms(dev_ms)} a call (profiler)")
+
+    # the quantizer's two kernels and their plain versions, then
+    # quantize_st forward and backward end to end, kernels against autograd
+    for B, T in QUANT_SHAPES:
+        z = _randn(torch, np, rng, (B, cb.shape[1], T), dev)
+        g = _randn(torch, np, rng, (B, cb.shape[1], T), dev)
+        gc, gk = torch.ones(2, device=dev).unbind()
+        mask = torch.arange(T, device=dev)[None, :] < torch.from_numpy(
+            rng.integers(T // 3, T + 1, size=B)).to(dev)[:, None]
+        fwd = quantize_st_fused_forward(z, cb, 0.25, mask, True)
+        for name, args, fns in (
+                ("quantize_forward", (z, cb, 0.25, mask, True),
+                 (quantize_st_forward_reference, quantize_st_fused_forward)),
+                ("quantize_backward", (g, gc, gk, z, cb, fwd[1], mask,
+                                       fwd[4], 0.25, True),
+                 (quantize_st_backward_reference,
+                  quantize_st_fused_backward))):
+            for use, f in zip((False, True), fns):
+                call = lambda: f(*args)  # noqa: E731
+                res[(name, B, T, use)] = _time(torch, call) + (
+                    _device_ms(torch, call, kernels=1 if use else None),)
+        for use in (False, True):
+            step, _ = quantize_step(torch, np, B, T, use_kernel=use)
+            res[("quantize_st", B, T, use)] = _time(torch, step) + \
+                _device_trace(torch, step)
+    bounds = kernel_bounds(load_published(torch, dev), 64, 200)
+    for key, val in res.items():
+        if len(key) != 4:
+            continue
+        name, B, T, use = key
+        line = (f"{name} {'kernel' if use else 'plain '} B={B} T={T}: "
+                f"{val[0]:.4f} ms [{val[1]:.4f}, {val[2]:.4f}] back to back;"
+                f" device busy {_ms(val[3])} a call (profiler)")
+        if name == "quantize_st" and val[4] is not None:
+            line += (f", {val[4]:.1f} device ops a call (the forward, the "
+                     "loss's mul, sum and adds, and their backward)")
+        elif use and (B, T) == (64, 200) and val[3]:
+            b = bounds[name][0]
+            line += f"; bound {b:.6f} ms, {100 * b / val[3]:.1f}% of it"
+        say("times", line)
 
     # a steady epoch of VQ training on the card, traced on the card alone
     prof = profile(activities=[ProfilerActivity.CUDA])
@@ -2350,7 +2647,10 @@ def phase_vq_times(torch, np, stack):
     steady = len(untraced) * steps * t.batch_size / (sum(untraced) / 1e3)
     plain_step = statistics.median(untraced) / steps
     traced = 1e3 * (stamps[5] - begin[0]) / steps
-    parts = {"kernel 9": ("vq_nearest",), "kernel D": ("gather_kernel",),
+    parts = {"kernel 9, the quantizer's forward": ("vq_quantize_forward",),
+             "kernel 9, the quantizer's backward": ("vq_quantize_backward",),
+             "kernel 9, nearest code alone": ("vq_nearest",),
+             "kernel D (once an epoch)": ("gather_kernel",),
              "matrix products (convolutions, one-hot)": (
                  "gemm", "gemv", "xmma", "cutlass", "cublas"),
              "Adam": ("multi_tensor", "adam", "foreach")}
@@ -2367,12 +2667,14 @@ def phase_vq_times(torch, np, stack):
     busy = _busy_us(iv for ivs in cats.values() for iv in ivs) / 1e3 / steps
     if busy <= 0.0:
         fail("the profiler saw no device time in the traced VQ epoch")
+    total_ops = sum(len(ivs) for ivs in cats.values())
     say("times", f"VQ TrainPipeline, save_freq 0, 6 epochs: ms between "
         f"epoch log lines {[round(g, 3) for g in gaps]}; goodput of the "
         f"untraced epochs 3-5: {steady:.1f} seqs/s, {plain_step:.4f} ms a "
         f"step; traced epoch 6: {traced:.4f} ms a step; device busy "
         f"{busy:.4f} ms a step, {100 * busy / plain_step:.2f}% of an "
-        "untraced step (inferred)")
+        f"untraced step (inferred); {total_ops / steps:.1f} device ops a "
+        f"step ({total_ops} in {steps} steps and the epoch's gather)")
     for key, ivs in cats.items():
         say("times", f"  device {key}: {_busy_us(ivs) / 1e3 / steps:.4f} ms "
             f"a step, {len(ivs)} ops in {steps} steps")
@@ -2495,6 +2797,54 @@ def kernel_times(torch, np, root: str) -> dict:
                         model, x, u, lens, tile, split, ev)
                     out[f"11 {B}x{T} tile {tile} split {int(split)}"] = \
                         _device_ms(torch, fn)
+    # the VQ quantizer forward and backward, and the VQ configuration's
+    # epoch gather, through entry points the parent has too
+    for B, T in QUANT_SHAPES:
+        fn, res = quantize_step(torch, np, B, T)
+        ms, ops = _device_trace(torch, fn)
+        out[f"quantize {B}x{T}"] = {"events_ms": _time(torch, fn)[0],
+                                    "device_ms": ms, "launches": ops,
+                                    "sha256": _sha(torch, *res)}
+    from vqvaehmm_tpu_torch.data.device_sampler import DeviceEpochSampler
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_epoch_")
+    try:
+        cfg = _vq_cfg(tmp)
+        sampler = DeviceEpochSampler(TrainPipeline(cfg, device="cpu")
+                                     .load_data(), dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t = cfg.training
+    nb = cfg.data.samples_per_epoch // t.batch_size
+    fn = lambda: sampler.epoch(t.batch_size, nb,  # noqa: E731
+                               exact_stream=False)
+    ms, ops = _device_trace(torch, fn)
+    out[f"epoch gather {nb}x{t.batch_size}"] = {
+        "events_ms": _time(torch, fn)[0], "device_ms": ms, "launches": ops}
+    # a VQ training step (make_vq_epoch_step over an epoch of nb steps on
+    # seeded batches): host-clock wall, device-busy ms and device ops a step
+    from vqvaehmm_tpu_torch.train.vq_pipeline import (make_vq_epoch_step,
+                                                      make_vq_model,
+                                                      make_vq_optimizer)
+
+    g = np.random.default_rng(21)
+    shape = (nb, t.batch_size, cfg.model.input_dim, cfg.data.max_len)
+    xs = _randn(torch, np, g, shape, dev)
+    lens = torch.from_numpy(g.integers(
+        cfg.data.min_len, cfg.data.max_len + 1, size=shape[:2]).astype(
+            np.int32)).to(dev)
+    model = make_vq_model(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    step = make_vq_epoch_step(model, make_vq_optimizer(
+        model, t.learning_rate, t.gradient_clip))
+    fn = lambda: step(xs, lens)  # noqa: E731
+    ms, ops = _device_trace(torch, fn, calls=2)
+    wall = _wall(torch, fn)[0] / nb
+    out[f"vq step {t.batch_size}x{cfg.data.max_len}"] = {
+        "events_ms": wall, "wall_ms": wall,
+        "device_ms": None if ms is None else ms / nb,
+        "launches": None if ops is None else ops / nb}
     return out
 
 
@@ -2523,6 +2873,14 @@ def compare_checkouts(old: str, new: str) -> int:
         line = f"{key}: device ms old {o} new {n}"
         if None not in o + n:
             line += f": {statistics.median(o) / statistics.median(n):.2f}x"
+        if "wall_ms" in runs[0][key]:
+            line += ("; wall ms a step old "
+                     f"{[runs[i][key]['wall_ms'] for i in (0, 3)]} new "
+                     f"{[runs[i][key]['wall_ms'] for i in (1, 2)]}")
+        if "launches" in runs[0][key]:
+            line += ("; device ops a call old "
+                     f"{[runs[i][key]['launches'] for i in (0, 3)]} new "
+                     f"{[runs[i][key]['launches'] for i in (1, 2)]}")
         if "sha256" in runs[0][key]:
             same = len({r[key]["sha256"] for r in runs}) == 1
             line += ("; outputs bit-equal" if same else
@@ -2737,7 +3095,7 @@ def main() -> int:
     # 9. training
     train_launches, goodput = phase_train(torch, np)
     # 10. times
-    ttimes = phase_train_times(torch, np, model)
+    ttimes, gbounds = phase_train_times(torch, np, model)
     say("times", f"training goodput (TrainPipeline, published configuration,"
         f" epochs 2-4): {goodput:.1f} seqs/s")
     # 11. where a training step's time goes
@@ -2755,7 +3113,7 @@ def main() -> int:
     from vqvaehmm_tpu_torch.train.vq_pipeline import VQStack
 
     vq_stack = VQStack.load(VQ_ARCHIVE, device="cuda")
-    err_9 = phase_kernel_9(torch, np, vq_stack)
+    err_9, err_q = phase_kernel_9(torch, np, vq_stack)
     # 18, 19: the VQ family trained and served
     vq_train_launches, vq_goodput = phase_vq_train(torch, np)
     vq_serve_launches = phase_vq_serve(torch, np)
@@ -2807,12 +3165,18 @@ def main() -> int:
          "replaces": "vqvaehmm_tpu/ops/pallas_gather.py:140",
          "also_replaces": ["vqvaehmm_tpu/ops/pallas_gather.py:150"],
          "launches": train_launches["gather"], "max_abs_err": err_d,
-         "ms": ttimes[("gather", 64, 200, True)][0],
-         "plain_ms": ttimes[("gather", 64, 200, False)][0],
-         "bound_ms": bounds["gather"][0],
-         "bound_by": bounds["gather"][1],
-         "library_ms": gather_library_ms(torch, np),
-         "shape": "B=64 T=200"},
+         "ms": ttimes[("gather_epoch", 64, 200, True)][0],
+         "plain_ms": ttimes[("gather_epoch", 64, 200, False)][0],
+         "bound_ms": gbounds["gather_epoch"][0],
+         "bound_by": gbounds["gather_epoch"][1],
+         "library_ms": gather_library_ms(torch, np, S=15),
+         "shape": "an epoch, S=15 B=64 T=200",
+         "device_ms": ttimes[("gather_epoch", 64, 200, True)][3],
+         "plain_device_ms": ttimes[("gather_epoch", 64, 200, False)][3],
+         "batch_ms": ttimes[("gather", 64, 200, True)][0],
+         "batch_plain_ms": ttimes[("gather", 64, 200, False)][0],
+         "batch_bound_ms": gbounds["gather"][0],
+         "batch_library_ms": gather_library_ms(torch, np)},
     ]
     for name, source, line, err in (
             ("fused_encode", "fused_encoder.cu", "pallas_encoder.py:32",
@@ -2860,6 +3224,22 @@ def main() -> int:
             entry[f"bound_ms_{B}x{T}"] = kernel_bounds(
                 model, B, T)["vq_nearest"][0]
     kernels.append(entry)
+    for name in ("quantize_forward", "quantize_backward"):
+        entry = {"name": name, "route": "cuda",
+                 "source": "vqvaehmm_tpu_torch/csrc/vq.cu",
+                 "replaces": "vqvaehmm_tpu/ops/vq.py:60",
+                 "launches": vq_train_launches[name],
+                 "max_abs_err": err_q[name.split("_")[1]],
+                 "ms": vtimes[(name, 64, 200, True)][0],
+                 "plain_ms": vtimes[(name, 64, 200, False)][0],
+                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                 "library_ms": None, "shape": "B=64 T=200 M=8 D=16",
+                 "device_ms": vtimes[(name, 64, 200, True)][3],
+                 "plain_device_ms": vtimes[(name, 64, 200, False)][3],
+                 "ms_8x200": vtimes[(name, 8, 200, True)][0],
+                 "device_ms_8x200": vtimes[(name, 8, 200, True)][3],
+                 "bound_ms_8x200": kernel_bounds(model, 8, 200)[name][0]}
+        kernels.append(entry)
     for k, res, shapes in ((kernels[0], times, A_SHAPES),
                            (kernels[2], ttimes, C_SHAPES)):
         k["device_ms"] = res[(k["name"], 64, 200, True)][3]

@@ -423,7 +423,8 @@ def test_fused_train_gate_refuses_large_K(cuda):
 
 @pytest.mark.parametrize("B,T", [(1, 1), (16, 48), (64, 200)])
 def test_gather_matches_plain(cuda, B, T):
-    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_windows,
+    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_epoch,
+                                               gather_windows,
                                                gather_windows_reference)
 
     rng = np.random.default_rng(B + T)
@@ -438,11 +439,11 @@ def test_gather_matches_plain(cuda, B, T):
     st[-1] = lens[si[-1]] - ln[-1]            # a window at the very end
     idx = [torch.from_numpy(a.astype(np.int32)).to(cuda)
            for a in (si, st, ln)]
-    before = gather_windows.launches
+    before = gather_epoch.launches
     got = gather_windows(px, pu, *idx, T)
     want = gather_windows_reference(px, pu, *idx, T)
     torch.cuda.synchronize()
-    assert gather_windows.launches == before + 1
+    assert gather_epoch.launches == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -824,14 +825,35 @@ def test_plain_versions_launch_no_kernel(cuda):
         fused_viterbi_states_reference)
     from vqvaehmm_tpu_torch.ops.fused_encoder import (fused_encode,
                                                       fused_encode_reference)
+    from vqvaehmm_tpu_torch.models.vqvae_hmm import VQVAEConfig, VQVAEHMM
+    from vqvaehmm_tpu_torch.ops import vq
     from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
-    from vqvaehmm_tpu_torch.ops.gather import gather_windows
+    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_epoch,
+                                               gather_epoch_reference)
 
+    # gather_epoch counts kernel D's launches, gather_windows' included
     wrappers = (fused_forward, viterbi_fused, fused_encode, fused_evidence,
-                fused_viterbi_states, fused_loss_and_grads, gather_windows)
+                fused_viterbi_states, fused_loss_and_grads, gather_epoch,
+                vq.vq_nearest, vq.quantize_st_fused_forward,
+                vq.quantize_st_fused_backward)
     model = _model(cuda, seed=8)
     x, u, lens = _train_inputs(cuda, 3, 40, 5)
+    vqm = VQVAEHMM(VQVAEConfig(), device=cuda,
+                   generator=torch.Generator().manual_seed(8))
+    rng = np.random.default_rng(8)
+    px, pu = (torch.from_numpy(a).to(cuda) for a in build_pools(
+        [rng.normal(size=(5, 60)).astype(np.float32)] * 2,
+        [rng.normal(size=(4, 60)).astype(np.float32)] * 2))
+    trip = [torch.full((2, 3), v, dtype=torch.int32, device=cuda)
+            for v in (1, 5, 30)]
     before = [w.launches for w in wrappers]
+    gather_epoch_reference(px, pu, *trip, 40)
+    vqm.compute_loss(x, lens, use_kernel=False).total.backward()
+    z = vqm.encode(x).detach()
+    fwd = vq.quantize_st_forward_reference(z, vqm.codebook, 0.25, None, True)
+    vq.quantize_st_backward_reference(torch.ones_like(z), fwd[2], fwd[3], z,
+                                      vqm.codebook, fwd[1], None, fwd[4],
+                                      0.25, True)
     fused_forward_reference(model, x, valid_to=lens)
     fused_encode_reference(model, x, valid_to=lens)
     fused_evidence_reference(model, x, u, lens)
@@ -902,21 +924,339 @@ def test_vq_nearest_exact_tie_gate_and_model_path(cuda):
     with pytest.raises(ValueError, match="use_kernel=False"):
         vq_nearest(torch.zeros((4, 65), device=cuda),
                    torch.zeros((3, 65), device=cuda))
-    # the model's loss and codes go through the kernel, once each, and the
-    # loss carries gradients to all 13 parameters
+    # the model's loss goes through the quantizer's two kernels and its
+    # codes through kernel 9, once each, and the loss carries gradients to
+    # all 13 parameters
+    from vqvaehmm_tpu_torch.ops.vq import (quantize_st_fused_backward,
+                                           quantize_st_fused_forward)
+
     model = VQVAEHMM(VQVAEConfig(), device=cuda,
                      generator=torch.Generator().manual_seed(0))
     x = torch.randn((4, 5, 60), device=cuda)
     lengths = torch.tensor([60, 20, 33, 47], device=cuda)
-    n = vq_nearest.launches
+    counters = (vq_nearest, quantize_st_fused_forward,
+                quantize_st_fused_backward)
+    n = [c.launches for c in counters]
     parts = model.compute_loss(x, lengths)
     parts.total.backward()
     codes = model.codes(x)
-    assert vq_nearest.launches == n + 2
+    assert [c.launches - k for c, k in zip(counters, n)] == [1, 1, 1]
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
     plain = model.compute_loss(x, lengths, use_kernel=False)
-    assert vq_nearest.launches == n + 2
+    assert [c.launches - k for c, k in zip(counters, n)] == [1, 1, 1]
     torch.testing.assert_close(parts.total, plain.total, rtol=1e-5, atol=0)
     assert torch.equal(parts.counts, plain.counts)
     assert torch.equal(codes, model.codes(x, use_kernel=False))
+
+
+# ---------------------------------------------------------------------------
+# The straight-through quantizer (kernel 9 redesigned) and the epoch gather
+# (kernel D redesigned)
+
+
+def _quantize_inputs(dev, B, T, D, M, masked, seed):
+    rng = np.random.default_rng(seed)
+    z = torch.from_numpy(rng.normal(size=(B, D, T)).astype(np.float32)
+                         ).to(dev)
+    cb = torch.from_numpy((0.5 * rng.normal(size=(M, D))).astype(np.float32)
+                          ).to(dev)
+    g = torch.from_numpy(rng.normal(size=(B, D, T)).astype(np.float32)
+                         ).to(dev)
+    mask = None
+    if masked:
+        lens = rng.integers(0, T + 1, size=B)
+        lens[0] = T
+        mask = torch.from_numpy(np.arange(T)[None, :] < lens[:, None]).to(dev)
+    return z, cb, g, mask
+
+
+# dcodebook sums each code's tokens in another order than the plain
+# version's one-hot product: within 1e-5 of the sum of the terms' absolute
+# values (float32, a few thousand terms a code); the losses within 1e-5
+# relative (a sum of N * D squares)
+@pytest.mark.parametrize("B,T,D,M", [(64, 200, 16, 8), (3, 37, 5, 3),
+                                     (4, 33, 64, 40), (1, 2327, 16, 8),
+                                     (2, 301, 5, 40), (7, 129, 64, 3),
+                                     (5, 77, 16, 40), (1, 1, 16, 8)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_quantize_fused_matches_plain(cuda, B, T, D, M, masked):
+    from vqvaehmm_tpu_torch.ops import vq
+
+    z, cb, g, mask = _quantize_inputs(cuda, B, T, D, M, masked, B + T + D)
+    gc, gk = (torch.tensor(v, device=cuda) for v in (0.7, 1.3))
+    for cf in (True, False):
+        zin = z if cf else z.transpose(1, 2).contiguous()
+        gin = g if cf else g.transpose(1, 2)            # strided cotangent
+        fwd = vq.quantize_st_fused_forward(zin, cb, 0.25, mask, cf)
+        ref = vq.quantize_st_forward_reference(zin, cb, 0.25, mask, cf)
+        zst, idx = fwd[0], fwd[1]
+        assert idx.dtype == torch.int32 and idx.shape == (B, T)
+        assert _near_tie(z.transpose(1, 2), cb, idx, ref[1])
+        same = (idx == ref[1]).unsqueeze(1 if cf else -1).expand_as(zst)
+        assert torch.equal(zst[same], ref[0][same])
+        rows = cb[idx.long()]
+        zq = rows.transpose(1, 2) if cf else rows
+        assert torch.equal(zst, zin + (zq - zin))
+        assert torch.equal(fwd[4], ref[4])                    # denom
+        for got, want in zip(fwd[2:4], ref[2:4]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        bwd = vq.quantize_st_fused_backward(gin, gc, gk, zin, cb, idx, mask,
+                                            fwd[4], 0.25, cf)
+        want = vq.quantize_st_backward_reference(gin, gc, gk, zin, cb, idx,
+                                                 mask, fwd[4], 0.25, cf)
+        assert torch.equal(bwd[0], want[0])
+        v = (zin.transpose(1, 2) if cf else zin) - rows
+        if mask is not None:
+            v = v * mask[..., None]
+        onehot = torch.nn.functional.one_hot(idx.reshape(-1).long(), M).float()
+        scale = onehot.T @ v.reshape(-1, D).abs() * (2 * 1.3 / fwd[4]).abs()
+        assert bool(((bwd[1] - want[1]).abs() <= 1e-5 * scale + 1e-30).all())
+        again = (vq.quantize_st_fused_forward(zin, cb, 0.25, mask, cf),
+                 vq.quantize_st_fused_backward(gin, gc, gk, zin, cb, idx,
+                                               mask, fwd[4], 0.25, cf))
+        for a, b in zip(fwd + bwd, again[0] + again[1]):
+            assert torch.equal(a, b)
+
+
+def test_quantize_st_two_launches_and_autograd(cuda):
+    """On a CUDA tensor quantize_st is one forward and one backward launch
+    and no nearest-code launch; its gradients match the plain autograd
+    path's; all-masked batches clamp the denominator to 1; a codebook of
+    two equal rows picks the lower."""
+    from vqvaehmm_tpu_torch.ops import vq
+
+    z, cb, g, mask = _quantize_inputs(cuda, 8, 200, 16, 8, True, 3)
+    cb[5] = cb[2]
+    counters = (vq.vq_nearest, vq.quantize_st_fused_forward,
+                vq.quantize_st_fused_backward)
+    for m in (mask, torch.zeros_like(mask), None):
+        res = []
+        for use in (None, False):
+            tz = z.clone().requires_grad_()
+            tc = cb.clone().requires_grad_()
+            n = [c.launches for c in counters]
+            r = vq.quantize_st(tz, tc, 0.25, use_kernel=use, mask=m,
+                               channels_first=True)
+            ((r.quantized * g).sum() + 0.7 * r.commitment_loss
+             + 1.3 * r.codebook_loss).backward()
+            torch.cuda.synchronize()
+            assert [c.launches - k for c, k in zip(counters, n)] == (
+                [0, 1, 1] if use is None else [0, 0, 0])
+            res.append((r.indices, r.quantized.detach(), tz.grad, tc.grad,
+                        r.commitment_loss.detach(),
+                        r.codebook_loss.detach()))
+        assert not bool((res[0][0] == 5).any())
+        assert torch.equal(res[0][0], res[1][0])
+        assert torch.equal(res[0][1], res[1][1])
+        for got, want in zip(res[0][2:], res[1][2:]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        vq.quantize_st(z.double(), cb.double(), channels_first=True)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        vq.quantize_st(torch.zeros((2, 65, 4), device=cuda),
+                       torch.zeros((3, 65), device=cuda), channels_first=True)
+
+
+GUARD = 4096        # sentinel elements on each side of a guarded output
+
+
+def _guarded(n, dtype, dev):
+    """(buffer, view): n elements inside GUARD sentinels on each side
+    (NaN, or -7 for int32)."""
+    fill = -7 if dtype == torch.int32 else float("nan")
+    buf = torch.full((n + 2 * GUARD,), fill, dtype=dtype, device=dev)
+    return buf, buf[GUARD:GUARD + n]
+
+
+def _guards_intact(buf):
+    edges = torch.cat([buf[:GUARD], buf[-GUARD:]])
+    if edges.dtype == torch.int32:
+        return bool((edges == -7).all())
+    return bool(torch.isnan(edges).all())
+
+
+@pytest.mark.parametrize("B,T,D,M", [(3, 37, 5, 3), (4, 33, 64, 40),
+                                     (5, 77, 16, 40), (64, 200, 16, 8)])
+def test_quantize_kernels_write_only_their_outputs(cuda, B, T, D, M):
+    """The quantizer's kernels, called through their C entry points on
+    outputs and scratch set inside sentinels, leave every sentinel as it
+    was and give the wrappers' results bit for bit."""
+    from vqvaehmm_tpu_torch.ops import _build, vq
+
+    z, cb, g, mask = _quantize_inputs(cuda, B, T, D, M, True, B + D)
+    gc, gk = (torch.tensor([v], device=cuda) for v in (0.7, 1.3))
+    lib = _build.library()
+    fb, bb = (lib.vqhmm_vq_quantize_sizes(B, T, M, D, w) for w in (0, 1))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    zs, ms = (D * T, T, 1), (T, 1)
+    counter = vq._counter(cuda).data_ptr()
+    f32, i32 = torch.float32, torch.int32
+    zst, idx, fpart, commit, cbl = (
+        _guarded(n, t, cuda) for n, t in ((B * D * T, f32), (B * T, i32),
+                                          (2 * fb + 1, f32), (1, f32),
+                                          (1, f32)))
+    _build.check(lib.vqhmm_vq_quantize_forward(
+        z.data_ptr(), *zs, mask.data_ptr(), 1, *ms, cb.data_ptr(), 0.25,
+        zst[1].data_ptr(), idx[1].data_ptr(), fpart[1].data_ptr(),
+        commit[1].data_ptr(), cbl[1].data_ptr(), counter, B, T, M, D,
+        stream), "guarded forward")
+    dz, dcb, bpart = (_guarded(n, f32, cuda)
+                      for n in (B * D * T, M * D, bb * M * D))
+    _build.check(lib.vqhmm_vq_quantize_backward(
+        g.data_ptr(), *zs, gc.data_ptr(), gk.data_ptr(), z.data_ptr(), *zs,
+        mask.data_ptr(), 1, *ms, cb.data_ptr(), idx[1].data_ptr(),
+        fpart[1][2 * fb:].data_ptr(), 0.5, dz[1].data_ptr(),
+        dcb[1].data_ptr(), bpart[1].data_ptr(), counter, B, T, M, D,
+        stream), "guarded backward")
+    torch.cuda.synchronize()
+    for buf, _ in (zst, idx, fpart, commit, cbl, dz, dcb, bpart):
+        assert _guards_intact(buf)
+    fwd = vq.quantize_st_fused_forward(z, cb, 0.25, mask, True)
+    bwd = vq.quantize_st_fused_backward(g, gc[0], gk[0], z, cb, fwd[1], mask,
+                                        fwd[4], 0.25, True)
+    for got, want in zip((zst, idx, commit, cbl, dz, dcb),
+                         fwd[:4] + bwd):
+        assert torch.equal(got[1], want.reshape(-1))
+
+
+def test_gather_kernel_writes_only_its_outputs(cuda):
+    """Kernel D on outputs set inside sentinels, with a triple out of
+    range among the windows: every sentinel stays, and the windows equal
+    the plain version's (the bad window zeros)."""
+    from vqvaehmm_tpu_torch.ops import _build
+    from vqvaehmm_tpu_torch.ops.gather import (build_pools,
+                                               gather_epoch_reference)
+
+    rng = np.random.default_rng(11)
+    S, B, T, C, U = 3, 16, 48, 5, 4
+    lens = rng.integers(T, 3 * T + 1, size=6)
+    xs = [rng.normal(size=(C, n)).astype(np.float32) for n in lens]
+    us = [rng.normal(size=(U, n)).astype(np.float32) for n in lens]
+    px, pu = (torch.from_numpy(a).to(cuda) for a in build_pools(xs, us))
+    si = rng.integers(0, 6, size=(S, B))
+    ln = rng.integers(1, T + 1, size=(S, B))
+    st = rng.integers(0, lens[si] - ln + 1)
+    si[1, 3] = 6                                   # no such sequence
+    trip = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+            for a in (si, st, ln)]
+    x, u = (_guarded(S * B * n * T, torch.float32, cuda) for n in (C, U))
+    _build.check(_build.library().vqhmm_gather(
+        px.data_ptr(), pu.data_ptr(), *(a.data_ptr() for a in trip),
+        x[1].data_ptr(), u[1].data_ptr(), 6, C, U, px.shape[2], S * B, T,
+        torch.cuda.current_stream(cuda).cuda_stream), "guarded gather")
+    torch.cuda.synchronize()
+    assert _guards_intact(x[0]) and _guards_intact(u[0])
+    trip[0][1, 3] = 0
+    want = gather_epoch_reference(px, pu, *trip, T)
+    for got, w in zip((x[1], u[1]), want):
+        w[1, 3] = 0
+        assert torch.equal(got, w.reshape(-1))
+
+
+def test_vq_training_repeats_on_the_card(cuda):
+    """Two VQ training runs from one seed through the fused quantizer give
+    the same losses and parameters, bit for bit."""
+    from vqvaehmm_tpu_torch.models.vqvae_hmm import VQVAEConfig, VQVAEHMM
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(16, 5, 120)).astype(np.float32)
+                         ).to(cuda)
+    lens = torch.from_numpy(rng.integers(30, 121, size=16).astype(np.int32)
+                            ).to(cuda)
+    runs = []
+    for _ in range(2):
+        model = VQVAEHMM(VQVAEConfig(), device=cuda,
+                         generator=torch.Generator().manual_seed(1))
+        opt = torch.optim.SGD(model.parameters(), lr=0.05)
+        losses = []
+        for _ in range(5):
+            opt.zero_grad()
+            parts = model.compute_loss(x, lens)
+            parts.total.backward()
+            opt.step()
+            losses.append(parts.total.detach())
+        runs.append((torch.stack(losses), [p.detach().clone()
+                                           for p in model.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.parametrize("S,B,T", [(15, 64, 200), (1, 1, 1), (3, 16, 48)])
+def test_gather_epoch_matches_plain(cuda, S, B, T, monkeypatch):
+    from vqvaehmm_tpu_torch.ops import gather
+    from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_epoch,
+                                               gather_epoch_chunks,
+                                               gather_epoch_reference)
+
+    rng = np.random.default_rng(S + B + T)
+    lens = rng.integers(T, 3 * T + 1, size=6)
+    xs = [rng.normal(size=(5, n)).astype(np.float32) for n in lens]
+    us = [rng.normal(size=(4, n)).astype(np.float32) for n in lens]
+    px, pu = (torch.from_numpy(a).to(cuda) for a in build_pools(xs, us))
+    si = rng.integers(0, 6, size=(S, B))
+    ln = rng.integers(1, T + 1, size=(S, B))
+    ln[0, 0] = T
+    st = rng.integers(0, lens[si] - ln + 1)
+    st[-1, -1] = lens[si[-1, -1]] - ln[-1, -1]    # a window at the very end
+    idx = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+           for a in (si, st, ln)]
+    before = gather_epoch.launches
+    got = gather_epoch(px, pu, *idx, T)
+    want = gather_epoch_reference(px, pu, *idx, T)
+    torch.cuda.synchronize()
+    assert gather_epoch.launches == before + 1
+    assert got[0].shape == (S, B, 5, T) and got[1].shape == (S, B, 4, T)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    monkeypatch.setattr(gather, "EPOCH_CHUNK_BYTES", 4 * B * 9 * T)
+    chunks = list(gather_epoch_chunks(px, pu, *idx, T))  # a batch a chunk
+    assert gather_epoch.launches == before + 1 + S
+    assert torch.equal(torch.cat([c[1] for c in chunks]), got[0])
+    assert torch.equal(torch.cat([c[2] for c in chunks]), got[1])
+
+
+def test_device_epoch_and_epoch_step_gather_once(cuda, monkeypatch):
+    """DeviceEpochSampler.epoch is one launch of kernel D; make_epoch_step
+    one a chunk, and its losses and parameters equal, bit for bit, those of
+    the same steps with a gather a step."""
+    from vqvaehmm_tpu_torch.data.dataset import RandomChunkDataset
+    from vqvaehmm_tpu_torch.data.device_sampler import DeviceEpochSampler
+    from vqvaehmm_tpu_torch.data.synthetic import synthetic_sequences
+    from vqvaehmm_tpu_torch.ops import gather
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.train.trainer import make_optimizer, train_step
+
+    xs, us, _ = synthetic_sequences(6, 150, 5, 4, 3, seed=2)
+    ds = RandomChunkDataset(xs, us, min_len=20, max_len=64,
+                            samples_per_epoch=64, seed=0)
+    sampler = DeviceEpochSampler(ds, cuda)
+    n = gather_epoch.launches
+    x, u, ln = sampler.epoch(16)
+    assert gather_epoch.launches == n + 1 and x.shape == (4, 16, 5, 64)
+    trip = sampler.draw_epoch(16)
+    runs = []
+    default = gather.EPOCH_CHUNK_BYTES
+    for chunk in (None, 4 * 16 * 9 * 64 * 2, "step"):
+        monkeypatch.setattr(gather, "EPOCH_CHUNK_BYTES",
+                            chunk if isinstance(chunk, int) else default)
+        model = _model(cuda, seed=6)
+        opt = make_optimizer(model, 1e-3, 1.0)
+        n = gather_epoch.launches
+        if chunk == "step":
+            losses = [train_step(model, opt, *sampler.gather(
+                *(a[i] for a in trip)), trip[2][i], 0.5, True)
+                for i in range(4)]
+            loss = torch.zeros((), device=cuda)
+            for l_ in losses:
+                loss = loss + l_
+            loss = loss / 4
+        else:
+            loss = sampler.make_epoch_step(model, opt, fused=True)(*trip,
+                                                                   0.5)
+        torch.cuda.synchronize()
+        assert gather_epoch.launches - n == {None: 1, "step": 4}.get(chunk,
+                                                                     2)
+        runs.append((loss, [p.detach().clone() for p in model.parameters()]))
+    for other in runs[1:]:
+        assert torch.equal(other[0], runs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(other[1], runs[0][1]))

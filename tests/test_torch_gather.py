@@ -9,7 +9,8 @@ import torch
 
 from vqvaehmm_tpu.ops import pallas_gather as pg
 from vqvaehmm_tpu_torch.data.dataset import collate_fn
-from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_windows,
+from vqvaehmm_tpu_torch.ops.gather import (build_pools, gather_epoch,
+                                           gather_windows,
                                            validate_triples)
 
 LENS = (60, 100, 96, 120, 48, 80, 111)
@@ -37,10 +38,10 @@ def test_gather_matches_jax_and_collate(B, T):
     si, st, ln = _draw(np.random.default_rng(B), B, T)
     validate_triples(si, st, ln, np.array(LENS), T)
     px, pu = (torch.from_numpy(a) for a in build_pools(xs, us))
-    before = gather_windows.launches
+    before = gather_epoch.launches
     x, u = gather_windows(px, pu, *(torch.from_numpy(a) for a in
                                     (si, st, ln)), T)
-    assert gather_windows.launches == before        # CPU: plain version
+    assert gather_epoch.launches == before          # CPU: plain version
     assert x.shape == (B, 5, T) and u.shape == (B, 4, T)
 
     pool = jnp.asarray(pg.build_token_pool(xs, us, T))

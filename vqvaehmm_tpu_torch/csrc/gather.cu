@@ -1,26 +1,34 @@
-// Window gather of the device input pipeline for Hopper (sm_90a):
-//   x[b, c, t] = pool_x[si[b], c, st[b] + t]   for t < ln[b], else 0
-//   u[b, c, t] = pool_u[si[b], c, st[b] + t]   for t < ln[b], else 0
+// Window gather of the device input pipeline for Hopper (sm_90a), a whole
+// epoch in one launch:
+//   x[w, c, t] = pool_x[si[w], c, st[w] + t]   for t < ln[w], else 0
+//   u[w, c, t] = pool_u[si[w], c, st[w] + t]   for t < ln[w], else 0
+// for the W = S * B windows of an epoch of S batches of B (w = s * B + b);
+// one batch is the case S = 1.
 //
 // Replaces the TPU kernels vqvaehmm_tpu/ops/pallas_gather.py::
 // _kernel_resident and ::_kernel_dma in one kernel: the TPU split them
 // only by whether the pool fits VMEM, and here the pool always stays in
-// device memory.  The wrapper and its plain PyTorch version are in
-// vqvaehmm_tpu_torch/ops/gather.py.
+// device memory.  The wrappers (gather_epoch, gather_windows) and their
+// plain PyTorch versions are in vqvaehmm_tpu_torch/ops/gather.py.
 //
 // Layout: pools (N, C, Tmax) and (N, U, Tmax) float32, each sequence
-// zero-padded to Tmax; outputs (B, C, T) and (B, U, T), the layout of the
-// host collate and of the fused train kernel (csrc/fused_train.cu).
+// zero-padded to Tmax; outputs (W, C, T) and (W, U, T), which are the
+// epoch's (S, B, C, T) and (S, B, U, T): the layout of the host collate and
+// of the fused train kernel (csrc/fused_train.cu) a batch.
 //
-// Design and bound.  One thread computes one output element; a warp
-// covers 32 neighbouring time steps of one row, so both the read of the
-// pool row and the write are coalesced (the read is shifted by st[b], so
-// it spans at most two extra 32-byte sectors).  At B=64, T=200, C+U=9 a
-// call moves about 0.9 MB, which the card's bandwidth serves in well
-// under a microsecond: the kernel is bound by its launch latency, and its
-// design does nothing more than keep every access coalesced.  Nothing is
-// carried over from the TPU kernel's 128-aligned wide load and rotate:
-// those exist only for Mosaic's aligned dynamic slices.
+// Design and bound.  The work is a copy: 2 * 4 * W * (C + U) * T bytes,
+// 6.9 MB an epoch of the VQ configuration (S = 15, B = 64, C + U = 9,
+// T = 200), 2.1 us of the card's memory rate, against 2-3 us for any
+// launch.  So the design takes the launches out: the whole epoch is one
+// grid of one block a window (960 blocks at that configuration, about
+// seven on each of the 132 SMs), where a launch a batch took 15 launches
+// and a torch.stack copy of the epoch.  A block reads its triple once and
+// walks the window's (C + U) x T elements with its lanes over t, so both
+// the read of the pool row at the unaligned start st and the write of the
+// output row are coalesced (the read spans at most one 32-byte sector
+// more than the write).  Nothing is carried over from the TPU kernel's
+// 128-aligned wide load and rotate: those exist only for Mosaic's aligned
+// dynamic slices.
 //
 // A window that would read outside its pool row (a triple the sampler
 // never makes; ops/gather.py validates triples on the host) is written as
@@ -36,25 +44,22 @@ __global__ void __launch_bounds__(THREADS) gather_kernel(
     const float* __restrict__ pool_x, const float* __restrict__ pool_u,
     const int* __restrict__ si, const int* __restrict__ st,
     const int* __restrict__ ln, float* __restrict__ x, float* __restrict__ u,
-    int N, int C, int U, int Tmax, int B, int T) {
-  const long long total = (long long)B * (C + U) * T;
-  for (long long idx = blockIdx.x * (long long)THREADS + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * THREADS) {
-    const int t = (int)(idx % T);
-    const long long row = idx / T;       // b * (C + U) + channel
-    const int ch = (int)(row % (C + U));
-    const int b = (int)(row / (C + U));
-    const int s = si[b], s0 = st[b], L = ln[b];
-    const bool ok = s >= 0 && s < N && s0 >= 0 && L >= 0 && s0 + L <= Tmax;
-    float v = 0.f;
-    if (ok && t < L) {
-      v = ch < C ? pool_x[((long long)s * C + ch) * Tmax + s0 + t]
-                 : pool_u[((long long)s * U + (ch - C)) * Tmax + s0 + t];
-    }
+    int N, int C, int U, int Tmax, int T) {
+  const long long w = blockIdx.x;
+  const int s = si[w], s0 = st[w], L = ln[w];
+  const bool ok = s >= 0 && s < N && s0 >= 0 && L >= 0 && s0 + L <= Tmax;
+  // the window's pool rows and output rows (the pool's only read if ok)
+  const float* px = pool_x + ((long long)(ok ? s : 0) * C) * Tmax + s0;
+  const float* pu = pool_u + ((long long)(ok ? s : 0) * U) * Tmax + s0;
+  float* xo = x + w * C * T;
+  float* uo = u + w * U * T;
+  const int n = (C + U) * T, valid = ok ? L : 0;
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int ch = i / T, t = i - ch * T;
     if (ch < C)
-      x[((long long)b * C + ch) * T + t] = v;
+      xo[i] = t < valid ? px[ch * Tmax + t] : 0.f;
     else
-      u[((long long)b * U + (ch - C)) * T + t] = v;
+      uo[i - C * T] = t < valid ? pu[(ch - C) * Tmax + t] : 0.f;
   }
 }
 
@@ -63,12 +68,9 @@ __global__ void __launch_bounds__(THREADS) gather_kernel(
 extern "C" int vqhmm_gather(const float* pool_x, const float* pool_u,
                             const int* si, const int* st, const int* ln,
                             float* x, float* u, int N, int C, int U, int Tmax,
-                            int B, int T, void* stream) {
-  if (B <= 0 || T <= 0 || C + U <= 0) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * (C + U) * T;
-  long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 65535LL * 16) blocks = 65535LL * 16;  // grid-stride beyond
-  gather_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      pool_x, pool_u, si, st, ln, x, u, N, C, U, Tmax, B, T);
+                            int W, int T, void* stream) {
+  if (W <= 0 || T <= 0 || C + U <= 0) return (int)cudaErrorInvalidValue;
+  gather_kernel<<<(unsigned)W, THREADS, 0, (cudaStream_t)stream>>>(
+      pool_x, pool_u, si, st, ln, x, u, N, C, U, Tmax, T);
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,10 @@ Counterpart of vqvaehmm_tpu/data/device_sampler.py:
 * each epoch the host draws only (seq_idx, start, length) triples, with
   the dataset's own rng and in the JAX package's call order, so a seed
   gives the same triples in both packages;
-* each training step gathers its batch with the window-gather kernel
-  (ops/gather.py, one launch a step on the card) and trains on it.
+* the card gathers the epoch's windows with the window-gather kernel
+  (ops/gather.py): `epoch` in one launch, `make_epoch_step` in one launch
+  a chunk of whole batches under ops/gather.py::EPOCH_CHUNK_BYTES (one
+  chunk at the published configuration) before that chunk's steps.
 
 The gathered batches are bit-equal to the host path's collate
 (data/dataset.py::epoch_arrays with the same draws).
@@ -22,12 +24,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.gather import build_pools, gather_windows, validate_triples
+from ..ops.gather import (build_pools, gather_epoch, gather_epoch_chunks,
+                          gather_windows, validate_triples)
 from .dataset import RandomChunkDataset
 
 
 class DeviceEpochSampler:
-    """Epoch producer with a device-resident pool and a gather per step."""
+    """Epoch producer with a device-resident pool, gathered on the card."""
 
     def __init__(self, dataset: RandomChunkDataset, device):
         self.dataset = dataset
@@ -115,22 +118,25 @@ class DeviceEpochSampler:
     def epoch(self, batch_size: int, num_batches: Optional[int] = None,
               exact_stream: bool = True):
         """(x:(N,B,C,max_len), u:(N,B,U,max_len), lengths:(N,B)) tensors on
-        the device, the contract of data.dataset.epoch_arrays.
+        the device, the contract of data.dataset.epoch_arrays, in one
+        gather.  The caller holds the whole epoch, so it is not chunked
+        under EPOCH_CHUNK_BYTES: chunks would only add a copy to join them.
         exact_stream=True draws the host path's stream (per-item draws);
         False the vectorized draws."""
         draw = (self.sample_indices if exact_stream
                 else self.sample_indices_fast)
         si, st, ln = self.upload(*draw(batch_size, num_batches))
-        xs, us = zip(*(self.gather(si[i], st[i], ln[i])
-                       for i in range(si.shape[0])))
-        return torch.stack(xs), torch.stack(us), ln
+        px, pu = self.pools()
+        x, u = gather_epoch(px, pu, si, st, ln, self.max_len)
+        return x, u, ln
 
     def make_epoch_step(self, model, optimizer, fused: bool = False):
-        """Epoch trainer with the gather inside the step loop: returns
-        epoch(seq_idx, starts, lengths, beta) -> mean loss (a device
-        scalar), with the (batches, B) int32 triples from draw_epoch().  Each
-        step is one gather and one training step
-        (train/trainer.py::train_step); nothing waits for the device."""
+        """Epoch trainer: returns epoch(seq_idx, starts, lengths, beta) ->
+        mean loss (a device scalar), with the (batches, B) int32 triples
+        from draw_epoch().  The epoch is gathered in chunks of whole batches
+        within ops/gather.py::EPOCH_CHUNK_BYTES, one launch a chunk, each
+        before its steps; a step then takes its batch from the chunk
+        (train/trainer.py::train_step).  Nothing waits for the device."""
         from ..train.trainer import train_step
 
         cfg = model.cfg
@@ -144,10 +150,12 @@ class DeviceEpochSampler:
 
         def epoch(seq_idx, starts, lengths, beta: float) -> torch.Tensor:
             total = torch.zeros((), dtype=torch.float32, device=self.device)
-            for i in range(seq_idx.shape[0]):
-                x, u = self.gather(seq_idx[i], starts[i], lengths[i])
-                total = total + train_step(model, optimizer, x, u,
-                                           lengths[i], beta, fused)
+            px, pu = self.pools()
+            for s0, xs, us in gather_epoch_chunks(px, pu, seq_idx, starts,
+                                                  lengths, self.max_len):
+                for i in range(xs.shape[0]):
+                    total = total + train_step(model, optimizer, xs[i], us[i],
+                                               lengths[s0 + i], beta, fused)
             return total / seq_idx.shape[0]
 
         return epoch

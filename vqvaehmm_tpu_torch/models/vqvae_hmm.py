@@ -15,15 +15,16 @@ The parameter names map one to one onto the JAX package's pytree
 (`encoder.conv1.weight` <-> params["encoder"]["conv1"]["weight"],
 `codebook` <-> params["codebook"]); data/checkpoint.py crosses them.
 
-On a CUDA tensor `codes` and `quantize` (and so `compute_loss` and
-`fit_hmm`) find the nearest code in the hand-written CUDA kernel of
-ops/vq.py, reading z_e in its own (B, D, T) layout; on a CPU tensor, and
-with `use_kernel=False`, in its plain version.  (The JAX package keeps
-its Pallas kernel behind `VQVAEConfig.use_pallas`, off by default,
-because off a TPU it would run interpreted.)  The kernel gives indices
-only; the gradients flow through the plain convolutions and the one-hot
-product of `quantize_st`, every one a matrix product with a fixed
-summation order: training on the card is deterministic without
+On a CUDA tensor `codes` and `fit_hmm` find the nearest code in a
+hand-written CUDA kernel of ops/vq.py, and `quantize` (and so
+`compute_loss`) runs the whole straight-through quantizer, forward and
+backward, as one kernel launch each, reading z_e in its own (B, D, T)
+layout; on a CPU tensor, and with `use_kernel=False`, their plain
+versions.  (The JAX package keeps its Pallas kernel behind
+`VQVAEConfig.use_pallas`, off by default, because off a TPU it would run
+interpreted.)  The quantizer's kernels sum across blocks in a fixed order
+and the convolutions are matrix products with a fixed summation order,
+so training on the card is deterministic without
 `torch.backends.cudnn.deterministic`.
 """
 

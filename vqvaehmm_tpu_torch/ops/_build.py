@@ -89,6 +89,19 @@ _SIGNATURES = {
     # z, z strides (batch, channel, time), codebook, z_q, idx, B, T, M, D,
     # stream
     "vqhmm_vq_nearest": [_P, _L, _L, _L, _P, _P, _P] + [_I] * 4 + [_P],
+    # z, z strides, mask (or null), mask mode, mask strides, codebook,
+    # beta, z_q_st, idx, partials, commitment, codebook loss, counter, B,
+    # T, M, D, stream
+    "vqhmm_vq_quantize_forward": [_P, _L, _L, _L, _P, _I, _L, _L, _P,
+                                  ctypes.c_float] + [_P] * 6 + [_I] * 4
+    + [_P],
+    # g, g strides, g_commit, g_cb, z, z strides, mask (or null), mask
+    # mode, mask strides, codebook, idx, denom, 2 beta, dz_e, dcodebook,
+    # partials, counter, B, T, M, D, stream
+    "vqhmm_vq_quantize_backward": [_P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
+                                   _P, _I, _L, _L, _P, _P, _P,
+                                   ctypes.c_float] + [_P] * 4 + [_I] * 4
+    + [_P],
 }
 # entry points returning a long long: B, C, T, U, H1, H2, K, HP, D, tile,
 # what
@@ -96,7 +109,10 @@ _SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 11,
                     # C, H1, H2, K, D -> floats of the packed weights
                     "vqhmm_fused_infer_packed_floats": [_I] * 5,
                     # C, H1, H2, K, U, HP -> floats of the packed weights
-                    "vqhmm_encoder_packed_floats": [_I] * 6}
+                    "vqhmm_encoder_packed_floats": [_I] * 6,
+                    # B, T, M, D, what -> the quantizer's blocks and
+                    # shared memory
+                    "vqhmm_vq_quantize_sizes": [_I] * 5}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -336,7 +336,7 @@ def train_vq_stack(cfg: Config, dataset: RandomChunkDataset,
         """(xs (N, B, C, T), lens (N, B)) on the device."""
         if sampler is not None:
             # the host ships index triples and the card gathers the
-            # windows, one gather a batch (the VQ loss needs x only; the
+            # epoch's windows in one launch (the VQ loss needs x only; the
             # gather of u is the cost of sharing the VAE family's path)
             xs, _, lens = sampler.epoch(t.batch_size, num_batches,
                                         exact_stream=False)
