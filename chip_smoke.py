@@ -194,16 +194,49 @@ exiting non-zero before a result is printed:
    its convolutions through cuDNN, deterministic and default, and whether
    two runs from one seed repeat; the EM fit's wall.
 
+21. micro-batching: the published checkpoint behind
+   `serve(batch=True, max_batch=16, max_wait_ms=2, warmup_lengths=(37, 200,
+   512))` on the card.  A burst of 64 mean-field requests from 16 threads,
+   T mixed over {37, 200, 512} in length order: fewer dispatches than
+   requests (the same requests interleaved by length coalesce little, and
+   their dispatches are printed), each row
+   bit-equal to the same request served solo by the same model on the
+   card and within 1e-5 (q) and 1e-4 (mu, logvar) of the CPU, kernel A's
+   launches (counts reset just before) exactly the dispatches plus the 64
+   solo calls; p50, p99 and requests a second over HTTP of a solo and the
+   batched server under the same bursts; with max_queue=4 a burst gets at
+   least one 503 carrying Retry-After: 1.
+22. streaming: a 200-frame /stream session of the fixture panel's
+   features on the batched server: every settled column within 1e-5 of
+   the card's batch filtered_posterior of the whole stream (the gap is
+   printed, and whether it is bit-equal) and within 1e-4 of the CPU; peeks
+   within 1e-5 of the truncated batch; finish settles the last two
+   frames; a carry_state session moved to a second server after 100
+   frames continues bit for bit; kernel 11's launches exactly the steps
+   run, settled plus peeked; the p50 of a frame in process and over HTTP.
+23. hot reload and the CLI: a config on the published `.npz` behind a
+   batched server with VQHMM_ENABLE_RELOAD and a token; rewritten to the
+   quality checkpoint (same widths) and POSTed to /admin/reload while 8
+   threads send requests: none fails, and the answers afterwards equal
+   the quality model's solo answers on the card; a wrong token gets 403,
+   a failed reload 500 with the old model serving on; memory_allocated
+   after five more reloads and gc within 1 MiB of the first's;
+   `serve.cli.main` (the `python -m vqvaehmm_tpu_torch.serve.cli` entry
+   point) with --device cuda on the published checkpoint: one launch of
+   kernel 8, the report within 1e-5 of --device cpu.
+
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
 of its operations over 67 TFLOP/s of fp32 and its input and output bytes
 over 3.35 TB/s, from this run's shapes, and for kernel D from the
-lengths of the windows it timed); the last line is
+lengths of the windows it timed), and the launches of phases 21-23
+(`batched_launches`, `stream_launches`, `cli_launches`); the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -2387,8 +2420,8 @@ def phase_vq_serve(torch, np):
     url = f"http://127.0.0.1:{port}"
     reps = 5
     try:
-        served = httpd.vqhmm_model
-        if not isinstance(served, VQInferenceModel) or \
+        served = httpd.vqhmm_model            # get_model's handle
+        if not isinstance(served._inner, VQInferenceModel) or \
                 not served.checkpoint_loaded:
             fail("the server did not load the VQ archive")
         rng = np.random.default_rng(19)
@@ -2700,6 +2733,406 @@ def phase_vq_times(torch, np, stack):
 # the shapes of kernels 8 and 11 on the main paths: a batch of requests,
 # one exact-mode request, the bulk scorer's windows, the whole panel
 BULK_SHAPES = ((64, 200), (1, 200), (460, 20), (1, 2327))
+
+
+
+# ---------------------------------------------------------------------------
+# Phases 21-23: the rest of the serving surface
+# ---------------------------------------------------------------------------
+
+
+def _serving_config(tmp, name, checkpoint=CHECKPOINT):
+    """A config of the published widths whose checkpoint is `checkpoint`,
+    written to tmp/name; its path."""
+    with open(CONFIG) as f:
+        model_section = json.load(f)["model"]
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        json.dump({"model": model_section, "checkpoint_path": checkpoint}, f)
+    return path
+
+
+def _burst(url, payloads, threads=16):
+    """POST every payload to url from `threads` threads at once: (status,
+    body, headers, seconds) a payload in order, and the burst's wall
+    seconds.  Errors are returned, not raised."""
+    import concurrent.futures
+
+    def one(p):
+        req = urllib.request.Request(
+            url, data=json.dumps(p).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return (resp.status, json.loads(resp.read()),
+                        dict(resp.headers), time.perf_counter() - t0)
+        except urllib.error.HTTPError as e:
+            return (e.code, json.loads(e.read()), dict(e.headers),
+                    time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as ex:
+        out = list(ex.map(one, payloads))
+    return out, time.perf_counter() - t0
+
+
+def _pcts(seconds):
+    ms = sorted(1e3 * s for s in seconds)
+    return (statistics.median(ms),
+            ms[min(len(ms) - 1, int(round(0.99 * (len(ms) - 1))))])
+
+
+def _serve_bg(serve, cfg_path, dev, **kw):
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    httpd = serve(cfg_path, host="127.0.0.1", port=port, background=True,
+                  device=dev, **kw)
+    return httpd, f"http://127.0.0.1:{port}"
+
+
+def _stop(httpd):
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def phase_batching(torch, np, tmp, dev="cuda"):
+    """21. the published checkpoint behind the micro-batched server."""
+    from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.serve.httpd import serve
+
+    cfg_batched = _serving_config(tmp, "batched.json")
+    cfg_solo = _serving_config(tmp, "solo.json")
+    cpu = InferenceModel(cfg_solo, device="cpu")
+    t0 = time.perf_counter()
+    httpd, url = _serve_bg(serve, cfg_batched, dev, batch=True, max_batch=16,
+                           max_wait_ms=2.0, warmup_lengths=(37, 200, 512))
+    start_s = time.perf_counter() - t0
+    solo_httpd, solo_url = _serve_bg(serve, cfg_solo, dev,
+                                     warmup_lengths=())
+    handle = httpd.vqhmm_model
+    try:
+        if not (handle.is_batching and handle.checkpoint_loaded):
+            fail("the batched server did not load the published checkpoint")
+        rng = np.random.default_rng(21)
+        C = handle.cfg.model.input_dim
+        # in length order: a bucket's requests arrive together, as a
+        # client scoring a panel by length sends them (the interleaved
+        # bursts below coalesce little; their dispatches are printed)
+        Ts = sorted((37, 200, 512)[i % 3] for i in range(64))
+        payloads = [{"x": rng.normal(size=(C, T)).astype(np.float32)
+                     .tolist()} for T in Ts]
+        fused_forward.launches = 0
+        d0 = handle.dispatches
+        got, _ = _burst(url + "/infer", payloads)
+        dispatches = handle.dispatches - d0
+        inner = handle._inner._inner          # the model behind the batcher
+        solo = [inner.infer(p["x"]) for p in payloads]
+        launches = fused_forward.launches
+        bad = [r[0] for r in got if r[0] != 200]
+        if bad:
+            fail(f"the batched burst answered {bad}")
+        if not dispatches < len(payloads):
+            fail(f"{len(payloads)} requests took {dispatches} dispatches")
+        if launches != dispatches + len(payloads):
+            fail(f"kernel A launched {launches} times for {dispatches} "
+                 f"dispatches and {len(payloads)} solo calls")
+        worst = {"mu": 0.0, "logvar": 0.0, "regime_probs": 0.0}
+        for (status, body, _, _), s, p in zip(got, solo, payloads):
+            if body != s:
+                fail(f"a batched row (T={len(p['x'][0])}) differs from the "
+                     "same request served solo on the card")
+            want = cpu.infer(p["x"])
+            for key in worst:
+                err = float(np.abs(np.asarray(body[key])
+                                   - np.asarray(want[key])).max())
+                worst[key] = max(worst[key], err)
+        if worst["regime_probs"] > 1e-5 or worst["mu"] > 1e-4 \
+                or worst["logvar"] > 1e-4:
+            fail(f"batched answers differ from the CPU by {worst}")
+        say("batching", f"64 mean-field requests (22 at T=37, 21 at 200, "
+            f"21 at 512, in that order) from 16 threads: {dispatches} "
+            f"dispatches (max_batch 16, linger 2 ms), "
+            f"every row bit-equal to the request served solo on the card; "
+            f"kernel A launched {launches} = {dispatches} dispatches + 64 "
+            f"solo calls; against the CPU: q {worst['regime_probs']:.2e}, "
+            f"mu {worst['mu']:.2e}, logvar {worst['logvar']:.2e}; server "
+            f"start with warmup {start_s:.1f} s")
+
+        # the same 64 requests, lengths interleaved (37, 200, 512, 37, ...)
+        by_T = [[p for p, t in zip(payloads, Ts) if t == T]
+                 for T in (37, 200, 512)]
+        mixed = [p for row in itertools.zip_longest(*by_T) for p in row
+                 if p is not None]
+        times = {}
+        for name, u in (("solo", solo_url), ("batched", url)):
+            _burst(u + "/infer", mixed)                       # warm
+            lat, wall, d0 = [], 0.0, handle.dispatches
+            for _ in range(3):
+                res, w = _burst(u + "/infer", mixed)
+                if any(r[0] != 200 for r in res):
+                    fail(f"the {name} timing burst had failures")
+                lat += [r[3] for r in res]
+                wall += w
+            times[name] = (*_pcts(lat), len(lat) / wall)
+        mixed_dispatches = handle.dispatches - d0
+        say("batching", "over HTTP, 3 bursts of the 64 requests interleaved "
+            "by length from 16 threads: " + "; ".join(
+                f"{n} p50 {v[0]:.3f} ms, p99 {v[1]:.3f} ms, {v[2]:.1f} "
+                "req/s" for n, v in times.items())
+            + f"; the batched server took {mixed_dispatches} dispatches for "
+            "192 requests")
+
+        handle.configure_batching(max_batch=16, max_wait_ms=50.0,
+                                  warmup_lengths=(), max_queue=4)
+        res, _ = _burst(url + "/infer", payloads)
+        shed = [r for r in res if r[0] == 503]
+        if not shed or any(r[2].get("Retry-After") != "1" for r in shed):
+            fail(f"max_queue=4 shed {len(shed)} requests of 64, or without "
+                 "Retry-After")
+        if any(r[0] not in (200, 503) for r in res):
+            fail(f"the shedding burst answered {[r[0] for r in res]}")
+        say("batching", f"max_queue=4: {len(shed)} of 64 answered 503 with "
+            "Retry-After: 1, the rest 200")
+        handle.configure_batching(max_batch=16, max_wait_ms=2.0,
+                                  warmup_lengths=(), max_queue=None)
+    finally:
+        _stop(solo_httpd)
+    return dict(launches=launches, dispatches=dispatches, times=times,
+                mixed_dispatches=mixed_dispatches, httpd=httpd, url=url)
+
+
+def phase_streaming(torch, np, tmp, served, dev="cuda"):
+    """22. a 200-frame /stream session from the fixture panel."""
+    from vqvaehmm_tpu_torch.data import market
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.serve.httpd import serve
+
+    prices, regime, _ = market.load_fixture_frames(FIXTURE)
+    x_all, u_all, _, _ = market.prepare_sequences(prices, regime)
+    T = 200
+    x = np.ascontiguousarray(x_all[:T].T, dtype=np.float32)    # (C, T)
+    u = np.ascontiguousarray(u_all[:T].T, dtype=np.float32)    # (U, T)
+    url, handle = served["url"], served["httpd"].vqhmm_model
+    cpu = InferenceModel(_serving_config(tmp, "stream_cpu.json"),
+                         device="cpu")
+
+    def frame(t, **kw):
+        return {"x_t": x[:, t].tolist(), "u_t": u[:, t].tolist(), **kw}
+
+    settled, peeks, lat = {}, {}, []
+    fused_evidence.launches = 0
+    for t in range(T):
+        status, out, dt = _request(url + "/stream", dict(
+            frame(t), session="main", finish=t == T - 1))
+        if status != 200:
+            fail(f"/stream frame {t} answered {status}")
+        lat.append(dt)
+        settled.update({d["t"]: d["regime_probs"] for d in out["settled"]})
+        if t < T - 1:
+            if out["t_peek"] != t:
+                fail(f"/stream frame {t}: t_peek {out['t_peek']}")
+            peeks[t] = out["peek"]
+    launches = fused_evidence.launches
+    # T - 2 settled while streaming, peeks of 1 step after frame 1 and 2
+    # after frames 2 .. T-1, 2 settled at finish
+    expected = (T - 2) + 1 + 2 * (T - 2) + 2
+    if launches != expected:
+        fail(f"kernel 11 launched {launches} times for a {T}-frame session "
+             f"({expected} steps: settled plus peeked)")
+    if sorted(settled) != list(range(T)):
+        fail(f"/stream settled {len(settled)} columns of {T}")
+    got = np.asarray([settled[t] for t in range(T)]).T            # (K, T)
+
+    def batch(model, device, n):
+        with torch.inference_mode():
+            return model.filtered_posterior(
+                torch.from_numpy(x[None, :, :n]).to(device),
+                torch.from_numpy(u[None, :, :n]).to(device),
+                torch.tensor([n], device=device))[0].cpu().numpy()
+
+    card = batch(handle.model, handle.device, T)
+    gap = float(np.abs(got - card).max())
+    if gap > 1e-5:
+        fail(f"streamed columns differ from the card's batch filtered "
+             f"posterior by {gap:.3e} > 1e-5")
+    cpu_gap = float(np.abs(got - batch(cpu.model, "cpu", T)).max())
+    if cpu_gap > 1e-4:
+        fail(f"streamed columns differ from the CPU by {cpu_gap:.3e}")
+    peek_gap = max(float(np.abs(np.asarray(peeks[n - 1])
+                                - batch(handle.model, handle.device,
+                                        n)[:, n - 1]).max())
+                   for n in (1, 2, 3, 100, T - 1))
+    if peek_gap > 1e-5:
+        fail(f"/stream peeks differ from the truncated batch by {peek_gap}")
+
+    # carried state: frames 0-99 on this server, 100-199 on a second one
+    second, url2 = _serve_bg(serve, _serving_config(tmp, "second.json"), dev,
+                             warmup_lengths=())
+    try:
+        state, moved = None, {}
+        for t in range(T):
+            status, out, _ = _request(
+                (url if t < 100 else url2) + "/stream",
+                dict(frame(t), session="carried", carry_state=True,
+                     state=state, finish=t == T - 1))
+            if status != 200 or (t >= 100 and not out["resumed"]):
+                fail(f"carried /stream frame {t}: {status}, "
+                     f"resumed {out.get('resumed')}")
+            state = out.get("state")
+            moved.update({d["t"]: d["regime_probs"] for d in out["settled"]})
+        if moved != settled:
+            fail("a session carried to a second server did not continue bit "
+                 "for bit")
+    finally:
+        _stop(second)
+
+    in_process = []
+    for t in range(T):
+        t0 = time.perf_counter()
+        handle.stream("timed", x_t=x[:, t].tolist(), u_t=u[:, t].tolist(),
+                      finish=t == T - 1)
+        in_process.append(time.perf_counter() - t0)
+    say("streaming", f"{T} frames of the fixture panel over /stream: "
+        f"settled columns against the card's batch filtered posterior "
+        f"max gap {gap:.3e} ({'bit-equal' if gap == 0 else 'not bit-equal'})"
+        f", against the CPU {cpu_gap:.3e}; peeks against the truncated batch "
+        f"{peek_gap:.3e}; a state carried to a second server continued bit "
+        f"for bit; kernel 11 launched {launches} = {expected} steps; a frame "
+        f"p50 {_pcts(in_process)[0]:.3f} ms in process, "
+        f"{_pcts(lat)[0]:.3f} ms over HTTP")
+    return dict(launches=launches, gap=gap, cpu_gap=cpu_gap,
+                p50_ms=_pcts(in_process)[0], http_p50_ms=_pcts(lat)[0])
+
+
+def phase_reload_cli(torch, np, tmp, dev="cuda"):
+    """23. hot reload under load, and the CLI report."""
+    import gc
+    import threading
+
+    from vqvaehmm_tpu_torch.data import market
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.serve import cli
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.serve.httpd import serve
+
+    cfg = _serving_config(tmp, "reload.json")
+    os.environ["VQHMM_REQUIRE_CHECKPOINT"] = "1"     # a missing one fails
+    os.environ["VQHMM_ENABLE_RELOAD"] = "1"
+    os.environ["VQHMM_RELOAD_TOKEN"] = "chip-smoke"
+    token = {"X-Reload-Token": "chip-smoke"}
+    httpd, url = _serve_bg(serve, cfg, dev, batch=True, max_batch=16,
+                           max_wait_ms=2.0, warmup_lengths=(200,))
+    handle = httpd.vqhmm_model
+    quality = InferenceModel(_serving_config(tmp, "quality.json",
+                                             QUALITY_CHECKPOINT), device=dev)
+    rng = np.random.default_rng(23)
+    C = handle.cfg.model.input_dim
+    xs = [rng.normal(size=(C, 200)).astype(np.float32).tolist()
+          for _ in range(8)]
+
+    def post(path, payload, headers=None):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json", **(headers or {})})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        before = [post("/infer", {"x": x})[1] for x in xs]
+        stop, statuses = threading.Event(), []
+
+        def load():
+            i = 0
+            while not stop.is_set():
+                statuses.append(post("/infer", {"x": xs[i % 8]})[0])
+                i += 1
+
+        workers = [threading.Thread(target=load) for _ in range(8)]
+        for w in workers:
+            w.start()
+        time.sleep(0.3)
+        _serving_config(tmp, "reload.json", QUALITY_CHECKPOINT)
+        t0 = time.perf_counter()
+        status, info = post("/admin/reload", {}, token)
+        reload_s = time.perf_counter() - t0
+        time.sleep(0.3)
+        stop.set()
+        for w in workers:
+            w.join(timeout=60)
+        if status != 200 or not info.get("batching"):
+            fail(f"/admin/reload answered {status} {info}")
+        if any(w.is_alive() for w in workers) or set(statuses) != {200}:
+            fail(f"requests during the reload answered {sorted(set(statuses))}")
+        after = [post("/infer", {"x": x})[1] for x in xs]
+        if after != [quality.infer(x) for x in xs] or after == before:
+            fail("after the reload the server does not answer as the "
+                 "quality model served solo")
+        if post("/admin/reload", {}, {"X-Reload-Token": "wrong"})[0] != 403:
+            fail("a reload with a wrong token was not refused")
+        _serving_config(tmp, "reload.json", os.path.join(tmp, "missing.npz"))
+        status, _ = post("/admin/reload", {}, token)
+        if status != 500 or [post("/infer", {"x": x})[1]
+                             for x in xs[:2]] != after[:2]:
+            fail(f"a failed reload answered {status} or stopped the old "
+                 "model serving")
+        say("reload", f"{len(statuses)} requests from 8 threads through a "
+            f"reload to the quality checkpoint ({reload_s:.2f} s, batcher "
+            "rebuilt and warmed): all 200; answers afterwards equal the "
+            "quality model's solo answers on the card; a failed reload "
+            "(500) left it serving")
+
+        mem = []
+        for i in range(5):
+            _serving_config(tmp, "reload.json", (CHECKPOINT,
+                                                 QUALITY_CHECKPOINT)[i % 2])
+            if post("/admin/reload", {}, token)[0] != 200:
+                fail(f"reload {i + 1} of 5 failed")
+            post("/infer", {"x": xs[i]})
+            _request(url + "/stream", {"session": "r", "x_t": [0.1] * C,
+                                       "u_t": [0.0] * handle.cfg.model.u_dim})
+            gc.collect()
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+        if abs(mem[-1] - mem[0]) > 1 << 20:
+            fail(f"device memory after reloads grew {mem} bytes")
+        say("reload", f"memory_allocated after each of five more reloads "
+            f"and gc: {mem} bytes")
+    finally:
+        _stop(httpd)
+        handle.close()
+        os.environ.pop("VQHMM_ENABLE_RELOAD", None)
+        os.environ.pop("VQHMM_RELOAD_TOKEN", None)
+
+    prices, regime, _ = market.load_fixture_frames(FIXTURE)
+    x_all, _, _, _ = market.prepare_sequences(prices, regime)
+    np.save(os.path.join(tmp, "x.npy"),
+            np.ascontiguousarray(x_all[:200].T[None], dtype=np.float32))
+    argv = ["--config", CONFIG, "--checkpoint", CHECKPOINT, "--data",
+            os.path.join(tmp, "x.npy")]
+    fused_encode.launches = 0
+    got = cli.main(argv + ["--device", dev])
+    launches = fused_encode.launches
+    want = cli.main(argv + ["--device", "cpu"])
+    if launches != 1:
+        fail(f"the CLI launched kernel 8 {launches} times, not once")
+    gap = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
+              for k in ("regime_probs", "last_allocations"))
+    gap = max(gap, max(abs(a - b) for a, b in zip(
+        got["allocation"].values(), want["allocation"].values())))
+    if gap > 1e-5 or got["current_regime"] != want["current_regime"]:
+        fail(f"the CLI report on the card differs from the CPU by {gap}")
+    say("cli", f"serve.cli on the published checkpoint and 200 days of the "
+        f"fixture panel: kernel 8 launched {launches}, the report within "
+        f"{gap:.2e} of the CPU")
+    return dict(cli_launches=launches, cli_gap=gap, memory=mem,
+                reload_s=reload_s)
 
 
 def _sha(torch, *tensors) -> str:
@@ -3121,6 +3554,18 @@ def main() -> int:
     vtimes = phase_vq_times(torch, np, vq_stack)
     say("times", f"VQ training goodput (TrainPipeline, config_vq.json, "
         f"save_freq 2, epochs 2-4): {vq_goodput:.1f} seqs/s")
+    # 21-23: micro-batching, streaming, hot reload and the CLI
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        served = phase_batching(torch, np, tmp)
+        try:
+            streamed = phase_streaming(torch, np, tmp, served)
+        finally:
+            _stop(served["httpd"])
+            served["httpd"].vqhmm_model.close()
+        reloaded = phase_reload_cli(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -3260,11 +3705,19 @@ def main() -> int:
         k[f"device_ms_{B}x{T}"] = times[("viterbi", B, T, True)][3]
         k[f"bound_ms_{B}x{T}"] = kernel_bounds(model, B, T)["viterbi"][0]
     for k in kernels:
-        # the VQ family's paths through the kernels of earlier slices
+        # the VQ family's and the serving surface's paths through the
+        # kernels of earlier slices
         if k["name"] == "gather":
             k["vq_train_launches"] = vq_train_launches["gather"]
         elif k["name"] == "viterbi":
             k["vq_serve_launches"] = vq_serve_launches["viterbi"]
+        elif k["name"] == "fused_infer":
+            k["batched_launches"] = served["launches"]
+            k["batched_dispatches"] = served["dispatches"]
+        elif k["name"] == "fused_evidence":
+            k["stream_launches"] = streamed["launches"]
+        elif k["name"] == "fused_encode":
+            k["cli_launches"] = reloaded["cli_launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

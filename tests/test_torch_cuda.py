@@ -1260,3 +1260,196 @@ def test_device_epoch_and_epoch_step_gather_once(cuda, monkeypatch):
     for other in runs[1:]:
         assert torch.equal(other[0], runs[0][0])
         assert all(torch.equal(a, b) for a, b in zip(other[1], runs[0][1]))
+
+
+def _serving_config(tmp_path, dev, seed=0, name="cfg.json", **widths):
+    """A serving config whose `.npz` checkpoint holds a seeded model's
+    weights (the port's own writer: this file imports nothing of JAX)."""
+    import json
+
+    from vqvaehmm_tpu_torch.data.checkpoint import save_params_npz
+
+    model = _model(dev, seed=seed, **widths)
+    ckpt = tmp_path / f"{name}.npz"
+    save_params_npz(str(ckpt), model.state_dict())
+    cfg = {"model": {**dict(input_dim=5, hidden_dim=16, K=3, hidden_dim2=8,
+                            u_dim=4, trans_hidden=8), **widths},
+           "checkpoint_path": str(ckpt)}
+    (tmp_path / name).write_text(json.dumps(cfg))
+    return str(tmp_path / name)
+
+
+def test_batched_dispatch_bit_equal_to_solo(cuda, tmp_path):
+    """Groups of 1-16 requests with mixed lengths in one bucket: each
+    group is one kernel-A launch and each row is bit-equal to the same
+    request served solo."""
+    import concurrent.futures
+
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.serve.batching import BatchingModel
+
+    m = InferenceModel(_serving_config(tmp_path, cuda, seed=7,
+                                       hidden_dim=64, hidden_dim2=32),
+                       device=cuda)
+    rng = np.random.default_rng(11)
+    xs = [rng.normal(size=(5, int(T))).tolist()
+          for T in rng.integers(65, 129, size=16)]
+    solo = [m.infer(x) for x in xs]
+    b = BatchingModel(m, max_batch=1, max_wait_ms=10000.0)
+    try:
+        for n in range(1, 17):
+            # the linger ends when max_batch requests wait
+            b.reconfigure(max_batch=n, max_wait_ms=10000.0)
+            before = (fused_forward.launches, b.dispatches)
+            with concurrent.futures.ThreadPoolExecutor(max_workers=n) as ex:
+                got = list(ex.map(b.infer, xs[:n]))
+            assert (fused_forward.launches - before[0],
+                    b.dispatches - before[1]) == (1, 1)
+            for g, s in zip(got, solo):
+                assert g == s
+    finally:
+        b.close()
+
+
+def test_stream_step_evidence_matches_plain(cuda, tmp_path):
+    """Every step of a 12-frame stream, finish included, from a thread
+    with grad mode on: kernel 11's evidence on the step's window against
+    its plain version on the same inputs (log_obs and log_A within 1e-5,
+    float32 in another summation order), and the settled columns within
+    1e-5 of the card's batch filtered posterior."""
+    from vqvaehmm_tpu_torch.models import online
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_evidence_reference)
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+
+    m = InferenceModel(_serving_config(tmp_path, cuda, seed=8), device=cuda)
+    seen = []
+
+    def checked(model, x, u, lengths):
+        got = fused_evidence(model, x, u, lengths)
+        want = fused_evidence_reference(model, x, u, lengths)
+        seen.append((x.shape[2], int(lengths[0])))
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+        return got
+
+    rng = np.random.default_rng(12)
+    T = 12
+    x = rng.normal(size=(5, T)).astype(np.float32)
+    u = rng.normal(size=(4, T)).astype(np.float32)
+    got, errors = {}, []
+    real = online.fused_evidence
+    online.fused_evidence = checked
+    n0 = fused_evidence.launches
+
+    def drive():
+        try:
+            assert torch.is_grad_enabled()
+            for t in range(T):
+                out = m.stream("s", x_t=x[:, t].tolist(),
+                               u_t=u[:, t].tolist(), finish=t == T - 1)
+                got.update({d["t"]: d["regime_probs"]
+                            for d in out["settled"]})
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    try:
+        th = threading.Thread(target=drive)
+        th.start()
+        th.join(timeout=120)
+    finally:
+        online.fused_evidence = real
+    assert not th.is_alive() and not errors, errors
+    # 10 settled steps; peeks of 1 step after frame 1 and 2 after frames
+    # 2-11; 2 steps at finish
+    assert fused_evidence.launches - n0 == len(seen) == 10 + 21 + 2
+    assert {vt for _, vt in seen} == {1, 2, 3, 4, 5}
+    with torch.inference_mode():
+        batch = m.model.filtered_posterior(
+            torch.from_numpy(x)[None].to(cuda),
+            torch.from_numpy(u)[None].to(cuda),
+            torch.tensor([T], device=cuda))[0].cpu().numpy()
+    assert sorted(got) == list(range(T))
+    for t in range(T):
+        np.testing.assert_allclose(got[t], batch[:, t], rtol=0, atol=1e-5)
+
+
+def test_failed_kernel_in_dispatch_fails_its_group(cuda, tmp_path,
+                                                   monkeypatch):
+    """A kernel-A launch that fails inside a dispatch reaches every caller
+    of the group as an error; nothing of the group is computed by the
+    plain version."""
+    import concurrent.futures
+
+    from vqvaehmm_tpu_torch.ops import fused_infer
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.serve.batching import BatchingModel
+
+    m = InferenceModel(_serving_config(tmp_path, cuda, seed=9), device=cuda)
+    b = BatchingModel(m, max_batch=4, max_wait_ms=10000.0)
+    plain = []
+
+    def broken(*a, **k):
+        raise RuntimeError("CUDA error: launch failed (injected)")
+
+    def counted(*a, **k):
+        plain.append(1)
+        return real_plain(*a, **k)
+
+    real_plain = fused_infer.fused_forward_reference
+    monkeypatch.setattr(fused_infer, "_launch", broken)
+    monkeypatch.setattr(fused_infer, "fused_forward_reference", counted)
+
+    def call(T):
+        try:
+            return b.infer(np.ones((5, T)).tolist())
+        except RuntimeError as e:
+            return e
+
+    try:
+        n0 = fused_forward.launches
+        with concurrent.futures.ThreadPoolExecutor(max_workers=4) as ex:
+            res = list(ex.map(call, (20, 25, 30, 32)))
+        assert all(isinstance(r, RuntimeError) and "injected" in str(r)
+                   for r in res), res
+        assert plain == [] and b.dispatches == 0
+        assert fused_forward.launches == n0
+    finally:
+        b.close()
+
+
+def test_reloads_free_the_old_models(cuda, tmp_path):
+    """Five reloads of a micro-batched handle, each with its model warmed
+    and streamed: after gc the card holds what it held after the first."""
+    import gc
+
+    from vqvaehmm_tpu_torch.serve.app import ModelHandle
+
+    cfg = _serving_config(tmp_path, cuda, seed=10, hidden_dim=64,
+                          hidden_dim2=32)
+    h = ModelHandle(cfg, device=cuda)
+    h.configure_batching(max_batch=8, max_wait_ms=1.0,
+                         warmup_lengths=(37, 200))
+    rng = np.random.default_rng(13)
+
+    def use():
+        h.infer(rng.normal(size=(5, 150)).tolist())
+        h.stream("s", x_t=[0.5] * 5, u_t=[0.1] * 4)
+        h.infer(rng.normal(size=(5, 40)).tolist(), u=np.zeros((4, 40))
+                .tolist(), mode="viterbi")
+
+    try:
+        use()
+        h.reload()
+        use()
+        gc.collect()
+        torch.cuda.synchronize()
+        first = torch.cuda.memory_allocated()
+        for _ in range(4):
+            h.reload()
+            use()
+        gc.collect()
+        torch.cuda.synchronize()
+        assert abs(torch.cuda.memory_allocated() - first) <= 1 << 20
+    finally:
+        h.close()

@@ -179,6 +179,9 @@ def test_missing_checkpoint_and_device(tmp_path, monkeypatch):
 
 def test_server_import_needs_no_jax():
     code = ("import sys, vqvaehmm_tpu_torch.serve.httpd, "
+            "vqvaehmm_tpu_torch.serve.asgi, vqvaehmm_tpu_torch.serve.cli, "
+            "vqvaehmm_tpu_torch.serve.gradio_app, "
+            "vqvaehmm_tpu_torch.models.online, "
             "vqvaehmm_tpu_torch.ops.fused_infer, "
             "vqvaehmm_tpu_torch.ops.fused_viterbi; "
             "bad = [m for m in ('jax', 'triton', 'vqvaehmm_tpu') "

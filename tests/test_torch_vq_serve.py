@@ -88,7 +88,8 @@ def _x(T, seed):
                                   "mean_field"])
 def test_infer_modes_match_jax(setup, mode):
     url, jax_model, httpd, _ = setup
-    assert isinstance(httpd.vqhmm_model, VQInferenceModel)
+    # the server holds get_model's handle, around the family's model
+    assert isinstance(httpd.vqhmm_model._inner, VQInferenceModel)
     assert httpd.vqhmm_model.checkpoint_loaded
     launches = (vq_nearest.launches, viterbi_fused.launches)
     # two buckets of the ladder, and a T past its top (padded to itself)
@@ -159,7 +160,8 @@ def test_missing_archive_and_mismatches(setup, monkeypatch):
         VQInferenceModel(missing, device="cpu")
     monkeypatch.setenv("VQHMM_REQUIRE_CHECKPOINT", "0")
     demo = get_model(missing, "cpu")              # dispatches on the family
-    assert isinstance(demo, VQInferenceModel) and not demo.checkpoint_loaded
+    assert isinstance(demo._inner, VQInferenceModel)
+    assert not demo.checkpoint_loaded
     out = demo.infer(_x(12, 6))
     assert len(out["codes"]) == 12
     np.testing.assert_allclose(np.array(out["regime_probs"]), 1.0 / 3,

@@ -58,3 +58,46 @@ def t(a) -> torch.Tensor:
 def close(got, want, atol, what=""):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
                                atol=atol, err_msg=what)
+
+
+def write_serving_config(tmp, seed: int = 0, name: str = "cfg.json",
+                         **extra) -> str:
+    """A serving config for SMALL whose checkpoint is an `.npz` of the JAX
+    package's init at `seed` (both packages' servers load it); `extra`
+    adds or overrides top-level keys.  Returns the config's path."""
+    import json
+
+    from vqvaehmm_tpu.data.checkpoint import save_params_npz
+
+    ckpt = tmp / f"model_{seed}.npz"
+    save_params_npz(str(ckpt), make_model(**SMALL).init(
+        jax.random.PRNGKey(seed)))
+    cfg = {"model": SMALL, "checkpoint_path": str(ckpt), **extra}
+    path = tmp / name
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def post_json(url, payload=None, headers=None, timeout=60):
+    """(status, JSON body, response headers) of a POST; HTTP errors are
+    returned, not raised."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps({} if payload is None else payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read()), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers

@@ -13,6 +13,9 @@ renaming (`vq_params_from_numpy`, `vq_params_to_numpy`).  Its archive
 in `jax.tree_util.tree_flatten` order, which sorts dictionary keys:
 `VQ_LEAF_ORDER` is that order in state_dict keys.
 
+A reference portfolio head (`.pt`) loads through `load_head_file`, its
+family told from the state_dict's naming.
+
 A training checkpoint (save_checkpoint) holds the model, the Adam state
 and the step, so a run resumes exactly; it is the port's own format
 (torch.save), with the JAX package's `.meta.json` sidecar beside it.
@@ -249,6 +252,80 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     if not isinstance(state, Mapping):
         raise ValueError(f"{path} does not hold a state_dict")
     return dict(state)
+
+
+# the reference's head layers: RegimePortfolioOptimizer's nn.Sequential
+# net.{0,2,4} (the port's own keys), and ImprovedPortfolioOptimizer's K
+# per-regime nn.Sequential regime_nets.{r}.{0,3,6}, stacked by the port
+_IMPROVED_REF_LAYERS = {"0": "fc1", "3": "fc2", "6": "fc3"}
+_REGIME_HEAD_KEYS = {f"net.{i}.{p}" for i in ("0", "2", "4")
+                     for p in ("weight", "bias")}
+
+
+def _check_head_keys(state: Mapping, expected) -> None:
+    missing = sorted(expected - set(state))
+    extra = sorted(set(state) - expected)
+    if missing or extra:
+        raise KeyError(f"head state_dict: missing keys {missing}, "
+                       f"unrecognised keys {extra}")
+
+
+def head_state_from_state_dict(state: Mapping[str, torch.Tensor]
+                               ) -> Dict[str, torch.Tensor]:
+    """A reference portfolio-head state_dict -> a float32 state_dict for
+    the port's head of that family, told apart by the naming:
+    `net.{0,2,4}` is RegimePortfolioOptimizer (whose keys the port keeps;
+    its fc1 weight is 2-D), `regime_nets.{r}.{0,3,6}` is
+    ImprovedPortfolioOptimizer (the K per-regime layers stacked on a
+    leading axis as fc{1,2,3}: a 3-D fc1 weight)."""
+    if any(k.startswith("regime_nets.") for k in state):
+        regimes = sorted({int(k.split(".")[1]) for k in state
+                          if k.startswith("regime_nets.")})
+        if regimes != list(range(len(regimes))):
+            raise KeyError(f"malformed regime_nets indices: {regimes}")
+        _check_head_keys(state, {
+            f"regime_nets.{r}.{i}.{p}" for r in regimes
+            for i in _IMPROVED_REF_LAYERS for p in ("weight", "bias")})
+        return {f"{fc}.{p}": torch.stack(
+                    [torch.as_tensor(state[f"regime_nets.{r}.{i}.{p}"],
+                                     dtype=torch.float32) for r in regimes])
+                for i, fc in _IMPROVED_REF_LAYERS.items()
+                for p in ("weight", "bias")}
+    if any(k.startswith("net.") for k in state):
+        _check_head_keys(state, _REGIME_HEAD_KEYS)
+        return {k: torch.as_tensor(state[k], dtype=torch.float32)
+                for k in sorted(_REGIME_HEAD_KEYS)}
+    raise KeyError("state_dict matches no known portfolio head family "
+                   f"(keys: {sorted(state)[:6]}...)")
+
+
+def load_head_file(path: str, K: Optional[int] = None, device="cuda"):
+    """A reference `.pt` portfolio head (models/portfolio.pt or
+    portfolio_improved.pt) as the port's head module in eval() mode on
+    `device`: the family from the state_dict's naming, the widths from its
+    weights.  A head whose K differs from `K` raises ValueError."""
+    from ..core.device import resolve_device
+    from ..models.portfolio import (HeadConfig, ImprovedPortfolioOptimizer,
+                                    RegimePortfolioOptimizer)
+
+    state = head_state_from_state_dict(load_state_dict_file(path))
+    if "fc1.weight" in state:           # the stacked (K, out, in) bank
+        K_head, hidden, _ = state["fc1.weight"].shape
+        cfg = HeadConfig(K=K_head, hidden_dim=hidden,
+                         n_assets=state["fc3.weight"].shape[1])
+        cls = ImprovedPortfolioOptimizer
+    else:
+        hidden, K_head = state["net.0.weight"].shape
+        cfg = HeadConfig(K=K_head, hidden_dim=hidden,
+                         n_assets=state["net.4.weight"].shape[0])
+        cls = RegimePortfolioOptimizer
+    if K is not None and cfg.K != K:
+        raise ValueError(f"head checkpoint {path!r} has K={cfg.K} but the "
+                         f"model serves K={K}")
+    head = cls(cfg, device=resolve_device(device))
+    validate_params_for(head, state, what=f"head checkpoint {path!r}")
+    head.load_state_dict(state)
+    return head.eval()
 
 
 def validate_params_for(module: torch.nn.Module,

@@ -1,10 +1,9 @@
 """Dependency-free serving metrics in the Prometheus text format.
 
-A verbatim copy of vqvaehmm_tpu/serve/metrics.py (pure Python), kept
-until the JAX package can be imported without JAX (ROADMAP.md queue 1,
-item 0).  Of the series below, the port's server records the request
-counters and latencies and the checkpoint gauge; it has no micro-batcher
-and no streaming sessions yet.
+A verbatim copy of vqvaehmm_tpu/serve/metrics.py (pure Python): the port
+imports nothing of the JAX package, whose `__init__` imports JAX.  The
+port's surfaces record every series below, and gauges of the kernels'
+launches besides.
 
 Reference gap: the reference's deploy notes defer observability to
 "Prometheus if desired" (deploy/README.md:27-29) and implement nothing;

@@ -44,6 +44,8 @@ class VQInferenceModel:
     """A loaded VQStack on one device, answering infer/predict requests
     (the VQ twin of app.InferenceModel)."""
 
+    is_batching = False  # the VQ family is served solo
+
     def __init__(self, config_path: str = "inference_config.json",
                  device="cuda"):
         from ..core.config import load_config
