@@ -225,12 +225,43 @@ exiting non-zero before a result is printed:
    point) with --device cuda on the published checkpoint: one launch of
    kernel 8, the report within 1e-5 of --device cpu.
 
+24. heads and walk-forward retraining at full width
+   (`vqvaehmm_tpu_torch/recipe.py`, the quality checkpoint, the Improved
+   head at K=3, 10 assets, hidden 64, windows of 100 every 20 days): the
+   data and head stages with the card and with the CPU in this process;
+   the frozen posteriors of the head batches within 1e-5 of the CPU's;
+   kernel 8 launched exactly once a batch by the head stage (counts reset
+   just before it); its 100-epoch loss history within 1e-4 relative of a
+   CPU run started from the card's posteriors and the same initial head;
+   a second card run bit-equal, and its portfolio_head.npz loading back
+   bit for bit.  The backtest stage on both devices from the card's head
+   (metrics within 1e-4 relative), then the walk-forward stage (252/63/126,
+   a retrain of 20 epochs a window): every window's metrics within 1e-4
+   relative of the CPU's, and kernel 8's launches exactly one a retrain,
+   one a window, one for the argmax decode and one a per-regime backtest
+   that trades, kernel 11 twice (the Viterbi decode and the crash-cost
+   smoothed posterior), kernel B once.  train_portfolio,
+   train_portfolio_optimizer and train_delta_hedger (pointwise and LSTM)
+   for 5 epochs on the recipe's batches, card against the CPU from the
+   card's posteriors, within 1e-4 relative.  The wall time of each stage
+   on each device.
+25. Monte Carlo: the recipe's stage on the card and on the CPU; its
+   panel decode kernel 11 once and kernel B once (counts reset just
+   before the stage), the states equal to the CPU's or a score tie;
+   regime_statistics on them; 1000 x 252 paths with the trained head on
+   each device from the same draws (a seeded CPU generator): final values
+   within 1e-4 relative, every analyze_monte_carlo statistic within 1e-4
+   absolute; the same seed twice on the card bit-equal; the simulation's
+   wall ms on each device.
+
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
 of its operations over 67 TFLOP/s of fp32 and its input and output bytes
 over 3.35 TB/s, from this run's shapes, and for kernel D from the
-lengths of the windows it timed), and the launches of phases 21-23
-(`batched_launches`, `stream_launches`, `cli_launches`); the last line is
+lengths of the windows it timed), and the launches of phases 21-25
+(`batched_launches`, `stream_launches`, `cli_launches`, and for the
+recipe `head_launches` and `walkforward_launches` of kernel 8 and
+`mc_launches` of kernels 11 and B); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -3135,6 +3166,418 @@ def phase_reload_cli(torch, np, tmp, dev="cuda"):
                 reload_s=reload_s)
 
 
+class _FixedPosterior:
+    """A VAE stand-in whose posterior is a given list of q, one a batch in
+    order: a CPU run of a head trainer then starts from the card's
+    posteriors, so only the head's arithmetic differs."""
+
+    def __init__(self, qs, device):
+        self.device = device
+        self._qs = iter(qs)
+
+    def posterior(self, x):
+        return next(self._qs).to(x.device)
+
+
+def _timed(torch, fn, *args):
+    """(fn(*args), wall seconds), the card synchronised at both ends; what
+    fn prints (the recipe's stages report as they go) is dropped."""
+    import contextlib
+    import io
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _history_gap(got, want) -> float:
+    """Largest relative difference between two loss histories."""
+    if len(got) != len(want) or not len(want):
+        fail(f"histories of {len(got)} and {len(want)} epochs")
+    return max(_rel(g, w) for g, w in zip(got, want))
+
+
+def _trainer_gaps(torch, np, recipe, heads, out, qs, dev):
+    """train_portfolio, train_portfolio_optimizer and train_delta_hedger
+    (pointwise and LSTM) for 5 epochs on the recipe's batches, on the card
+    and on the CPU from the card's posteriors: the largest relative
+    difference of each history, and kernel 8's launches on the card."""
+    from vqvaehmm_tpu_torch.models.hedging import (LSTMDeltaHedger,
+                                                   RegimeDeltaHedger)
+    from vqvaehmm_tpu_torch.models.portfolio import HeadConfig
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    model = recipe.load_trained(dev)
+    batches, rets = recipe.head_batches(out)
+    rng = np.random.default_rng(24)
+    futures = [rng.normal(0, 0.01, size=(x.shape[0], x.shape[2] - 1, 5))
+               .astype(np.float32) for x, _, _ in batches]
+    cfg = HeadConfig(K=3, n_assets=5, hidden_dim=64)
+    cases = {
+        "train_portfolio": (lambda d: recipe.initial_head(d), rets, {}),
+        "train_portfolio_optimizer": (lambda d: recipe.initial_head(d),
+                                      rets, {}),
+        "train_delta_hedger": (lambda d: RegimeDeltaHedger(
+            cfg, device=d, generator=torch.Generator().manual_seed(3)),
+            futures, {}),
+        "train_delta_hedger (LSTM)": (lambda d: LSTMDeltaHedger(
+            cfg, device=d, generator=torch.Generator().manual_seed(4)),
+            futures, {"is_lstm": True}),
+    }
+    gaps, launches = {}, 0
+    for name, (make, targets, kw) in cases.items():
+        fn = getattr(heads, name.split(" ")[0])
+        before = fused_encode.launches
+        got = fn(make(dev), model, batches, targets, num_epochs=5, lr=1e-3,
+                 log_fn=None, **kw)
+        launches += fused_encode.launches - before
+        want = fn(make(torch.device("cpu")),
+                  _FixedPosterior(qs, torch.device("cpu")), batches, targets,
+                  num_epochs=5, lr=1e-3, log_fn=None, **kw)
+        gaps[name] = _history_gap(got.history, want.history)
+    return gaps, launches, len(batches)
+
+
+def phase_heads(torch, np, tmp):
+    """24. the recipe's data, head, backtest and walk-forward stages on
+    the card and on the CPU."""
+    import vqvaehmm_tpu_torch.train.heads as heads
+    from vqvaehmm_tpu_torch import recipe
+    from vqvaehmm_tpu_torch.data.checkpoint import load_improved_head
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    out = {d: os.path.join(tmp, d) for d in ("cuda", "cpu", "cuda_again")}
+    walls = {}
+
+    def cli(stage, d):
+        """`python -m vqvaehmm_tpu_torch.recipe --stage S --device D`."""
+        rc = recipe.main(["--stage", stage, "--outdir", out[d],
+                          "--device", d])
+        if rc != 0:
+            fail(f"the recipe's {stage} stage on {d} exited {rc}")
+
+    def history(d):
+        with open(os.path.join(out[d], "head_history.json")) as f:
+            return json.load(f)["loss"]
+
+    for d in ("cuda", "cpu"):
+        _, walls[("data", d)] = _timed(torch, cli, "data", d)
+    batches, rets = recipe.head_batches(out["cuda"])
+    if recipe.head_batches(out["cpu"])[0][0][0].tobytes() != \
+            batches[0][0].tobytes():
+        fail("the data stage wrote different windows on the two runs")
+
+    # the frozen posteriors, card against CPU (outside the counted window)
+    qs = heads.frozen_posteriors(recipe.load_trained(dev), batches)
+    q_cpu = heads.frozen_posteriors(recipe.load_trained(cpu), batches)
+    post_err = max(max_abs(a.cpu(), b) for a, b in zip(qs, q_cpu))
+    if post_err > 1e-5:
+        fail(f"head posteriors: card against CPU {post_err:.3e} > 1e-5")
+
+    # the head stage: kernel 8 once a batch, counted over the stage alone
+    fused_encode.launches = 0
+    _, walls[("head", "cuda")] = _timed(torch, cli, "head", "cuda")
+    head_launches = fused_encode.launches
+    if head_launches != len(batches):
+        fail(f"the head stage launched kernel 8 {head_launches} times for "
+             f"{len(batches)} batches (once a batch, not once an epoch)")
+    _, walls[("head", "cpu")] = _timed(torch, cli, "head", "cpu")
+    hist = history("cuda")
+    if len(hist) != recipe.HEAD_EPOCHS or not np.isfinite(hist).all():
+        fail(f"head history {hist[:3]}... of {len(hist)} epochs")
+    fixed, wall_fixed = _timed(
+        torch, lambda: heads.train_portfolio_fused(
+            recipe.initial_head(cpu), _FixedPosterior(qs, cpu), batches,
+            rets, num_epochs=recipe.HEAD_EPOCHS, lr=recipe.HEAD_LR))
+    gap = _history_gap(hist, fixed.history)
+    own_gap = _history_gap(hist, history("cpu"))
+    if gap > 1e-4:
+        fail(f"head history: card against the CPU from the card's "
+             f"posteriors {gap:.3e} relative > 1e-4")
+    # the recipe run again on the card: the same bits, and the written
+    # head loads back as the trained one
+    _, walls[("data", "cuda_again")] = _timed(torch, recipe.stage_data,
+                                              out["cuda_again"])
+    res, walls[("head", "cuda_again")] = _timed(
+        torch, recipe.stage_head, out["cuda_again"], dev)
+    if res.history != hist:
+        fail("a second card run of the head stage gave another history")
+    path = os.path.join(out["cuda"], "portfolio_head.npz")
+    with np.load(path) as a, np.load(os.path.join(out["cuda_again"],
+                                                   "portfolio_head.npz")) as b:
+        if sorted(a.files) != sorted(b.files) or any(
+                a[k].tobytes() != b[k].tobytes() for k in a.files):
+            fail("the two card runs wrote different portfolio_head.npz")
+    loaded = load_improved_head(path, device=dev).state_dict()
+    if loaded.keys() != res.params.keys() or any(
+            not torch.equal(v, res.params[k]) for k, v in loaded.items()):
+        fail("portfolio_head.npz does not load back bit for bit")
+    say("heads", f"data stage {walls[('data', 'cuda')]:.3f} s / "
+        f"{walls[('data', 'cpu')]:.3f} s (card run / CPU run); posteriors of "
+        f"{len(batches)} batches of 16 x 100, card against CPU "
+        f"{post_err:.3e}; head stage ({recipe.HEAD_EPOCHS} epochs, "
+        f"{recipe.HEAD_EPOCHS * len(batches)} updates) "
+        f"{walls[('head', 'cuda')]:.3f} s on the card, "
+        f"{walls[('head', 'cpu')]:.3f} s on the CPU; loss "
+        f"{hist[0]:.6f} -> {hist[-1]:.6f}; history against "
+        f"the CPU from the card's posteriors {gap:.3e} relative "
+        f"({wall_fixed:.3f} s), from its own {own_gap:.3e}; a second card "
+        f"run bit-equal; portfolio_head.npz loads back bit for bit; kernel "
+        f"8 launched {head_launches} times")
+
+    # the CPU's later stages start from the card's head
+    shutil.copyfile(path, os.path.join(out["cpu"], "portfolio_head.npz"))
+    bt = {}
+    for d, device in (("cuda", dev), ("cpu", cpu)):
+        bt[d], walls[("backtest", d)] = _timed(
+            torch, recipe.stage_backtest, out[d], device)
+    _, walls[("backtest", "cuda_again")] = _timed(
+        torch, recipe.stage_backtest, out["cuda_again"], dev)
+    bt_gap = max(_rel(bt["cuda"][s][k], v) for s in bt["cpu"]
+                 for k, v in bt["cpu"][s].items())
+    if bt_gap > 1e-4:
+        fail(f"backtest stage: a metric differs by {bt_gap:.3e} relative")
+
+    # the walk-forward stage, its windows recorded and its retrains counted
+    windows, retrains = {}, {}
+    real_wf, real_fit = recipe.walk_forward, recipe.train_portfolio_fused
+    stage = {}
+    try:
+        for d, device in (("cuda", dev), ("cpu", cpu)):
+            def record(*args, _d=d):
+                windows[_d] = real_wf(*args)
+                return windows[_d]
+
+            def fit(*args, _d=d, **kw):
+                retrains[_d] = retrains.get(_d, 0) + 1
+                return real_fit(*args, **kw)
+
+            recipe.walk_forward, recipe.train_portfolio_fused = record, fit
+            if d == "cuda":
+                for f in (fused_encode, fused_evidence, fused_viterbi_states,
+                          viterbi_fused):
+                    f.launches = 0
+            stage[d], walls[("walkforward", d)] = _timed(
+                torch, recipe.stage_walkforward, out[d], device)
+            if d == "cuda":
+                wf_launches = {"fused_encode": fused_encode.launches,
+                               "fused_evidence": fused_evidence.launches,
+                               "fused_decode": fused_viterbi_states.launches,
+                               "viterbi": viterbi_fused.launches}
+    finally:
+        recipe.walk_forward, recipe.train_portfolio_fused = real_wf, real_fit
+    _, walls[("walkforward", "cuda_again")] = _timed(
+        torch, recipe.stage_walkforward, out["cuda_again"], dev)
+    n_win = len(windows["cuda"])
+    if n_win != len(windows["cpu"]) or not n_win or \
+            retrains.get("cuda") != n_win:
+        fail(f"walk-forward: {n_win} windows on the card, "
+             f"{len(windows['cpu'])} on the CPU, {retrains} retrains")
+    wf_gap = max(_metrics_gap(g, w) for g, w in zip(windows["cuda"],
+                                                     windows["cpu"]))
+    if wf_gap > 1e-4:
+        fail(f"walk-forward windows: a metric differs by {wf_gap:.3e} "
+             "relative between the card and the CPU (> 1e-4)")
+    # kernel 8: one a retrain, one a window (each trades from its warm-up),
+    # one for the argmax decode of the panel, and one a per-regime
+    # backtest that trades (a regime of more than 21 days); kernel 11 for
+    # the Viterbi decode and the crash-cost block's smoothed posterior
+    per_regime = sum(r["n_periods"] > 21
+                     for mode in stage["cuda"]["per_regime"].values()
+                     for r in mode.values())
+    expected = {"fused_encode": retrains["cuda"] + n_win + 1 + per_regime,
+                "fused_evidence": 2, "fused_decode": 0, "viterbi": 1}
+    if wf_launches != expected:
+        fail(f"the walk-forward stage launched {wf_launches}; its "
+             f"{retrains['cuda']} retrains, {n_win} windows, one argmax "
+             f"decode, {per_regime} per-regime backtests, a Viterbi decode "
+             f"and a smoothed posterior imply {expected}")
+    gaps, trainer_launches, n_batches = _trainer_gaps(
+        torch, np, recipe, heads, out["cuda"], qs, dev)
+    if trainer_launches != len(gaps) * n_batches:
+        fail(f"the four trainer runs launched kernel 8 {trainer_launches} "
+             f"times for {n_batches} batches each")
+    worst = max(gaps.values())
+    if worst > 1e-4:
+        fail(f"5-epoch trainers, card against CPU: {gaps} (> 1e-4)")
+
+    # where a head update's time goes: epochs of the head stage's updates
+    # (one update a batch) traced on the card, and timed
+    def epoch():
+        heads.train_portfolio_fused(
+            recipe.initial_head(dev), _FixedPosterior(qs, dev), batches,
+            rets, num_epochs=1, lr=recipe.HEAD_LR)
+
+    busy, ops = _device_trace(torch, epoch, calls=3)
+    wall = _wall(torch, epoch)
+    n = len(batches)
+    update = {"wall_ms": wall[0] / n, "device_ms": None if busy is None
+              else busy / n, "device_ops": None if ops is None else ops / n}
+    m = stage["cuda"]["walk_forward"]
+    say("heads", f"backtest stage {walls[('backtest', 'cuda')]:.3f} s / "
+        f"{walls[('backtest', 'cpu')]:.3f} s, metrics against the CPU "
+        f"{bt_gap:.3e}; walk-forward stage "
+        f"{walls[('walkforward', 'cuda')]:.3f} s / "
+        f"{walls[('walkforward', 'cpu')]:.3f} s: {n_win} windows, "
+        f"{retrains['cuda']} retrains of {recipe.WF_EPOCHS} epochs, chained "
+        f"return {m['chained_total_return']}, mean Sharpe "
+        f"{m['mean_window_sharpe']}; window metrics against the CPU "
+        f"{wf_gap:.3e} relative; launches {wf_launches}")
+    say("heads", f"a head update on the card (an epoch of {n} traced): "
+        f"{update['wall_ms']:.3f} ms of wall [{wall[1] / n:.3f}, "
+        f"{wall[2] / n:.3f}], device time {_ms(update['device_ms'])}, "
+        + ("device ops not measured" if ops is None else
+           f"{update['device_ops']:.1f} device ops")
+        + ("" if busy is None else
+           f"; the card busy {100 * busy / wall[0]:.1f}% of it"))
+    say("heads", "5 epochs on the recipe's batches, card against the CPU "
+        "from the card's posteriors: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in gaps.items())
+        + f"; kernel 8 {trainer_launches} launches for {len(gaps)} runs of "
+        f"{n_batches} batches")
+    return {"head_launches": head_launches,
+            "walkforward_launches": wf_launches["fused_encode"],
+            "walls": walls, "out": out, "update": update}
+
+
+def phase_montecarlo(torch, np, heads_out):
+    """25. the recipe's Monte Carlo stage on the card and on the CPU."""
+    import warnings
+
+    from vqvaehmm_tpu_torch import recipe
+    from vqvaehmm_tpu_torch.backtest import montecarlo
+    from vqvaehmm_tpu_torch.data.checkpoint import load_improved_head
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    out, walls = heads_out["out"], heads_out["walls"]
+    seen, real_stats = {}, montecarlo.regime_statistics
+    stage, warned = {}, {}
+    try:
+        for d, device in (("cuda", dev), ("cpu", cpu)):
+            def record(rets, regimes, K, _d=d):
+                seen[_d] = (rets, regimes)
+                return real_stats(rets, regimes, K)
+
+            montecarlo.regime_statistics = record
+            if d == "cuda":
+                for f in (fused_encode, fused_evidence, fused_viterbi_states,
+                          viterbi_fused):
+                    f.launches = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                stage[d], walls[("montecarlo", d)] = _timed(
+                    torch, recipe.stage_montecarlo, out[d], device)
+            warned[d] = [str(w.message) for w in caught]
+            if d == "cuda":
+                mc_launches = {"fused_encode": fused_encode.launches,
+                               "fused_evidence": fused_evidence.launches,
+                               "fused_decode": fused_viterbi_states.launches,
+                               "viterbi": viterbi_fused.launches}
+    finally:
+        montecarlo.regime_statistics = real_stats
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # printed by the first run
+        _, walls[("montecarlo", "cuda_again")] = _timed(
+            torch, recipe.stage_montecarlo, out["cuda_again"], dev)
+    expected = {"fused_encode": 0, "fused_evidence": 1, "fused_decode": 0,
+                "viterbi": 1}
+    if mc_launches != expected:
+        fail(f"the Monte Carlo stage launched {mc_launches}; its one "
+             f"two-stage decode of the panel implies {expected}")
+    rets, regimes = seen["cuda"]
+    states = {d: torch.as_tensor(seen[d][1])[None] for d in seen}
+    differ = int((states["cuda"] != states["cpu"]).sum())
+    if differ:
+        model = recipe.load_trained(cpu)
+        data, u_data, _, _ = recipe._panel(out["cpu"])
+        with torch.inference_mode():
+            ev = fused_evidence(model, torch.from_numpy(data.astype(
+                np.float32)), torch.from_numpy(u_data.astype(np.float32)))
+        gap, excess = _tie_gap(torch, ev, states["cuda"], states["cpu"],
+                               None)
+        if excess > 1.0:
+            fail(f"panel decode: the card's path scores {gap:.3e} from the "
+                 f"CPU's, {excess:.1f} times the tolerance of a tie")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the stage printed them
+        means, covs = montecarlo.regime_statistics(rets, regimes, K=3)
+
+    # the simulation alone, on each device from the same draws
+    sims, sim_ms = {}, {}
+    for d, device in (("cuda", dev), ("cpu", cpu)):
+        head = load_improved_head(os.path.join(out["cuda"],
+                                               "portfolio_head.npz"), device)
+        sims[d], wall = _timed(
+            torch, lambda: montecarlo.monte_carlo_simulation(
+                lambda oh: head(oh[None])[0], means, covs,
+                torch.Generator().manual_seed(recipe.MC_SEED),
+                n_sim=recipe.MC_PATHS, n_days=recipe.MC_DAYS, device=device))
+        sim_ms[d] = 1e3 * wall
+    head = load_improved_head(os.path.join(out["cuda"], "portfolio_head.npz"),
+                              dev)
+
+    def simulate():
+        return montecarlo.monte_carlo_simulation(
+            lambda oh: head(oh[None])[0], means, covs,
+            torch.Generator().manual_seed(recipe.MC_SEED),
+            n_sim=recipe.MC_PATHS, n_days=recipe.MC_DAYS, device=dev)
+
+    sim_busy, sim_ops = _device_trace(torch, simulate, calls=2)
+    sim_wall = _wall(torch, simulate)
+    fin = {d: sims[d]["final_values"].cpu().double() for d in sims}
+    fin_gap = float(((fin["cuda"] - fin["cpu"]).abs()
+                     / fin["cpu"].abs().clamp_min(1e-12)).max())
+    stats = {d: montecarlo.analyze_monte_carlo(sims[d]) for d in sims}
+    stat_gap = max(abs(stats["cuda"][k] - v) for k, v in stats["cpu"].items())
+    if fin_gap > 1e-4 or stat_gap > 1e-4:
+        fail(f"Monte Carlo on the same draws: final values {fin_gap:.3e} "
+             f"relative, statistics {stat_gap:.3e} absolute (> 1e-4)")
+    staged = stage["cuda"][0]
+    for key in ("final_values", "daily_returns"):
+        if not torch.equal(staged[key], sims["cuda"][key]):
+            fail(f"Monte Carlo from the same seed twice on the card: {key} "
+                 "not bit-equal")
+    if tuple(staged["daily_returns"].shape) != (recipe.MC_PATHS,
+                                                 recipe.MC_DAYS) or \
+            not torch.isfinite(staged["daily_returns"]).all():
+        fail(f"daily returns {tuple(staged['daily_returns'].shape)}")
+    s = stage["cuda"][1]
+    counts = np.bincount(np.asarray(regimes), minlength=3).tolist()
+    say("montecarlo", f"panel Viterbi decode: regime days {counts}, "
+        f"{differ} steps differ from the CPU's (a score tie where any); "
+        f"{recipe.MC_PATHS} x {recipe.MC_DAYS} paths: the simulation "
+        f"{sim_ms['cuda']:.1f} ms on the card, {sim_ms['cpu']:.1f} ms on "
+        f"the CPU (first calls); again on the card {sim_wall[0]:.1f} ms "
+        f"[{sim_wall[1]:.1f}, {sim_wall[2]:.1f}], "
+        f"device time {_ms(sim_busy)}, "
+        + ("device ops not measured" if sim_ops is None else
+           f"{sim_ops:.0f} device ops") + "; "
+        f"final values against the CPU {fin_gap:.3e} relative, "
+        f"statistics {stat_gap:.3e} absolute; the stage twice from one "
+        f"seed bit-equal; stage {walls[('montecarlo', 'cuda')]:.3f} s / "
+        f"{walls[('montecarlo', 'cpu')]:.3f} s; mean return "
+        f"{s['mean_return']:.4f}, P(profit) {s['prob_profit']:.4f}, "
+        f"expected Sharpe {s['expected_sharpe']:.4f}; launches {mc_launches}"
+        f"; the card's warnings: {warned['cuda'] or 'none'}")
+    say("montecarlo", "recipe stage wall seconds, card (first run, second "
+        "run) / CPU: " + "; ".join(
+            f"{st} {walls[(st, 'cuda')]:.3f}, "
+            f"{walls[(st, 'cuda_again')]:.3f} / {walls[(st, 'cpu')]:.3f}"
+            for st in recipe.STAGES))
+    return mc_launches
+
+
 def _sha(torch, *tensors) -> str:
     import hashlib
 
@@ -3566,6 +4009,13 @@ def main() -> int:
         reloaded = phase_reload_cli(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # 24, 25: the recipe's downstream stages
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    try:
+        recipe_out = phase_heads(torch, np, tmp)
+        mc_launches = phase_montecarlo(torch, np, recipe_out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -3711,13 +4161,17 @@ def main() -> int:
             k["vq_train_launches"] = vq_train_launches["gather"]
         elif k["name"] == "viterbi":
             k["vq_serve_launches"] = vq_serve_launches["viterbi"]
+            k["mc_launches"] = mc_launches["viterbi"]
         elif k["name"] == "fused_infer":
             k["batched_launches"] = served["launches"]
             k["batched_dispatches"] = served["dispatches"]
         elif k["name"] == "fused_evidence":
             k["stream_launches"] = streamed["launches"]
+            k["mc_launches"] = mc_launches["fused_evidence"]
         elif k["name"] == "fused_encode":
             k["cli_launches"] = reloaded["cli_launches"]
+            k["head_launches"] = recipe_out["head_launches"]
+            k["walkforward_launches"] = recipe_out["walkforward_launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -125,7 +125,8 @@ def test_cli_vae_reference_pt_checkpoint_and_gmm(tmp_path, capsys):
                 str(tmp_path / "m.pt"), "--device", "cpu"])
     assert len(out["allocation"]) == 4 and len(out["last_allocations"]) == 5
     assert "Current regime:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1, the GMM stack and ensembles"):
         main(["--config", str(cfg_path), "--checkpoint", "x.npz",
               "--stack", "gmm", "--device", "cpu"])
 

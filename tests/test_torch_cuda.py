@@ -1453,3 +1453,129 @@ def test_reloads_free_the_old_models(cuda, tmp_path):
         assert abs(torch.cuda.memory_allocated() - first) <= 1 << 20
     finally:
         h.close()
+
+
+def test_get_model_cuda_spellings_share_one_handle(cuda, tmp_path):
+    from vqvaehmm_tpu_torch.serve.app import get_model
+
+    cfg = _serving_config(tmp_path, cuda, seed=11)
+    get_model.cache_clear()
+    try:
+        h = get_model(cfg)
+        for args, kw in (((cfg, "cuda"), {}), ((cfg,), {"device": "cuda"}),
+                         ((cfg, "cuda:0"), {}),
+                         ((cfg, torch.device("cuda")), {}),
+                         ((cfg, torch.device("cuda", 0)), {})):
+            assert get_model(*args, **kw) is h, (args, kw)
+        assert get_model(cfg, "cpu") is not h
+    finally:
+        get_model.cache_clear()
+
+
+# -- the recipe's downstream stages: head training and Monte Carlo -------
+
+
+class _FixedPosterior:
+    """A VAE stand-in whose posterior is a given list of q, one a batch in
+    order: the card's and the CPU's head training then start from the
+    same posteriors, so only the head's arithmetic differs."""
+
+    def __init__(self, qs, device):
+        self.device = torch.device(device)
+        self._qs = iter(qs)
+
+    def posterior(self, x):
+        return next(self._qs).to(x.device)
+
+
+def _head_case(dev, n=3, B=16, T=100, seed=0):
+    from vqvaehmm_tpu_torch.models.portfolio import (
+        HeadConfig, ImprovedPortfolioOptimizer)
+
+    rng = np.random.default_rng(seed)
+    batches = [(rng.normal(size=(B, 5, T)).astype(np.float32),
+                rng.normal(size=(B, 4, T)).astype(np.float32),
+                np.full(B, T, np.int32)) for _ in range(n)]
+    rets = [rng.normal(5e-4, 0.01, size=(B, 20, 10)).astype(np.float32)
+            for _ in range(n)]
+    head = ImprovedPortfolioOptimizer(
+        HeadConfig(K=3, n_assets=10, hidden_dim=64), device=dev,
+        generator=torch.Generator().manual_seed(7))
+    return batches, rets, head
+
+
+def test_head_training_on_the_card_matches_the_cpu(cuda):
+    """train_portfolio_fused at the recipe's width, 20 epochs: the card's
+    history within 1e-4 relative of the CPU's from the card's posteriors,
+    and a second card run bit-equal."""
+    from vqvaehmm_tpu_torch.train.heads import (frozen_posteriors,
+                                                train_portfolio_fused)
+
+    vae = _model(cuda, seed=3, hidden_dim=64, hidden_dim2=32)
+    batches, rets, _ = _head_case(cuda)
+    qs = frozen_posteriors(vae, batches)
+    runs = {}
+    for name, dev in (("cuda", cuda), ("cuda again", cuda), ("cpu", "cpu")):
+        _, _, head = _head_case(dev)
+        runs[name] = train_portfolio_fused(
+            head, _FixedPosterior(qs, dev), batches, rets, num_epochs=20,
+            lr=1e-3)
+    np.testing.assert_allclose(runs["cuda"].history, runs["cpu"].history,
+                               rtol=1e-4, atol=0)
+    assert runs["cuda"].history == runs["cuda again"].history
+    for k, v in runs["cuda"].params.items():
+        assert torch.equal(v, runs["cuda again"].params[k]), k
+        torch.testing.assert_close(v.cpu(), runs["cpu"].params[k], rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("trainer", ["train_portfolio",
+                                     "train_portfolio_fused",
+                                     "train_portfolio_optimizer",
+                                     "train_delta_hedger"])
+def test_head_trainers_launch_the_encoder_once_a_batch(cuda, trainer):
+    """Kernel 8 computes each batch's frozen posterior once, before the
+    epochs: 3 batches and 4 epochs are 3 launches."""
+    import vqvaehmm_tpu_torch.train.heads as heads
+    from vqvaehmm_tpu_torch.models.hedging import RegimeDeltaHedger
+    from vqvaehmm_tpu_torch.models.portfolio import HeadConfig
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    vae = _model(cuda, seed=4, hidden_dim=64, hidden_dim2=32)
+    batches, rets, head = _head_case(cuda, T=40)
+    kw = {} if trainer == "train_portfolio_fused" else {"log_fn": None}
+    if trainer == "train_delta_hedger":
+        head = RegimeDeltaHedger(HeadConfig(K=3, n_assets=5, hidden_dim=16),
+                                 device=cuda)
+        rets = [np.full((16, 39, 5), 0.01, np.float32) for _ in batches]
+    before = fused_encode.launches
+    res = getattr(heads, trainer)(head, vae, batches, rets, num_epochs=4,
+                                  **kw)
+    assert fused_encode.launches - before == len(batches)
+    assert len(res.history) == 4 and np.isfinite(res.history).all()
+
+
+def test_simulate_paths_on_the_card_matches_the_cpu(cuda):
+    from vqvaehmm_tpu_torch.backtest.montecarlo import (monte_carlo_draws,
+                                                        simulate_paths)
+
+    rng = np.random.default_rng(5)
+    K, A = 3, 10
+    weights = torch.softmax(torch.from_numpy(
+        rng.normal(size=(K, A)).astype(np.float32)), dim=-1)
+    means = torch.from_numpy(rng.normal(3e-4, 1e-3, size=(K, A))
+                             .astype(np.float32))
+    chols = torch.from_numpy(np.linalg.cholesky(
+        np.stack([np.cov(rng.normal(0, 0.01, size=(A, 60))) +
+                  1e-8 * np.eye(A) for _ in range(K)])).astype(np.float32))
+    draws = monte_carlo_draws(torch.Generator().manual_seed(0), K, A, 1000,
+                              252)
+    kw = dict(rebalance_every=5, switch_prob=0.3)
+    cpu = simulate_paths(weights, means, chols, **draws, **kw)
+    card = [simulate_paths(weights.to(cuda), means, chols, **draws, **kw)
+            for _ in range(2)]
+    assert card[0]["final_values"].is_cuda
+    torch.testing.assert_close(card[0]["final_values"].cpu(),
+                               cpu["final_values"], rtol=1e-4, atol=0)
+    for key in ("final_values", "daily_returns"):
+        assert torch.equal(card[0][key], card[1][key]), key

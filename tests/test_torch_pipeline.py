@@ -113,9 +113,10 @@ def test_sigterm_checkpoints_and_resumes(tiny_config, input_pipeline):
 def test_not_ported_raise(tiny_config):
     path, tmp = tiny_config
     cfg = load_config(path)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="the parallelism item"):
         TrainPipeline(cfg, use_mesh=True, device="cpu")
-    for over, what in ((["training.ensemble_seeds=[1, 2]"], "item 11"),
+    for over, what in ((["training.ensemble_seeds=[1, 2]"],
+                        "the GMM stack and ensembles"),
                        ([f"training.profile_dir={tmp / 'p'}"],
                         "profile_dir")):
         with pytest.raises(NotImplementedError, match=what):

@@ -101,3 +101,31 @@ def post_json(url, payload=None, headers=None, timeout=60):
             return resp.status, json.loads(resp.read()), resp.headers
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read()), e.headers
+
+
+def jax_mc_draws(key, K: int, A: int, n_sim: int, n_days: int, p0=None):
+    """The random numbers vqvaehmm_tpu.backtest.montecarlo.
+    monte_carlo_simulation draws from `key`, split exactly as it splits
+    its keys (a key a path, split into the first regime's and the days';
+    a key a day, split into the switch uniform's, the new regime's and the
+    normals'), in the layout of the port's monte_carlo_draws: numpy z0
+    (n_sim,), u_switch (n_sim, n_days), z_new (n_sim, n_days), eps (n_sim,
+    n_days, A)."""
+    import jax.numpy as jnp
+
+    logp0 = jnp.log(jnp.asarray(np.full(K, 1.0 / K) if p0 is None
+                                else np.asarray(p0), jnp.float32))
+
+    def day(key_t):
+        ks, kz, kn = jax.random.split(key_t, 3)
+        return (jax.random.uniform(ks), jax.random.randint(kz, (), 0, K),
+                jax.random.normal(kn, (A,)))
+
+    def path(k):
+        k0, kr = jax.random.split(k)
+        return (jax.random.categorical(k0, logp0),
+                *jax.vmap(day)(jax.random.split(kr, n_days)))
+
+    z0, u, zn, eps = jax.vmap(path)(jax.random.split(key, n_sim))
+    return {"z0": np.array(z0), "u_switch": np.array(u),
+            "z_new": np.array(zn), "eps": np.array(eps)}

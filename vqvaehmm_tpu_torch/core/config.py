@@ -1,11 +1,11 @@
 """Typed configuration, shared by the JAX package and this port.
 
 A copy of vqvaehmm_tpu/core/config.py: that package's `__init__` imports
-JAX eagerly, and the machine the port runs on has no JAX.  The copy goes
-once those imports are lazy (ROADMAP.md queue 1, item 0).  Both packages
-read the same JSON files.  It is verbatim but for one comment: that of
-`VQConfig.codebook_lr_scale`, which here says what the knob does (it
-scales the codebook's update, not its gradient).
+JAX eagerly, and the machine the port runs on has no JAX, so the copy
+stays (ROADMAP.md queue 1, the standing rule on numpy-only copies).
+Both packages read the same JSON files.  It is verbatim but for one
+comment: that of `VQConfig.codebook_lr_scale`, which here says what the
+knob does (it scales the codebook's update, not its gradient).
 
 One dataclass-based config system replacing the reference's three ad-hoc
 mechanisms (YAML dicts in configs/config.yaml, JSON dicts in

@@ -14,7 +14,10 @@ in `jax.tree_util.tree_flatten` order, which sorts dictionary keys:
 `VQ_LEAF_ORDER` is that order in state_dict keys.
 
 A reference portfolio head (`.pt`) loads through `load_head_file`, its
-family told from the state_dict's naming.
+family told from the state_dict's naming.  An Improved head the port
+trains is written in the JAX package's stacked layout through
+`head_params_to_numpy`; a hedger's JAX pytree crosses through
+`hedger_params_from_numpy`.
 
 A training checkpoint (save_checkpoint) holds the model, the Adam state
 and the step, so a run resumes exactly; it is the port's own format
@@ -191,13 +194,56 @@ def load_params_npz(path: str) -> Dict:
     return out
 
 
-def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]
-                    ) -> None:
-    """Write a state_dict as the JAX package's flat-npz parameter file
+def save_params_npz(path: str, params: Mapping) -> None:
+    """Write parameters as the JAX package's flat-npz parameter file
     (`/`-joined pytree paths, save_params_npz's layout), so either package
-    loads the other's trained weights."""
-    flat = _flatten("", params_to_numpy(state_dict))
+    loads the other's trained weights.  `params` is a state_dict of the
+    VAE-HMM or the RegimePortfolioOptimizer head, or a pytree of numpy
+    arrays (nested dicts, as head_params_to_numpy returns for the
+    Improved head)."""
+    tree = params
+    if any(isinstance(v, torch.Tensor) for v in params.values()):
+        tree = params_to_numpy(params)
+    flat = _flatten("", tree)
     np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
+
+
+def head_params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Inverse of improved_head_params_from_numpy: an
+    ImprovedPortfolioOptimizer's state_dict -> the JAX package's stacked
+    pytree fc{1,2,3}/{weight (K, out, in), bias (K, out)} of numpy arrays,
+    the layout of artifacts/portfolio_head.npz."""
+    keys = {k.replace("/", ".") for k in _IMPROVED_HEAD_KEYS}
+    if set(state_dict) != keys or any(
+            state_dict[f"fc{i}.weight"].dim() != 3 for i in (1, 2, 3)):
+        raise KeyError("not an ImprovedPortfolioOptimizer state_dict: keys "
+                       f"{sorted(state_dict)}")
+    out: Dict = {}
+    for key, v in state_dict.items():
+        layer, leaf = key.split(".")
+        out.setdefault(layer, {})[leaf] = v.detach().cpu().numpy()
+    return out
+
+
+def hedger_params_from_numpy(tree, hedger: Optional[torch.nn.Module] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """A hedger's JAX pytree (models/hedging.py: `delta1/weight`, ..., and
+    LSTMDeltaHedger's `lstm` layer list and `head`) -> a float32
+    state_dict for the port's hedger of the same class.  With `hedger`
+    given, the keys and shapes are checked against it."""
+    from ..ops.rnn import lstm_state_from_numpy
+
+    tree = dict(tree)
+    state = {}
+    if "lstm" in tree:
+        state.update(lstm_state_from_numpy(tree.pop("lstm"), prefix="lstm."))
+    state.update({k.replace("/", "."): torch.from_numpy(
+                      np.array(v, dtype=np.float32, copy=True))
+                  for k, v in _flatten("", tree).items()})
+    if hedger is not None:
+        validate_params_for(hedger, state,
+                            what=f"{type(hedger).__name__} pytree")
+    return state
 
 
 def save_checkpoint(path: str, state, metadata: Optional[Dict] = None

@@ -121,7 +121,8 @@ def _numpy_only(use_native: Optional[bool]) -> None:
         raise NotImplementedError(
             "use_native=True: the native sampler (native/fastdata.c) is not "
             "ported; the port samples with the numpy stream "
-            "(ROADMAP.md, slice 2 left-outs)")
+            "(ROADMAP.md queue 1, the small left-outs of the training "
+            "slice)")
 
 
 def epoch_arrays(dataset: RandomChunkDataset, batch_size: int,

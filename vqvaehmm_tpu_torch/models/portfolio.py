@@ -1,9 +1,10 @@
 """Portfolio heads (counterpart of vqvaehmm_tpu/models/portfolio.py):
 RegimePortfolioOptimizer, the head behind /predict, and
-ImprovedPortfolioOptimizer, the per-regime bank the backtests run.
+ImprovedPortfolioOptimizer, the per-regime bank the backtests run and
+train/heads.py trains.  The hedgers are models/hedging.py.
 
 The other heads of the JAX package's zoo are still to be ported
-(ROADMAP.md)."""
+(ROADMAP.md queue 1, the rest of the downstream zoo)."""
 
 from __future__ import annotations
 
@@ -28,6 +29,12 @@ def _last_step(q: torch.Tensor) -> torch.Tensor:
     (B, K, T), time last, the layout every model-side producer emits; a
     (B, T, K) input is not sniffed here."""
     return q[:, :, -1] if q.dim() == 3 else q
+
+
+def _as_seq(q: torch.Tensor, K: int) -> torch.Tensor:
+    """(B, K, T) or (B, T, K) -> (B, T, K): the reference's shared sniff
+    rule (ops/nn.py::as_seq)."""
+    return ops.as_seq(q, K)
 
 
 class RegimePortfolioOptimizer(nn.Module):

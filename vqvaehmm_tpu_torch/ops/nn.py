@@ -82,6 +82,16 @@ def conv1d_same_matmul(weight: torch.Tensor, bias: torch.Tensor,
     return torch.matmul(w2, cols) + bias[None, :, None]
 
 
+def as_seq(q: torch.Tensor, K: int) -> torch.Tensor:
+    """A regime-probability tensor as (B, T, K).  The reference's
+    dimension sniff (vqvaehmm_tpu/ops/nn.py:33): a 3-D input whose dim 1
+    equals K is read as (B, K, T) and transposed, so a square input
+    (T == K) is transposed too."""
+    if q.dim() == 3 and q.shape[1] == K:
+        return q.transpose(1, 2)
+    return q
+
+
 def linear(weight: torch.Tensor, bias: torch.Tensor,
            x: torch.Tensor) -> torch.Tensor:
     """x: (..., in) -> (..., out); weight stored (out, in)."""

@@ -41,7 +41,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import canonical_device, resolve_device
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512)
 # the request-body bound of every surface (the FastAPI middleware checks
@@ -472,15 +472,26 @@ def reload_gate(token: Optional[str]):
 
 
 @lru_cache(maxsize=None)
+def _handle(config_path: str, device: str) -> ModelHandle:
+    return ModelHandle(config_path, device=device)
+
+
 def get_model(config_path: str = "inference_config.json", device="cuda"):
     """The process-wide ModelHandle for one (config, device), built on
-    first use and shared by every serving surface.  VQHMM_BATCH=1 makes it
+    first use and shared by every serving surface.  Every spelling of a
+    device ("cuda", "cuda:0", torch.device("cuda"), the default; "cpu",
+    "cpu:0") is the same handle (core/device.py::canonical_device), so a
+    reload through one reaches them all.  VQHMM_BATCH=1 makes it
     micro-batch (VQHMM_MAX_BATCH, VQHMM_MAX_WAIT_MS, VQHMM_MAX_QUEUE,
     VQHMM_PIPELINE_DEPTH and VQHMM_WARMUP_LENGTHS tune it);
     `handle.reload()` (POST /admin/reload with VQHMM_ENABLE_RELOAD=1)
     swaps in new weights.  A `model.family: vqvae` config is served by
-    serve/vq.py's VQInferenceModel."""
-    return ModelHandle(config_path, device=device)
+    serve/vq.py's VQInferenceModel.  `get_model.cache_clear()` forgets
+    every handle."""
+    return _handle(config_path, str(canonical_device(device)))
+
+
+get_model.cache_clear = _handle.cache_clear
 
 
 def create_app(config_path: str = "inference_config.json", device="cuda"):

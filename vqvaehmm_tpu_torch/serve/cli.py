@@ -117,7 +117,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--stack gmm: the GMM stack (models/gmm.py, "
             "train/gmm_pipeline.py, report_gmm) is not ported yet "
-            "(ROADMAP.md, queue 1 item 6)")
+            "(ROADMAP.md queue 1, the GMM stack and ensembles)")
     device = resolve_device(args.device)
     cfg = load_config(args.config)
 

@@ -21,7 +21,9 @@ PyTorch dispatches each step eagerly, so it is accepted and changes
 nothing.  `model.family: vqvae` trains the true-VQ family through
 train/vq_pipeline.py (its own trainer and archive, `vq_stack.npz`).  Not
 ported, and refused with NotImplementedError: `ensemble_seeds`
-(ROADMAP.md queue 1 item 11), the device mesh (item 13) and `profile_dir`.
+(ROADMAP.md queue 1, the GMM stack and ensembles), the device mesh (its
+parallelism item) and `profile_dir` (its small left-outs of the training
+slice).
 """
 
 from __future__ import annotations
@@ -89,7 +91,7 @@ class TrainPipeline:
         if use_mesh:
             raise NotImplementedError(
                 "use_mesh: data parallelism is not ported "
-                "(ROADMAP.md queue 1, item 13)")
+                "(ROADMAP.md queue 1, the parallelism item)")
         self.cfg = cfg
         self.device = resolve_device(device)
         # True after train() returned early on SIGTERM: the returned state
@@ -149,11 +151,12 @@ class TrainPipeline:
         if t.ensemble_seeds:
             raise NotImplementedError(
                 "training.ensemble_seeds: ensembles are not ported "
-                "(ROADMAP.md queue 1, item 11)")
+                "(ROADMAP.md queue 1, the GMM stack and ensembles)")
         if t.profile_dir:
             raise NotImplementedError(
                 "training.profile_dir: profiling is not ported "
-                "(ROADMAP.md, slice 2 left-outs)")
+                "(ROADMAP.md queue 1, the small left-outs of the "
+                "training slice)")
         self.preempted = False
         dev = self.device
         model = self.build_model()

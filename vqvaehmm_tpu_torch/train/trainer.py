@@ -17,7 +17,7 @@ only the epoch mean is read back.  `"auto"` in `resolve_fused` and
 `resolve_input_pipeline` means the kernel and the device pipeline on a
 CUDA device and the plain path and the host pipeline on the CPU.  The JAX
 package's `mesh` (data parallelism) is not ported (ROADMAP.md queue 1,
-item 13).
+the parallelism item).
 """
 
 from __future__ import annotations
