@@ -254,6 +254,35 @@ exiting non-zero before a result is printed:
    absolute; the same seed twice on the card bit-equal; the simulation's
    wall ms on each device.
 
+26. the GMM stack on the fixture panel's returns (2327 days, 10 assets):
+   `train_improved_system(returns, n_regimes=3, num_epochs=100,
+   patience=20)` as scripts/backtest.py calls it, with the temporal chain,
+   on the card twice and on the CPU.  The card's EM against the CPU's from
+   the same seeded restarts: every restart's final log-likelihood within
+   1e-5 relative, and the kept restart's responsibilities within 1e-4
+   max-abs, its labels equal (where the devices keep two restarts whose
+   likelihoods tie, the card's restart refitted alone on both); the head
+   stage on the CPU from the card's detector: the history within 1e-5
+   relative, the same stopping epoch; whether the second card run is
+   bit-equal.  The archive loads back bit for bit; the chain's smoothed and
+   filtered marginals on the card within 1e-4 of the CPU's; the --stack
+   gmm report on the card within 1e-4 of the CPU's, and `python -m
+   vqvaehmm_tpu_torch.serve.cli --stack gmm --device cuda` in a
+   subprocess exits 0 with the same regime.  The wall ms of the EM fit and
+   of the head stage on each device.
+27. a seed ensemble of artifacts/config_published.json through
+   TrainPipeline with training.ensemble_seeds [0, 1, 2, 3], 4 epochs of
+   15 steps on the device pipeline: kernel C launched exactly members x
+   steps and kernel D once an epoch (counts reset just before); members 0
+   and 3 bit-equal, parameters and history, to solo train_model runs on
+   the card from the same initial states over the same epochs; the same
+   configuration on the CPU: the same best seed and metadata keys, losses
+   within 1e-5 relative.  For n in {1, 2, 4, 8} members, a steady epoch's
+   wall ms, member-seqs a second and device-busy ms off a profiler trace.
+28. host-fed TrainPipeline (6 epochs) with prefetched epochs and with the
+   synchronous loop: bit-equal, with the wall ms of a steady epoch of
+   each; training.profile_dir writes a Chrome trace naming kernel C.
+
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
 of its operations over 67 TFLOP/s of fp32 and its input and output bytes
@@ -261,7 +290,10 @@ over 3.35 TB/s, from this run's shapes, and for kernel D from the
 lengths of the windows it timed), and the launches of phases 21-25
 (`batched_launches`, `stream_launches`, `cli_launches`, and for the
 recipe `head_launches` and `walkforward_launches` of kernel 8 and
-`mc_launches` of kernels 11 and B); the last line is
+`mc_launches` of kernels 11 and B), the ensemble's launches of phase 27
+(`ensemble_c_launches`, `ensemble_d_launches`) and, on kernel C's entry,
+the ensemble's epoch times, the host-fed epoch times of phase 28 and the
+GMM stack's wall times of phase 26 (`gmm_*`); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -3578,6 +3610,362 @@ def phase_montecarlo(torch, np, heads_out):
     return mc_launches
 
 
+# Phases 26-28: the GMM stack, seed ensembles, prefetch and profiling
+
+def _same_state(torch, a, b) -> bool:
+    """Two state_dicts bit-equal."""
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _gmm_fit_gap(torch, np, card, cpu, feats, dev):
+    """(responsibility gap, likelihood gap, note) of two fits of one
+    restart set on the card and on the CPU.  Where the two devices keep
+    different restarts, those restarts' likelihoods must tie within 1e-5
+    relative, and the restart the card kept is refitted alone on both."""
+    from vqvaehmm_tpu_torch.models.gmm import GaussianMixture
+
+    g_card, g_cpu = card.gmm, cpu.gmm
+    rel = float(np.max(np.abs(g_card.lls_ - g_cpu.lls_)
+                       / np.abs(g_cpu.lls_)))
+    if rel > 1e-5:
+        fail(f"the restarts' final log-likelihoods on the card "
+             f"{g_card.lls_} against the CPU's {g_cpu.lls_}: relative "
+             f"{rel:.3e} > 1e-5")
+    b_card, b_cpu = int(np.argmax(g_card.lls_)), int(np.argmax(g_cpu.lls_))
+    note = f"both keep restart {b_card}"
+    if b_card != b_cpu:
+        note = (f"the card keeps restart {b_card}, the CPU {b_cpu}, whose "
+                "likelihoods tie; compared on the card's restart refitted "
+                "alone")
+        x = card._norm(feats)
+        init = g_card._init_params(g_card._data(x))
+        one = [a[b_card:b_card + 1] for a in init]
+        g_card = GaussianMixture(3, n_init=1, device=dev).fit(x, init=one)
+        g_cpu = GaussianMixture(3, n_init=1, device="cpu").fit(
+            x, init=[a.cpu() for a in one])
+        x_card, x_cpu = x, x
+    else:
+        x_card, x_cpu = card._norm(feats), cpu._norm(feats)
+    p_card, p_cpu = g_card.predict_proba(x_card), g_cpu.predict_proba(x_cpu)
+    gap = float(np.abs(p_card - p_cpu).max())
+    ll_gap = _rel(g_card.log_likelihood_, g_cpu.log_likelihood_)
+    if gap > 1e-4 or ll_gap > 1e-5 or not np.array_equal(
+            p_card.argmax(-1), p_cpu.argmax(-1)):
+        fail(f"the GMM on the card against the CPU: responsibilities "
+             f"{gap:.3e} (tol 1e-4), log-likelihood {ll_gap:.3e} relative "
+             f"(tol 1e-5), labels equal: "
+             f"{np.array_equal(p_card.argmax(-1), p_cpu.argmax(-1))}")
+    return gap, ll_gap, note
+
+
+def phase_gmm(torch, np, tmp):
+    """26. the GMM stack on the fixture panel, card against the CPU."""
+    from vqvaehmm_tpu_torch.data import market
+    from vqvaehmm_tpu_torch.models.gmm import (SimpleRegimeDetector,
+                                               prepare_regime_features)
+    from vqvaehmm_tpu_torch.serve import cli
+    from vqvaehmm_tpu_torch.train.gmm_pipeline import (load_improved_system,
+                                                       train_improved_system)
+
+    prices, regime, _ = market.load_fixture_frames(FIXTURE)
+    returns = np.asarray(market.prepare_sequences(prices, regime)[2].values,
+                         np.float32)
+    kw = dict(n_regimes=3, num_epochs=100, patience=20, log_fn=None)
+    feats = prepare_regime_features(returns)
+    cuda = torch.device("cuda")
+
+    # the entry point as scripts/backtest.py calls it, with the chain
+    def run(**more):
+        return _timed(torch, lambda: train_improved_system(returns, **kw,
+                                                           **more))
+
+    card, card_s = run(temporal=True, device=cuda)
+    again, again_s = run(temporal=True, device=cuda)
+    cpu, cpu_s = run(temporal=True, device="cpu")
+    repeat = (again.history == card.history
+              and _same_state(torch, again.optimizer.state_dict(),
+                              card.optimizer.state_dict())
+              and all(torch.equal(a, b) for a, b in zip(
+                  (*again.detector.gmm.params, *again.chain),
+                  (*card.detector.gmm.params, *card.chain))))
+    say("gmm", f"train_improved_system on the fixture panel ({returns.shape[0]}"
+        f" days x {returns.shape[1]} assets, 13 features, 10 restarts of "
+        f"100 EM steps, 100 head epochs at most, the 40-step chain): "
+        f"{card_s:.3f} s on the card ({again_s:.3f} s the second run), "
+        f"{cpu_s:.3f} s on the CPU; the second card run bit-equal "
+        f"(detector, head, history, chain): {repeat}")
+
+    # the EM: the card's from the CPU's inits (the same Generator draws)
+    gap, ll_gap, note = _gmm_fit_gap(torch, np, card.detector, cpu.detector,
+                                     feats, cuda)
+    em = {}
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        _, em[name] = _timed(torch, SimpleRegimeDetector(3, device=dev).fit,
+                             feats)
+    say("gmm", f"EM card against CPU: responsibilities {gap:.3e} max-abs "
+        f"(tol 1e-4), labels equal, log-likelihood {ll_gap:.3e} relative "
+        f"(tol 1e-5), {note}; the fit {1e3 * em['card']:.1f} ms on the "
+        f"card, {1e3 * em['cpu']:.1f} ms on the CPU (warm)")
+
+    # the head stage from the same probabilities: the card's detector
+    path = os.path.join(tmp, "gmm_system.npz")
+    card.save(path)
+    det_cpu = load_improved_system(path, device="cpu").detector
+    head = {}
+    solo, head["card"] = run(detector=card.detector, device=cuda)
+    ref, head["cpu"] = run(detector=det_cpu, device="cpu")
+    if solo.history != card.history:
+        fail("the head stage alone differs from the whole run's on the card")
+    hgap = _history_gap(solo.history, ref.history)
+    if hgap > 1e-5:
+        fail(f"the head stage's history on the card against the CPU from "
+             f"the same probabilities: {hgap:.3e} relative > 1e-5")
+    say("gmm", f"head stage from the card's probabilities: {len(ref.history)}"
+        f" epochs on both devices, history {hgap:.3e} relative (tol 1e-5), "
+        f"loss {ref.history[0]:.6f} -> {ref.history[-1]:.6f}; "
+        f"{1e3 * head['card']:.1f} ms on the card, "
+        f"{1e3 * head['cpu']:.1f} ms on the CPU (features and probabilities"
+        " included); the chain, by difference from the whole run, "
+        f"{card_s - em['card'] - head['card']:.3f} s on the card, "
+        f"{cpu_s - em['cpu'] - head['cpu']:.3f} s on the CPU (inferred)")
+
+    # the archive round trip, and the chain's marginals against the CPU
+    back = load_improved_system(path, device=cuda)
+    on_cpu = load_improved_system(path, device="cpu")
+    mgap, marg = 0.0, {}
+    for mode in ("smoothed", "filtered"):
+        got, marg[mode] = _timed(torch, back.regime_marginals, feats, mode)
+        if not np.array_equal(got, card.regime_marginals(feats, mode)):
+            fail(f"the archive's {mode} marginals on the card are not "
+                 "bit-equal to the trained system's")
+        mgap = max(mgap, float(np.abs(
+            got - on_cpu.regime_marginals(feats, mode)).max()))
+    if mgap > 1e-4:
+        fail(f"the chain's marginals on the card against the CPU: {mgap:.3e}"
+             " > 1e-4")
+    got = cli.main(["--stack", "gmm", "--checkpoint", path, "--device",
+                    "cuda"])
+    want = cli.main(["--stack", "gmm", "--checkpoint", path, "--device",
+                     "cpu"])
+    rgap = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
+               for k in ("regime_probs", "last_allocations"))
+    if rgap > 1e-4 or got["current_regime"] != want["current_regime"]:
+        fail(f"the gmm report on the card differs from the CPU's by {rgap}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "vqvaehmm_tpu_torch.serve.cli", "--stack",
+         "gmm", "--checkpoint", path, "--device", "cuda"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    line = f"Current regime: {got['current_regime']} "
+    if proc.returncode != 0 or line not in proc.stdout:
+        fail(f"python -m vqvaehmm_tpu_torch.serve.cli --stack gmm exited "
+             f"{proc.returncode}: {proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    say("gmm", f"the archive loads back bit for bit; the chain's smoothed "
+        f"and filtered marginals on the card against the CPU {mgap:.3e} "
+        f"(tol 1e-4), {1e3 * marg['smoothed']:.1f} and "
+        f"{1e3 * marg['filtered']:.1f} ms on the card (the plain forward-"
+        f"backward loops at T={feats.shape[0]}); the --stack gmm report "
+        f"on the card within {rgap:.2e} of the CPU's, and the CLI in a "
+        f"subprocess on the card exits 0 with regime "
+        f"{got['current_regime']}")
+    return {"gmm_train_s": card_s, "gmm_train_cpu_s": cpu_s,
+            "gmm_em_ms": 1e3 * em["card"], "gmm_em_cpu_ms": 1e3 * em["cpu"],
+            "gmm_head_ms": 1e3 * head["card"],
+            "gmm_head_cpu_ms": 1e3 * head["cpu"],
+            "gmm_smoothed_ms": 1e3 * marg["smoothed"],
+            "gmm_repeat_bit_equal": repeat}
+
+
+ENSEMBLE_SEEDS = [0, 1, 2, 3]
+
+
+def phase_ensemble(torch, np, tmp):
+    """27. a seed ensemble of the published configuration through
+    TrainPipeline on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from vqvaehmm_tpu_torch.data.checkpoint import load_metadata
+    from vqvaehmm_tpu_torch.data.device_sampler import DeviceEpochSampler
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.train.ensemble import (init_ensemble_state,
+                                                   make_ensemble_epoch_step,
+                                                   train_ensemble)
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+    from vqvaehmm_tpu_torch.train.trainer import train_model
+
+    cfg = _pipeline_cfg(os.path.join(tmp, "gpu"),
+                        ensemble_seeds=ENSEMBLE_SEEDS)
+    t = cfg.training
+    steps = cfg.data.samples_per_epoch // t.batch_size
+    pipe = TrainPipeline(cfg, device="cuda")
+    fused_loss_and_grads.launches = 0
+    gather_epoch.launches = 0
+    best_state = pipe.train(log_fn=None)
+    torch.cuda.synchronize()
+    launches = {"fused_train": fused_loss_and_grads.launches,
+                "gather": gather_epoch.launches}
+    expected = {"fused_train": len(ENSEMBLE_SEEDS) * t.num_epochs * steps,
+                "gather": t.num_epochs}
+    if launches != expected:
+        fail(f"the ensemble launched {launches}, not {expected} "
+             f"({len(ENSEMBLE_SEEDS)} members, {t.num_epochs} epochs of "
+             f"{steps} steps)")
+    meta = load_metadata(os.path.join(tmp, "gpu", "vae_hmm_trained"))
+
+    # the members again, through train_ensemble as the pipeline calls it,
+    # each against a solo run from its initial state over the same epochs
+    template = pipe.build_model()
+    kw = dict(num_epochs=t.num_epochs, lr=t.learning_rate,
+              batch_size=t.batch_size, gradient_clip=t.gradient_clip,
+              device_data=True, fused=True, device="cuda", log_fn=None)
+    states, hist, best = train_ensemble(template, pipe.load_data(),
+                                        ENSEMBLE_SEEDS, **kw)
+    if hist[best].tolist() != pipe.history or not _same_state(
+            torch, states[best].model.state_dict(),
+            best_state.model.state_dict()):
+        fail("train_ensemble run again differs from the pipeline's run")
+    for i in (0, len(ENSEMBLE_SEEDS) - 1):
+        solo = init_ensemble_state(template, [ENSEMBLE_SEEDS[i]],
+                                   t.learning_rate, t.gradient_clip,
+                                   "cuda")[0]
+        state, solo_hist = train_model(solo.model, pipe.load_data(),
+                                       state=solo, **kw)
+        if hist[i].tolist() != [np.float32(h) for h in solo_hist] or \
+                not _same_state(torch, states[i].model.state_dict(),
+                                state.model.state_dict()):
+            fail(f"ensemble member {i} is not bit-equal to its solo run")
+    say("ensemble", f"TrainPipeline, published configuration, "
+        f"ensemble_seeds {ENSEMBLE_SEEDS}, {t.num_epochs} epochs of {steps}"
+        f" steps on the device pipeline: launches {launches} (kernel C "
+        f"members x steps, kernel D once an epoch); best seed "
+        f"{meta['best_seed']}, final losses {meta['per_member_final_loss']};"
+        f" members 0 and {len(ENSEMBLE_SEEDS) - 1} bit-equal to their solo "
+        "runs, parameters and history")
+
+    cpu = TrainPipeline(_pipeline_cfg(os.path.join(tmp, "cpu"),
+                                      ensemble_seeds=ENSEMBLE_SEEDS,
+                                      input_pipeline="device"),
+                        device="cpu")
+    cpu_state = cpu.train(log_fn=None)
+    cpu_meta = load_metadata(os.path.join(tmp, "cpu", "vae_hmm_trained"))
+    if sorted(cpu_meta) != sorted(meta) or \
+            cpu_meta["best_seed"] != meta["best_seed"]:
+        fail(f"metadata on the card {meta} against the CPU {cpu_meta}")
+    lgap = max(_history_gap(meta["per_member_final_loss"],
+                            cpu_meta["per_member_final_loss"]),
+               _history_gap(pipe.history, cpu.history))
+    pgap = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        best_state.model.state_dict().values(),
+        cpu_state.model.state_dict().values()))
+    if lgap > 1e-5:
+        fail(f"ensemble losses on the card against the CPU: {lgap:.3e} "
+             "relative > 1e-5")
+    say("ensemble", f"the CPU run of the same configuration: the same best "
+        f"seed and metadata keys, losses within {lgap:.3e} relative (tol "
+        f"1e-5), the best member's parameters within {pgap:.3e}")
+
+    # a steady epoch for n members: wall, member-seqs a second, device
+    sampler = DeviceEpochSampler(pipe.load_data(), "cuda")
+    with profile(activities=[ProfilerActivity.CUDA]):     # CUPTI set-up
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    timing = {}
+    for n in (1, 2, 4, 8):
+        members = init_ensemble_state(template, list(range(n)),
+                                      t.learning_rate, t.gradient_clip,
+                                      "cuda")
+        step = make_ensemble_epoch_step(members, fused=True)
+
+        def epoch():
+            return step(*sampler.epoch(t.batch_size, steps,
+                                       exact_stream=False), 1.0)
+
+        wall = _wall(torch, epoch, repeats=5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            epoch()
+            torch.cuda.synchronize()
+        ops = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        busy = _busy_us(ops) / 1e3
+        timing[n] = dict(wall_ms=wall[0], wall_min=wall[1],
+                         wall_max=wall[2], device_ms=busy, ops=len(ops),
+                         seqs_s=n * steps * t.batch_size / (wall[0] / 1e3))
+        say("ensemble", f"n={n}: a steady epoch ({steps} steps of B="
+            f"{t.batch_size} for each member) {wall[0]:.3f} ms of wall "
+            f"[{wall[1]:.3f}, {wall[2]:.3f}], {timing[n]['seqs_s']:.1f} "
+            f"member-seqs/s; device busy {busy:.4f} ms in {len(ops)} device "
+            f"ops ({100 * busy / wall[0]:.1f}% of the wall)")
+    return launches, timing
+
+
+def _synchronous_epochs(torch):
+    """prefetch_epochs' contract without the thread: epochs assembled when
+    asked for, uploaded synchronously."""
+    from vqvaehmm_tpu_torch.data.dataset import epoch_arrays
+
+    def epochs(dataset, batch_size, num_epochs, num_batches=None,
+               buffer_size=2, device="cuda"):
+        for _ in range(num_epochs):
+            yield tuple(torch.from_numpy(a).to(device) for a in
+                        epoch_arrays(dataset, batch_size, num_batches))
+    return epochs
+
+
+def phase_prefetch_profile(torch, np, tmp):
+    """28. host-fed training with and without prefetched epochs, and
+    training.profile_dir."""
+    from vqvaehmm_tpu_torch.train import pipeline
+
+    walls, runs = {}, {}
+    real = pipeline.prefetch_epochs
+    for name in ("prefetched", "synchronous"):
+        stamps = []
+
+        def log(msg):
+            if msg.startswith("Epoch "):
+                stamps.append(time.perf_counter())
+
+        pipeline.prefetch_epochs = (real if name == "prefetched"
+                                    else _synchronous_epochs(torch))
+        try:
+            pipe = pipeline.TrainPipeline(_pipeline_cfg(
+                os.path.join(tmp, name), input_pipeline="host", save_freq=0,
+                num_epochs=6), device="cuda")
+            state = pipe.train(log_fn=log)
+        finally:
+            pipeline.prefetch_epochs = real
+        runs[name] = (pipe.history, state.model.state_dict())
+        gaps = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        walls[name] = statistics.median(gaps[1:])
+    equal = runs["prefetched"][0] == runs["synchronous"][0] and _same_state(
+        torch, runs["prefetched"][1], runs["synchronous"][1])
+    if not equal:
+        fail("host-fed training with prefetched epochs is not bit-equal to "
+             "the synchronous loop")
+    say("prefetch", f"host-fed TrainPipeline, published configuration, 6 "
+        f"epochs: bit-equal with and without prefetch; a steady epoch "
+        f"(median of epochs 3-6) {walls['prefetched']:.1f} ms prefetched, "
+        f"{walls['synchronous']:.1f} ms synchronous")
+
+    trace_dir = os.path.join(tmp, "trace")
+    pipeline.TrainPipeline(_pipeline_cfg(
+        os.path.join(tmp, "prof"), save_freq=0, profile_dir=trace_dir),
+        device="cuda").train(log_fn=None)
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as f:
+        text = f.read()
+    names = [k for k in ("train_forward_kernel", "train_backward_kernel",
+                         "gather_kernel") if k in text]
+    if "train_forward_kernel" not in names:
+        fail(f"the training.profile_dir trace {path} does not name kernel "
+             f"C ({len(text)} bytes; found {names})")
+    say("prefetch", f"training.profile_dir wrote {len(text)} bytes of "
+        f"Chrome trace for epoch 2; it names {names}")
+    return walls
+
+
 def _sha(torch, *tensors) -> str:
     import hashlib
 
@@ -4016,6 +4404,14 @@ def main() -> int:
         mc_launches = phase_montecarlo(torch, np, recipe_out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # 26-28: the GMM stack, seed ensembles, prefetch and profiling
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gmm_ensemble_")
+    try:
+        gmm = phase_gmm(torch, np, tmp)
+        ens_launches, ens_timing = phase_ensemble(torch, np, tmp)
+        prefetch_walls = phase_prefetch_profile(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -4159,6 +4555,7 @@ def main() -> int:
         # kernels of earlier slices
         if k["name"] == "gather":
             k["vq_train_launches"] = vq_train_launches["gather"]
+            k["ensemble_d_launches"] = ens_launches["gather"]
         elif k["name"] == "viterbi":
             k["vq_serve_launches"] = vq_serve_launches["viterbi"]
             k["mc_launches"] = mc_launches["viterbi"]
@@ -4168,6 +4565,17 @@ def main() -> int:
         elif k["name"] == "fused_evidence":
             k["stream_launches"] = streamed["launches"]
             k["mc_launches"] = mc_launches["fused_evidence"]
+        elif k["name"] == "fused_train":
+            # the ensemble's epochs (phase 27), the host-fed epochs
+            # (phase 28) and the GMM stack's wall times (phase 26, no
+            # hand-written kernel on its path)
+            k["ensemble_c_launches"] = ens_launches["fused_train"]
+            for n, row in ens_timing.items():
+                k[f"ensemble_epoch_ms_n{n}"] = row["wall_ms"]
+                k[f"ensemble_device_ms_n{n}"] = row["device_ms"]
+            k["host_fed_epoch_ms"] = prefetch_walls["prefetched"]
+            k["host_fed_sync_epoch_ms"] = prefetch_walls["synchronous"]
+            k.update(gmm)
         elif k["name"] == "fused_encode":
             k["cli_launches"] = reloaded["cli_launches"]
             k["head_launches"] = recipe_out["head_launches"]

@@ -111,7 +111,8 @@ def test_cli_vq_report_matches_jax(tmp_path, capsys):
 
 def test_cli_vae_reference_pt_checkpoint_and_gmm(tmp_path, capsys):
     """A reference `.pt` model checkpoint runs end to end (synthetic data,
-    random head); --stack gmm names where the GMM stack waits."""
+    random head); --stack gmm reports from a port-written ImprovedSystem
+    archive as JAX's report_gmm does from the same file."""
     from vqvaehmm_tpu import make_model
     from vqvaehmm_tpu.utils.torch_interop import save_torch_file
     from vqvaehmm_tpu_torch.serve.cli import main
@@ -125,10 +126,19 @@ def test_cli_vae_reference_pt_checkpoint_and_gmm(tmp_path, capsys):
                 str(tmp_path / "m.pt"), "--device", "cpu"])
     assert len(out["allocation"]) == 4 and len(out["last_allocations"]) == 5
     assert "Current regime:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError,
-                       match="queue 1, the GMM stack and ensembles"):
-        main(["--config", str(cfg_path), "--checkpoint", "x.npz",
-              "--stack", "gmm", "--device", "cpu"])
+    from vqvaehmm_tpu.serve.cli import report_gmm as jax_report_gmm
+    from vqvaehmm_tpu.train.gmm_pipeline import load_improved_system
+    from vqvaehmm_tpu_torch.train.gmm_pipeline import train_improved_system
+
+    returns = np.random.default_rng(3).normal(5e-4, 0.01, size=(300, 4))
+    train_improved_system(returns, hidden_dim=6, num_epochs=5, log_fn=None,
+                          device="cpu").save(str(tmp_path / "gmm.npz"))
+    np.save(tmp_path / "r.npy", returns)
+    out = main(["--checkpoint", str(tmp_path / "gmm.npz"), "--stack", "gmm",
+                "--data", str(tmp_path / "r.npy"), "--device", "cpu"])
+    assert "Current regime:" in capsys.readouterr().out
+    _close_report(out, jax_report_gmm(load_improved_system(
+        str(tmp_path / "gmm.npz")), returns, log_fn=None))
 
 
 @pytest.mark.parametrize("family", ["regime", "improved"])

@@ -1579,3 +1579,97 @@ def test_simulate_paths_on_the_card_matches_the_cpu(cuda):
                                cpu["final_values"], rtol=1e-4, atol=0)
     for key in ("final_values", "daily_returns"):
         assert torch.equal(card[0][key], card[1][key]), key
+
+
+def _ensemble_dataset(seed=0):
+    from vqvaehmm_tpu_torch.data.dataset import RandomChunkDataset
+    from vqvaehmm_tpu_torch.data.synthetic import synthetic_sequences
+
+    xs, us, _ = synthetic_sequences(6, 150, 5, 4, 3, seed=2)
+    return RandomChunkDataset(xs, us, min_len=20, max_len=64,
+                              samples_per_epoch=64, seed=seed)
+
+
+@pytest.mark.parametrize("device_data", [True, False])
+def test_ensemble_members_bit_equal_to_solo_runs(cuda, device_data):
+    """train_ensemble on the card: kernel C once a member a step, kernel D
+    once an epoch on the device pipeline (none on the host's), and member
+    i bit-equal, history and parameters, to train_model from the same
+    initial state over the same epochs."""
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.train.ensemble import (init_ensemble_state,
+                                                   train_ensemble)
+    from vqvaehmm_tpu_torch.train.trainer import train_model
+
+    template = _model(cuda, hidden_dim=64, hidden_dim2=32)
+    seeds = [0, 1, 2]
+    c0, d0 = fused_loss_and_grads.launches, gather_epoch.launches
+    states, hist, best = train_ensemble(
+        template, _ensemble_dataset(), seeds, num_epochs=3, batch_size=16,
+        gradient_clip=1.0, device_data=device_data, device=cuda,
+        log_fn=None)
+    torch.cuda.synchronize()
+    assert fused_loss_and_grads.launches - c0 == 3 * 3 * 4
+    assert gather_epoch.launches - d0 == (3 if device_data else 0)
+    assert best == int(np.argmin(hist[:, -1]))
+    for i, seed in enumerate(seeds):
+        solo = init_ensemble_state(template, [seed], 1e-3, 1.0, cuda)[0]
+        state, solo_hist = train_model(
+            solo.model, _ensemble_dataset(), num_epochs=3, batch_size=16,
+            state=solo, device_data=device_data, device=cuda, log_fn=None)
+        assert hist[i].tolist() == [np.float32(h) for h in solo_hist]
+        for a, b in zip(states[i].model.state_dict().values(),
+                        state.model.state_dict().values()):
+            assert torch.equal(a, b), i
+
+
+def test_prefetch_on_a_side_stream(cuda):
+    """prefetch_epochs copies each epoch to the card on a side stream: the
+    epochs equal the synchronous stream, arrive on the card, and work
+    queued on the default stream right after reads them whole."""
+    from vqvaehmm_tpu_torch.data.dataset import epoch_arrays
+    from vqvaehmm_tpu_torch.data.prefetch import prefetch_epochs
+
+    ref = _ensemble_dataset()
+    sums = []
+    for xs, us, lens in prefetch_epochs(_ensemble_dataset(), 16, 4,
+                                        device=cuda):
+        assert xs.is_cuda and lens.dtype == torch.int32
+        sums.append((xs.sum(), us.sum(), lens.sum()))
+        want = epoch_arrays(ref, 16)
+        for g, w in zip((xs, us, lens), want):
+            assert np.array_equal(g.cpu().numpy(), w)
+    assert len(sums) == 4
+    assert all(torch.isfinite(sx) and torch.isfinite(su) and sl > 0
+               for sx, su, sl in sums)
+
+
+def test_gmm_stack_on_the_card_matches_the_cpu(cuda):
+    """train_improved_system on the card and on the CPU from the same
+    seeded inits: responsibilities within 1e-4, labels equal, the
+    likelihood within 1e-5 relative; the head stage from the card's
+    detector within 1e-5 relative of the CPU's."""
+    from vqvaehmm_tpu_torch.models.gmm import prepare_regime_features
+    from vqvaehmm_tpu_torch.train.gmm_pipeline import (
+        load_improved_system, train_improved_system)
+
+    rng = np.random.default_rng(0)
+    returns = rng.normal(5e-4, 0.01, size=(800, 6)).astype(np.float32)
+    kw = dict(hidden_dim=16, num_epochs=30, log_fn=None)
+    card = train_improved_system(returns, device=cuda, **kw)
+    cpu = train_improved_system(returns, device="cpu", **kw)
+    feats = prepare_regime_features(returns)
+    np.testing.assert_allclose(card.detector.gmm.lls_, cpu.detector.gmm.lls_,
+                               rtol=1e-5)
+    np.testing.assert_allclose(card.detector.predict_proba(feats),
+                               cpu.detector.predict_proba(feats), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_array_equal(card.detector.predict_regime(feats),
+                                  cpu.detector.predict_regime(feats))
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        card.save(d + "/s.npz")
+        det = load_improved_system(d + "/s.npz", device="cpu").detector
+    head = train_improved_system(returns, device="cpu", detector=det, **kw)
+    np.testing.assert_allclose(card.history, head.history, rtol=1e-5)

@@ -111,17 +111,24 @@ def test_sigterm_checkpoints_and_resumes(tiny_config, input_pipeline):
 
 
 def test_not_ported_raise(tiny_config):
+    """The device mesh is refused; training.ensemble_seeds and
+    training.profile_dir, refused before they were ported, now train (the
+    best member saved with JAX's metadata keys) and write a trace."""
     path, tmp = tiny_config
     cfg = load_config(path)
     with pytest.raises(NotImplementedError, match="the parallelism item"):
         TrainPipeline(cfg, use_mesh=True, device="cpu")
-    for over, what in ((["training.ensemble_seeds=[1, 2]"],
-                        "the GMM stack and ensembles"),
-                       ([f"training.profile_dir={tmp / 'p'}"],
-                        "profile_dir")):
-        with pytest.raises(NotImplementedError, match=what):
-            TrainPipeline(apply_overrides(cfg, over),
+    state = TrainPipeline(_cfg(path, tmp, "ens", ensemble_seeds=[1, 2]),
                           device="cpu").train(log_fn=None)
+    assert state.step == 5 * (32 // 8)            # one member's steps
+    meta = load_metadata(str(tmp / "ens" / "vae_hmm_trained"))
+    assert sorted(meta) == ["best_seed", "ensemble_seeds", "epochs",
+                            "final_loss", "per_member_final_loss"]
+    assert meta["final_loss"] == min(meta["per_member_final_loss"])
+    assert (tmp / "ens" / "vae_hmm_trained.npz").exists()
+    TrainPipeline(_cfg(path, tmp, "prof", profile_dir=str(tmp / "p")),
+                  device="cpu").train(log_fn=None)
+    assert (tmp / "p" / "trace.json").stat().st_size > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TrainPipeline(cfg, device="cuda")
@@ -141,9 +148,14 @@ def test_training_import_needs_no_jax():
             "vqvaehmm_tpu_torch.ops.fused_train, "
             "vqvaehmm_tpu_torch.ops.gather, "
             "vqvaehmm_tpu_torch.train.vq_pipeline, "
-            "vqvaehmm_tpu_torch.serve.vq; "
-            "bad = [m for m in ('jax', 'triton', 'vqvaehmm_tpu') "
-            "if m in sys.modules]; print(bad); sys.exit(bool(bad))")
+            "vqvaehmm_tpu_torch.serve.vq, "
+            "vqvaehmm_tpu_torch.train.gmm_pipeline, "
+            "vqvaehmm_tpu_torch.train.ensemble, "
+            "vqvaehmm_tpu_torch.data.prefetch, "
+            "vqvaehmm_tpu_torch.utils.profiling; "
+            "bad = [m for m in ('jax', 'triton', 'vqvaehmm_tpu', 'pandas', "
+            "'sklearn') if m in sys.modules]; print(bad); "
+            "sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

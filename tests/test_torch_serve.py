@@ -183,9 +183,12 @@ def test_server_import_needs_no_jax():
             "vqvaehmm_tpu_torch.serve.gradio_app, "
             "vqvaehmm_tpu_torch.models.online, "
             "vqvaehmm_tpu_torch.ops.fused_infer, "
-            "vqvaehmm_tpu_torch.ops.fused_viterbi; "
-            "bad = [m for m in ('jax', 'triton', 'vqvaehmm_tpu') "
-            "if m in sys.modules]; print(bad); sys.exit(bool(bad))")
+            "vqvaehmm_tpu_torch.ops.fused_viterbi, "
+            "vqvaehmm_tpu_torch.models.gmm, "
+            "vqvaehmm_tpu_torch.train.gmm_pipeline; "
+            "bad = [m for m in ('jax', 'triton', 'vqvaehmm_tpu', 'pandas', "
+            "'sklearn') if m in sys.modules]; print(bad); "
+            "sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

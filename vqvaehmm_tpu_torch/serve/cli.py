@@ -4,13 +4,16 @@ regime distribution over the window and the last N allocations.
 
     python -m vqvaehmm_tpu_torch.serve.cli --config cfg.json \
         --checkpoint vae_hmm_trained.npz [--head-checkpoint head.pt] \
-        [--data x.npy] [--stack vae|vq] [--device cuda]
+        [--data x.npy] [--stack vae|gmm|vq] [--device cuda]
 
 --stack vae (default) runs the VAE-HMM (a `.npz` or reference `.pt`
 checkpoint) and a portfolio head (`.npz`, or a reference `.pt` of either
 family); its posterior is `VAEHMM.posterior`, kernel 8 on a CUDA device.
 --stack vq reads a VQStack archive (train/vq_pipeline.py) and reports
-from its exact regime marginals.  The GMM stack is still to be ported.
+from its exact regime marginals.  --stack gmm reads an ImprovedSystem
+archive (train/gmm_pipeline.py, the reference CLI's own workflow) and
+reports from a (T, A) returns panel (--data, or 252 synthetic days from
+np.random.default_rng(0)); it needs no --config.
 """
 
 from __future__ import annotations
@@ -29,23 +32,51 @@ def report(posterior_fn, weight_fn, x: np.ndarray,
     regime posterior and weight_fn a (1, K, t) posterior to (1, A)
     weights, both as numpy arrays."""
     q = np.asarray(posterior_fn(x))                    # (1, K, T)
-    K, T = q.shape[1], q.shape[2]
-    regimes = q.argmax(axis=1)[0]                      # (T,)
-    current_regime = int(regimes[-1])
+    T = q.shape[2]
     weights = np.asarray(weight_fn(q))[0]              # (A,)
-    tickers = tickers or [f"ASSET{i}" for i in range(len(weights))]
     # the allocations the last N steps would have made
     last_allocs = [np.asarray(weight_fn(q[:, :, :t + 1]))[0]
                    for t in range(max(0, T - last_n), T)]
+    return _summary(q[0].T, weights, last_allocs, tickers, log_fn)
+
+
+def report_gmm(system, returns: np.ndarray,
+               tickers: Optional[list] = None, last_n: int = 5,
+               log_fn=print) -> dict:
+    """The GMM-stack report from a (T, A) daily-returns panel (the
+    reference CLI's workflow, inference.py:19-82): engineered features ->
+    the regime posterior (static responsibilities, or the chain's
+    smoothed marginals where the system has one) -> the head's
+    allocation, on the system's device."""
+    from ..models.gmm import prepare_regime_features
+
+    feats = prepare_regime_features(np.asarray(returns, np.float32))
+    probs = system.regime_marginals(feats)              # (Tf, K)
+    weight_fn = _numpy_fn(system.optimizer, system.detector.gmm.device)
+    Tf = probs.shape[0]
+    weights = weight_fn(probs[-1:])[0]
+    last_allocs = [weight_fn(probs[t:t + 1])[0]
+                   for t in range(max(0, Tf - last_n), Tf)]
+    return _summary(probs, weights, last_allocs, tickers, log_fn)
+
+
+def _summary(probs: np.ndarray, weights: np.ndarray, last_allocs,
+             tickers: Optional[list], log_fn) -> dict:
+    """The report of a (T, K) regime posterior, the current (A,) weights
+    and the last allocations, logged through log_fn."""
+    T, K = probs.shape
+    regimes = probs.argmax(axis=1)
+    current_regime = int(regimes[-1])
+    tickers = tickers or [f"ASSET{i}" for i in range(len(weights))]
     dist = np.bincount(regimes, minlength=K) / T
     out = {"current_regime": current_regime,
-           "regime_probs": q[0, :, -1].tolist(),
+           "regime_probs": probs[-1].tolist(),
            "allocation": dict(zip(tickers, weights.tolist())),
            "regime_distribution": dist.tolist(),
            "last_allocations": [a.tolist() for a in last_allocs]}
     if log_fn:
         log_fn(f"Current regime: {current_regime} "
-               f"(p={q[0, current_regime, -1]:.3f})")
+               f"(p={probs[-1, current_regime]:.3f})")
         log_fn("Allocation:")
         for t_, w_ in zip(tickers, weights):
             log_fn(f"  {t_:8s} {w_ * 100:6.2f}%")
@@ -101,11 +132,13 @@ def main(argv=None):
     parser.add_argument("--head-checkpoint", default=None)
     parser.add_argument("--stack", choices=("vae", "gmm", "vq"),
                         default="vae",
-                        help="vae: VAE-HMM + portfolio head; vq: a "
-                             "VQStack archive (checkpoint = its "
-                             "vq_stack.npz); gmm: not ported yet")
+                        help="vae: VAE-HMM + portfolio head; gmm: an "
+                             "ImprovedSystem archive (checkpoint = its "
+                             ".npz); vq: a VQStack archive (checkpoint = "
+                             "its vq_stack.npz)")
     parser.add_argument("--data", default=None,
-                        help=".npy (1,C,T) features; synthetic if unset")
+                        help="vae/vq: .npy (1,C,T) features; gmm: .npy "
+                             "(T,A) returns; synthetic if unset")
     parser.add_argument("--device", default="cuda",
                         help="torch device; the CPU only when asked for")
     args = parser.parse_args(argv)
@@ -113,12 +146,18 @@ def main(argv=None):
     from ..core.config import load_config
     from ..core.device import resolve_device
 
-    if args.stack == "gmm":
-        raise NotImplementedError(
-            "--stack gmm: the GMM stack (models/gmm.py, "
-            "train/gmm_pipeline.py, report_gmm) is not ported yet "
-            "(ROADMAP.md queue 1, the GMM stack and ensembles)")
     device = resolve_device(args.device)
+    if args.stack == "gmm":
+        from ..train.gmm_pipeline import load_improved_system
+
+        system = load_improved_system(args.checkpoint, device=device)
+        if args.data:
+            returns = np.load(args.data)
+        else:
+            rng = np.random.default_rng(0)
+            returns = rng.normal(5e-4, 0.01,
+                                 size=(252, system.optimizer.cfg.n_assets))
+        return report_gmm(system, returns)
     cfg = load_config(args.config)
 
     if args.stack == "vq":

@@ -19,11 +19,15 @@ pipeline (train/trainer.py::resolve_fused, resolve_input_pipeline).
 `training.steps_per_call` bounds one jitted dispatch in the JAX package;
 PyTorch dispatches each step eagerly, so it is accepted and changes
 nothing.  `model.family: vqvae` trains the true-VQ family through
-train/vq_pipeline.py (its own trainer and archive, `vq_stack.npz`).  Not
-ported, and refused with NotImplementedError: `ensemble_seeds`
-(ROADMAP.md queue 1, the GMM stack and ensembles), the device mesh (its
-parallelism item) and `profile_dir` (its small left-outs of the training
-slice).
+train/vq_pipeline.py (its own trainer and archive, `vq_stack.npz`).
+`training.ensemble_seeds` trains one model a seed over one shared epoch
+stream (train/ensemble.py) and keeps the best final loss as
+`vae_hmm_trained`: one shot, no periodic checkpoint and no resume, as in
+the JAX package.  `training.profile_dir` writes a torch.profiler trace of
+one steady epoch there (utils/profiling.py).  The host input pipeline
+assembles the next epoch on a thread while this one trains
+(data/prefetch.py).  Not ported, and refused with NotImplementedError:
+the device mesh (ROADMAP.md queue 1, the parallelism item).
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ from ..core.config import Config, apply_overrides, load_config
 from ..core.device import resolve_device
 from ..data.checkpoint import (load_checkpoint, load_metadata,
                                save_checkpoint, save_params_npz)
-from ..data.dataset import RandomChunkDataset, epoch_arrays, epoch_skip
+from ..data.dataset import RandomChunkDataset, epoch_skip
+from ..data.prefetch import prefetch_epochs
 from ..models.vae_hmm import VAEHMM
+from ..utils.profiling import trace
 from .trainer import (TrainState, beta_schedule, make_epoch_step,
                       make_optimizer, resolve_fused, resolve_input_pipeline)
 
@@ -148,20 +154,13 @@ class TrainPipeline:
 
             self.preempted = False
             return train_vq_pipeline(self, log_fn=log_fn, resume=resume)
-        if t.ensemble_seeds:
-            raise NotImplementedError(
-                "training.ensemble_seeds: ensembles are not ported "
-                "(ROADMAP.md queue 1, the GMM stack and ensembles)")
-        if t.profile_dir:
-            raise NotImplementedError(
-                "training.profile_dir: profiling is not ported "
-                "(ROADMAP.md queue 1, the small left-outs of the "
-                "training slice)")
         self.preempted = False
         dev = self.device
         model = self.build_model()
         dataset = self.load_data()
         os.makedirs(t.checkpoint_dir, exist_ok=True)
+        if t.ensemble_seeds:
+            return self._train_ensemble(model, dataset, log_fn)
         periodic = os.path.join(t.checkpoint_dir, "vae_hmm_periodic")
 
         nb_total = len(dataset) // t.batch_size
@@ -218,25 +217,41 @@ class TrainPipeline:
                 else:
                     epoch_skip(dataset, t.batch_size)
 
+        # trace the epoch after the first, so that first calls stay out of
+        # the profile; a one-epoch run traces epoch 0
+        profile_ep = (min(start_epoch + 1, t.num_epochs - 1)
+                      if t.profile_dir else None)
         prefetched = None
         history = self.history = []
-        with _sigterm_flag() as preempted:
+        with contextlib.ExitStack() as stack:
+            preempted = stack.enter_context(_sigterm_flag())
+            if not device_input:
+                # the host assembles and uploads the next epoch on a thread
+                # while this one trains, in the synchronous loop's draw
+                # order; closed on any exit
+                epochs = stack.enter_context(contextlib.closing(
+                    prefetch_epochs(dataset, t.batch_size,
+                                    t.num_epochs - start_epoch, device=dev)))
             for ep in range(start_epoch, t.num_epochs):
                 beta = beta_schedule(ep, t.num_epochs, t.beta_warmup)
-                if device_input:
-                    args = (prefetched if prefetched is not None
-                            else sampler.draw_epoch(t.batch_size))
-                    prefetched = None
-                    mean_loss = gstep(*args, beta)
-                    if ep + 1 < t.num_epochs:
-                        # the next epoch's draw and upload overlap this
-                        # epoch's work on the card; the rng call order is
-                        # unchanged, and a draw prefetched past a stop
-                        # dies with the process's rng
-                        prefetched = sampler.draw_epoch(t.batch_size)
-                else:
-                    xs, us, lens = epoch_arrays(dataset, t.batch_size)
-                    mean_loss = epoch_step(xs, us, lens, beta)
+                with (trace(t.profile_dir) if ep == profile_ep
+                      else contextlib.nullcontext()):
+                    if device_input:
+                        args = (prefetched if prefetched is not None
+                                else sampler.draw_epoch(t.batch_size))
+                        prefetched = None
+                        mean_loss = gstep(*args, beta)
+                    else:
+                        mean_loss = epoch_step(*next(epochs), beta)
+                    if ep == profile_ep and dev.type == "cuda":
+                        # the device's work lands inside the trace
+                        torch.cuda.synchronize(dev)
+                if device_input and ep + 1 < t.num_epochs:
+                    # the next epoch's draw and upload overlap this
+                    # epoch's work on the card; the rng call order is
+                    # unchanged, and a draw prefetched past a stop dies
+                    # with the process's rng
+                    prefetched = sampler.draw_epoch(t.batch_size)
                 loss = float(mean_loss)   # the epoch's one host sync
                 history.append(loss)
                 if log_fn:
@@ -294,6 +309,39 @@ class TrainPipeline:
                         model.state_dict())
         if log_fn:
             log_fn(f"Saved checkpoint to {ckpt_path}")
+        return state
+
+    def _train_ensemble(self, model: VAEHMM, dataset: RandomChunkDataset,
+                        log_fn) -> TrainState:
+        """training.ensemble_seeds: one model a seed over one shared epoch
+        stream (train/ensemble.py), one shot; the member with the best
+        final loss is saved as vae_hmm_trained (.pt with metadata, .npz)
+        and returned."""
+        from .ensemble import ensemble_member, train_ensemble
+
+        t = self.cfg.training
+        seeds = list(t.ensemble_seeds)
+        states, hist, best = train_ensemble(
+            model, dataset, seeds, num_epochs=t.num_epochs,
+            lr=t.learning_rate, batch_size=t.batch_size,
+            gradient_clip=t.gradient_clip,
+            device_data=resolve_input_pipeline(t.input_pipeline,
+                                               self.device) == "device",
+            fused=t.fused, device=self.device, log_fn=log_fn)
+        state = ensemble_member(states, best)
+        self.history = hist[best].tolist()
+        ckpt_path = os.path.join(t.checkpoint_dir, "vae_hmm_trained")
+        save_checkpoint(ckpt_path, state, metadata={
+            "epochs": t.num_epochs,
+            "ensemble_seeds": seeds,
+            "best_seed": seeds[best],
+            "final_loss": float(hist[best, -1]),
+            "per_member_final_loss": [float(l) for l in hist[:, -1]],
+        })
+        save_params_npz(ckpt_path + ".npz", state.model.state_dict())
+        if log_fn:
+            log_fn(f"ensemble: best seed {seeds[best]} "
+                   f"(loss {hist[best, -1]:.4f}) -> {ckpt_path}")
         return state
 
 

@@ -30,6 +30,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..data.dataset import RandomChunkDataset, epoch_arrays
+from ..data.prefetch import prefetch_epochs
 from ..ops.fused_train import fused_loss_and_grads, train_step_supported
 
 
@@ -320,15 +321,15 @@ def train_model(model, dataset: RandomChunkDataset, num_epochs: int = 10,
         from ..data.device_sampler import DeviceEpochSampler
 
         sampler = DeviceEpochSampler(dataset, dev)
-        gstep = sampler.make_epoch_step(model, state.optimizer, fused=fused)
+        step = sampler.make_epoch_step(model, state.optimizer, fused=fused)
+        epochs = (sampler.draw_epoch(batch_size) for _ in range(num_epochs))
     else:
-        estep = make_epoch_step(model, state.optimizer, fused=fused)
-    for ep in range(num_epochs):
+        step = make_epoch_step(model, state.optimizer, fused=fused)
+        # the next epoch is assembled and uploaded while this one trains
+        epochs = prefetch_epochs(dataset, batch_size, num_epochs, device=dev)
+    for ep, args in enumerate(epochs):
         beta = beta_schedule(ep, num_epochs, beta_warmup)
-        if device_data:
-            mean_loss = gstep(*sampler.draw_epoch(batch_size), beta)
-        else:
-            mean_loss = estep(*epoch_arrays(dataset, batch_size), beta)
+        mean_loss = step(*args, beta)
         loss = float(mean_loss)
         history.append(loss)
         if log_fn is not None:
