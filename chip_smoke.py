@@ -16,10 +16,11 @@ loss at (64, 200) and (8, 200) (the quantizer, kernel 9) and
 checkouts of the port in turns (OLD, NEW, NEW, OLD, each built and run in
 a process of its own: two versions are compared only on one card within
 one run) and prints the four JSON lines, the ratio of the device-busy
-times, device operations a call where given, and, for kernels 8, 11, 10 and
-B (Viterbi) at (64, 200), (1, 200), (460, 20) and (1, 2327), whether the
-two checkouts' outputs on fixed seeded inputs agree bit for bit (a
-SHA-256 of the output bytes); a checkout without git history is enough
+times, device operations a call where given, and, for kernel C's float32
+mode at its three shapes and kernels 8, 11, 10 and B (Viterbi) at
+(64, 200), (1, 200), (460, 20) and (1, 2327), whether the two checkouts'
+outputs on fixed seeded inputs agree bit for bit (a SHA-256 of the
+output bytes); a checkout without git history is enough
 (`git archive <commit> | tar -x -C OLD`).  --kernel-times DIR is one such process; where the
 checkout's evidence wrapper takes a forced tile and split, it also times
 every (tile, split) of kernel 11 at those shapes.  --scan-clocks builds
@@ -92,8 +93,9 @@ exiting non-zero before a result is printed:
    InferenceModel on the card, matching the CPU within 1e-4.
 10. times: kernels C and D and their plain versions (kernel C's plain
    version is the forward plus the autograd backward; kernel C at
-   (64, 200), (8, 200) and the probe shape, back to back and as
-   device-busy time a call with its share of the bound; kernel D a batch
+   (64, 200), (8, 200) and the probe shape in its float32 and its
+   bfloat16 mode (phase 29), back to back and as device-busy time a call
+   with its share of the bound; kernel D a batch
    and an epoch of 15), and the
    pipeline's training goodput in seqs/s from the log timestamps of the
    steady epochs (2-4).
@@ -282,12 +284,35 @@ exiting non-zero before a result is printed:
 28. host-fed TrainPipeline (6 epochs) with prefetched epochs and with the
    synchronous loop: bit-equal, with the wall ms of a steady epoch of
    each; training.profile_dir writes a Chrome trace naming kernel C.
+29. the throughput configuration (compute_dtype bfloat16, matmul_precision
+   default; bench.py's headline, the "throughput" variant of
+   scripts/throughput_quality_ab.py).  Kernel C's bfloat16-operand mode
+   against its plain version at (64, 200), (8, 200) ragged and the probe
+   shape: loss and the 18 gradients within BF16_LOSS_TOL and
+   BF16_GRAD_TOL, the float32 mode's gradients at least 10x the latter
+   away, a second call and the float32 mode's outputs bit-equal (its
+   times are phase 10's).  TrainPipeline on
+   artifacts/config_published.json in that configuration (fused auto,
+   the device input pipeline), 4 epochs of 15 steps: kernel C exactly 60
+   launches, all in the bfloat16 mode, kernel D 4; losses finite and
+   falling once beta is 1; the CPU (the kernel's plain version) within
+   BF16_TRAIN_TOL; a SIGTERM resume bit-equal.  The trained archive
+   served over HTTP: /infer in four modes and /predict against the CPU
+   within BF16_SERVE_TOL, kernels A, 8 and 11 no launch, kernel B one a
+   viterbi request.  A 2-member ensemble: kernel C members x steps.
+   vae_hmm_elbo_train_seqs_per_sec_per_chip as bench.py measures it
+   (B=64, T=200, the median of 5 windows of the saturated marginal,
+   utils/benchmarking.py) in float32 and bfloat16, with the device-busy
+   ms a step: a record, not a claim.
 
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
-of its operations over 67 TFLOP/s of fp32 and its input and output bytes
-over 3.35 TB/s, from this run's shapes, and for kernel D from the
-lengths of the windows it timed), and the launches of phases 21-25
+of its operations over 67 TFLOP/s of fp32, or for kernel C's bfloat16
+mode over 989 TFLOP/s of dense bf16 on the tensor cores, and its input
+and output bytes over 3.35 TB/s, from this run's shapes, and for kernel
+D from the lengths of the windows it timed), kernel C's bfloat16 mode an
+entry of its own (`fused_train_bf16`, with phase 29's launches, times
+and headline), and the launches of phases 21-25
 (`batched_launches`, `stream_launches`, `cli_launches`, and for the
 recipe `head_launches` and `walkforward_launches` of kernel 8 and
 `mc_launches` of kernels 11 and B), the ensemble's launches of phase 27
@@ -325,8 +350,10 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "market_fixture.csv")
 VQ_CONFIG = os.path.join(ROOT, "artifacts", "config_vq.json")
 VQ_ARCHIVE = os.path.join(ROOT, "artifacts", "checkpoints_vq",
                           "vq_stack.npz")
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16 on
+# the tensor cores, HBM3
 PEAK_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -354,10 +381,11 @@ def load_published(torch, device, config=CONFIG, checkpoint=CHECKPOINT):
     return model.eval()
 
 
-def bound_ms(flops: float, nbytes: float):
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
     """(least ms the card could take, what bounds it): the larger of the
-    operations over the fp32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    operations over the peak for their type (fp32 unless given) and the
+    bytes over the memory rate."""
+    t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -397,6 +425,11 @@ def kernel_bounds(model, B, T, vq=(8, 16)):
         # and the weights -> the loss and one gradient a weight
         "fused_train": bound_ms(3 * N * (enc + prior + dec),
                                 4 * N * (C + U) + 4 * B + 2 * w_all + 4),
+        # the same work with every product's operands in bfloat16: the
+        # tensor cores' dense bf16 rate
+        "fused_train_bf16": bound_ms(3 * N * (enc + prior + dec),
+                                     4 * N * (C + U) + 4 * B + 2 * w_all + 4,
+                                     PEAK_BF16_FLOPS),
         # x, valid_to -> logits
         "fused_encode": bound_ms(N * enc, 4 * N * (C + K) + 4 * B + w_enc),
         # x, u -> log_obs, log_A
@@ -1167,17 +1200,21 @@ def phase_train_times(torch, np, model):
         m, iters = (probe, 2) if (B, T) == C_SHAPES[-1] else (model, 20)
         x, u, lens = train_inputs(torch, np, rng, B, T, m.cfg.input_dim,
                                   m.cfg.u_dim, dev)
-        for use in (False, True):
-            fn = lambda: fused_loss_and_grads(m, x, u, lens, 1.0,  # noqa: E731
-                                              use_kernel=use)
-            res[("fused_train", B, T, use)] = _time(
-                torch, fn, iters=iters) + (_device_ms(torch, fn, 3),)
-        bound = kernel_bounds(m, B, T)["fused_train"][0]
-        dev_ms = res[("fused_train", B, T, True)][3]
-        say("times", f"fused_train B={B} T={T}: bound {bound:.5f} ms"
-            + ("" if dev_ms is None else
-               f" ({100 * bound / dev_ms:.1f}% of the device time)")
-            + f"; {fused_train.train_plan(m.cfg, B, T, sms)}")
+        # kernel C in its float32 mode and, for the throughput
+        # configuration (phase 29), in its bfloat16 mode on the same inputs
+        for name, mm in (("fused_train", m),
+                         ("fused_train_bf16", _bf16_model(torch, m))):
+            for use in (False, True):
+                fn = lambda: fused_loss_and_grads(  # noqa: E731
+                    mm, x, u, lens, 1.0, use_kernel=use)
+                res[(name, B, T, use)] = _time(
+                    torch, fn, iters=iters) + (_device_ms(torch, fn, 3),)
+            bound = kernel_bounds(m, B, T)[name][0]
+            dev_ms = res[(name, B, T, True)][3]
+            say("times", f"{name} B={B} T={T}: bound {bound:.5f} ms"
+                + ("" if dev_ms is None else
+                   f" ({100 * bound / dev_ms:.2f}% of the device time)")
+                + f"; {fused_train.train_plan(m.cfg, B, T, sms)}")
     xs, us, lens = synthetic_pool(np, rng, 5, 4)
     px, pu = (torch.from_numpy(a).to(dev) for a in build_pools(xs, us))
     trip = gather_case(np, rng, lens, 64, 200, 20)
@@ -3966,6 +4003,373 @@ def phase_prefetch_profile(torch, np, tmp):
     return walls
 
 
+# ---------------------------------------------------------------------------
+# 29. the throughput configuration: compute_dtype "bfloat16" with
+# matmul_precision "default" (bench.py's headline, the "throughput" variant
+# of scripts/throughput_quality_ab.py)
+# ---------------------------------------------------------------------------
+
+BF16_MODEL = {"compute_dtype": "bfloat16", "matmul_precision": "default"}
+# kernel C's bfloat16 mode against its plain version on the card: the
+# loss's relative error, and a gradient's max-abs error as a share of its
+# leaf's largest entry.  A float32 sum in another order can move an
+# activation across a bfloat16 rounding boundary, by 2^-8 of it, so the
+# bars are looser than the float32 mode's 1e-5 and 1e-4: measured 1.9e-5
+# and 2.5e-4 at most (NVIDIA H100 80GB HBM3, 700 W), and the float32
+# mode's gradients 1.4e-2 to 3.3e-2 away, over 10x the bar.
+BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-4, 5e-4
+# the throughput configuration's epoch losses on the card against the CPU
+# (the kernel's plain version there), relative: measured 8.8e-7
+BF16_TRAIN_TOL = 1e-5
+# a bfloat16 model's served outputs on the card against the CPU, as a
+# share of each value's magnitude (at least 1): one bfloat16 rounding
+# (measured 4.9e-4); a Viterbi path's steps that may differ at near-ties
+BF16_SERVE_TOL, BF16_VITERBI_FLIPS = 2 ** -8, 0.01
+
+
+def _bf16_model(torch, model):
+    """A copy of `model` in the throughput configuration (the same
+    parameters, compute_dtype bfloat16)."""
+    import dataclasses
+
+    from vqvaehmm_tpu_torch.models.vae_hmm import VAEHMM
+
+    m = VAEHMM(dataclasses.replace(model.cfg, **BF16_MODEL),
+               device=model.device)
+    m.load_state_dict(model.state_dict())
+    return m
+
+
+def _bf16_cfg(ckpt_dir, **training):
+    """artifacts/config_published.json in the throughput configuration
+    (the "throughput" variant of scripts/throughput_quality_ab.py: the
+    kernel where it runs, the device input pipeline), 4 epochs."""
+    from vqvaehmm_tpu_torch.core.config import apply_overrides
+
+    cfg = _pipeline_cfg(ckpt_dir, **{"fused": "auto",
+                                     "input_pipeline": "device", **training})
+    return apply_overrides(cfg, [f"model.{k}={json.dumps(v)}"
+                                 for k, v in BF16_MODEL.items()])
+
+
+def phase_kernel_c_bf16(torch, np, model):
+    """29a. kernel C's bfloat16 mode against its plain version at the
+    published widths (64, 200) and (8, 200) ragged, and at the probe
+    shape; the float32 mode far from it and bit-equal before and after."""
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+
+    dev = model.device
+    rng = np.random.default_rng(29)
+    probe = probe_model(torch, dev)
+    (B0, T0), (B1, T1), (B2, T2) = C_SHAPES
+    cases = [(model, B0, T0, 1.0, None), (model, B1, T1, 0.5, 3 * T1 // 4),
+             (probe, B2, T2, 1.0, None)]
+    worst_abs = worst_rel = worst_loss = 0.0
+    n0 = (fused_loss_and_grads.launches, fused_loss_and_grads.bf16_launches)
+    for m32, B, T, beta, short in cases:
+        m = _bf16_model(torch, m32)
+        x, u, lens = train_inputs(torch, np, rng, B, T, m.cfg.input_dim,
+                                  m.cfg.u_dim, dev, short)
+        first32 = fused_loss_and_grads(m32, x, u, lens, beta,
+                                       use_kernel=True)
+        loss, grads = fused_loss_and_grads(m, x, u, lens, beta,
+                                           use_kernel=True)
+        loss2, grads2 = fused_loss_and_grads(m, x, u, lens, beta,
+                                             use_kernel=True)
+        want_loss, want = fused_loss_and_grads(m, x, u, lens, beta,
+                                               use_kernel=False)
+        again32 = fused_loss_and_grads(m32, x, u, lens, beta,
+                                       use_kernel=True)
+        torch.cuda.synchronize()
+        what = f"B={B} T={T} beta={beta} short={short}"
+        if not torch.isfinite(loss) or not all(
+                torch.isfinite(g).all() for g in grads.values()):
+            fail(f"kernel C (bf16) gave a non-finite loss or gradient at "
+                 f"{what}")
+        rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        worst_loss = max(worst_loss, rel)
+        if rel > BF16_LOSS_TOL:
+            fail(f"kernel C (bf16) loss {float(loss)} vs plain "
+                 f"{float(want_loss)} (relative {rel:.3e} > "
+                 f"{BF16_LOSS_TOL}) at {what}")
+        case_rel, gap32 = 0.0, 0.0
+        for name, w in want.items():
+            scale = float(w.abs().max())
+            err = max_abs(grads[name], w)
+            worst_abs = max(worst_abs, err)
+            case_rel = max(case_rel, err / scale)
+            gap32 = max(gap32, max_abs(first32[1][name], grads[name]) / scale)
+            if err > BF16_GRAD_TOL * scale:
+                fail(f"kernel C (bf16) gradient {name} max-abs error "
+                     f"{err:.3e} > {BF16_GRAD_TOL} x {scale:.3e} at {what}")
+        worst_rel = max(worst_rel, case_rel)
+        if gap32 < 10 * BF16_GRAD_TOL:
+            fail(f"kernel C's float32 gradients are within {gap32:.3e} of "
+                 f"its bfloat16 ones at {what}: under 10x the tolerance "
+                 f"{BF16_GRAD_TOL}, the test cannot tell the modes apart")
+        if not torch.equal(loss, loss2) or not all(
+                torch.equal(grads[n], grads2[n]) for n in grads):
+            fail(f"kernel C (bf16) is not bit-equal across two calls at "
+                 f"{what}")
+        if not torch.equal(first32[0], again32[0]) or not all(
+                torch.equal(first32[1][n], again32[1][n]) for n in grads):
+            fail(f"kernel C's float32 outputs changed after bf16 calls at "
+                 f"{what}")
+        say("kernel C bf16", f"{what}: loss {rel:.3e} relative, gradients "
+            f"within {case_rel:.3e} of a leaf's largest entry (tol "
+            f"{BF16_GRAD_TOL}); the float32 mode {gap32:.3e} away; second "
+            f"call and the float32 outputs bit-equal")
+    got = (fused_loss_and_grads.launches - n0[0],
+           fused_loss_and_grads.bf16_launches - n0[1])
+    if got != (4 * len(cases), 2 * len(cases)):
+        fail(f"kernel C launched {got} (all, bf16) for {4 * len(cases)} "
+             f"calls, {2 * len(cases)} of them bf16")
+    return worst_abs, worst_rel, worst_loss
+
+
+def phase_throughput_train(torch, np, tmp):
+    """29b. TrainPipeline in the throughput configuration on the card:
+    launches, losses, the card against the CPU, a SIGTERM resume."""
+    from vqvaehmm_tpu_torch.data.checkpoint import load_metadata
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+
+    logs = []
+    cfg = _bf16_cfg(os.path.join(tmp, "gpu"))
+    pipe = TrainPipeline(cfg, device="cuda")
+    fused_loss_and_grads.launches = 0
+    fused_loss_and_grads.bf16_launches = 0
+    gather_epoch.launches = 0
+    state = pipe.train(log_fn=logs.append)
+    torch.cuda.synchronize()
+    launches = {"fused_train": fused_loss_and_grads.launches,
+                "fused_train_bf16": fused_loss_and_grads.bf16_launches,
+                "gather": gather_epoch.launches}
+    t = cfg.training
+    steps = t.num_epochs * (cfg.data.samples_per_epoch // t.batch_size)
+    if not any(m.startswith("input_pipeline=device fused=True")
+               for m in logs):
+        fail(f"the throughput configuration's log does not show "
+             f"input_pipeline=device fused=True: {logs}")
+    expected = {"fused_train": steps, "fused_train_bf16": steps,
+                "gather": t.num_epochs}
+    if launches != expected or state.step != steps:
+        fail(f"the throughput configuration launched {launches} in "
+             f"{state.step} updates, not {expected} in {steps}")
+    hist = pipe.history
+    if len(hist) != t.num_epochs or not np.isfinite(hist).all() \
+            or not hist[-1] < hist[1]:
+        fail(f"throughput configuration epoch losses {hist}: not finite "
+             "or not falling once beta is 1 (epochs 2-4)")
+    if any(p.dtype != torch.float32 for p in state.model.parameters()):
+        fail("the bfloat16 model's parameters are not float32")
+    say("throughput", f"TrainPipeline (compute_dtype bfloat16, "
+        f"matmul_precision default, fused auto, device input pipeline) on "
+        f"the card: {steps} steps, launches {launches}, epoch losses {hist}")
+
+    cpu = TrainPipeline(_bf16_cfg(os.path.join(tmp, "cpu"), fused=True),
+                        device="cpu")
+    cpu.train(log_fn=None)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist, cpu.history))
+    if rel > BF16_TRAIN_TOL:
+        fail(f"throughput configuration: card epoch losses {hist} vs CPU "
+             f"{cpu.history}: relative {rel:.3e} > {BF16_TRAIN_TOL}")
+    say("throughput", f"the CPU (kernel C's plain bfloat16 version): epoch "
+        f"losses {cpu.history}, largest relative difference {rel:.3e} "
+        f"(tol {BF16_TRAIN_TOL})")
+
+    rcfg = _bf16_cfg(os.path.join(tmp, "resume"))
+
+    def preempt_at_2(msg):
+        if msg.startswith("Epoch 2/"):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    first = TrainPipeline(rcfg, device="cuda")
+    part = first.train(log_fn=preempt_at_2)
+    meta = load_metadata(os.path.join(tmp, "resume", "vae_hmm_periodic"))
+    if not first.preempted or part.step != steps // 2 or not meta \
+            or not meta.get("preempted"):
+        fail(f"throughput configuration: SIGTERM did not stop training at "
+             f"epoch 2 (step {part.step}, metadata {meta})")
+    resumed = TrainPipeline(rcfg, device="cuda").train(log_fn=None)
+    if resumed.step != steps or not _same_state(
+            torch, resumed.model.state_dict(), state.model.state_dict()):
+        fail("throughput configuration: the resumed run differs from the "
+             "uninterrupted run")
+    say("throughput", "SIGTERM at epoch 2 and resume: final parameters "
+        "bit-equal to the uninterrupted run")
+    return launches, os.path.join(tmp, "gpu", "vae_hmm_trained.npz"), rel
+
+
+def phase_throughput_serve(torch, np, tmp, npz):
+    """29c. the trained bfloat16 archive served over HTTP on the card:
+    /infer in four modes and /predict against the CPU; kernels A, 8 and 11
+    launch no time, kernel B once a viterbi request."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.serve.httpd import serve
+
+    with open(CONFIG) as f:
+        model_section = {**json.load(f)["model"], **BF16_MODEL}
+    cfg_path = os.path.join(tmp, "bf16_inference_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"model": model_section, "checkpoint_path": npz}, f)
+    cpu = InferenceModel(cfg_path, device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    httpd = serve(cfg_path, host="127.0.0.1", port=port, background=True,
+                  device="cuda")
+    url = f"http://127.0.0.1:{port}"
+    rng = np.random.default_rng(31)
+    C, U = model_section["input_dim"], model_section["u_dim"]
+    reqs = [("/infer", "mean_field", 37), ("/infer", "mean_field", 200),
+            ("/infer", "smoothed", 200), ("/infer", "filtered", 200),
+            ("/infer", "viterbi", 200), ("/infer", "viterbi", 1500),
+            ("/predict", "predict", 200)]
+    worst, flips, steps, walls = 0.0, 0, 0, []
+    try:
+        if not httpd.vqhmm_model.checkpoint_loaded or \
+                httpd.vqhmm_model.model.compute_dtype != torch.bfloat16:
+            fail("the bfloat16 server did not load the trained archive")
+        counters = (fused_forward, fused_encode, fused_evidence,
+                    viterbi_fused)
+        for c in counters:
+            c.launches = 0
+        for path, mode, T in reqs:
+            x = rng.normal(size=(C, T)).astype(np.float32).tolist()
+            u = rng.normal(size=(U, T)).astype(np.float32).tolist()
+            payload = {"x": x}
+            if mode in ("smoothed", "filtered", "viterbi"):
+                payload.update(u=u, mode=mode)
+            t0 = time.perf_counter()
+            status, got, _ = _request(url + path, payload)
+            walls.append((mode, T, 1e3 * (time.perf_counter() - t0)))
+            if status != 200:
+                fail(f"bfloat16 {path} {mode} T={T}: HTTP {status} {got}")
+            want = cpu.predict(x) if mode == "predict" else \
+                cpu.infer(x, u=u, mode=mode)
+            for key in want:
+                if key in ("mode", "states"):
+                    continue
+                g, w = np.asarray(got[key]), np.asarray(want[key])
+                if g.shape != w.shape or not np.isfinite(g).all():
+                    fail(f"bfloat16 {mode} {key}: shape {g.shape} or "
+                         "non-finite values")
+                share = float(np.max(np.abs(g - w)
+                                     / np.maximum(np.abs(w), 1.0)))
+                worst = max(worst, share)
+                if share > BF16_SERVE_TOL:
+                    fail(f"bfloat16 {mode} T={T} {key}: card vs CPU "
+                         f"{share:.3e} of the value > {BF16_SERVE_TOL}")
+            if mode == "viterbi":
+                flips += int(np.sum(np.asarray(got["states"])
+                                    != np.asarray(want["states"])))
+                steps += T
+        launched = {c.__name__: c.launches for c in counters}
+    finally:
+        _stop(httpd)
+    if flips > BF16_VITERBI_FLIPS * steps:
+        fail(f"bfloat16 viterbi: {flips} of {steps} steps differ between "
+             f"the card and the CPU (more than {BF16_VITERBI_FLIPS:.0%})")
+    n_vit = sum(mode == "viterbi" for _, mode, _ in reqs)
+    if launched != {"fused_forward": 0, "fused_encode": 0,
+                    "fused_evidence": 0, "viterbi_fused": n_vit}:
+        fail(f"serving the bfloat16 model launched {launched}: kernels A, "
+             f"8 and 11 none, kernel B {n_vit}")
+    say("throughput", f"the trained bfloat16 archive served over HTTP on "
+        f"the card: {len(reqs)} requests, launches {launched}; card vs CPU "
+        f"within {worst:.3e} of each value (tol {BF16_SERVE_TOL}), "
+        f"{flips} of {steps} Viterbi steps differ; request ms "
+        + ", ".join(f"{m} T={T} {w:.3f}" for m, T, w in walls))
+    return launched, worst, flips
+
+
+def phase_throughput_ensemble(torch, np, tmp):
+    """29d. a 2-member ensemble of the throughput configuration: kernel C
+    (bfloat16 mode) members x steps, kernel D once an epoch."""
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+
+    cfg = _bf16_cfg(os.path.join(tmp, "ensemble"), ensemble_seeds=[0, 1])
+    t = cfg.training
+    steps = t.num_epochs * (cfg.data.samples_per_epoch // t.batch_size)
+    pipe = TrainPipeline(cfg, device="cuda")
+    fused_loss_and_grads.launches = 0
+    fused_loss_and_grads.bf16_launches = 0
+    gather_epoch.launches = 0
+    pipe.train(log_fn=None)
+    torch.cuda.synchronize()
+    launches = {"fused_train": fused_loss_and_grads.launches,
+                "fused_train_bf16": fused_loss_and_grads.bf16_launches,
+                "gather": gather_epoch.launches}
+    expected = {"fused_train": 2 * steps, "fused_train_bf16": 2 * steps,
+                "gather": t.num_epochs}
+    if launches != expected or not np.isfinite(pipe.history).all():
+        fail(f"the bfloat16 ensemble launched {launches}, not {expected}, "
+             f"or its best history {pipe.history} is not finite")
+    say("throughput", f"a 2-member bfloat16 ensemble, {t.num_epochs} epochs: "
+        f"launches {launches}; best member's losses {pipe.history}")
+    return launches
+
+
+def phase_headline(torch, np, B=64, T=200, windows=5):
+    """29e. vae_hmm_elbo_train_seqs_per_sec_per_chip as bench.py measures
+    it (B=64, T=200, steady fused steps on one batch, the median of 5
+    windows with [min, max]), here the saturated repeat-in-call marginal
+    of utils/benchmarking.py on CUDA events, float32 and bfloat16 in one
+    call, with the device-busy ms a step off a profiler trace.  A record,
+    not a claim."""
+    from vqvaehmm_tpu_torch.train.trainer import make_optimizer, train_step
+    from vqvaehmm_tpu_torch.utils.benchmarking import (
+        saturated_marginal_windows)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(B, 5, T)).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.normal(size=(B, 4, T)).astype(np.float32)).to(dev)
+    ln = rng.integers(T // 2, T + 1, size=B).astype(np.int32)
+    ln[0] = T
+    lens = torch.from_numpy(ln).to(dev)
+    out = {}
+    for tag in ("float32", "bfloat16"):
+        m = load_published(torch, dev)
+        if tag == "bfloat16":
+            m = _bf16_model(torch, m)
+        m.train()
+        opt = make_optimizer(m, 1e-5, 1.0)
+
+        def make_repeat(R, m=m, opt=opt):
+            def run():
+                for _ in range(R):
+                    train_step(m, opt, x, u, lens, 1.0, fused=True)
+            return run
+
+        med, lo, hi, R = saturated_marginal_windows(
+            make_repeat, est_us=1500.0, floor_ms=50.0, windows=windows,
+            trials=3)
+        busy, ops = _device_trace(torch, make_repeat(1), calls=20)
+        out[tag] = {"seqs_per_s": B * 1e6 / med,
+                    "seqs_per_s_min": B * 1e6 / hi,
+                    "seqs_per_s_max": B * 1e6 / lo,
+                    "step_us": med, "R": R, "device_ms": busy,
+                    "device_ops": ops}
+        say("headline", f"vae_hmm_elbo_train_seqs_per_sec_per_chip, {tag}: "
+            f"{out[tag]['seqs_per_s']:.1f} seqs/s "
+            f"[{out[tag]['seqs_per_s_min']:.1f}, "
+            f"{out[tag]['seqs_per_s_max']:.1f}] at B={B} T={T} (a step "
+            f"{med:.2f} us, median of {windows} windows [{lo:.2f}, "
+            f"{hi:.2f}], R={R}); device "
+            f"busy {_ms(busy)} a step in "
+            f"{'not measured' if ops is None else f'{ops:.1f}'} device ops")
+    return out
+
+
 def _sha(torch, *tensors) -> str:
     import hashlib
 
@@ -3980,8 +4384,8 @@ def kernel_times(torch, np, root: str) -> dict:
     and B at BULK_SHAPES with the package of the checkout at `root` (its
     kernels built there): back-to-back CUDA-event ms and device-busy ms a
     call, the published weights (fresh weights from a seed at the probe
-    shape); for 8, 11, 10 and B also a SHA-256 of the output bytes from
-    fixed seeded inputs.
+    shape); for C (its float32 mode), 8, 11, 10 and B also a SHA-256 of
+    the output bytes from fixed seeded inputs.
     Where the checkout's wrappers take a forced tile (and split), every
     tile of kernel 8 and (tile, split) of kernel 11 is timed at each bulk
     shape too."""
@@ -4013,8 +4417,10 @@ def kernel_times(torch, np, root: str) -> dict:
                                   m.cfg.u_dim, dev)
         fn = lambda: fused_loss_and_grads(m, x, u, lens, 1.0,  # noqa: E731
                                           use_kernel=True)
+        loss, grads = fn()
         out[f"C {B}x{T}"] = {"events_ms": _time(torch, fn, iters=iters)[0],
-                             "device_ms": _device_ms(torch, fn, 3)}
+                             "device_ms": _device_ms(torch, fn, 3),
+                             "sha256": _sha(torch, loss, *grads.values())}
     forced = hasattr(fused_decode, "_launch_evidence")
     with torch.inference_mode():
         for B, T in BULK_SHAPES:
@@ -4412,6 +4818,18 @@ def main() -> int:
         prefetch_walls = phase_prefetch_profile(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # 29. the throughput configuration (bfloat16)
+    err_c16 = phase_kernel_c_bf16(torch, np, load_published(torch, dev))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_throughput_")
+    try:
+        c16_launches, c16_npz, c16_train_rel = phase_throughput_train(
+            torch, np, tmp)
+        c16_serve, c16_serve_err, c16_flips = phase_throughput_serve(
+            torch, np, tmp, c16_npz)
+        c16_ens = phase_throughput_ensemble(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    headline = phase_headline(torch, np)
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -4580,6 +4998,43 @@ def main() -> int:
             k["cli_launches"] = reloaded["cli_launches"]
             k["head_launches"] = recipe_out["head_launches"]
             k["walkforward_launches"] = recipe_out["walkforward_launches"]
+    probe_bounds = kernel_bounds(probe_model(torch, dev), 256, 512)
+    entry = {"name": "fused_train_bf16", "route": "cuda",
+             "source": "vqvaehmm_tpu_torch/csrc/fused_train.cu",
+             "replaces": "vqvaehmm_tpu/ops/pallas_train.py:82",
+             "mode": "bf16_matmuls: both operands of every product rounded "
+                     "to bfloat16, float32 sums",
+             "launches": c16_launches["fused_train_bf16"],
+             "max_abs_err": err_c16[0], "max_grad_share_err": err_c16[1],
+             "max_loss_rel_err": err_c16[2],
+             "ms": ttimes[("fused_train_bf16", 64, 200, True)][0],
+             "plain_ms": ttimes[("fused_train_bf16", 64, 200, False)][0],
+             "bound_ms": bounds["fused_train_bf16"][0],
+             "bound_by": bounds["fused_train_bf16"][1],
+             "fp32_bound_ms": bounds["fused_train"][0],
+             "library_ms": None, "shape": "B=64 T=200",
+             "device_ms": ttimes[("fused_train_bf16", 64, 200, True)][3],
+             "plain_device_ms": ttimes[("fused_train_bf16", 64, 200,
+                                        False)][3],
+             "gather_launches": c16_launches["gather"],
+             "ensemble_c_launches": c16_ens["fused_train_bf16"],
+             "ensemble_d_launches": c16_ens["gather"],
+             "serve_launches": c16_serve,
+             "serve_max_share_err": c16_serve_err,
+             "serve_viterbi_steps_differing": c16_flips,
+             "train_loss_rel_err": c16_train_rel,
+             "headline": headline}
+    for B, T in C_SHAPES[1:]:
+        key = "probe" if (B, T) == C_SHAPES[-1] else f"{B}x{T}"
+        entry[f"ms_{key}"] = ttimes[("fused_train_bf16", B, T, True)][0]
+        entry[f"device_ms_{key}"] = ttimes[("fused_train_bf16", B, T,
+                                            True)][3]
+        entry[f"plain_device_ms_{key}"] = ttimes[("fused_train_bf16", B, T,
+                                                  False)][3]
+        b = probe_bounds if key == "probe" else kernel_bounds(model, B, T)
+        entry[f"bound_ms_{key}"] = b["fused_train_bf16"][0]
+        entry[f"fp32_bound_ms_{key}"] = b["fused_train"][0]
+    kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1673,3 +1673,146 @@ def test_gmm_stack_on_the_card_matches_the_cpu(cuda):
         det = load_improved_system(d + "/s.npz", device="cpu").detector
     head = train_improved_system(returns, device="cpu", detector=det, **kw)
     np.testing.assert_allclose(card.history, head.history, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 throughput configuration: kernel C's bfloat16-operand mode,
+# and a bfloat16 model served on the plain path
+# ---------------------------------------------------------------------------
+
+BF16 = dict(compute_dtype="bfloat16", matmul_precision="default")
+
+
+@pytest.mark.parametrize("B,T,beta,short", [(64, 200, 1.0, None),
+                                            (8, 200, 0.5, 150)])
+def test_fused_train_bf16_matches_plain(cuda, B, T, beta, short):
+    """Kernel C's bfloat16 mode against its plain version
+    (compute_loss(bf16_operands=True) and autograd): loss within
+    BF16_LOSS_TOL relative, gradients within BF16_GRAD_TOL of each leaf's
+    largest entry (a float32 sum in another order can move an activation
+    across a bfloat16 rounding boundary, by 2^-8 of it); the float32
+    mode's gradients at least 10x that away; the same bits on a second
+    call."""
+    from vqvaehmm_tpu_torch.ops.fused_train import (
+        fused_loss_and_grads, fused_loss_and_grads_reference)
+
+    widths = dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128)
+    m16 = _model(cuda, seed=4, **widths, **BF16)
+    m32 = _model(cuda, seed=4, **widths)
+    x, u, lens = _train_inputs(cuda, B, T, B * 7 + T, short=short)
+    before = (fused_loss_and_grads.launches,
+              fused_loss_and_grads.bf16_launches)
+    loss, grads = fused_loss_and_grads(m16, x, u, lens, beta)
+    want_loss, want = fused_loss_and_grads_reference(m16, x, u, lens, beta)
+    _, g32 = fused_loss_and_grads(m32, x, u, lens, beta)
+    torch.cuda.synchronize()
+    assert (fused_loss_and_grads.launches - before[0],
+            fused_loss_and_grads.bf16_launches - before[1]) == (2, 1)
+    assert abs(float(loss) - float(want_loss)) \
+        <= BF16_LOSS_TOL * abs(float(want_loss))
+    gap32 = 0.0
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        err = float((grads[name] - w).abs().max())
+        assert err <= BF16_GRAD_TOL * scale, (name, err)
+        gap32 = max(gap32, float((g32[name] - grads[name]).abs().max())
+                    / scale)
+    assert gap32 >= 10 * BF16_GRAD_TOL
+    loss2, grads2 = fused_loss_and_grads(m16, x, u, lens, beta)
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(grads[n], grads2[n]) for n in grads)
+
+
+# kernel C's bfloat16 mode against its plain version on the card: the
+# loss's relative error and a gradient's share of its leaf's largest entry
+# (see test_fused_train_bf16_matches_plain; chip_smoke.py phase 29 states
+# the same bars with their measurements)
+BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-4, 5e-4
+
+
+def test_fused_train_float32_mode_unchanged_by_bf16_calls(cuda):
+    """The float32 mode gives the same bits before and after calls of the
+    bfloat16 mode on the same weights and inputs (nothing of one mode's
+    packed weights or scratch reaches the other)."""
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+
+    widths = dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128)
+    m32 = _model(cuda, seed=8, **widths)
+    m16 = _model(cuda, seed=8, **widths, **BF16)
+    x, u, lens = _train_inputs(cuda, 16, 96, 3)
+    first = fused_loss_and_grads(m32, x, u, lens, 1.0)
+    fused_loss_and_grads(m16, x, u, lens, 1.0)
+    again = fused_loss_and_grads(m32, x, u, lens, 1.0)
+    assert torch.equal(first[0], again[0])
+    assert all(torch.equal(first[1][n], again[1][n]) for n in first[1])
+
+
+def test_bf16_model_serving_launches_no_float32_kernel(cuda, tmp_path):
+    """A bfloat16 model's /infer in four modes, /predict and a stream
+    frame launch kernels A, 8 and 11 no time; kernel B once a viterbi
+    request.  use_kernel=True on it raises."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+
+    m = InferenceModel(_serving_config(tmp_path, cuda, seed=3,
+                                       hidden_dim=64, hidden_dim2=32,
+                                       **BF16), device=cuda)
+    assert m.model.compute_dtype == torch.bfloat16
+    rng = np.random.default_rng(5)
+    x, u = rng.normal(size=(5, 60)).tolist(), rng.normal(size=(4, 60)).tolist()
+    before = (fused_forward.launches, fused_encode.launches,
+              fused_evidence.launches, viterbi_fused.launches)
+    for mode in ("mean_field", "smoothed", "filtered", "viterbi"):
+        out = m.infer(x, u=u, mode=mode)
+        assert np.isfinite(np.asarray(out["regime_probs"])).all()
+    m.predict(x)
+    m.stream("s", x_t=[r[0] for r in x], u_t=[r[0] for r in u])
+    with torch.inference_mode():
+        m.model.posterior(torch.tensor([x], dtype=torch.float32,
+                                       device=cuda))
+    after = (fused_forward.launches, fused_encode.launches,
+             fused_evidence.launches, viterbi_fused.launches)
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1]
+    xt = torch.zeros(1, 5, 8, device=cuda)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="float32"):
+            m.model.infer_forward(xt, use_kernel=True)
+        with pytest.raises(ValueError, match="float32"):
+            fused_encode(m.model, xt, use_kernel=True)
+
+
+def test_bf16_batched_rows_within_tolerance_of_solo(cuda, tmp_path):
+    """A bfloat16 model's micro-batched rows against the same requests
+    served solo: within BF16_ROW_TOL of each output's magnitude (the
+    plain path's bfloat16 convolutions may add in another order at another
+    batch size, and a bfloat16 rounding then moves a value by up to
+    2^-8 of it); one dispatch a group."""
+    import concurrent.futures
+
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.serve.batching import BatchingModel
+
+    m = InferenceModel(_serving_config(tmp_path, cuda, seed=7,
+                                       hidden_dim=64, hidden_dim2=32,
+                                       **BF16), device=cuda)
+    rng = np.random.default_rng(11)
+    xs = [rng.normal(size=(5, int(T))).tolist()
+          for T in rng.integers(65, 129, size=8)]
+    solo = [m.infer(x) for x in xs]
+    b = BatchingModel(m, max_batch=8, max_wait_ms=10000.0)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+            got = list(ex.map(b.infer, xs))
+        assert b.dispatches == 1
+        for g, s in zip(got, solo):
+            for key in ("mu", "logvar", "regime_probs"):
+                a, w = np.asarray(g[key]), np.asarray(s[key])
+                bar = BF16_ROW_TOL * np.maximum(np.abs(w), 1.0)
+                assert np.all(np.abs(a - w) <= bar), key
+    finally:
+        b.close()
+
+
+# a batched bfloat16 row's share of its solo value's magnitude (at least 1)
+BF16_ROW_TOL = 2 ** -6

@@ -162,11 +162,18 @@ def test_init_distribution_and_seed():
     assert torch.count_nonzero(a.prior_module.log_prior) == 0
 
 
-def test_bf16_config_not_ported():
+def test_bf16_config_builds():
+    """A bfloat16 config builds; its parameters are float32 and the model
+    reads compute_dtype (an unknown dtype raises)."""
     cfg = ModelConfig(input_dim=5, hidden_dim=8, K=3, hidden_dim2=4,
                       u_dim=4, trans_hidden=8, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VAEHMM(cfg)
+    m = VAEHMM(cfg)
+    assert m.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    x = torch.randn(2, 5, 16)
+    assert m.encode(x, fused=False).dtype == torch.float32
+    with pytest.raises(ValueError, match="compute_dtype"):
+        VAEHMM(ModelConfig(**{**cfg.__dict__, "compute_dtype": "float16"}))
 
 
 def test_improved_head_matches_jax():

@@ -70,13 +70,32 @@
 // No float atomics anywhere: every sum has a fixed order, so the same
 // inputs give the same bits on every call.
 //
+// Two numeric modes, a template parameter BF16 of the four kernels that
+// compute products, chosen by the `bf16` argument of the entry point (the
+// model's compute_dtype; the TPU kernel's bf16_matmuls, pallas_train.py
+// _make_dots).  float32: every value float32.  bfloat16: both operands of
+// every product are rounded to the nearest bfloat16 and the sums stay
+// float32; the pack kernel rounds the weights, the FMA slabs of
+// tile_fma.cuh round each activation or activation gradient as they read
+// it, and the weight-gradient tiles round dy and the layer's input.  The
+// stored activations, the ReLU gates, the softmax stages, the HMM terms,
+// the loss sums and the bias gradients (sums of the unrounded dy) stay
+// float32, as in the TPU kernel, and train_reduce_kernel has no product.
+// A product of two bfloat16 values is exact in float32, so the mode
+// differs from its plain version (ops/nn.py::bf16_matmul) only in the
+// order of the sums.  The float32 instantiations compile to the code they
+// had before the mode existed.
+//
 // Bound.  About 2.5 GFLOP a step at B=64, T=200 (the forward is about
 // 65 kFLOP a token, the backward twice that) against a few MB of inputs
 // and weights: bound by operations, fp32 FMA on the CUDA cores against the
-// card's 67 TFLOP/s.  The model's contract is full float32 (the loss is
-// held to 1e-5 and the gradients to 1e-4 of their largest entry, which
-// TF32's three digits fail), so the tensor cores are not used here; they
-// belong to a bf16 throughput mode.  What the design does about the bound:
+// card's 67 TFLOP/s.  The float32 mode's contract is full float32 (the
+// loss is held to 1e-5 and the gradients to 1e-4 of their largest entry,
+// which TF32's three digits fail), so it does not use the tensor cores.
+// The bfloat16 mode runs the same fp32 FMA chains on rounded operands;
+// its bound is the card's bf16 tensor-core rate (989 TFLOP/s dense),
+// which a later design with bfloat16 operands in shared memory and
+// mma.sync / wgmma would reach for.  What the design does about the bound:
 // blocks over (sequence, tile) fill the 132 SMs at any batch; the
 // activations of a window stay in shared memory across a layer; a thread's
 // register tile cuts the shared-memory loads an FMA needs; the weight
@@ -194,9 +213,10 @@ struct PackJobs {
   tilefma::PackJob j[NPACK];
 };
 
+template <bool BF16>
 __global__ void __launch_bounds__(256) train_pack_kernel(PackJobs jobs,
                                                    float* __restrict__ dst) {
-  tilefma::pack_weights(jobs.j, NPACK, dst);
+  tilefma::pack_weights<BF16>(jobs.j, NPACK, dst);
 }
 
 // First row of each array in one sequence's scratch, rows of T floats:
@@ -331,6 +351,7 @@ __device__ __forceinline__ float recon_scale(const int* __restrict__ lengths,
 }
 
 // Two blocks an SM: at most 64 registers a thread.
+template <bool BF16>
 __global__ void __launch_bounds__(MAX_THREADS, 2) train_forward_kernel(
     const float* __restrict__ x, const float* __restrict__ u,
     const int* __restrict__ lengths, Weights Wt, const float* __restrict__ wp,
@@ -379,18 +400,18 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) train_forward_kernel(
   store_rows(xs, WS, HALO_F, S + (size_t)R.xm * T, C, t0, n, T);
   store_rows(us, WS, HALO_F, S + (size_t)R.uu * T, d.U, t0, n, T);
   // h1 = relu(conv1(x)), masked at valid_to
-  tilefma::layer<3, 4, JB>(wp + at.ew1, d.H1, C, xs, bufA, WS, 1, W - 1,
-                                  pipe, Next{wp + at.ew2, d.H2, d.H1, 3});
+  tilefma::layer<3, 4, JB, BF16>(wp + at.ew1, d.H1, C, xs, bufA, WS, 1, W - 1,
+                                 pipe, Next{wp + at.ew2, d.H2, d.H1, 3});
   tilefma::finish<true>(bufA, d.H1, WS, 1, W - 1, Wt.eb1, true, p0, T, vt,
                         nullptr, S + (size_t)R.h1 * T, t0, n);
   // h2 = relu(conv2(h1)), not masked
-  tilefma::layer<3, 4, JB>(wp + at.ew2, d.H2, d.H1, bufA, bufB, WS, 2, W - 2,
-                                  pipe, Next{wp + at.ew3, K, d.H2, 1});
+  tilefma::layer<3, 4, JB, BF16>(wp + at.ew2, d.H2, d.H1, bufA, bufB, WS, 2,
+                                 W - 2, pipe, Next{wp + at.ew3, K, d.H2, 1});
   tilefma::finish<true>(bufB, d.H2, WS, 2, W - 2, Wt.eb2, false, p0, T, vt,
                         nullptr, S + (size_t)R.h2 * T, t0, n);
   // logits, a (step, regime) a thread; log q and q per step
-  tilefma::layer<1, 1, 1>(wp + at.ew3, K, d.H2, bufB, qs, WS, 2, W - 2, pipe,
-                                 Next{wp + at.embT, d.D, K, 1});
+  tilefma::layer<1, 1, 1, BF16>(wp + at.ew3, K, d.H2, bufB, qs, WS, 2, W - 2,
+                                pipe, Next{wp + at.embT, d.D, K, 1});
   for (int j = 2 + threadIdx.x; j < W - 2; j += blockDim.x) {
     float lg[KMAX];
     float m = -INFINITY;
@@ -411,24 +432,24 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) train_forward_kernel(
   store_rows(qs, WS, HALO_F, S + (size_t)R.q * T, K, t0, n, T);
   store_rows(lqs, WS, HALO_F, S + (size_t)R.lq * T, K, t0, n, T);
   // e = E^T q, masked at valid_to
-  tilefma::layer<1, 4, JB>(wp + at.embT, d.D, K, qs, bufA, WS, 2, W - 2, pipe,
-                                 Next{wp + at.dw1, d.D, d.D, 3});
+  tilefma::layer<1, 4, JB, BF16>(wp + at.embT, d.D, K, qs, bufA, WS, 2, W - 2,
+                                 pipe, Next{wp + at.dw1, d.D, d.D, 3});
   tilefma::finish<false>(bufA, d.D, WS, 2, W - 2, nullptr, true, p0, T, vt,
                          nullptr, S + (size_t)R.e * T, t0, n);
   // hd1 = relu(dconv1(e)), masked; hd2 = relu(dconv2(hd1)), not masked
-  tilefma::layer<3, 4, JB>(wp + at.dw1, d.D, d.D, bufA, bufB, WS, 3, W - 3,
-                                  pipe, Next{wp + at.dw2, d.D, d.D, 3});
+  tilefma::layer<3, 4, JB, BF16>(wp + at.dw1, d.D, d.D, bufA, bufB, WS, 3,
+                                 W - 3, pipe, Next{wp + at.dw2, d.D, d.D, 3});
   tilefma::finish<true>(bufB, d.D, WS, 3, W - 3, Wt.db1, true, p0, T, vt,
                         nullptr, S + (size_t)R.hd1 * T, t0, n);
-  tilefma::layer<3, 4, JB>(wp + at.dw2, d.D, d.D, bufB, bufA, WS, HALO_F,
-                                  W - HALO_F, pipe,
-                                  Next{wp + at.dw3, 2 * C, d.D, 1});
+  tilefma::layer<3, 4, JB, BF16>(wp + at.dw2, d.D, d.D, bufB, bufA, WS, HALO_F,
+                                 W - HALO_F, pipe,
+                                 Next{wp + at.dw3, 2 * C, d.D, 1});
   tilefma::finish<true>(bufA, d.D, WS, HALO_F, W - HALO_F, Wt.db2, false, p0,
                         T, vt, nullptr, S + (size_t)R.hd2 * T, t0, n);
   // (mu, logvar) on the tile, the Gaussian NLL and its gradient
-  tilefma::layer<1, 4, 1>(wp + at.dw3, 2 * C, d.D, bufA, bufB, WS, HALO_F,
-                                 W - HALO_F, pipe,
-                                 Next{wp + at.pw1, d.HP, d.U, 1});
+  tilefma::layer<1, 4, 1, BF16>(wp + at.dw3, 2 * C, d.D, bufA, bufB, WS, HALO_F,
+                                W - HALO_F, pipe,
+                                Next{wp + at.pw1, d.HP, d.U, 1});
   double p_nll = 0.0;
   float* dout = S + (size_t)R.dout * T;
   for (int idx = threadIdx.x; idx < C * n; idx += blockDim.x) {
@@ -449,13 +470,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) train_forward_kernel(
   __syncthreads();
   // the prior on the tile: hp = relu(fc1(u)) across both buffers,
   // log_A = log_softmax(fc2(hp))
-  tilefma::layer<1, 4, JB>(wp + at.pw1, d.HP, d.U, us, bufA, WS, HALO_F,
-                                  W - HALO_F, pipe,
-                                  Next{wp + at.pw2, KK, d.HP, 1});
+  tilefma::layer<1, 4, JB, BF16>(wp + at.pw1, d.HP, d.U, us, bufA, WS, HALO_F,
+                                 W - HALO_F, pipe,
+                                 Next{wp + at.pw2, KK, d.HP, 1});
   tilefma::finish<true>(bufA, d.HP, WS, HALO_F, W - HALO_F, Wt.pb1, false, p0,
                         T, vt, nullptr, S + (size_t)R.hp * T, t0, n);
-  tilefma::layer<1, 4, JB>(wp + at.pw2, KK, d.HP, bufA, las, WS, HALO_F,
-                                  W - HALO_F, pipe, tilefma::no_next());
+  tilefma::layer<1, 4, JB, BF16>(wp + at.pw2, KK, d.HP, bufA, las, WS, HALO_F,
+                                 W - HALO_F, pipe, tilefma::no_next());
   for (int idx = threadIdx.x; idx < K * n; idx += blockDim.x) {
     const int i = idx / n, j = HALO_F + idx - i * n;
     float v[KMAX];
@@ -476,6 +497,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) train_forward_kernel(
 }
 
 // Two blocks an SM: at most 64 registers a thread.
+template <bool BF16>
 __global__ void __launch_bounds__(MAX_THREADS, 2) train_backward_kernel(
     const int* __restrict__ lengths, Weights Wt, const float* __restrict__ wp,
     Dims d, float beta, int tile, int tiles, float* __restrict__ scratch,
@@ -525,23 +547,23 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) train_backward_kernel(
   load_rows(las, WS, S + (size_t)R.la * T, KK, p0, W, T, T);
   __syncthreads();
   // dhd2 = W3^T d(mu, logvar), gated by hd2's ReLU
-  tilefma::layer<1, 4, JB>(wp + at.dw3T, d.D, 2 * C, douts, bufA, WS, 0, W,
-                                 pipe, Next{wp + at.dw2T, d.D, d.D, 3});
+  tilefma::layer<1, 4, JB, BF16>(wp + at.dw3T, d.D, 2 * C, douts, bufA, WS, 0,
+                                 W, pipe, Next{wp + at.dw2T, d.D, d.D, 3});
   tilefma::finish<false>(bufA, d.D, WS, 0, W, nullptr, true, p0, T, T,
                          S + (size_t)R.hd2 * T, S + (size_t)R.dhd2 * T, t0, n);
   // dhd1, gated by hd1 (zero past valid_to)
-  tilefma::layer<3, 4, JB>(wp + at.dw2T, d.D, d.D, bufA, bufB, WS, 1, W - 1,
-                                 pipe, Next{wp + at.dw1T, d.D, d.D, 3});
+  tilefma::layer<3, 4, JB, BF16>(wp + at.dw2T, d.D, d.D, bufA, bufB, WS, 1,
+                                 W - 1, pipe, Next{wp + at.dw1T, d.D, d.D, 3});
   tilefma::finish<false>(bufB, d.D, WS, 1, W - 1, nullptr, true, p0, T, T,
                          S + (size_t)R.hd1 * T, S + (size_t)R.dhd1 * T, t0, n);
   // de, masked at valid_to
-  tilefma::layer<3, 4, JB>(wp + at.dw1T, d.D, d.D, bufB, bufA, WS, 2, W - 2,
-                                 pipe, Next{wp + at.emb, K, d.D, 1});
+  tilefma::layer<3, 4, JB, BF16>(wp + at.dw1T, d.D, d.D, bufB, bufA, WS, 2,
+                                 W - 2, pipe, Next{wp + at.emb, K, d.D, 1});
   tilefma::finish<false>(bufA, d.D, WS, 2, W - 2, nullptr, true, p0, T, vt,
                          nullptr, S + (size_t)R.de * T, t0, n);
   // E de, a (step, regime) a thread
-  tilefma::layer<1, 1, 1>(wp + at.emb, K, d.D, bufA, gds, WS, 2, W - 2, pipe,
-                                 Next{wp + at.ew3T, d.H2, K, 1});
+  tilefma::layer<1, 1, 1, BF16>(wp + at.emb, K, d.D, bufA, gds, WS, 2, W - 2,
+                                pipe, Next{wp + at.ew3T, d.H2, K, 1});
   // the prior, entropy and decoder terms of dq -> d logits; d transition
   // logits; the loss sums of the prior and the entropy on the tile's steps
   double p_prior = 0.0, p_qlogq = 0.0;
@@ -601,20 +623,20 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) train_backward_kernel(
   store_rows(dls, WS, HALO_B, S + (size_t)R.dl * T, K, t0, n, T);
   store_rows(daps, WS, HALO_B, S + (size_t)R.dap * T, KK, t0, n, T);
   // dh2 = W3^T d logits, gated by h2's ReLU
-  tilefma::layer<1, 4, JB>(wp + at.ew3T, d.H2, K, dls, bufB, WS, 2, W - 2, pipe,
-                                 Next{wp + at.ew2T, d.H1, d.H2, 3});
+  tilefma::layer<1, 4, JB, BF16>(wp + at.ew3T, d.H2, K, dls, bufB, WS, 2, W - 2,
+                                 pipe, Next{wp + at.ew2T, d.H1, d.H2, 3});
   tilefma::finish<false>(bufB, d.H2, WS, 2, W - 2, nullptr, true, p0, T, T,
                          S + (size_t)R.h2 * T, S + (size_t)R.dh2 * T, t0, n);
   // dh1, gated by h1 (zero past valid_to), on the tile
-  tilefma::layer<3, 4, JB>(wp + at.ew2T, d.H1, d.H2, bufB, bufA, WS, HALO_B,
-                                 W - HALO_B, pipe,
+  tilefma::layer<3, 4, JB, BF16>(wp + at.ew2T, d.H1, d.H2, bufB, bufA, WS,
+                                 HALO_B, W - HALO_B, pipe,
                                  Next{wp + at.pw2T, d.HP, KK, 1});
   tilefma::finish<false>(bufA, d.H1, WS, HALO_B, W - HALO_B, nullptr, true, p0,
                          T, T, S + (size_t)R.h1 * T, S + (size_t)R.dh1 * T, t0,
                          n);
   // dhp = W2^T d transition logits, gated by hp's ReLU, on the tile, across
   // both buffers
-  tilefma::layer<1, 4, JB>(wp + at.pw2T, d.HP, KK, daps, bufA, WS, HALO_B,
+  tilefma::layer<1, 4, JB, BF16>(wp + at.pw2T, d.HP, KK, daps, bufA, WS, HALO_B,
                                  W - HALO_B, pipe, tilefma::no_next());
   tilefma::finish<false>(bufA, d.HP, WS, HALO_B, W - HALO_B, nullptr, true, p0,
                          T, T, S + (size_t)R.hp * T, S + (size_t)R.dhp * T, t0,
@@ -664,7 +686,15 @@ inline Jobs make_jobs(const Dims& d) {
   return jobs;
 }
 
-template <int TAPS>
+// BF16: dy and the input rounded to bfloat16 where they enter a product;
+// the bias sums read dy unrounded.
+template <bool BF16>
+__device__ __forceinline__ float4 operand4(float4 v) {
+  return make_float4(tilefma::operand<BF16>(v.x), tilefma::operand<BF16>(v.y),
+                     tilefma::operand<BF16>(v.z), tilefma::operand<BF16>(v.w));
+}
+
+template <int TAPS, bool BF16>
 __device__ __forceinline__ void weight_grad_tile(
     const Job& job, int o_base, int i_base, const float* __restrict__ scratch,
     int rows_total, int T, int nslab, int u0, int u1,
@@ -722,14 +752,17 @@ __device__ __forceinline__ void weight_grad_tile(
     if (!active) {
       // a thread wholly outside a narrow layer's (o, i) pairs
     } else if constexpr (TAPS == 3) {
-      float4 am = *reinterpret_cast<const float4*>(ip);
-      float4 a0 = *reinterpret_cast<const float4*>(ip + WG_STRIDE);
+      float4 am = operand4<BF16>(*reinterpret_cast<const float4*>(ip));
+      float4 a0 =
+          operand4<BF16>(*reinterpret_cast<const float4*>(ip + WG_STRIDE));
 #pragma unroll 4
       for (int tt = 0; tt < WG_SLAB; ++tt) {
         const float4 d4 = *reinterpret_cast<const float4*>(dp + tt * WG_STRIDE);
-        const float4 ap =
-            *reinterpret_cast<const float4*>(ip + (tt + 2) * WG_STRIDE);
+        const float4 ap = operand4<BF16>(
+            *reinterpret_cast<const float4*>(ip + (tt + 2) * WG_STRIDE));
         const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+        const float4 r4 = operand4<BF16>(d4);
+        const float dr[4] = {r4.x, r4.y, r4.z, r4.w};
         const float v[3][4] = {{am.x, am.y, am.z, am.w},
                                {a0.x, a0.y, a0.z, a0.w},
                                {ap.x, ap.y, ap.z, ap.w}};
@@ -740,7 +773,7 @@ __device__ __forceinline__ void weight_grad_tile(
           for (int k = 0; k < 3; ++k)
 #pragma unroll
             for (int c = 0; c < 4; ++c)
-              acc[k][a][c] = fmaf(dv[a], v[k][c], acc[k][a][c]);
+              acc[k][a][c] = fmaf(dr[a], v[k][c], acc[k][a][c]);
         }
         am = a0;
         a0 = ap;
@@ -749,16 +782,18 @@ __device__ __forceinline__ void weight_grad_tile(
 #pragma unroll 4
       for (int tt = 0; tt < WG_SLAB; ++tt) {
         const float4 d4 = *reinterpret_cast<const float4*>(dp + tt * WG_STRIDE);
-        const float4 a4 =
-            *reinterpret_cast<const float4*>(ip + (tt + 1) * WG_STRIDE);
+        const float4 a4 = operand4<BF16>(
+            *reinterpret_cast<const float4*>(ip + (tt + 1) * WG_STRIDE));
         const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+        const float4 r4 = operand4<BF16>(d4);
+        const float dr[4] = {r4.x, r4.y, r4.z, r4.w};
         const float v[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           gb[a] += dv[a];
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            acc[0][a][c] = fmaf(dv[a], v[c], acc[0][a][c]);
+            acc[0][a][c] = fmaf(dr[a], v[c], acc[0][a][c]);
         }
       }
     }
@@ -780,6 +815,7 @@ __device__ __forceinline__ void weight_grad_tile(
   }
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(WG_THREADS) train_weight_grad_kernel(
     const float* __restrict__ scratch, Jobs jobs, int rows_total, int T,
     int nslab, int units, int per, float* __restrict__ partials,
@@ -796,11 +832,11 @@ __global__ void __launch_bounds__(WG_THREADS) train_weight_grad_kernel(
   const int u1 = min(units, u0 + per);
   float* part = partials + (size_t)blockIdx.y * P;
   if (job.taps == 3)
-    weight_grad_tile<3>(job, o_base, i_base, scratch, rows_total, T, nslab, u0,
-                        u1, part, dys, ins);
+    weight_grad_tile<3, BF16>(job, o_base, i_base, scratch, rows_total, T,
+                              nslab, u0, u1, part, dys, ins);
   else
-    weight_grad_tile<1>(job, o_base, i_base, scratch, rows_total, T, nslab, u0,
-                        u1, part, dys, ins);
+    weight_grad_tile<1, BF16>(job, o_base, i_base, scratch, rows_total, T,
+                              nslab, u0, u1, part, dys, ins);
 }
 
 // A block's sum of one double a thread, a fixed tree over 256 threads.
@@ -871,6 +907,77 @@ __global__ void __launch_bounds__(256) train_reduce_kernel(
   grads[p] = a;
 }
 
+// The five launches of one call in mode BF16 (the entry point checked the
+// arguments).
+template <bool BF16>
+int enqueue(const float* x, const float* u, const int* lengths,
+            const Weights& W, const Dims& d, float* packed_weights,
+            float* scratch, float* partials, double* loss_partials,
+            float* grads, float* loss, int tile, int splits, float beta,
+            cudaStream_t s) {
+  const int G = widest(d);
+  const int tiles = (d.T + tile - 1) / tile;
+  const long long blocks = (long long)tiles * d.B;
+  const int nslab = (d.T + WG_SLAB - 1) / WG_SLAB;
+  const long long units = (long long)d.B * nslab;
+  const int per = (int)((units + splits - 1) / splits);
+  const int threads = block_threads(tile, G);
+  const size_t sf = smem_fwd(d, tile), sb = smem_bwd(d, tile);
+  cudaError_t err = cudaFuncSetAttribute(
+      train_forward_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sf);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(train_backward_kernel<BF16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sb);
+  if (err != cudaSuccess) return (int)err;
+  const Packed at = packed(d);
+  const int C = d.C, D = d.D, K = d.K, KK = d.K * d.K;
+  const PackJobs pj{{{W.ew1, d.H1, C, 3, 0, at.ew1},
+                     {W.ew2, d.H2, d.H1, 3, 0, at.ew2},
+                     {W.ew3, K, d.H2, 1, 0, at.ew3},
+                     {W.emb, D, K, 1, 1, at.embT},
+                     {W.dw1, D, D, 3, 0, at.dw1},
+                     {W.dw2, D, D, 3, 0, at.dw2},
+                     {W.dw3, 2 * C, D, 1, 0, at.dw3},
+                     {W.pw1, d.HP, d.U, 1, 0, at.pw1},
+                     {W.pw2, KK, d.HP, 1, 0, at.pw2},
+                     {W.dw3, D, 2 * C, 1, 1, at.dw3T},
+                     {W.dw2, D, D, 3, 1, at.dw2T},
+                     {W.dw1, D, D, 3, 1, at.dw1T},
+                     {W.emb, K, D, 1, 0, at.emb},
+                     {W.ew3, d.H2, K, 1, 1, at.ew3T},
+                     {W.ew2, d.H1, d.H2, 3, 1, at.ew2T},
+                     {W.pw2, d.HP, KK, 1, 1, at.pw2T}}};
+  train_pack_kernel<BF16><<<(unsigned)((at.total + 255) / 256), 256, 0, s>>>(
+      pj, packed_weights);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  train_forward_kernel<BF16><<<(unsigned)blocks, threads, sf, s>>>(
+      x, u, lengths, W, packed_weights, d, tile, tiles, scratch,
+      loss_partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  train_backward_kernel<BF16><<<(unsigned)blocks, threads, sb, s>>>(
+      lengths, W, packed_weights, d, beta, tile, tiles, scratch,
+      loss_partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Jobs jobs = make_jobs(d);
+  const long long P = offsets(d).P;
+  train_weight_grad_kernel<BF16><<<dim3((unsigned)jobs.tiles,
+                                        (unsigned)splits),
+                                   WG_THREADS, 0, s>>>(
+      scratch, jobs, rows(d).total, d.T, nslab, (int)units, per, partials,
+      P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  train_reduce_kernel<<<(unsigned)((P + 255) / 256 + 1), 256, 0, s>>>(
+      partials, splits, loss_partials, (int)blocks, scratch, lengths,
+      W.logprior, d, beta, grads, loss);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // what = 0: floats of the flat gradient vector; 1: scratch rows of T a
@@ -893,7 +1000,8 @@ extern "C" long long vqhmm_fused_train_sizes(int B, int C, int T, int U,
 
 // packed_weights: vqhmm_fused_train_sizes(.., 5) floats; scratch: B * rows
 // * T floats; partials: splits * P floats; loss_partials: 3 * B *
-// ceil(T / tile) doubles.
+// ceil(T / tile) doubles.  bf16: 0 for the float32 mode, 1 for the
+// bfloat16 mode (products of bfloat16-rounded operands).
 extern "C" int vqhmm_fused_train(
     const float* x, const float* u, long long u_sb, long long u_sc,
     long long u_st, const int* lengths, const float* ew1, const float* eb1,
@@ -904,13 +1012,14 @@ extern "C" int vqhmm_fused_train(
     const float* db3, float* packed_weights, float* scratch, float* partials,
     double* loss_partials, float* grads, float* loss, int B, int C, int T,
     int U, int H1, int H2, int K, int HP, int D, int tile, int splits,
-    float beta, void* stream) {
+    int bf16, float beta, void* stream) {
   Weights W{ew1, eb1, ew2, eb2, ew3, eb3, logprior, pw1, pb1, pw2, pb2,
             emb, dw1, db1, dw2, db2, dw3, db3};
   Dims d{B, C, T, U, H1, H2, K, HP, D, u_sb, u_sc, u_st};
   const int G = widest(d);
   if (B <= 0 || T <= 0 || K <= 0 || K > KMAX || splits <= 0 ||
       splits > 65535 || (tile != 16 && tile != 32 && tile != 64) ||
+      (bf16 != 0 && bf16 != 1) ||
       3 * tilefma::round4(maxi(G, HP)) > tilefma::WBUF)
     return (int)cudaErrorInvalidValue;
   const int tiles = (T + tile - 1) / tile;
@@ -921,55 +1030,10 @@ extern "C" int vqhmm_fused_train(
   const int per = (int)((units + splits - 1) / splits);
   if ((units + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = block_threads(tile, G);
-  const size_t sf = smem_fwd(d, tile), sb = smem_bwd(d, tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sf);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      train_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sb);
-  if (err != cudaSuccess) return (int)err;
-  const Packed at = packed(d);
-  const int KK = K * K;
-  const PackJobs pj{{{ew1, H1, C, 3, 0, at.ew1},
-                     {ew2, H2, H1, 3, 0, at.ew2},
-                     {ew3, K, H2, 1, 0, at.ew3},
-                     {emb, D, K, 1, 1, at.embT},
-                     {dw1, D, D, 3, 0, at.dw1},
-                     {dw2, D, D, 3, 0, at.dw2},
-                     {dw3, 2 * C, D, 1, 0, at.dw3},
-                     {pw1, HP, U, 1, 0, at.pw1},
-                     {pw2, KK, HP, 1, 0, at.pw2},
-                     {dw3, D, 2 * C, 1, 1, at.dw3T},
-                     {dw2, D, D, 3, 1, at.dw2T},
-                     {dw1, D, D, 3, 1, at.dw1T},
-                     {emb, K, D, 1, 0, at.emb},
-                     {ew3, H2, K, 1, 1, at.ew3T},
-                     {ew2, H1, H2, 3, 1, at.ew2T},
-                     {pw2, HP, KK, 1, 1, at.pw2T}}};
-  train_pack_kernel<<<(unsigned)((at.total + 255) / 256), 256, 0, s>>>(
-      pj, packed_weights);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  train_forward_kernel<<<(unsigned)blocks, threads, sf, s>>>(
-      x, u, lengths, W, packed_weights, d, tile, tiles, scratch,
-      loss_partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  train_backward_kernel<<<(unsigned)blocks, threads, sb, s>>>(
-      lengths, W, packed_weights, d, beta, tile, tiles, scratch,
-      loss_partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const Jobs jobs = make_jobs(d);
-  const long long P = offsets(d).P;
-  train_weight_grad_kernel<<<dim3((unsigned)jobs.tiles, (unsigned)splits),
-                       WG_THREADS, 0, s>>>(
-      scratch, jobs, rows(d).total, T, nslab, (int)units, per, partials, P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  train_reduce_kernel<<<(unsigned)((P + 255) / 256 + 1), 256, 0, s>>>(
-      partials, splits, loss_partials, (int)blocks, scratch, lengths, logprior,
-      d, beta, grads, loss);
-  return (int)cudaGetLastError();
+  return bf16 ? enqueue<true>(x, u, lengths, W, d, packed_weights, scratch,
+                              partials, loss_partials, grads, loss, tile,
+                              splits, beta, s)
+              : enqueue<false>(x, u, lengths, W, d, packed_weights, scratch,
+                               partials, loss_partials, grads, loss, tile,
+                               splits, beta, s);
 }

@@ -17,17 +17,31 @@ data/checkpoint.py maps the JAX package's parameter pytree onto them.
 Public tensors keep the JAX package's layouts: (B, C, T), and log_A
 (B, T, K, K).
 
-On a CUDA device the inference paths run in hand-written CUDA kernels:
-the serving forward `infer_forward` (ops/fused_infer.py), the encoder
-behind `posterior` and `encode(fused=None)` (ops/fused_encoder.py), the
-evidence of the three exact modes (ops/fused_decode.py) and the Viterbi
-recursion (ops/fused_viterbi.py).  On the CPU each runs its plain
-version; the plain version runs on the card only when asked with
-`fused=False` / `use_kernel=False`.  The kernels' outputs carry no
-gradient: `compute_loss` and `forward` take the plain, differentiable
-convolutions on every device.  torch's own exp/log/log_softmax are used
-throughout: the JAX package's ops/precise.py exists only for the TPU
-build's fast math.
+On a CUDA device the inference paths of a float32 model run in
+hand-written CUDA kernels: the serving forward `infer_forward`
+(ops/fused_infer.py), the encoder behind `posterior` and
+`encode(fused=None)` (ops/fused_encoder.py), the evidence of the three
+exact modes (ops/fused_decode.py) and the Viterbi recursion
+(ops/fused_viterbi.py).  On the CPU each runs its plain version; the
+plain version runs on the card only when asked with `fused=False` /
+`use_kernel=False`.  The kernels' outputs carry no gradient:
+`compute_loss` and `forward` take the plain, differentiable convolutions
+on every device.  torch's own exp/log/log_softmax are used throughout:
+the JAX package's ops/precise.py exists only for the TPU build's fast
+math.
+
+`compute_dtype="bfloat16"` (the throughput configuration) is the JAX
+package's XLA path in bfloat16: parameters and inputs cast to bfloat16
+inside `encode`, `prior` and `decode`, so activations, ReLUs and masks
+are bfloat16; logits, (mu, logvar) and the transition logits back to
+float32; log_pi from the float32 log_prior; parameters, and so the
+optimizer's state, float32.  The float32 kernels A, 8, 10 and 11 step
+aside for such a model (`use_kernel=None` takes the plain path on every
+device, as the JAX package routes it around its kernels); the Viterbi
+recursion (kernel B) takes its float32 evidence.  `bf16_operands=True`
+is the other bfloat16 arithmetic, that of the train kernel's bfloat16
+mode: float32 activations, both operands of every product rounded to
+bfloat16 (ops/nn.py::bf16_matmul).
 """
 
 from __future__ import annotations
@@ -46,6 +60,8 @@ from ..ops.fused_decode import fused_evidence
 from ..ops.fused_encoder import fused_encode
 from ..ops.fused_infer import fused_forward
 from ..ops.fused_viterbi import viterbi_fused
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Encoder(nn.Module):
@@ -101,12 +117,11 @@ class VAEHMM(nn.Module):
         if cfg.u_dim is None:
             raise ValueError("Stationary transitions not implemented in "
                              "VAEHMM; pass u_dim")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the port serves "
-                "float32 only; bf16 serving is still to be ported "
-                "(ROADMAP.md, queue 1)")
+        if cfg.compute_dtype not in _DTYPES:
+            raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r};"
+                             f" expected one of {sorted(_DTYPES)}")
         self.cfg = cfg
+        self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.encoder = Encoder(cfg, device)
         # registered by hand: the submodule's state_dict name "prior" is
         # also the name of the prior() method, which add_module refuses
@@ -149,39 +164,68 @@ class VAEHMM(nn.Module):
     def device(self) -> torch.device:
         return self.encoder.conv1.weight.device
 
+    def _products(self, bf16_operands: bool):
+        """(conv(layer, h), linear(layer, h), lookup(E, q), cast(t)) of the
+        plain path.  float32: the layers as they are.  bfloat16: the
+        parameters cast inside, each product rounded to bfloat16 and its
+        bias added in bfloat16 (rounded again), as the JAX package's XLA
+        path rounds.  bf16_operands: float32 with both operands of each
+        product rounded to bfloat16."""
+        if bf16_operands:
+            return (lambda m, h: ops.conv1d_same_bf16(m.weight, m.bias, h),
+                    lambda m, h: ops.linear_bf16(m.weight, m.bias, h),
+                    lambda E, q: ops.bf16_matmul(E.t(), q),
+                    lambda a: a)
+        if self.compute_dtype == torch.float32:
+            return (lambda m, h: ops.conv1d_same(m.weight, m.bias, h),
+                    lambda m, h: ops.linear(m.weight, m.bias, h),
+                    lambda E, q: torch.einsum("bkt,kd->bdt", q, E),
+                    lambda a: a)
+        bf = torch.bfloat16
+        return (lambda m, h: ops.conv1d_same(m.weight.to(bf), None, h)
+                + m.bias.to(bf)[None, :, None],
+                lambda m, h: ops.linear(m.weight.to(bf), None, h)
+                + m.bias.to(bf),
+                lambda E, q: torch.einsum("bkt,kd->bdt", q, E.to(bf)),
+                lambda a: a.to(bf))
+
     # ------------------------------------------------------------------
     # Sub-modules
     # ------------------------------------------------------------------
 
     def encode(self, x: torch.Tensor, valid_to=None,
-               fused: Optional[bool] = None) -> torch.Tensor:
-        """x (B, C, T) -> regime logits (B, K, T).  valid_to (scalar or
-        (B,)) zeroes x and the first hidden layer at t >= valid_to.
+               fused: Optional[bool] = None,
+               bf16_operands: bool = False) -> torch.Tensor:
+        """x (B, C, T) -> regime logits (B, K, T), float32.  valid_to
+        (scalar or (B,)) zeroes x and the first hidden layer at
+        t >= valid_to.
 
-        fused=None runs the whole stack as one CUDA kernel for a CUDA
-        tensor (ops/fused_encoder.py; inference only: it raises where grad
-        mode is on and x or the weights require grad) and the plain
-        convolutions for a CPU tensor; fused=False is the plain,
-        differentiable stack on any device; fused=True on a CPU tensor
-        raises."""
-        if fused is None:
-            fused = x.is_cuda
-        if fused:
-            return fused_encode(self, x, valid_to=valid_to, use_kernel=True)
+        fused=None runs the whole stack of a float32 model as one CUDA
+        kernel for a CUDA tensor (ops/fused_encoder.py; inference only: it
+        raises where grad mode is on and x or the weights require grad)
+        and the plain convolutions otherwise; fused=False is the plain,
+        differentiable stack on any device; fused=True on a CPU tensor or
+        a bfloat16 model raises.  bf16_operands: see the module's
+        docstring (plain stack only)."""
+        if fused is not False:
+            return fused_encode(self, x, valid_to=valid_to, use_kernel=fused)
         enc = self.encoder
+        conv, _, _, cast = self._products(bf16_operands)
+        x = cast(x)
         T = x.shape[-1]
         if valid_to is not None:
-            tmask = _time_bound_mask(T, valid_to, x.device)
+            tmask = _time_bound_mask(T, valid_to, x.device).to(x.dtype)
             x = x * tmask
-        h = torch.relu(ops.conv1d_same(enc.conv1.weight, enc.conv1.bias, x))
+        h = torch.relu(conv(enc.conv1, x))
         if valid_to is not None:
             h = h * tmask
-        h = torch.relu(ops.conv1d_same(enc.conv2.weight, enc.conv2.bias, h))
-        return ops.conv1d_same(enc.to_logits.weight, enc.to_logits.bias, h)
+        h = torch.relu(conv(enc.conv2, h))
+        return conv(enc.to_logits, h).float()
 
-    def prior(self, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """u (B, U, T) or (B, T, U) -> (log_pi (K,), log_A (B, T, K, K)).
-        A 3-D u whose dim 1 equals u_dim is read as (B, U, T)."""
+    def prior(self, u: torch.Tensor, bf16_operands: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """u (B, U, T) or (B, T, U) -> (log_pi (K,), log_A (B, T, K, K)),
+        float32.  A 3-D u whose dim 1 equals u_dim is read as (B, U, T)."""
         cfg = self.cfg
         if u is None:
             raise ValueError("u required for non-stationary transitions")
@@ -189,25 +233,30 @@ class VAEHMM(nn.Module):
             u = u.transpose(1, 2)
         B, T, _ = u.shape
         net = self.prior_module.transition_net
-        logits = ops.mlp2(net[0], net[2], u)
+        _, linear, _, cast = self._products(bf16_operands)
+        logits = linear(net[2], torch.relu(linear(net[0], cast(u)))).float()
         log_A = torch.log_softmax(logits.reshape(B, T, cfg.K, cfg.K), dim=-1)
+        # the float32 log_prior: K values used in no product
         log_pi = torch.log_softmax(self.prior_module.log_prior, dim=0)
         return log_pi, log_A
 
-    def decode(self, q: torch.Tensor, valid_to=None
+    def decode(self, q: torch.Tensor, valid_to=None,
+               bf16_operands: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """q (B, K, T) -> Gaussian (mu, logvar), each (B, C, T).  valid_to
-        zeroes e and the first hidden layer at t >= valid_to."""
+        """q (B, K, T) -> Gaussian (mu, logvar), each (B, C, T), float32.
+        valid_to zeroes e and the first hidden layer at t >= valid_to."""
         dec = self.decoder
-        e = torch.einsum("bkt,kd->bdt", q, dec.embeddings.weight)
+        conv, _, lookup, cast = self._products(bf16_operands)
+        e = lookup(dec.embeddings.weight, cast(q))
         if valid_to is not None:
-            tmask = _time_bound_mask(e.shape[-1], valid_to, e.device)
+            tmask = _time_bound_mask(e.shape[-1], valid_to,
+                                     e.device).to(e.dtype)
             e = e * tmask
-        h = torch.relu(ops.conv1d_same(dec.conv1.weight, dec.conv1.bias, e))
+        h = torch.relu(conv(dec.conv1, e))
         if valid_to is not None:
             h = h * tmask
-        h = torch.relu(ops.conv1d_same(dec.conv2.weight, dec.conv2.bias, h))
-        out = ops.conv1d_same(dec.to_params.weight, dec.to_params.bias, h)
+        h = torch.relu(conv(dec.conv2, h))
+        out = conv(dec.to_params, h).float()
         mid = out.shape[1] // 2
         return out[:, :mid, :], out[:, mid:, :]
 
@@ -216,20 +265,24 @@ class VAEHMM(nn.Module):
     # ------------------------------------------------------------------
 
     def compute_loss(self, x: torch.Tensor, u: torch.Tensor,
-                     lengths: torch.Tensor, beta: float = 1.0
-                     ) -> torch.Tensor:
+                     lengths: torch.Tensor, beta: float = 1.0,
+                     bf16_operands: bool = False) -> torch.Tensor:
         """Masked negative ELBO (vqvaehmm_tpu VAEHMM.compute_loss):
-        recon / max(mask.sum()*C, 1) + beta * (prior - entropy)."""
+        recon / max(mask.sum()*C, 1) + beta * (prior - entropy).
+        bf16_operands: the train kernel's bfloat16 arithmetic (module
+        docstring)."""
         if lengths is None:
             raise ValueError("lengths required")
         B, C, T = x.shape
         mask = length_mask(lengths, T)
         valid_to = lengths.max()
-        log_pi, log_A = self.prior(u)
+        log_pi, log_A = self.prior(u, bf16_operands)
         log_q = torch.log_softmax(
-            self.encode(x, valid_to=valid_to, fused=False), dim=1)
+            self.encode(x, valid_to=valid_to, fused=False,
+                        bf16_operands=bf16_operands), dim=1)
         q = torch.exp(log_q)
-        mu, logvar = self.decode(q, valid_to=valid_to)
+        mu, logvar = self.decode(q, valid_to=valid_to,
+                                 bf16_operands=bf16_operands)
 
         var = torch.clamp(torch.exp(logvar), min=1e-8)
         nll = 0.5 * (torch.log(2.0 * math.pi * var) + (mu - x) ** 2 / var)

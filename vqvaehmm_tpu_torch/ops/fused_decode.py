@@ -26,13 +26,14 @@ Both bound the encoder at the scalar max(lengths), as the model's exact
 modes do, and read the weights the encoder kernel's pack kernel lays out,
 kept a model (ops/fused_encoder.py::kernel_cache).
 
-Dispatch is that of ops/fused_infer.py: `use_kernel=None` takes the
-kernel for a CUDA tensor and the plain version for a CPU tensor,
-`use_kernel=True` on a CPU tensor raises, `use_kernel=False` computes
-the plain version.  There is no fallback.  `fused_evidence` refuses, as
-`fused_encode` does, where grad mode is on and an input or weight requires
-grad (the decode returns integer states, which carry none anyway).
-`fused_evidence.launches` and
+Dispatch is that of ops/fused_infer.py (`kernel_route`):
+`use_kernel=None` takes the kernel for a CUDA tensor of a float32 model
+and the plain version for a CPU tensor or a bfloat16 model,
+`use_kernel=True` on a CPU tensor or a bfloat16 model raises,
+`use_kernel=False` computes the plain version.  There is no fallback.
+`fused_evidence` refuses, as `fused_encode` does, where grad mode is on
+and an input or weight requires grad (the decode returns integer states,
+which carry none anyway).  `fused_evidence.launches` and
 `fused_viterbi_states.launches` count the kernels' launches.
 """
 
@@ -48,7 +49,7 @@ from . import _build
 from .fused_encoder import (TILES, check_x, encoder_dims, kernel_cache,
                             layers_fit, plan_for, refuse_grad,
                             smem_dims_bytes)
-from .fused_infer import H100_SMS, SMEM_LIMIT
+from .fused_infer import H100_SMS, SMEM_LIMIT, kernel_route
 from .fused_train import _u_strides
 from .fused_viterbi import MAX_K, num_segments
 from .hmm import viterbi
@@ -168,9 +169,7 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(log_pi (K,), log_A (B, T, K, K), log_obs (B, T, K)) for x (B, C, T)
     and u (B, U, T) or (B, T, U), the encoder bounded at max(lengths)."""
-    if use_kernel is None:
-        use_kernel = x.is_cuda
-    if not use_kernel:
+    if not kernel_route(model, x, use_kernel):
         return fused_evidence_reference(model, x, u, lengths)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "
@@ -255,9 +254,7 @@ def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
                          use_kernel: Optional[bool] = None) -> torch.Tensor:
     """MAP regime path (B, T) int32 from raw x (B, C, T) and u (B, U, T) or
     (B, T, U) in one launch."""
-    if use_kernel is None:
-        use_kernel = x.is_cuda
-    if not use_kernel:
+    if not kernel_route(model, x, use_kernel):
         return fused_viterbi_states_reference(model, x, u, lengths)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "

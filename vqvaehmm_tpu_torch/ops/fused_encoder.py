@@ -17,13 +17,15 @@ under `torch.inference_mode` has parameters without a version: they are
 packed every call); the gates' answers; and the launch plans of the
 shapes seen.
 
-Dispatch is that of ops/fused_infer.py: `use_kernel=None` takes the
-kernel for a CUDA tensor and the plain version for a CPU tensor,
-`use_kernel=True` on a CPU tensor raises, `use_kernel=False` computes
-the plain version.  There is no fallback: on a CUDA tensor the kernel
-launches or an exception is raised.  One such exception: with grad mode
-on and x or the encoder's weights requiring grad the kernel refuses, so
-that no caller trains through a detached tensor unawares.
+Dispatch is that of ops/fused_infer.py (`kernel_route`):
+`use_kernel=None` takes the kernel for a CUDA tensor of a float32 model
+and the plain version for a CPU tensor or a bfloat16 model,
+`use_kernel=True` on a CPU tensor or a bfloat16 model raises,
+`use_kernel=False` computes the plain version.  There is no fallback: a
+call that takes the kernel launches it or raises.  One such exception:
+with grad mode on and x or the encoder's weights requiring grad the
+kernel refuses, so that no caller trains through a detached tensor
+unawares.
 `fused_encode.launches` counts the kernel's launches (the pack kernel,
 once a weight version, is not counted).
 """
@@ -37,7 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .fused_infer import H100_SMS, SMEM_LIMIT, valid_to_rows
+from .fused_infer import H100_SMS, SMEM_LIMIT, kernel_route, valid_to_rows
 
 # csrc/encoder_fma.cuh and tile_fma.cuh: the tile widths, the halo of the
 # two k=3 convolutions, the steps a thread computes, the threads a block
@@ -333,9 +335,7 @@ def fused_encode(model, x: torch.Tensor, valid_to=None,
     """x (B, C, T) -> regime logits (B, K, T), with valid_to None, a scalar
     or a per-sequence (B,) vector (the semantics of VAEHMM.encode).  Row i
     of a batched call is bit-equal to the row computed alone."""
-    if use_kernel is None:
-        use_kernel = x.is_cuda
-    if not use_kernel:
+    if not kernel_route(model, x, use_kernel):
         return fused_encode_reference(model, x, valid_to)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor; the fused "

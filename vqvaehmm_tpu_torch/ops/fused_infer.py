@@ -6,11 +6,12 @@ sets out its design and the bound it meets).  `fused_forward` is the
 wrapper; `fused_forward_reference` is its plain PyTorch version;
 `launch_plan` chooses the kernel's tile width from the work.
 
-Dispatch (the counterpart of the JAX `use_pallas`): `use_kernel=None`
-takes the kernel for a CUDA tensor and the plain version for a CPU
-tensor; `use_kernel=True` on a CPU tensor raises; `use_kernel=False`
-computes the plain version.  There is no fallback: on a CUDA tensor the
-kernel launches or an exception is raised.
+Dispatch (the counterpart of the JAX `use_pallas`; `kernel_route`):
+`use_kernel=None` takes the kernel for a CUDA tensor of a float32 model
+and the plain version for a CPU tensor or a bfloat16 model;
+`use_kernel=True` on a CPU tensor or a bfloat16 model raises;
+`use_kernel=False` computes the plain version.  There is no fallback: a
+call that takes the kernel launches it or raises.
 
 `fused_forward.launches` counts the kernel's launches, so a run can show
 that its main path went through the kernel.
@@ -112,6 +113,18 @@ def launch_plan(B: int, T: int, C: int, H1: int, H2: int, K: int, D: int,
     return fits[-1]
 
 
+def kernel_route(model, x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """Whether a call of one of the float32 inference kernels (A, 8, 10,
+    11) launches it: use_kernel as given, and for None the kernel for a
+    CUDA tensor of a float32 model.  A bfloat16 model takes its plain
+    path on every device, as the JAX package routes such a model around
+    these kernels (vqvaehmm_tpu/models/vae_hmm.py, posterior and
+    infer_forward)."""
+    if use_kernel is None:
+        return x.is_cuda and model.cfg.compute_dtype == "float32"
+    return use_kernel
+
+
 def fused_forward_reference(model, x: torch.Tensor, valid_to=None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
@@ -139,14 +152,16 @@ def fused_forward(model, x: torch.Tensor, valid_to=None,
     The kernel is inference-only, as its TPU counterpart is: its outputs
     carry no gradient (use_kernel=False gives the differentiable plain
     version)."""
-    if use_kernel is None:
-        use_kernel = x.is_cuda
-    if not use_kernel:
+    if not kernel_route(model, x, use_kernel):
         return fused_forward_reference(model, x, valid_to)
+    cfg = model.cfg
+    if cfg.compute_dtype != "float32":
+        raise ValueError(f"the fused forward computes in float32; a "
+                         f"{cfg.compute_dtype} model takes the plain path "
+                         "(use_kernel=None or False)")
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor; the fused "
                          "forward is a CUDA kernel")
-    cfg = model.cfg
     if x.dtype != torch.float32:
         raise TypeError(f"fused forward takes float32 x, got {x.dtype}")
     if x.dim() != 3 or x.shape[1] != cfg.input_dim:

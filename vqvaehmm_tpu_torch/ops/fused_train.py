@@ -7,20 +7,27 @@ kernels for Hopper, csrc/fused_train.cu, whose header sets out the design
 and the bound it meets.
 
 * `fused_loss_and_grads(model, x, u, lengths, beta)` -> (loss, grads):
-  the counterpart of jax.value_and_grad(model.compute_loss), with `grads`
-  a dict keyed like `model.state_dict()`.  On CUDA tensors it is one call
-  of the C entry point (five kernels on the current stream: the weights
-  packed for staging, the forward by time tiles, the activation gradients
-  by time tiles, the weight gradients as a tiled reduction, and a
-  fixed-order sum); on CPU tensors
-  it is the plain version (`fused_loss_and_grads_reference`:
-  compute_loss plus torch.autograd.grad).  `use_kernel=True` on a CPU
-  tensor raises.
+  the counterpart of the TPU kernel's wrapper, with `grads` a dict keyed
+  like `model.state_dict()`.  On CUDA tensors it is one call of the C
+  entry point (five kernels on the current stream: the weights packed for
+  staging, the forward by time tiles, the activation gradients by time
+  tiles, the weight gradients as a tiled reduction, and a fixed-order
+  sum); on CPU tensors it is the plain version
+  (`fused_loss_and_grads_reference`: compute_loss plus
+  torch.autograd.grad).  `use_kernel=True` on a CPU tensor raises.
+* Two numeric modes, from the model's compute_dtype (`bf16_mode`), as the
+  TPU kernel's bf16_matmuls follows it: float32, and for a bfloat16
+  model every product's two operands rounded to bfloat16 with float32
+  sums and every other value float32 (the plain version:
+  compute_loss(bf16_operands=True), ops/nn.py::bf16_matmul).  That is
+  not the bfloat16 model's own plain path, whose activations are
+  bfloat16: `loss_and_grads` is that path, what the trainer takes with
+  fused=False.
 * `fused_loss_and_grads_tiled`: a second plain version that computes the
   loss and the gradients the way the kernels do (time tiles with halos,
-  the closed-form backward, partial sums per split), so that the halo
-  widths and the masks at tile edges are tested on the CPU.  Nothing on
-  the card calls it.
+  the closed-form backward, partial sums per split), in either mode, so
+  that the halo widths and the masks at tile edges are tested on the
+  CPU.  Nothing on the card calls it.
 * `train_plan(cfg, B, T)`: the launch plan (tile width, blocks, shared
   memory, scratch and partials sizes), pure Python.
 * `FusedELBO`, a torch.autograd.Function: its forward runs the kernel and
@@ -31,7 +38,9 @@ and the bound it meets.
 * `train_step_supported(cfg, B, T)`: the gate the trainer consults before
   it chooses the kernel.
 
-`fused_loss_and_grads.launches` counts the calls of the C entry point.
+`fused_loss_and_grads.launches` counts the calls of the C entry point in
+either mode, `fused_loss_and_grads.bf16_launches` those in the bfloat16
+mode.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .fused_infer import H100_SMS, ROW_PAD, SMEM_LIMIT, WBUF, _packed
+from .nn import bf16_round
 
 # the kernel keeps K regimes a thread in registers (csrc/fused_train.cu)
 KMAX = 16
@@ -235,18 +245,25 @@ def train_plan(cfg, B: int, T: int, sms: int = H100_SMS
 _supported: dict = {}
 
 
+def bf16_mode(cfg) -> bool:
+    """Whether the kernel runs in its bfloat16-operand mode: the model's
+    compute_dtype is bfloat16 (the TPU wrapper's bf16_matmuls)."""
+    return cfg.compute_dtype == "bfloat16"
+
+
 def train_step_supported(cfg, B: int, T: int) -> bool:
     """True when the fused train kernels take these shapes on Hopper:
-    float32 compute, u-conditioned transitions, at most KMAX regimes (a
-    thread keeps K values in registers), a slab of every layer's weights
-    within a weight buffer, a time tile whose block fits the card's 227 KB
-    of shared memory, and one sequence's scratch within 32-bit offsets.
+    float32 or bfloat16 compute (the two modes), u-conditioned
+    transitions, at most KMAX regimes (a thread keeps K values in
+    registers), a slab of every layer's weights within a weight buffer, a
+    time tile whose block fits the card's 227 KB of shared memory, and one
+    sequence's scratch within 32-bit offsets.
     The trainer asks once a step, so the answer is kept a shape."""
     key = (_widths(cfg), cfg.compute_dtype, B, T)
     if key not in _supported:
         C, U, H1, H2, K, HP, D = _widths(cfg)
         _supported[key] = bool(
-            cfg.compute_dtype == "float32" and U is not None
+            cfg.compute_dtype in ("float32", "bfloat16") and U is not None
             and B > 0 and T > 0 and 1 <= K <= KMAX
             and 3 * ((max(_buffer_rows(cfg), HP) + 3) // 4 * 4) <= WBUF
             and scratch_rows(cfg) * T <= _INT32_MAX
@@ -264,16 +281,28 @@ def _u_strides(cfg, u: torch.Tensor) -> Tuple[int, int, int]:
     return sb, s2, s1
 
 
+def loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
+                   lengths: torch.Tensor, beta, bf16_operands: bool = False
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """model.compute_loss and torch.autograd.grad, grads keyed like
+    state_dict(): the model's own plain path (bfloat16 activations for a
+    bfloat16 model), or with bf16_operands the kernel's bfloat16 mode."""
+    names, params = zip(*model.named_parameters())
+    with torch.enable_grad():
+        loss = model.compute_loss(x, u, lengths, beta,
+                                  bf16_operands=bf16_operands)
+        grads = torch.autograd.grad(loss, params)
+    return loss.detach(), dict(zip(names, grads))
+
+
 def fused_loss_and_grads_reference(model, x: torch.Tensor, u: torch.Tensor,
                                    lengths: torch.Tensor, beta
                                    ) -> Tuple[torch.Tensor,
                                               Dict[str, torch.Tensor]]:
-    """Plain version: model.compute_loss and torch.autograd.grad."""
-    names, params = zip(*model.named_parameters())
-    with torch.enable_grad():
-        loss = model.compute_loss(x, u, lengths, beta)
-        grads = torch.autograd.grad(loss, params)
-    return loss.detach(), dict(zip(names, grads))
+    """Plain version: loss_and_grads in the kernel's mode for the model
+    (for a float32 model, compute_loss and autograd as they are)."""
+    return loss_and_grads(model, x, u, lengths, beta,
+                          bf16_operands=bf16_mode(model.cfg))
 
 
 def _window(full: torch.Tensor, p0: int, W: int) -> torch.Tensor:
@@ -300,15 +329,20 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
     with a halo of 3 (reading the forward's activations and the
     neighbouring tiles' q and log_A from the scratch), the nine weight
     gradients as sums over (sequence, slab) units grouped into `splits`
-    fixed splits, the loss from per-tile sums in double."""
+    fixed splits, the loss from per-tile sums in double.  In the
+    bfloat16 mode (bf16_mode) the weights and every activation that
+    enters a product are rounded to bfloat16 there; the bias gradients
+    sum the unrounded gradients."""
     cfg = model.cfg
     _check_inputs(model, x, u, lengths)
     C, U, H1, H2, K, HP, D = _widths(cfg)
     B, _, T = x.shape
     shapes = {n: w.shape for n, w in model.named_parameters()}
-    # the 1x1 convolutions as matrices
-    p = {n: w.detach().reshape(w.shape[0], -1)
+    rnd = bf16_round if bf16_mode(cfg) else (lambda a: a)
+    # the 1x1 convolutions as matrices; the weights as a product reads them
+    p = {n: rnd(w.detach().reshape(w.shape[0], -1))
          if n.endswith("weight") and w.dim() == 3 and w.shape[2] == 1
+         else rnd(w.detach()) if n.endswith("weight")
          else w.detach() for n, w in model.named_parameters()}
     if u.shape[1] != cfg.u_dim:
         u = u.transpose(1, 2)
@@ -324,7 +358,8 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
     steps = torch.arange(T)
 
     def relu_conv(a, name):
-        return torch.relu(F.conv1d(a, p[name + ".weight"], p[name + ".bias"]))
+        return torch.relu(F.conv1d(rnd(a), p[name + ".weight"],
+                                   p[name + ".bias"]))
 
     # ---- forward, a tile with its halo of 4 at a time ----
     for t0 in range(0, T, tile):
@@ -337,15 +372,15 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
         h1 = relu_conv(xs, "encoder.conv1") * keep[1:-1]
         h2 = relu_conv(h1, "encoder.conv2")
         logits = torch.einsum("ki,bit->bkt", p["encoder.to_logits.weight"],
-                              h2) + p["encoder.to_logits.bias"][:, None]
+                              rnd(h2)) + p["encoder.to_logits.bias"][:, None]
         lq = torch.log_softmax(logits, 1)
         q = torch.exp(lq)
         e = torch.einsum("kd,bkt->bdt", p["decoder.embeddings.weight"],
-                         q) * keep[2:-2]
+                         rnd(q)) * keep[2:-2]
         hd1 = relu_conv(e, "decoder.conv1") * keep[3:-3]
         hd2 = relu_conv(hd1, "decoder.conv2")
         out = torch.einsum("oi,bit->bot", p["decoder.to_params.weight"],
-                           hd2) + p["decoder.to_params.bias"][:, None]
+                           rnd(hd2)) + p["decoder.to_params.bias"][:, None]
         mu, lv = out[:, :C], out[:, C:]
         ev = torch.exp(lv)
         var = ev.clamp(min=1e-8)
@@ -359,10 +394,10 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
                           torch.zeros(()))
         uu = u[:, :, own]
         hp = torch.relu(torch.einsum(
-            "ju,but->bjt", p["prior.transition_net.0.weight"], uu)
+            "ju,but->bjt", p["prior.transition_net.0.weight"], rnd(uu))
             + p["prior.transition_net.0.bias"][:, None])
         la = torch.einsum("rj,bjt->brt", p["prior.transition_net.2.weight"],
-                          hp) + p["prior.transition_net.2.bias"][:, None]
+                          rnd(hp)) + p["prior.transition_net.2.bias"][:, None]
         la = torch.log_softmax(la.view(B, K, K, n), 2).reshape(B, K * K, n)
         for name, val in (("xm", xs[:, :, 4:-4]), ("uu", uu),
                           ("h1", h1[:, :, 3:-3]), ("hp", hp),
@@ -382,10 +417,10 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
         own = slice(t0, t0 + n)
         win = lambda name, a=0, b=0: _window(sc[name], p0 + a, W - a - b)  # noqa: E731
         dhd2 = torch.einsum("oi,bot->bit", p["decoder.to_params.weight"],
-                            win("dout")) * (win("hd2") > 0)
-        dhd1 = _conv_t(dhd2, p["decoder.conv2.weight"]) \
+                            rnd(win("dout"))) * (win("hd2") > 0)
+        dhd1 = _conv_t(rnd(dhd2), p["decoder.conv2.weight"]) \
             * (win("hd1", 1, 1) > 0)
-        de = _conv_t(dhd1, p["decoder.conv1.weight"]) \
+        de = _conv_t(rnd(dhd1), p["decoder.conv1.weight"]) \
             * (inside & (pos < vt))[2:-2].to(x.dtype)
         # the per-step stage on window positions [2, W - 2)
         ts = pos[2:-2]
@@ -398,7 +433,7 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
         qp, qn = win("q", 1, 3), win("q", 3, 1)
         la = win("la", 2, 2).view(B, K, K, -1)
         lan = win("la", 3, 1).view(B, K, K, -1)
-        gd = torch.einsum("kd,bdt->bkt", emb, de)
+        gd = torch.einsum("kd,bdt->bkt", emb, rnd(de))
         in_t = torch.einsum("bit,bikt->bkt", qp, la)
         out_t = torch.einsum("bjt,bkjt->bkt", qn, lan)
         gq = gd + s_p * pm * in_t + s_p * pmn * out_t + s_h * mf * lqt
@@ -414,10 +449,11 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
         sums[1] += (init + trans)[:, mine].double().sum()
         sums[2] += ((qt * lqt).sum(1) * mf[:, 0])[:, mine].double().sum()
         dh2 = torch.einsum("ki,bkt->bit", p["encoder.to_logits.weight"],
-                           dl) * (win("h2", 2, 2) > 0)
-        dh1 = _conv_t(dh2, p["encoder.conv2.weight"]) * (win("h1", 3, 3) > 0)
+                           rnd(dl)) * (win("h2", 2, 2) > 0)
+        dh1 = _conv_t(rnd(dh2), p["encoder.conv2.weight"]) \
+            * (win("h1", 3, 3) > 0)
         dhp = torch.einsum("rj,brt->bjt", p["prior.transition_net.2.weight"],
-                           dap[:, :, mine]) * (sc["hp"][:, :, own] > 0)
+                           rnd(dap[:, :, mine])) * (sc["hp"][:, :, own] > 0)
         for name, val in (("dhd2", dhd2[:, :, 3:-3]),
                           ("dhd1", dhd1[:, :, 2:-2]), ("de", de[:, :, 1:-1]),
                           ("dl", dl[:, :, mine]), ("dap", dap[:, :, mine]),
@@ -447,8 +483,8 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
     grads = {}
     for name, dy, inp, O, I, taps, bias in weight_grad_jobs(cfg):
         d = by_unit(sc[dy], 0)
-        gw = torch.stack([torch.einsum("uot,uit->uoi", d,
-                                       by_unit(sc[inp], k - taps // 2))
+        gw = torch.stack([torch.einsum("uot,uit->uoi", rnd(d),
+                                       rnd(by_unit(sc[inp], k - taps // 2)))
                           for k in range(taps)], -1)
         if name == "decoder.embeddings":
             grads[name + ".weight"] = in_splits(gw[..., 0])
@@ -519,7 +555,7 @@ def _kernel_call(lib, model, params, x, u, lengths, beta, stream
         *[w.data_ptr() for w in weights], base, base + 4 * plan.packed,
         base + 4 * (plan.packed + n_scratch), loss_partials.data_ptr(),
         grads.data_ptr(), loss.data_ptr(), *dims, plan.tile, plan.splits,
-        float(beta), stream)
+        int(bf16_mode(cfg)), float(beta), stream)
     _build.check(err, "fused_train kernel launch")
     return loss, grads
 
@@ -563,9 +599,10 @@ def fused_loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
                          lengths: torch.Tensor, beta,
                          use_kernel: Optional[bool] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, grads) of model.compute_loss(x, u, lengths, beta), grads
-    keyed like state_dict().  The caller checks train_step_supported
-    first; an unsupported shape raises here."""
+    """(loss, grads) of model.compute_loss(x, u, lengths, beta) in the
+    kernel's mode for the model (bf16_mode), grads keyed like
+    state_dict().  The caller checks train_step_supported first; an
+    unsupported shape raises here.  Both modes count in `launches`."""
     if use_kernel is None:
         use_kernel = x.is_cuda
     if not use_kernel:
@@ -585,10 +622,12 @@ def fused_loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
                               beta, stream)
     with _count_lock:
         fused_loss_and_grads.launches += 1
+        fused_loss_and_grads.bf16_launches += bf16_mode(model.cfg)
     return loss, split_grads(params, flat)
 
 
 fused_loss_and_grads.launches = 0
+fused_loss_and_grads.bf16_launches = 0
 
 
 class FusedELBO(torch.autograd.Function):

@@ -3,6 +3,13 @@
 Counterpart of vqvaehmm_tpu/ops/nn.py.  Weights keep torch's layouts
 (Conv1d (O, I, W), Linear (out, in)), which are also the JAX package's,
 so parameters cross between the two packages by name alone.
+
+The bf16-operand products (`bf16_matmul`, `conv1d_same_bf16`,
+`linear_bf16`) are the arithmetic of the train kernel's bfloat16 mode
+(vqvaehmm_tpu/ops/pallas_train.py::_make_dots with bf16_matmuls): both
+operands of every product rounded to bfloat16, the sums in float32, every
+other value float32.  A product of two bfloat16 values is exact in
+float32, so they differ from the kernel only in the order of the sums.
 """
 
 from __future__ import annotations
@@ -59,6 +66,20 @@ def conv1d_same(weight: torch.Tensor, bias: torch.Tensor,
     return F.conv1d(x, weight, bias, padding=k // 2)
 
 
+def _matmul_operands(weight: torch.Tensor, x: torch.Tensor):
+    """(w2, cols) with conv1d_same(weight, 0, x) == w2 @ cols: the weight
+    as (O, k*I) and the k shifted copies of x stacked on channels."""
+    O, I, k = weight.shape
+    if k % 2 == 0:
+        raise ValueError(f"conv1d_same requires an odd kernel width, got {k}")
+    if k == 1:
+        return weight[:, :, 0], x
+    T = x.shape[-1]
+    xp = F.pad(x, (k // 2, k // 2))
+    cols = torch.cat([xp[:, :, tap:tap + T] for tap in range(k)], dim=1)
+    return weight.permute(0, 2, 1).reshape(O, k * I), cols  # [o, tap*I + i]
+
+
 def conv1d_same_matmul(weight: torch.Tensor, bias: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """conv1d_same as one matrix product over the k shifted copies of x
@@ -69,16 +90,7 @@ def conv1d_same_matmul(weight: torch.Tensor, bias: torch.Tensor,
     summation order, where cuDNN's default convolution backward adds with
     atomics, and its deterministic algorithm (an FFT) costs many times the
     device time at this model's channel counts."""
-    O, I, k = weight.shape
-    if k % 2 == 0:
-        raise ValueError(f"conv1d_same requires an odd kernel width, got {k}")
-    if k == 1:
-        cols, w2 = x, weight[:, :, 0]
-    else:
-        T = x.shape[-1]
-        xp = F.pad(x, (k // 2, k // 2))
-        cols = torch.cat([xp[:, :, tap:tap + T] for tap in range(k)], dim=1)
-        w2 = weight.permute(0, 2, 1).reshape(O, k * I)       # [o, tap*I + i]
+    w2, cols = _matmul_operands(weight, x)
     return torch.matmul(w2, cols) + bias[None, :, None]
 
 
@@ -98,8 +110,47 @@ def linear(weight: torch.Tensor, bias: torch.Tensor,
     return F.linear(x, weight, bias)
 
 
-def mlp2(fc1: torch.nn.Linear, fc2: torch.nn.Linear,
-         x: torch.Tensor) -> torch.Tensor:
-    """Linear -> ReLU -> Linear."""
-    return linear(fc2.weight, fc2.bias,
-                  torch.relu(linear(fc1.weight, fc1.bias, x)))
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to the nearest bfloat16 (ties to even, as XLA's convert
+    rounds), back in float32."""
+    return t.to(torch.bfloat16).float()
+
+
+class _BF16OperandMatmul(torch.autograd.Function):
+    """a @ b with both operands rounded to bfloat16 and float32 sums; the
+    backward's two products round their operands too (g @ b^T and
+    a^T @ g), as the kernel's backward does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ra, rb = bf16_round(a), bf16_round(b)
+        ctx.save_for_backward(ra, rb)
+        return ra @ rb
+
+    @staticmethod
+    def backward(ctx, g):
+        ra, rb = ctx.saved_tensors
+        rg = bf16_round(g)
+        # a batched operand broadcast against the other sums its gradient
+        return ((rg @ rb.transpose(-1, -2)).sum_to_size(ra.shape),
+                (ra.transpose(-1, -2) @ rg).sum_to_size(rb.shape))
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.matmul of float32 a and b with bfloat16-rounded operands."""
+    return _BF16OperandMatmul.apply(a, b)
+
+
+def conv1d_same_bf16(weight: torch.Tensor, bias: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """conv1d_same_matmul with its one product through bf16_matmul: the
+    weight and the shifted copies of x rounded to bfloat16, the bias added
+    in float32 (its gradient reads the unrounded output gradient)."""
+    w2, cols = _matmul_operands(weight, x)
+    return bf16_matmul(w2, cols) + bias[None, :, None]
+
+
+def linear_bf16(weight: torch.Tensor, bias: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """linear with bfloat16-rounded operands: x (..., in) -> (..., out)."""
+    return bf16_matmul(x, weight.t()) + bias

@@ -7,7 +7,11 @@ Counterpart of vqvaehmm_tpu/train/trainer.py, in eager PyTorch:
   `make_lr_schedule` read at the number of updates made so far (optax
   reads its schedule at the pre-increment count);
 * `train_step`: one update, its loss and gradients from the fused
-  kernel (ops/fused_train.py) or from compute_loss and autograd;
+  kernel (ops/fused_train.py) or from compute_loss and autograd.  For a
+  bfloat16 model (the throughput configuration) the kernel runs its
+  bfloat16-operand mode, as the TPU kernel does, and on the CPU its
+  plain version of that mode; compute_loss and autograd run the model's
+  bfloat16 activations, as the JAX package's unfused step does;
 * `make_epoch_step`: an epoch of host-assembled batches; the device
   input pipeline's epoch is data/device_sampler.py::make_epoch_step;
 * `Trainer` and `train_model`, the reference's training entry points.
@@ -31,7 +35,8 @@ import torch
 from ..core.device import resolve_device
 from ..data.dataset import RandomChunkDataset, epoch_arrays
 from ..data.prefetch import prefetch_epochs
-from ..ops.fused_train import fused_loss_and_grads, train_step_supported
+from ..ops.fused_train import (fused_loss_and_grads, loss_and_grads,
+                               train_step_supported)
 
 
 def resolve_input_pipeline(value: str, device) -> str:
@@ -50,11 +55,13 @@ def resolve_input_pipeline(value: str, device) -> str:
 def resolve_fused(value, model_cfg, batch_size: int, max_len: int,
                   device, log_fn=print) -> bool:
     """Whether the fused train kernel runs, decided before training.
-    False -> the plain path.  'auto'/None -> the kernel on a CUDA device,
-    the plain path on the CPU.  True -> the kernel (on the CPU its plain
-    version; a shape the gate refuses is logged there).  On a CUDA device
-    a shape that train_step_supported refuses raises: the plain path runs
-    on the card only when asked for with fused=False."""
+    False -> the plain path (compute_loss and autograd, in the model's
+    compute dtype).  'auto'/None -> the kernel on a CUDA device, the plain
+    path on the CPU.  True -> the kernel (on the CPU its plain version; a
+    shape the gate refuses is logged there).  A bfloat16 model's kernel
+    is its bfloat16-operand mode.  On a CUDA device a shape that
+    train_step_supported refuses raises: the plain path runs on the card
+    only when asked for with fused=False."""
     if value is False:
         return False
     if value not in (True, "auto", None):
@@ -215,10 +222,10 @@ def train_step(model, optimizer: ClippedAdam, x: torch.Tensor,
                fused: bool = False) -> torch.Tensor:
     """One update; returns the loss (a device scalar, not synchronised).
     fused=True takes the loss and all gradients from
-    ops/fused_train.py (one kernel call on the card); fused=False from
-    compute_loss and autograd."""
-    loss, grads = fused_loss_and_grads(model, x, u, lengths, beta,
-                                       use_kernel=None if fused else False)
+    ops/fused_train.py (one kernel call on the card, its plain version on
+    the CPU); fused=False from compute_loss and autograd."""
+    loss, grads = (fused_loss_and_grads if fused else loss_and_grads)(
+        model, x, u, lengths, beta)
     for name, p in model.named_parameters():
         p.grad = grads[name]
     optimizer.update()
