@@ -42,13 +42,8 @@
 // The result of an output therefore does not depend on the tile, the
 // block, the slab size or the batch.  Arithmetic is fp32 FMA on the CUDA
 // cores (the model's contract is full float32: no TF32, no tensor cores).
-//
-// RND (the train kernel's bfloat16 mode, fused_train.cu): every activation
-// operand is rounded to the nearest bfloat16 as a slab reads it, and
-// pack_weights<true> rounds the weights, so both operands of each product
-// are bfloat16 values and their product is exact in float32; the sums stay
-// float32, in the same fixed order.  RND = false is the default and
-// compiles to the code the float32 kernels had before the mode existed.
+// The training step's bfloat16 mode does not use this header's layers: its
+// products run on the tensor cores (tile_mma.cuh).
 //
 // pack_weights also packs the transposed layer (the gradient with respect
 // to the layer's input): output channel a and input channel b of the
@@ -56,19 +51,9 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tilefma {
-
-// A product operand as the bfloat16 mode reads it: v rounded to the
-// nearest bfloat16 (ties to even, as XLA's convert rounds), in float32.
-// RND = false: v itself.
-template <bool RND>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (RND) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -118,9 +103,7 @@ struct PackJob {
   long long at;
 };
 
-// dst[job.at + (i * taps + k) * OS + pos] for every job, by the whole grid;
-// with RND each weight rounded to bfloat16 (operand).
-template <bool RND = false>
+// dst[job.at + (i * taps + k) * OS + pos] for every job, by the whole grid.
 __device__ __forceinline__ void pack_weights(const PackJob* jobs, int njobs,
                                              float* __restrict__ dst) {
   const long long total = jobs[njobs - 1].at +
@@ -140,7 +123,7 @@ __device__ __forceinline__ void pack_weights(const PackJob* jobs, int njobs,
       v = job.trans
               ? job.w[((size_t)i * job.O + o) * job.taps + (job.taps - 1 - k)]
               : job.w[((size_t)o * job.I + i) * job.taps + k];
-    dst[idx] = operand<RND>(v);
+    dst[idx] = v;
   }
 }
 
@@ -161,8 +144,8 @@ __device__ __forceinline__ void stage_packed(const float* __restrict__ src,
 // first: start from 0, else from the partial sums in `out`.  Up to 4
 // positions before lo and JB past hi are read (and never used for a
 // stored value): rows keep JB floats of slack, and a float lies before
-// the first row.  RND: each input value rounded to bfloat16 as it is read.
-template <int TAPS, bool RND>
+// the first row.
+template <int TAPS>
 __device__ __forceinline__ void fma_slab4(const float* ws, int O, int n,
                                           const float* in, float* out, int WS,
                                           int lo, int hi, bool first) {
@@ -192,14 +175,14 @@ __device__ __forceinline__ void fma_slab4(const float* ws, int O, int n,
     for (int il = 0; il < n; ++il) {
       float v[JB + TAPS - 1];
       const float4 v4 = *reinterpret_cast<const float4*>(row);
-      v[0] = operand<RND>(v4.x);
-      v[1] = operand<RND>(v4.y);
-      v[2] = operand<RND>(v4.z);
-      v[3] = operand<RND>(v4.w);
+      v[0] = v4.x;
+      v[1] = v4.y;
+      v[2] = v4.z;
+      v[3] = v4.w;
       if constexpr (TAPS == 3) {
         const float2 v2 = *reinterpret_cast<const float2*>(row + 4);
-        v[4] = operand<RND>(v2.x);
-        v[5] = operand<RND>(v2.y);
+        v[4] = v2.x;
+        v[5] = v2.y;
       }
 #pragma unroll
       for (int k = 0; k < TAPS; ++k) {
@@ -225,7 +208,7 @@ __device__ __forceinline__ void fma_slab4(const float* ws, int O, int n,
 
 // The same for a layer of few outputs, spread over the block an (output,
 // step) or (4 outputs, step) a thread: scalar loads of the window.
-template <int TAPS, int OB, bool RND>
+template <int TAPS, int OB>
 __device__ __forceinline__ void fma_slab1(const float* ws, int O, int n,
                                           const float* in, float* out, int WS,
                                           int lo, int hi, bool first) {
@@ -246,7 +229,7 @@ __device__ __forceinline__ void fma_slab1(const float* ws, int O, int n,
     const float* wp = ws + (OB == 4 ? og * 4 : position_of(og, OS));
 #pragma unroll 4
     for (int il = 0; il < n; ++il) {
-      const float v = operand<RND>(*row);
+      const float v = *row;
       if constexpr (OB == 4) {
         const float4 w4 = *reinterpret_cast<const float4*>(wp);
         acc[0] = fmaf(w4.x, v, acc[0]);
@@ -267,15 +250,15 @@ __device__ __forceinline__ void fma_slab1(const float* ws, int O, int n,
 
 // JB = 4: the register-tiled slab, 4 output channels x 4 steps a thread;
 // JB = 1: a small layer.
-template <int TAPS, int OB, int JB, bool RND = false>
+template <int TAPS, int OB, int JB>
 __device__ __forceinline__ void fma_slab(const float* ws, int O, int n,
                                          const float* in, float* out, int WS,
                                          int lo, int hi, bool first) {
   if constexpr (JB == 1) {
-    fma_slab1<TAPS, OB, RND>(ws, O, n, in, out, WS, lo, hi, first);
+    fma_slab1<TAPS, OB>(ws, O, n, in, out, WS, lo, hi, first);
   } else {
     static_assert(JB == 4 && OB == 4, "4 channels x 4 steps a thread");
-    fma_slab4<TAPS, RND>(ws, O, n, in, out, WS, lo, hi, first);
+    fma_slab4<TAPS>(ws, O, n, in, out, WS, lo, hi, first);
   }
 }
 
@@ -356,8 +339,8 @@ __device__ __forceinline__ void stage_first(const Next& nx, float* buf) {
 // raw sums (no bias, no activation), from the packed weights wp.  Ends
 // with a __syncthreads: `out` is visible to the block.  A layer needs
 // round4(O) * TAPS <= WBUF (the callers' launchers check).  Every thread
-// of the block calls it.  RND: the bfloat16 mode (fma_slab4).
-template <int TAPS, int OB, int JB, bool RND = false>
+// of the block calls it.
+template <int TAPS, int OB, int JB>
 __device__ __forceinline__ void layer(const float* __restrict__ wp, int O,
                                       int I, const float* in, float* out,
                                       int WS, int lo, int hi, Pipe& pipe,
@@ -385,8 +368,8 @@ __device__ __forceinline__ void layer(const float* __restrict__ wp, int O,
       cp_async_wait<0>();
     }
     __syncthreads();
-    fma_slab<TAPS, OB, JB, RND>(mine, O, n, in + (size_t)i0 * WS, out, WS, lo,
-                                hi, s == 0);
+    fma_slab<TAPS, OB, JB>(mine, O, n, in + (size_t)i0 * WS, out, WS, lo, hi,
+                           s == 0);
     __syncthreads();
   }
   pipe.cur = (pipe.cur + nslab) & 1;

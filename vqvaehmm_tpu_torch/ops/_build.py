@@ -104,8 +104,8 @@ _SIGNATURES = {
     + [_P],
 }
 # entry points returning a long long: B, C, T, U, H1, H2, K, HP, D, tile,
-# what
-_SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 11,
+# what, bf16
+_SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 12,
                     # C, H1, H2, K, D -> floats of the packed weights
                     "vqhmm_fused_infer_packed_floats": [_I] * 5,
                     # C, H1, H2, K, U, HP -> floats of the packed weights
@@ -202,6 +202,37 @@ def library() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
         _lib = lib
         return lib
+
+
+def sass_counts(names, opcode: str = "HMMA") -> dict:
+    """{name: instructions of `opcode` in the built library's SASS} for the
+    kernels named (plain, unmangled names), read with the toolkit's
+    cuobjdump --dump-sass: HMMA counts the tensor-core instructions.  A
+    kernel the SASS does not hold raises."""
+    import re
+
+    lib = library()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "--dump-sass", lib._name],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError("cuobjdump --dump-sass failed: " + proc.stderr)
+    counts, current = {}, None
+    for line in proc.stdout.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            # a mangled name holds a name's length just before the name
+            current = next((n for n in names
+                            if f"{len(n)}{n}" in found.group(1)), None)
+            if current is not None:
+                counts[current] = 0
+        elif current is not None and re.search(rf"\b{opcode}\b", line):
+            counts[current] += 1
+    missing = set(names) - set(counts)
+    if missing:
+        raise RuntimeError(f"the library's SASS has no function for "
+                           f"{sorted(missing)}")
+    return counts
 
 
 _sm_counts: dict = {}

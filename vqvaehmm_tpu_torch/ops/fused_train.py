@@ -16,13 +16,16 @@ and the bound it meets.
   (`fused_loss_and_grads_reference`: compute_loss plus
   torch.autograd.grad).  `use_kernel=True` on a CPU tensor raises.
 * Two numeric modes, from the model's compute_dtype (`bf16_mode`), as the
-  TPU kernel's bf16_matmuls follows it: float32, and for a bfloat16
-  model every product's two operands rounded to bfloat16 with float32
-  sums and every other value float32 (the plain version:
-  compute_loss(bf16_operands=True), ops/nn.py::bf16_matmul).  That is
-  not the bfloat16 model's own plain path, whose activations are
-  bfloat16: `loss_and_grads` is that path, what the trainer takes with
-  fused=False.
+  TPU kernel's bf16_matmuls follows it: float32 (products as fp32 FMA
+  chains on the CUDA cores), and for a bfloat16 model every product's two
+  operands rounded to bfloat16 with float32 sums and every other value
+  float32, the products on the tensor cores (csrc/tile_mma.cuh; the
+  plain version: compute_loss(bf16_operands=True),
+  ops/nn.py::bf16_matmul).  That is not the bfloat16 model's own plain
+  path, whose activations are bfloat16: `loss_and_grads` is that path,
+  what the trainer takes with fused=False.  The two modes have launch
+  plans of their own (`train_plan`); `pack_mma_reference` is the plain
+  version of the bfloat16 mode's weight packing.
 * `fused_loss_and_grads_tiled`: a second plain version that computes the
   loss and the gradients the way the kernels do (time tiles with halos,
   the closed-form backward, partial sums per split), in either mode, so
@@ -66,14 +69,22 @@ HALO_FWD = 4
 HALO_BWD = 3
 JB = 4
 # the weight-gradient kernel: a block owns WG_TILE x WG_TILE (output,
-# input) pairs and walks slabs of WG_SLAB time steps
+# input) pairs (WG_TILE_BF16 in the bfloat16 mode) and walks slabs of
+# WG_SLAB time steps
 WG_TILE = 32
+WG_TILE_BF16 = 64
 WG_SLAB = 32
 # static shared memory of the forward and backward kernels (the doubles of
 # the loss sums over MAX_THREADS threads), and an SM's shared memory: a
 # resident block takes its own and 1 KB more of it
 _STATIC_SMEM = 8 * 512 + 128
 _SM_SMEM = 228 * 1024
+# the bfloat16 mode's forward and backward blocks: MMA_THREADS threads
+# (their loss sums' doubles are its static shared memory), at most
+# MMA_BLOCKS_PER_SM resident an SM (__launch_bounds__(MMA_THREADS, 3))
+MMA_THREADS = 256
+MMA_BLOCKS_PER_SM = 3
+_STATIC_SMEM_BF16 = 8 * MMA_THREADS + 128
 # a block's fixed work (staging the weights, the barriers of 16 layers)
 # in steps of a window, from the solo-block times of the serving forward
 _FIXED_STEPS = 32
@@ -163,38 +174,119 @@ def _buffer_rows(cfg) -> int:
     return max(H1, H2, D, (HP + 1) // 2, 2 * C)
 
 
-def packed_floats(cfg) -> int:
-    """Floats of the packed weights a call allocates (the same count as
-    csrc/fused_train.cu::packed): the forward's nine layers, then the seven
-    the backward convolves with."""
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _mma_packed(O: int, I: int, taps: int) -> int:
+    """bfloat16 values of one layer packed for the tensor cores
+    (csrc/tile_mma.cuh::packed_elems)."""
+    return _round16(O) * taps * _round16(I)
+
+
+def _layers(cfg):
+    """(O, I, taps) of the sixteen packed layers in the order of
+    csrc/fused_train.cu::packed: the forward's nine, then the seven the
+    backward convolves with."""
     C, U, H1, H2, K, HP, D = _widths(cfg)
     KK = K * K
-    fwd = (_packed(H1, C, 3) + _packed(H2, H1, 3) + _packed(K, H2, 1)
-           + _packed(D, K, 1) + 2 * _packed(D, D, 3) + _packed(2 * C, D, 1)
-           + _packed(HP, U, 1) + _packed(KK, HP, 1))
-    bwd = (_packed(D, 2 * C, 1) + 2 * _packed(D, D, 3) + _packed(K, D, 1)
-           + _packed(H2, K, 1) + _packed(H1, H2, 3) + _packed(HP, KK, 1))
-    return fwd + bwd
+    return ((H1, C, 3), (H2, H1, 3), (K, H2, 1), (D, K, 1), (D, D, 3),
+            (D, D, 3), (2 * C, D, 1), (HP, U, 1), (KK, HP, 1),
+            (D, 2 * C, 1), (D, D, 3), (D, D, 3), (K, D, 1), (H2, K, 1),
+            (H1, H2, 3), (HP, KK, 1))
+
+
+def packed_floats(cfg) -> int:
+    """Floats of the packed weights a call allocates (the same count as
+    csrc/fused_train.cu::packed): in the float32 mode the layers in the
+    order the FMA slabs stage them, in the bfloat16 mode bfloat16 values
+    in mma fragment order, two a float."""
+    if bf16_mode(cfg):
+        return sum(_mma_packed(*layer) for layer in _layers(cfg)) // 2
+    return sum(_packed(*layer) for layer in _layers(cfg))
+
+
+def mma_fragment_index(O: int, I: int, taps: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(o, i, k) of every value of a layer packed for the tensor cores, in
+    packed order, by the index formulas of
+    csrc/tile_mma.cuh::fragment_entry: for each m-tile of 16 output
+    channels, each chunk (tap k, input channels [16 g, 16 g + 16)),
+    tap-major, is a fragment of 256 values, 8 a lane, value e of lane l the
+    A operand's a_e of mma.m16n8k16.  Entries with o >= O or i >= I are the
+    zero padding."""
+    idx = torch.arange(_mma_packed(O, I, taps))
+    groups = _round16(I) // 16
+    chunks = taps * groups
+    f, lane, e = idx // 256, (idx // 8) % 32, idx % 8
+    mt, c = f // chunks, f % chunks
+    k, g = c // groups, c % groups
+    o = 16 * mt + lane // 4 + 8 * ((e // 2) % 2)
+    i = 16 * g + 2 * (lane % 4) + e % 2 + 8 * (e // 4)
+    return o, i, k
+
+
+def pack_mma_reference(w: torch.Tensor, taps: int, trans: bool = False
+                       ) -> torch.Tensor:
+    """Plain version of the bfloat16 mode's pack kernel
+    (csrc/tile_mma.cuh::pack_fragments) for one layer: w is the torch
+    tensor (O, I, taps) (a Linear's or an Embedding's (O, I) for taps 1),
+    or with trans the tensor (I, O, taps) of the layer whose transpose is
+    packed (output channel a, input channel b, tap k read w[b][a][taps - 1
+    - k]).  Returns the packed values, rounded to bfloat16, as float32."""
+    w = w.detach().to(torch.float32)
+    w = w.reshape(w.shape[0], w.shape[1], taps)
+    full = w.transpose(0, 1).flip(-1) if trans else w    # (O, I, taps)
+    O, I = full.shape[:2]
+    o, i, k = mma_fragment_index(O, I, taps)
+    ok = (o < O) & (i < I)
+    out = torch.zeros(o.shape)
+    out[ok] = bf16_round(full[o[ok], i[ok], k[ok]])
+    return out
 
 
 def _smem(tile: int, halo: int, rows: int) -> int:
-    stride = (tile + 2 * halo + JB + 3) // 4 * 4      # 16-byte rows
-    return 4 * (2 * WBUF + ROW_PAD + stride * rows)
+    return 4 * (2 * WBUF + ROW_PAD + _row_stride(tile, halo) * rows)
+
+
+def _row_stride(tile: int, halo: int) -> int:
+    return (tile + 2 * halo + JB + 3) // 4 * 4      # 16-byte rows
+
+
+def _op_stride(n: int) -> int:
+    """bfloat16 values a row of an operand of n channels
+    (csrc/tile_mma.cuh::op_stride)."""
+    return _round16(n) + 8
 
 
 def smem_fwd_bytes(cfg, tile: int) -> int:
-    """Dynamic shared memory of a forward block: two weight buffers, then
-    x, u, two ping-pong buffers of the widest layer, q, log q, log_A."""
+    """Dynamic shared memory of a forward block.  float32: two weight
+    buffers, then x, u, two ping-pong buffers of the widest layer, q,
+    log q, log_A.  bfloat16: the window's operands (two ping-pong buffers
+    of the widest, x, u), time-major, then float32 rows for the logits,
+    (mu, logvar) and log_A in turn."""
     C, U, H1, H2, K, HP, D = _widths(cfg)
+    if bf16_mode(cfg):
+        ops = 2 * _op_stride(max(H1, H2, D, HP, K)) + _op_stride(C) \
+            + _op_stride(U)
+        return 2 * (tile + 2 * HALO_FWD) * ops \
+            + 4 * _row_stride(tile, HALO_FWD) * max(2 * K, 2 * C, K * K)
     G = _buffer_rows(cfg)
     return _smem(tile, HALO_FWD, C + U + 2 * G + 2 * K + K * K)
 
 
 def smem_bwd_bytes(cfg, tile: int) -> int:
-    """Dynamic shared memory of a backward block: two weight buffers, two
-    ping-pong buffers, d(mu, logvar), q, log q, E de, d logits, log_A and
-    d log_A."""
+    """Dynamic shared memory of a backward block.  float32: two weight
+    buffers, two ping-pong buffers, d(mu, logvar), q, log q, E de,
+    d logits, log_A and d log_A.  bfloat16: the operands (two ping-pong
+    buffers, d(mu, logvar), d logits, d log_A), then float32 q, log q,
+    log_A and E de."""
     C, U, H1, H2, K, HP, D = _widths(cfg)
+    if bf16_mode(cfg):
+        ops = 2 * _op_stride(max(D, H2)) + _op_stride(2 * C) \
+            + _op_stride(K) + _op_stride(K * K)
+        return 2 * (tile + 2 * HALO_BWD) * ops \
+            + 4 * _row_stride(tile, HALO_BWD) * (3 * K + K * K)
     G = _buffer_rows(cfg)
     return _smem(tile, HALO_BWD, 2 * G + 2 * C + 4 * K + 2 * K * K)
 
@@ -208,21 +300,27 @@ def param_count(cfg) -> int:
 
 def train_plan(cfg, B: int, T: int, sms: int = H100_SMS
                ) -> Optional[TrainPlan]:
-    """The launch plan at (B, T), or None where no tile fits a block's
-    shared memory.  The tile is the one whose forward and backward grids
-    cost least: waves of resident blocks (as many an SM as its shared
-    memory holds) times the steps a block computes, its window and a fixed
-    part; the wider of two that cost the same.  At B=64, T=200 that is 256
-    blocks of 64 steps, one wave at two blocks an SM, not 448 of 32 steps
-    in two.  The weight gradients' (sequence, slab) units are cut into
-    the fewest equal splits that give the grid eight blocks of 64 threads
-    for every SM."""
+    """The launch plan at (B, T) in the model's mode (`bf16_mode`), or
+    None where no tile fits a block's shared memory.  The tile is the one
+    whose forward and backward grids cost least: waves of resident blocks
+    (as many an SM as its shared memory holds, and in the bfloat16 mode at
+    most MMA_BLOCKS_PER_SM) times the steps a block computes, its window
+    and a fixed part; the wider of two that cost the same.  At B=64, T=200
+    that is 256 blocks of 64 steps in either mode, one wave, not 448 of 32
+    steps in two.  The weight gradients' (sequence,
+    slab) units are cut into the fewest equal splits that give the grid
+    eight blocks for every SM."""
+    bf16 = bf16_mode(cfg)
+
     def fits(t):
         return max(smem_fwd_bytes(cfg, t), smem_bwd_bytes(cfg, t)) \
-            + _STATIC_SMEM
+            + (_STATIC_SMEM_BF16 if bf16 else _STATIC_SMEM)
 
     def cost(t):
-        resident = sms * (_SM_SMEM // (fits(t) + 1024))
+        resident = _SM_SMEM // (fits(t) + 1024)
+        if bf16:
+            resident = min(resident, MMA_BLOCKS_PER_SM)
+        resident *= sms
         waves = -(-B * -(-T // t) // resident)
         return waves * (t + 2 * HALO_FWD + _FIXED_STEPS)
 
@@ -231,7 +329,8 @@ def train_plan(cfg, B: int, T: int, sms: int = H100_SMS
         return None
     tile = min(tiles_ok, key=lambda t: (cost(t), -t))
     tiles = -(-T // tile)
-    wg_tiles = sum(-(-O // WG_TILE) * -(-I // WG_TILE)
+    side = WG_TILE_BF16 if bf16 else WG_TILE
+    wg_tiles = sum(-(-O // side) * -(-I // side)
                    for _, _, _, O, I, _, _ in weight_grad_jobs(cfg))
     units = B * -(-T // WG_SLAB)
     per = -(-units // max(1, min(units, 8 * sms // wg_tiles)))
@@ -255,9 +354,11 @@ def train_step_supported(cfg, B: int, T: int) -> bool:
     """True when the fused train kernels take these shapes on Hopper:
     float32 or bfloat16 compute (the two modes), u-conditioned
     transitions, at most KMAX regimes (a thread keeps K values in
-    registers), a slab of every layer's weights within a weight buffer, a
-    time tile whose block fits the card's 227 KB of shared memory, and one
-    sequence's scratch within 32-bit offsets.
+    registers), in the float32 mode a slab of every layer's weights within
+    a weight buffer (the bfloat16 mode streams its weights from L2 and
+    stages none), a time tile whose block fits the card's 227 KB of
+    shared memory in the mode's plan, and one sequence's scratch within
+    32-bit offsets.
     The trainer asks once a step, so the answer is kept a shape."""
     key = (_widths(cfg), cfg.compute_dtype, B, T)
     if key not in _supported:
@@ -265,7 +366,8 @@ def train_step_supported(cfg, B: int, T: int) -> bool:
         _supported[key] = bool(
             cfg.compute_dtype in ("float32", "bfloat16") and U is not None
             and B > 0 and T > 0 and 1 <= K <= KMAX
-            and 3 * ((max(_buffer_rows(cfg), HP) + 3) // 4 * 4) <= WBUF
+            and (bf16_mode(cfg)
+                 or 3 * ((max(_buffer_rows(cfg), HP) + 3) // 4 * 4) <= WBUF)
             and scratch_rows(cfg) * T <= _INT32_MAX
             and B * -(-T // TILES[-1]) <= _INT32_MAX
             and train_plan(cfg, B, T) is not None)
@@ -331,8 +433,10 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
     gradients as sums over (sequence, slab) units grouped into `splits`
     fixed splits, the loss from per-tile sums in double.  In the
     bfloat16 mode (bf16_mode) the weights and every activation that
-    enters a product are rounded to bfloat16 there; the bias gradients
-    sum the unrounded gradients."""
+    enters a product are rounded to bfloat16 there, and a unit's weight
+    gradient sums float32 partials over chunks of 16 steps in order, as
+    the kernel's mma accumulates them; the bias gradients sum the
+    unrounded gradients."""
     cfg = model.cfg
     _check_inputs(model, x, u, lengths)
     C, U, H1, H2, K, HP, D = _widths(cfg)
@@ -480,11 +584,25 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
                         + (0, per * -(-units // per) - units))
         return partial.view(-1, per, *partial.shape[1:]).sum(1).sum(0)
 
+    def chunked(a, b):
+        """sum_t a[u, o, t] b[u, i, t] a unit, the bfloat16 mode's way:
+        float32 partial sums over chunks of 16 steps, added to the unit's
+        sum in order."""
+        parts = torch.einsum("uoct,uict->cuoi",
+                             a.view(*a.shape[:2], -1, 16),
+                             b.view(*b.shape[:2], -1, 16))
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    product = chunked if bf16_mode(cfg) else (
+        lambda a, b: torch.einsum("uot,uit->uoi", a, b))
     grads = {}
     for name, dy, inp, O, I, taps, bias in weight_grad_jobs(cfg):
         d = by_unit(sc[dy], 0)
-        gw = torch.stack([torch.einsum("uot,uit->uoi", rnd(d),
-                                       rnd(by_unit(sc[inp], k - taps // 2)))
+        gw = torch.stack([product(rnd(d),
+                                  rnd(by_unit(sc[inp], k - taps // 2)))
                           for k in range(taps)], -1)
         if name == "decoder.embeddings":
             grads[name + ".weight"] = in_splits(gw[..., 0])
@@ -567,7 +685,7 @@ def _checked_plan(lib, cfg, B: int, T: int, sms: int) -> TrainPlan:
     """train_plan at these shapes, held once against the sizes the built
     library reports (the scratch, gradient and packed layouts, the shared
     memory of the two tiled kernels)."""
-    key = (_widths(cfg), B, T, sms)
+    key = (_widths(cfg), cfg.compute_dtype, B, T, sms)
     plan = _plans.get(key)
     if plan is None:
         plan = train_plan(cfg, B, T, sms)
@@ -576,7 +694,8 @@ def _checked_plan(lib, cfg, B: int, T: int, sms: int) -> TrainPlan:
                              f"a block's {SMEM_LIMIT} bytes of shared memory")
         dims = (B, cfg.input_dim, T, cfg.u_dim, cfg.hidden_dim,
                 cfg.hidden_dim2, cfg.K, cfg.trans_hidden, cfg.hidden_dim)
-        sizes = [lib.vqhmm_fused_train_sizes(*dims, plan.tile, what)
+        sizes = [lib.vqhmm_fused_train_sizes(*dims, plan.tile, what,
+                                             int(bf16_mode(cfg)))
                  for what in range(6)]
         if sizes != [param_count(cfg), plan.scratch_rows, plan.smem_fwd,
                      plan.smem_bwd, plan.wg_tiles, plan.packed]:
