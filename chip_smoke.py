@@ -321,6 +321,46 @@ exiting non-zero before a result is printed:
    utils/benchmarking.py) in float32 and bfloat16, with the device-busy
    ms a step: a record, not a claim.
 
+30. the whole published recipe: `recipe.main(["--stage", s, "--device",
+   d, "--outdir", tmp, "--checkpoint-dir", tmp/checkpoints_quality])` for
+   each of its ten stages in turn, at the published epochs (train 150,
+   quality 40, vq 40), on the card and then on this machine's CPU, each
+   stage's downstream reading the quality checkpoint its own run wrote
+   (as --stage all does).  The launch counters are reset before each
+   stage on the card and read after it, and every kernel's count must be
+   exactly what the code implies for this run (`_recipe_expected`):
+   kernels C and D in train and quality, 8, 11 and B in quality, the
+   quantizer both ways, the nearest code, D and B in vq, A in eval, 8, 11
+   and B downstream as phases 24-25 count them, nothing else.  Every
+   file the JAX recipe writes exists; both training runs' losses are
+   finite and fall once beta is 1; on the CPU with the plain versions on
+   the card's index stream (TrainPipeline with the device sampler), the
+   published run's first RECIPE_MATCH_EPOCHS epochs and the quality run's
+   first within RECIPE_TOL relative (floor 1) of the card's; the quality
+   run's epochs 2 to RECIPE_MATCH_EPOCHS, each trained on the CPU from
+   the card's checkpoint before it, printed beside how far the CPU's own
+   epoch moves from that state with its weights nudged by RECIPE_NUDGE
+   (at lr 1e-3 the run is chaotic: one rounding moves an epoch by up to
+   some 1e-4, so no bar of 1e-5 holds there), and the free runs of all
+   40 epochs; quality_fixture.json and vq_quality_fixture.json printed
+   beside the committed JAX artifacts of the same name (a record, not a
+   check); RECIPE_REPORT.md names the card and no TPU; each stage's wall
+   seconds on both devices.
+31. the rest of the downstream zoo on the card against the CPU, on the
+   kernel-8 posteriors (one launch) of the fixture windows: the six
+   heads of models/portfolio.py and the five models of models/regime.py
+   at the recipe's widths, forward in eval() mode and one Adam step in
+   train() mode (the output, loss and gradients within ZOO_TOL, the step
+   where |g| >= 1e-6); OnlinePortfolioOptimizer over 20 updates,
+   WalkForwardTrainer.run over 3 windows and MetaPortfolioOptimizer's
+   meta steps on the hierarchical head and on the LSTM head (whose meta
+   step runs with cuDNN off: whether cuDNN's LSTM takes a double backward
+   is printed), within ZOO_RUN_TOL; calibrate_regime_thresholds with
+   posterior_fn = VAEHMM.posterior, one kernel-8 launch, the thresholds
+   within 1e-5 of the CPU's; the Gradio demo with no head checkpoint
+   (make_infer_fn) allocating by the seeded TransformerPortfolioOptimizer,
+   one kernel-8 launch a click.
+
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
 of its operations over 67 TFLOP/s of fp32, or for kernel C's bfloat16
@@ -334,7 +374,8 @@ recipe `head_launches` and `walkforward_launches` of kernel 8 and
 `mc_launches` of kernels 11 and B), the ensemble's launches of phase 27
 (`ensemble_c_launches`, `ensemble_d_launches`) and, on kernel C's entry,
 the ensemble's epoch times, the host-fed epoch times of phase 28 and the
-GMM stack's wall times of phase 26 (`gmm_*`); the last line is
+GMM stack's wall times of phase 26 (`gmm_*`), on every kernel phase
+30's launches a recipe stage (`recipe_launches`); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -3709,7 +3750,7 @@ def phase_montecarlo(torch, np, heads_out):
         "run) / CPU: " + "; ".join(
             f"{st} {walls[(st, 'cuda')]:.3f}, "
             f"{walls[(st, 'cuda_again')]:.3f} / {walls[(st, 'cpu')]:.3f}"
-            for st in recipe.STAGES))
+            for st in recipe.STAGES if (st, "cuda_again") in walls))
     return mc_launches
 
 
@@ -4566,6 +4607,586 @@ def phase_headline(torch, np, B=64, T=200, windows=5):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 30-31: the whole published recipe, and the rest of the zoo
+# ---------------------------------------------------------------------------
+
+# every file scripts/full_recipe.py writes under its outdir (the PNGs only
+# where matplotlib is present)
+RECIPE_FILES = (
+    "data/x_sequences.npy", "data/u_sequences.npy", "data/z_windows.npy",
+    "data/x_panel.npy", "data/u_panel.npy", "data/z_panel.npy",
+    "data/returns.csv", "data/prices.csv",
+    "config_published.json", "config_quality.json", "config_vq.json",
+    "checkpoints_published/vae_hmm.pt",
+    "checkpoints_published/vae_hmm_trained.npz",
+    "checkpoints_quality/vae_hmm.pt",
+    "checkpoints_quality/vae_hmm_trained.npz",
+    "checkpoints_vq/vq_stack.npz",
+    "train_history_published.json", "train_history_quality.json",
+    "quality_fixture.json", "quality_fixture_published.json",
+    "vq_quality_fixture.json", "eval_results_published.txt",
+    "eval_results_quality.txt", "portfolio_head.npz", "head_history.json",
+    "backtest_metrics.json", "walkforward_metrics.json",
+    "monte_carlo_stats.json", "stage_log.json", "RECIPE_REPORT.md")
+RECIPE_PLOTS = ("loss_curve_published.png", "loss_curve_quality.png",
+                "backtest_results.png", "monte_carlo_results.png")
+RECIPE_MATCH_EPOCHS = 4     # the quality run's epochs held to the CPU's
+RECIPE_TOL = 1e-5           # relative, floor 1 (the losses cross zero)
+RECIPE_NUDGE = 1e-7         # relative, about one float32 rounding
+ZOO_TOL = 1e-5
+ZOO_RUN_TOL = 1e-4          # 20 online updates, 3 walk-forward windows
+
+
+def launch_counters():
+    """name (the kernels line's) -> the wrapper whose `.launches` counts
+    that kernel's launches."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.ops.vq import (quantize_st_fused_backward,
+                                           quantize_st_fused_forward,
+                                           vq_nearest)
+
+    return {"fused_infer": fused_forward, "viterbi": viterbi_fused,
+            "fused_train": fused_loss_and_grads, "gather": gather_epoch,
+            "fused_encode": fused_encode, "fused_evidence": fused_evidence,
+            "fused_decode": fused_viterbi_states, "vq_nearest": vq_nearest,
+            "quantize_forward": quantize_st_fused_forward,
+            "quantize_backward": quantize_st_fused_backward}
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its output kept back; on a failure its last 4000
+    characters are printed before the error goes on."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args)
+    except BaseException:
+        print(buf.getvalue()[-4000:], flush=True)
+        raise
+
+
+def _recipe_expected(np, recipe, out, counters):
+    """Each stage's launches of each kernel as the code implies them for
+    this run: a training step is one kernel-C launch and an epoch one
+    kernel-D launch; the quality stage's decodes are one kernel-8 launch
+    (the mean-field posterior), and for each of the two checkpoints one
+    kernel-11 launch for the smoothed posterior and one each of kernels 11
+    and B for the Viterbi path; a VQ step is one quantizer launch each
+    way, an epoch (polish epochs included) one gather, and the nearest
+    code runs once a panel pass of the trainer (one, and one more a
+    polish epoch) and once for each of the stage's codes, smoothed and
+    Viterbi decodes, which last is one kernel-B launch; the eval stage is
+    one kernel-A launch a batch of 32, 4 batches a checkpoint; the
+    downstream stages as phases 24-25 count them."""
+    from vqvaehmm_tpu_torch.train.vq_pipeline import VQStack
+
+    def steps(cfg):
+        return cfg.training.num_epochs * (cfg.data.samples_per_epoch
+                                          // cfg.training.batch_size)
+
+    pub, qual = recipe.recipe_config(out), recipe.recipe_config(out, True)
+    vq = recipe.vq_config(out)
+    hist = VQStack.load(os.path.join(out, "checkpoints_vq", "vq_stack.npz"),
+                        device="cpu").history
+    polish = len(hist) - vq.training.num_epochs
+    vq_steps = len(hist) * (vq.data.samples_per_epoch
+                            // vq.training.batch_size)
+    with open(os.path.join(out, "walkforward_metrics.json")) as f:
+        wf = json.load(f)
+    n_win = wf["walk_forward"]["n_windows"]
+    per_regime = sum(r["n_periods"] > 21 for mode in wf["per_regime"].values()
+                     for r in mode.values())
+    zero = {**dict.fromkeys(counters, 0), "fused_train_bf16": 0}
+    exp = {
+        "data": {},
+        "train": {"fused_train": steps(pub),
+                  "gather": pub.training.num_epochs},
+        "quality": {"fused_train": steps(qual),
+                    "gather": qual.training.num_epochs, "fused_encode": 1,
+                    "fused_evidence": 4, "viterbi": 2},
+        "vq": {"quantize_forward": vq_steps, "quantize_backward": vq_steps,
+               "gather": len(hist), "vq_nearest": 1 + polish + 3,
+               "viterbi": 1},
+        "eval": {"fused_infer": 2 * 4},
+        "head": {"fused_encode": len(recipe.head_batches(out)[0])},
+        "backtest": {"fused_encode": 2},
+        "walkforward": {"fused_encode": 2 * n_win + 1 + per_regime,
+                        "fused_evidence": 2, "viterbi": 1},
+        "montecarlo": {"fused_evidence": 1, "viterbi": 1},
+        "report": {},
+    }
+    return {s: {**zero, **e} for s, e in exp.items()}, polish
+
+
+class _StopAfter(Exception):
+    """Raised by a TrainPipeline log_fn to end a run at an epoch."""
+
+
+def _recipe_epochs(torch, np, recipe, out, tmp, epochs):
+    """The recipe's first `epochs` epochs on the CPU with the plain
+    versions on the card's index stream (TrainPipeline with the device
+    sampler), from its configurations on the data in `out`:
+    - the published run, free from the seed's draw;
+    - the quality run epoch by epoch: the card trains `epochs` epochs with
+      a checkpoint after each, the CPU then each epoch once from the
+      card's state before it, and from epoch 2 on once more from that
+      state with every weight times (1 + RECIPE_NUDGE * N(0, 1)), about
+      one float32 rounding: how far one rounding carries in that epoch.
+    Returns (the published CPU losses, the card's quality losses, the
+    CPU's, the nudged CPU's with None for epoch 1)."""
+    from dataclasses import replace
+
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+
+    def cfg(name, quality=True, **training):
+        c = recipe.recipe_config(out, quality=quality)
+        return replace(c, training=replace(
+            c.training, checkpoint_dir=os.path.join(tmp, name),
+            input_pipeline="device", **training))
+
+    def run(pipe, last, on_log=None):
+        """pipe.train to the end of epoch `last`; its epoch losses."""
+        def log(msg):
+            if on_log:
+                on_log(msg)
+            if msg.startswith(f"Epoch {last}/"):
+                raise _StopAfter
+        try:
+            _quiet(pipe.train, log)
+        except _StopAfter:
+            pass
+        return pipe.history
+
+    published = run(TrainPipeline(cfg("published_cpu", quality=False),
+                                  device="cpu"), epochs)
+    card_dir = os.path.join(tmp, "epochs_card")
+
+    def keep(msg):
+        # at "Epoch k" the periodic checkpoint still holds epoch k - 1
+        if msg.startswith("Epoch ") and not msg.startswith("Epoch 1/"):
+            k = int(msg.split()[1].split("/")[0]) - 1
+            for ext in (".pt", ".meta.json"):
+                shutil.copyfile(
+                    os.path.join(card_dir, "vae_hmm_periodic" + ext),
+                    os.path.join(tmp, f"epoch_{k}{ext}"))
+
+    card = run(TrainPipeline(cfg("epochs_card", save_freq=1), device="cuda"),
+               epochs, keep)
+
+    def from_card(e, nudge):
+        """The CPU's epoch e + 1 from the card's state after epoch e."""
+        pipe = TrainPipeline(cfg(f"epochs_cpu_{e}_{nudge}"), device="cpu")
+        if e:
+            dst = os.path.join(pipe.cfg.training.checkpoint_dir,
+                               "vae_hmm_periodic")
+            os.makedirs(os.path.dirname(dst))
+            shutil.copyfile(os.path.join(tmp, f"epoch_{e}.meta.json"),
+                            dst + ".meta.json")
+            blob = torch.load(os.path.join(tmp, f"epoch_{e}.pt"),
+                              map_location="cpu", weights_only=True)
+            g = torch.Generator().manual_seed(0)
+            for k, v in blob["model"].items():
+                blob["model"][k] = v * (1 + nudge * torch.randn(
+                    v.shape, generator=g))
+            torch.save(blob, dst + ".pt")
+        return run(pipe, e + 1)[0]
+
+    cpu = [from_card(e, 0.0) for e in range(epochs)]
+    nudged = [None] + [from_card(e, RECIPE_NUDGE) for e in range(1, epochs)]
+    return published, card, cpu, nudged
+
+
+def phase_recipe(torch, np, tmp, kind):
+    """30. the whole published recipe through its entry point, stage by
+    stage, on the card and then on the CPU."""
+    from importlib.util import find_spec
+
+    from dataclasses import replace
+
+    from vqvaehmm_tpu_torch import recipe
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+    from vqvaehmm_tpu_torch.train.trainer import beta_schedule
+
+    counters = launch_counters()
+    out = {d: os.path.join(tmp, d) for d in ("cuda", "cpu")}
+    walls, launches = {}, {}
+    for d in ("cuda", "cpu"):
+        for s in recipe.STAGES:
+            argv = ["--stage", s, "--device", d, "--outdir", out[d],
+                    "--checkpoint-dir",
+                    os.path.join(out[d], "checkpoints_quality")]
+            for f in counters.values():
+                f.launches = 0
+            bf16 = counters["fused_train"]
+            bf16.bf16_launches = 0
+            rc, walls[(s, d)] = _timed(torch, _quiet, recipe.main, argv)
+            if d == "cuda":
+                launches[s] = {k: f.launches for k, f in counters.items()}
+                launches[s]["fused_train_bf16"] = bf16.bf16_launches
+            if rc != 0:
+                fail(f"the recipe's {s} stage on {d} exited {rc}")
+    expected, polish = _recipe_expected(np, recipe, out["cuda"], counters)
+    for s in recipe.STAGES:
+        if launches[s] != expected[s]:
+            fail(f"the recipe's {s} stage launched {launches[s]}; the code "
+                 f"implies {expected[s]}")
+    wanted = RECIPE_FILES + (RECIPE_PLOTS if find_spec("matplotlib")
+                             else ())
+    missing = [f for f in wanted
+               if not os.path.exists(os.path.join(out["cuda"], f))]
+    if missing:
+        fail(f"the recipe on the card did not write {missing}")
+    say("recipe", f"python -m vqvaehmm_tpu_torch.recipe, ten stages on the "
+        f"card and on this machine's CPU, wall s (card / CPU): " + ", ".join(
+            f"{s} {walls[(s, 'cuda')]:.3f} / {walls[(s, 'cpu')]:.3f}"
+            for s in recipe.STAGES)
+        + f"; total {sum(walls[(s, 'cuda')] for s in recipe.STAGES):.3f} / "
+        f"{sum(walls[(s, 'cpu')] for s in recipe.STAGES):.3f}")
+    say("recipe", "launches a stage on the card, exact as the code implies "
+        f"them (VQ polish epochs {polish}): " + "; ".join(
+            f"{s} " + ", ".join(f"{k} {v}" for k, v in launches[s].items()
+                                if v) for s in recipe.STAGES
+            if any(launches[s].values())))
+
+    def hist(d, tag):
+        with open(os.path.join(out[d], f"train_history_{tag}.json")) as f:
+            return json.load(f)["loss"]
+
+    falls = {}
+    for tag in ("published", "quality"):
+        h = hist("cuda", tag)
+        first = next(e for e in range(len(h))
+                     if beta_schedule(e, len(h)) >= 1.0)
+        if not np.isfinite(h).all() or not h[-1] < h[first]:
+            fail(f"{tag} training on the card: losses {h[:3]}... "
+                 f"{h[-3:]}, not finite or not falling from epoch "
+                 f"{first + 1} (beta 1) on")
+        falls[tag] = (first + 1, h[first], h[-1])
+    # the CPU with the plain versions on the card's index stream: the
+    # published run's first epochs (lr 1e-5) free, the quality run's
+    # (lr 1e-3) epoch by epoch from the card's state, since at lr 1e-3 one
+    # rounding of the weights moves an epoch by up to some 1e-4 (the
+    # nudged runs): a record from epoch 2 on, not a check
+    p_cpu, e_card, e_cpu, e_nudged = _recipe_epochs(
+        torch, np, recipe, out["cuda"], os.path.join(tmp, "epochs"),
+        RECIPE_MATCH_EPOCHS)
+
+    def rel(got, want):
+        return [abs(a - b) / max(abs(b), 1.0) for a, b in zip(got, want)]
+
+    p_gaps = rel(hist("cuda", "published")[:RECIPE_MATCH_EPOCHS], p_cpu)
+    e_gaps = rel(e_card, e_cpu)
+    spread = rel(e_nudged[1:], e_cpu[1:])
+    if len(p_gaps) != RECIPE_MATCH_EPOCHS or max(p_gaps) > RECIPE_TOL or \
+            e_gaps[0] > RECIPE_TOL:
+        fail(f"card against CPU: the published run's first "
+             f"{RECIPE_MATCH_EPOCHS} epochs {p_gaps}, the quality run's "
+             f"first {e_gaps[0]:.3e} (bar {RECIPE_TOL})")
+    # the same quality run free on the CPU, on the card's index stream
+    # (the device sampler's; the CPU recipe run above samples on the host)
+    qcfg = recipe.recipe_config(out["cpu"], quality=True)
+    qcfg = replace(qcfg, training=replace(
+        qcfg.training, input_pipeline="device",
+        checkpoint_dir=os.path.join(tmp, "cpu_device_stream")))
+    same = TrainPipeline(qcfg, device="cpu")
+    _quiet(same.train)
+    card, cpu = hist("cuda", "quality"), same.history
+    if card[:RECIPE_MATCH_EPOCHS] != e_card:
+        fail(f"the quality run's epochs {card[:RECIPE_MATCH_EPOCHS]} on the "
+             f"card are not those of its rerun {e_card}")
+    gaps = rel(card, cpu)
+    with open(os.path.join(out["cuda"], "RECIPE_REPORT.md")) as f:
+        report = f.read()
+    if kind not in report or "TPU" in report:
+        fail("RECIPE_REPORT.md does not name the card or names a TPU")
+    say("recipe", f"every file the JAX recipe writes is there "
+        f"({len(wanted)}); the losses finite and falling from beta 1: "
+        + ", ".join(f"{t} epoch {e} {a:.4f} -> {b:.4f}"
+                    for t, (e, a, b) in falls.items())
+        + f"; card against CPU, relative (floor 1; bar {RECIPE_TOL:g}): "
+        f"the published run's epochs 1-{RECIPE_MATCH_EPOCHS} "
+        + ", ".join(f"{g:.3e}" for g in p_gaps)
+        + f"; the quality run's epoch 1 {e_gaps[0]:.3e}, and epochs 2-"
+        f"{RECIPE_MATCH_EPOCHS} each from the card's state before it (a "
+        f"record) " + ", ".join(f"{g:.3e}" for g in e_gaps[1:])
+        + f", where the CPU's own epoch from weights nudged by "
+        f"{RECIPE_NUDGE:g} moves " + ", ".join(f"{g:.3e}" for g in spread)
+        + "; free quality runs on the same "
+        f"index stream (a record: the run is chaotic), card against CPU "
+        + ", ".join(f"{g:.3e}" for g in gaps[:RECIPE_MATCH_EPOCHS])
+        + f" in epochs 1-{RECIPE_MATCH_EPOCHS}, {max(gaps):.3e} at most of "
+        f"{len(gaps)}, final loss {card[-1]:.6f} / {cpu[-1]:.6f}; "
+        f"RECIPE_REPORT.md names {kind!r} and no TPU")
+    for name in ("quality_fixture.json", "vq_quality_fixture.json"):
+        rows = []
+        for where in (out["cuda"], out["cpu"], os.path.join(ROOT,
+                                                           "artifacts")):
+            with open(os.path.join(where, name)) as f:
+                rows.append(json.load(f))
+        say("recipe", f"{name} (a record, not a check): card {rows[0]}; "
+            f"CPU {rows[1]}; committed JAX artifact {rows[2]}")
+    return launches, walls
+
+
+def _zoo_cases(torch, np, K, A, H):
+    """name -> make(device): the six heads and five regime models at the
+    recipe's widths (K=3, 10 assets, hidden 64), each drawn from a
+    Generator seeded by its index, so both devices get the same weights."""
+    from vqvaehmm_tpu_torch.models import portfolio as P
+    from vqvaehmm_tpu_torch.models import regime as R
+
+    cfg = P.HeadConfig(K=K, n_assets=A, hidden_dim=H)
+    heads = ("AttentionPortfolioOptimizer", "TransformerPortfolioOptimizer",
+             "BayesianPortfolioOptimizer", "EnsemblePortfolioOptimizer",
+             "HierarchicalPortfolioOptimizer", "RegimeLSTMOptimizer")
+    regime = {"RegimeChangeDetector": (K, H),
+              "ForwardTransitionPredictor": (K, 5, H),
+              "RegimePersistenceModel": (K, 32),
+              "TemperatureScaling": None,
+              "RegimeFactorModel": (K, A)}
+
+    def make(name, i):
+        def build(d):
+            g = torch.Generator().manual_seed(300 + i)
+            if name in heads:
+                return getattr(P, name)(cfg, device=d, generator=g)
+            if regime[name] is None:
+                return R.TemperatureScaling(device=d)
+            return getattr(R, name)(*regime[name], device=d, generator=g)
+        return build
+
+    return {n: make(n, i) for i, n in enumerate(heads + tuple(regime))}
+
+
+def phase_zoo(torch, np, tmp, dev="cuda"):
+    """31. the rest of the downstream zoo on the card against the CPU, on
+    kernel-8 posteriors of the fixture windows."""
+    from vqvaehmm_tpu_torch import recipe
+    from vqvaehmm_tpu_torch.calibration import calibrate_regime_thresholds
+    from vqvaehmm_tpu_torch.losses.portfolio import sharpe_loss
+    from vqvaehmm_tpu_torch.models.portfolio import (
+        HeadConfig, HierarchicalPortfolioOptimizer, RegimeLSTMOptimizer,
+        TransformerPortfolioOptimizer)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+    from vqvaehmm_tpu_torch.serve.app import get_model
+    from vqvaehmm_tpu_torch.serve.gradio_app import (make_infer_fn,
+                                                     parse_market_text)
+    from vqvaehmm_tpu_torch.train.strategies import (
+        MetaPortfolioOptimizer, OnlinePortfolioOptimizer, WalkForwardTrainer)
+    from vqvaehmm_tpu_torch.train.trainer import ClippedAdam
+
+    dev, cpu = torch.device(dev), torch.device("cpu")
+    pair = (("card", dev), ("cpu", cpu))
+    out = os.path.join(tmp, "zoo")
+    _quiet(recipe.stage_data, out)
+    x = np.load(os.path.join(out, "data", "x_sequences.npy"))
+    z = np.load(os.path.join(out, "data", "z_windows.npy"))
+    model = recipe.load_trained(dev)
+    fused_encode.launches = 0
+    with torch.inference_mode():
+        q_card = model.posterior(torch.from_numpy(x).to(dev))
+    if fused_encode.launches != 1:
+        fail(f"the zoo's posteriors launched kernel 8 "
+             f"{fused_encode.launches} times, not once")
+    q = q_card.cpu().clone()                      # (N, K, T), both devices
+    N, K, T = q.shape
+    A, H = 10, 64
+    rng = np.random.default_rng(31)
+    rets = torch.from_numpy(rng.normal(5e-4, 0.01, size=(N, 20, A))
+                            .astype(np.float32))
+    A_mat = torch.from_numpy(rng.dirichlet(np.ones(K), size=K)
+                             .astype(np.float32))
+    labels = torch.from_numpy(z[:, -1].astype(np.int64))
+    eps = torch.randn((10, N, H), generator=torch.Generator().manual_seed(7))
+
+    def run(name, m, d):
+        """(the model's output, a scalar loss of it) on device d."""
+        qd = q.to(d)
+        if name == "RegimePersistenceModel":
+            y = m(qd, A_mat.to(d))
+        elif name == "TemperatureScaling":
+            y = m(torch.log(qd[:, :, -1]))
+            return y, torch.nn.functional.cross_entropy(y, labels.to(d))
+        elif name == "RegimeFactorModel":
+            y = m.get_covariance(qd)
+        elif name == "BayesianPortfolioOptimizer":
+            y = m(qd, eps=eps.to(d))
+        else:
+            y = m(qd)
+        if y.shape == (N, A) and y.dtype == torch.float32:
+            return y, sharpe_loss(y, rets.to(d))
+        return y, (y * y).mean()
+
+    gaps, step_gaps = {}, {}
+    for name, make in _zoo_cases(torch, np, K, A, H).items():
+        res = {}
+        for key, d in pair:
+            m = make(d).eval()
+            with torch.no_grad():
+                y_eval = run(name, m, d)[0]
+            m.train()
+            opt = ClippedAdam(m.parameters(), 1e-3)
+            y, loss = run(name, m, d)
+            loss.backward()
+            grads = {k: torch.zeros_like(p).cpu() if p.grad is None
+                     else p.grad.detach().cpu().clone()
+                     for k, p in m.named_parameters()}
+            opt.update()
+            res[key] = (y_eval.detach().cpu(), float(loss.detach()), grads,
+                           {k: p.detach().cpu()
+                            for k, p in m.named_parameters()})
+        (yc, lc, gc, pc), (yh, lh, gh, ph) = res["card"], res["cpu"]
+        gap = max([max_abs(yc, yh), abs(lc - lh) / max(abs(lh), 1.0)]
+                  + [max_abs(gc[k], gh[k]) for k in gh])
+        # Adam's first step is lr * g / (|g| + 1e-8): where a gradient is
+        # rounding noise (one that is zero in exact arithmetic, as that of
+        # attention's key bias) its sign is the noise's, so the step is
+        # held only where |g| >= 1e-6 and its largest gap printed
+        step = max(float(((pc[k] - ph[k]).abs() * (gh[k].abs() >= 1e-6))
+                         .max()) for k in ph)
+        if not torch.isfinite(yc).all() or max(gap, step) > ZOO_TOL:
+            fail(f"{name} on the card against the CPU: output, loss and "
+                 f"gradients {gap:.3e}, the Adam step {step:.3e} "
+                 f"(bar {ZOO_TOL})")
+        gaps[name] = gap
+        step_gaps[name] = max(max_abs(pc[k], ph[k]) for k in ph)
+
+    cfg = HeadConfig(K=K, n_assets=A, hidden_dim=H)
+
+    def head(d, cls=HierarchicalPortfolioOptimizer, seed=41):
+        return cls(cfg, device=d, generator=torch.Generator()
+                   .manual_seed(seed)).eval()
+
+    def same(a, b):
+        return max(max_abs(p.detach().cpu(), r.detach().cpu())
+                   for p, r in zip(a.parameters(), b.parameters()))
+
+    qs = q[:, :, -1].contiguous()
+    runs = {}
+    # 20 online updates
+    hd = {k: head(d) for k, d in pair}
+    opts = {k: OnlinePortfolioOptimizer(m, lr=1e-3) for k, m in hd.items()}
+    losses = {k: [o.update(qs[i::20], rets[i::20]) for i in range(20)]
+              for k, o in opts.items()}
+    runs["online"] = max([same(hd["card"], hd["cpu"])]
+                         + [abs(a - b) / max(abs(b), 1.0) for a, b in
+                            zip(losses["card"], losses["cpu"])])
+    # three walk-forward windows
+    hd = {k: head(d, seed=42) for k, d in pair}
+    wf = {k: WalkForwardTrainer(m, sharpe_loss, train_window=48,
+                                test_window=16, retrain_freq=16).run(
+              (qs, rets), n_periods=3) for k, m in hd.items()}
+    runs["walk_forward"] = max([same(hd["card"], hd["cpu"])] + [
+        abs(g[k] - w[k]) / max(abs(w[k]), 1.0)
+        for g, w in zip(wf["card"], wf["cpu"]) for k in w])
+    # MAML on an MLP head: adapt, and two second-order meta steps
+    tasks = [((qs[i:i + 16], rets[i:i + 16]),
+              (qs[i + 16:i + 32], rets[i + 16:i + 32])) for i in (0, 40)]
+    hd = {k: head(d, seed=43) for k, d in pair}
+    meta = {k: MetaPortfolioOptimizer(m, inner_lr=0.05, outer_lr=0.01,
+                                      n_inner=3) for k, m in hd.items()}
+    ml = {k: [mo.meta_update(tasks, sharpe_loss) for _ in range(2)]
+          for k, mo in meta.items()}
+    runs["maml"] = max([same(hd["card"], hd["cpu"])] + [
+        abs(a - b) / max(abs(b), 1.0) for a, b in zip(ml["card"],
+                                                      ml["cpu"])])
+    # the LSTM head: cuDNN's RNN backward is not differentiable; the meta
+    # step on the card runs torch's own CUDA LSTM cell instead
+    lstm = head(dev, RegimeLSTMOptimizer, 44).train()
+    try:
+        with torch.backends.cudnn.flags(enabled=True):
+            loss = sharpe_loss(lstm(q[:16].to(dev)), rets[:16].to(dev))
+            g = torch.autograd.grad(loss, list(lstm.parameters()),
+                                    create_graph=True)
+            torch.autograd.grad(sum(gi.sum() for gi in g),
+                                list(lstm.parameters()))
+        cudnn_double = "cuDNN's LSTM took a double backward"
+    except RuntimeError as e:
+        cudnn_double = f"cuDNN's LSTM refuses a double backward ({e})"[:200]
+    hd = {k: head(d, RegimeLSTMOptimizer, 45) for k, d in pair}
+    seq_tasks = [((q[i:i + 16], rets[i:i + 16]),
+                  (q[i + 16:i + 32], rets[i + 16:i + 32])) for i in (0, 40)]
+    ml = {k: MetaPortfolioOptimizer(m, inner_lr=0.05, outer_lr=0.01,
+                                    n_inner=2).meta_update(seq_tasks,
+                                                           sharpe_loss)
+          for k, m in hd.items()}
+    runs["maml_lstm"] = max(same(hd["card"], hd["cpu"]),
+                            abs(ml["card"] - ml["cpu"])
+                            / max(abs(ml["cpu"]), 1.0))
+    for k, v in runs.items():
+        if not np.isfinite(v) or v > ZOO_RUN_TOL:
+            fail(f"the strategies on the card against the CPU: {runs} "
+                 f"({k} > {ZOO_RUN_TOL})")
+
+    # calibrate_regime_thresholds on kernel 8
+    true = np.array([np.bincount(r, minlength=K).argmax() for r in z])
+    fused_encode.launches = 0
+    with torch.inference_mode():
+        th_card = calibrate_regime_thresholds(
+            model.posterior, torch.from_numpy(x).to(dev), true, K)
+    cal_launches = fused_encode.launches
+    with torch.inference_mode():
+        th_cpu = calibrate_regime_thresholds(
+            recipe.load_trained(cpu).posterior, torch.from_numpy(x), true, K)
+    th_gap = max(abs(th_card[k] - th_cpu[k]) for k in th_cpu)
+    if cal_launches != 1 or sorted(th_card) != sorted(th_cpu) or \
+            th_gap > 1e-5:
+        fail(f"calibrate_regime_thresholds: kernel 8 {cal_launches} "
+             f"launches, thresholds {th_card} against the CPU's {th_cpu}")
+
+    # the Gradio demo with no head checkpoint builds the transformer head
+    cfg_path = _serving_config(tmp, "gradio.json")
+    get_model.cache_clear()
+    try:
+        infer = make_infer_fn(cfg_path, device=dev)
+        text = "\n".join(" ".join(f"{v:.4f}" for v in row)
+                         for row in x[0][:, :40])
+        fused_encode.launches = 0
+        _, _, alloc = infer(text)
+        demo_launches = fused_encode.launches
+        want = TransformerPortfolioOptimizer(
+            HeadConfig(K=3, n_assets=10, hidden_dim=64), device=dev,
+            generator=torch.Generator().manual_seed(0)).eval()
+        m = get_model(cfg_path, dev)
+        with torch.inference_mode():
+            w = want(m.model.posterior(torch.from_numpy(
+                parse_market_text(text)).to(dev)))[0].cpu().numpy()
+        if list(alloc.values()) != [f"{v * 100:.2f}%" for v in w] or \
+                demo_launches != 1:
+            fail(f"the Gradio demo's allocation {alloc} is not the seeded "
+                 f"transformer head's {w} ({demo_launches} kernel-8 "
+                 "launches)")
+    finally:
+        get_model.cache_clear()
+    say("zoo", f"kernel-8 posteriors of {N} fixture windows (T={T}); the "
+        f"six heads and five regime models, card against CPU (bar "
+        f"{ZOO_TOL:g}), output, loss and gradients / the parameters after "
+        f"one Adam step at lr 1e-3 (all of them): " + ", ".join(
+            f"{k} {v:.3e} / {step_gaps[k]:.3e}" for k, v in gaps.items()))
+    say("zoo", f"strategies, card against CPU (bar {ZOO_RUN_TOL:g}): "
+        f"20 online updates {runs['online']:.3e}, walk-forward 3 windows "
+        f"{runs['walk_forward']:.3e}, MAML on the hierarchical head 2 meta "
+        f"steps {runs['maml']:.3e}, on the LSTM head (cuDNN off for the "
+        f"meta step) {runs['maml_lstm']:.3e}; {cudnn_double}")
+    say("zoo", f"calibrate_regime_thresholds(VAEHMM.posterior): kernel 8 "
+        f"{cal_launches} launch, thresholds {th_card} against the CPU's "
+        f"{th_cpu} ({th_gap:.3e}); the Gradio demo with no head checkpoint "
+        f"serves the seeded TransformerPortfolioOptimizer's allocation "
+        f"({demo_launches} kernel-8 launch)")
+    return {"heads": gaps, "strategies": runs, "cudnn_double": cudnn_double,
+            "calibrate_launches": cal_launches}
+
+
 def _sha(torch, *tensors) -> str:
     import hashlib
 
@@ -5075,6 +5696,13 @@ def main() -> int:
     # where a steady epoch of the throughput configuration goes on the card
     _, c16_split = phase_train_profile(torch, np, "bfloat16")
     headline = phase_headline(torch, np)
+    # 30, 31: the whole published recipe, and the rest of the zoo
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_full_recipe_")
+    try:
+        recipe_launches, _ = phase_recipe(torch, np, tmp, kind)
+        zoo = phase_zoo(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -5286,6 +5914,12 @@ def main() -> int:
         entry[f"device_ms_by_kernel_{key}"] = tsplits[("fused_train_bf16",
                                                       B, T)]
     kernels.append(entry)
+    for k in kernels:
+        # phase 30: each stage's launches of the kernel in the recipe run
+        k["recipe_launches"] = {s: n[k["name"]]
+                                for s, n in recipe_launches.items()}
+        if k["name"] == "fused_encode":
+            k["zoo_calibrate_launches"] = zoo["calibrate_launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

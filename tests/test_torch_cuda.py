@@ -1906,3 +1906,161 @@ def test_bf16_batched_rows_within_tolerance_of_solo(cuda, tmp_path):
 
 # a batched bfloat16 row's share of its solo value's magnitude (at least 1)
 BF16_ROW_TOL = 2 ** -6
+
+
+# -- the rest of the downstream zoo and the recipe's eval stage ------------
+
+ZOO = ("AttentionPortfolioOptimizer", "TransformerPortfolioOptimizer",
+       "BayesianPortfolioOptimizer", "EnsemblePortfolioOptimizer",
+       "HierarchicalPortfolioOptimizer", "RegimeLSTMOptimizer",
+       "RegimeChangeDetector", "ForwardTransitionPredictor",
+       "RegimePersistenceModel", "RegimeFactorModel")
+
+
+def _zoo_model(name, dev, seed=0):
+    from vqvaehmm_tpu_torch.models import portfolio as P
+    from vqvaehmm_tpu_torch.models import regime as R
+
+    g = torch.Generator().manual_seed(seed)
+    if hasattr(P, name):
+        return getattr(P, name)(P.HeadConfig(3, 6, 16), device=dev,
+                                generator=g)
+    if name == "RegimeFactorModel":
+        return R.RegimeFactorModel(3, 6, device=dev, generator=g)
+    return getattr(R, name)(3, hidden_dim=16, device=dev, generator=g)
+
+
+def _zoo_out(name, m, q, A):
+    if name == "RegimePersistenceModel":
+        return m(q, A)
+    if name == "RegimeFactorModel":
+        return m.get_covariance(q)
+    return m(q)
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
+    """Forward in eval() mode and the gradients of a train() mode step,
+    the card against the CPU within 1e-5, from one seeded draw."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.dirichlet(np.ones(3), size=(8, 30))
+                         .astype(np.float32)).transpose(1, 2).contiguous()
+    A = torch.from_numpy(rng.dirichlet(np.ones(3), size=3)
+                         .astype(np.float32))
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        m = _zoo_model(name, d)
+        with torch.no_grad():
+            y = _zoo_out(name, m.eval(), q.to(d), A.to(d)).cpu()
+        m.train()
+        (_zoo_out(name, m, q.to(d), A.to(d)) ** 2).mean().backward()
+        # the Bayesian head's deterministic call leaves fc1_logvar off
+        out.append((y, {k: p.grad.cpu() for k, p in m.named_parameters()
+                        if p.grad is not None}))
+    (y_card, g_card), (y_cpu, g_cpu) = out
+    torch.testing.assert_close(y_card, y_cpu, rtol=0, atol=1e-5)
+    assert sorted(g_card) == sorted(g_cpu)
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_card[k], g, rtol=0, atol=1e-5)
+
+
+def test_strategies_on_the_card_match_the_cpu(cuda):
+    """20 online updates, 3 walk-forward windows and two MAML meta steps
+    (an MLP head, and the LSTM head with cuDNN off for the meta step)."""
+    from vqvaehmm_tpu_torch.losses.portfolio import sharpe_loss
+    from vqvaehmm_tpu_torch.models.portfolio import (
+        HeadConfig, HierarchicalPortfolioOptimizer, RegimeLSTMOptimizer)
+    from vqvaehmm_tpu_torch.train.strategies import (
+        MetaPortfolioOptimizer, OnlinePortfolioOptimizer, WalkForwardTrainer)
+
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.dirichlet(np.ones(3), size=120)
+                         .astype(np.float32))
+    qs = torch.from_numpy(rng.dirichlet(np.ones(3), size=(64, 12))
+                          .astype(np.float32)).transpose(1, 2).contiguous()
+    rets = torch.from_numpy(rng.normal(5e-4, 0.01, size=(120, 10, 6))
+                            .astype(np.float32))
+    cfg = HeadConfig(3, 6, 16)
+
+    def run(d):
+        g = torch.Generator
+        h1 = HierarchicalPortfolioOptimizer(cfg, device=d,
+                                            generator=g().manual_seed(1))
+        on = OnlinePortfolioOptimizer(h1, lr=1e-3)
+        losses = [on.update(q[i::20], rets[i::20]) for i in range(20)]
+        h2 = HierarchicalPortfolioOptimizer(cfg, device=d,
+                                            generator=g().manual_seed(2))
+        wf = WalkForwardTrainer(h2, sharpe_loss, train_window=48,
+                                test_window=16, retrain_freq=16).run(
+            (q, rets), n_periods=3)
+        h3 = HierarchicalPortfolioOptimizer(cfg, device=d,
+                                            generator=g().manual_seed(3))
+        tasks = [((q[i:i + 16], rets[i:i + 16]),
+                  (q[i + 16:i + 32], rets[i + 16:i + 32])) for i in (0, 40)]
+        meta = MetaPortfolioOptimizer(h3, inner_lr=0.05, outer_lr=0.01,
+                                      n_inner=3)
+        ml = [meta.meta_update(tasks, sharpe_loss) for _ in range(2)]
+        h4 = RegimeLSTMOptimizer(cfg, device=d, generator=g().manual_seed(4))
+        seq = [((qs[i:i + 16], rets[i:i + 16]),
+                (qs[i + 16:i + 32], rets[i + 16:i + 32])) for i in (0, 32)]
+        ml.append(MetaPortfolioOptimizer(h4, n_inner=2).meta_update(
+            seq, sharpe_loss))
+        params = [p.detach().cpu() for h in (h1, h2, h3, h4)
+                  for p in h.parameters()]
+        return losses, wf, ml, params
+
+    card, cpu = run(cuda), run(torch.device("cpu"))
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4, atol=1e-6)
+    for g, w in zip(card[1], cpu[1]):
+        for k in w:
+            assert abs(g[k] - w[k]) <= 1e-4 * max(1.0, abs(w[k])), k
+    np.testing.assert_allclose(card[2], cpu[2], rtol=1e-4, atol=1e-6)
+    for a, b in zip(card[3], cpu[3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def test_calibrate_regime_thresholds_on_the_encoder_kernel(cuda):
+    """posterior_fn = VAEHMM.posterior: one kernel-8 launch, thresholds
+    within 1e-5 of the CPU's."""
+    from vqvaehmm_tpu_torch.calibration import calibrate_regime_thresholds
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(24, 5, 60)).astype(np.float32))
+    true = rng.integers(0, 3, size=24)
+    card, cpu = _model(cuda, seed=3), _model(torch.device("cpu"), seed=3)
+    before = fused_encode.launches
+    with torch.inference_mode():
+        got = calibrate_regime_thresholds(card.posterior, x.to(cuda), true,
+                                          3)
+        assert fused_encode.launches == before + 1
+        want = calibrate_regime_thresholds(cpu.posterior, x, true, 3)
+    for k in range(3):
+        assert abs(got[k] - want[k]) <= 1e-5
+
+
+def test_recipe_eval_stage_on_the_serving_kernel(cuda, tmp_path):
+    """The recipe's eval stage on the card: one kernel-A launch a batch
+    of 32, 4 batches a checkpoint, and the MSE of each within 1e-5
+    relative of the CPU's."""
+    import os
+    import shutil
+
+    from vqvaehmm_tpu_torch import recipe
+
+    out = str(tmp_path)
+    recipe.stage_data(out)
+    for tag, quality in (("published", False), ("quality", True)):
+        cfg = recipe.recipe_config(out, quality)
+        recipe._write_config(cfg, f"{out}/config_{tag}.json")
+        ck = cfg.training.checkpoint_dir
+        os.makedirs(ck)
+        shutil.copyfile(f"{recipe.CHECKPOINT_DIR}/vae_hmm_trained.npz",
+                        f"{ck}/vae_hmm_trained.npz")
+    before = fused_forward.launches
+    got = recipe.stage_eval(out, cuda)
+    assert fused_forward.launches == before + 8
+    want = recipe.stage_eval(out, torch.device("cpu"))
+    assert sorted(got) == ["published", "quality"]
+    for tag in got:
+        assert abs(got[tag] - want[tag]) <= 1e-5 * want[tag]

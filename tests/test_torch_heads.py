@@ -19,8 +19,8 @@ from vqvaehmm_tpu.models.portfolio import \
 from vqvaehmm_tpu.models.portfolio import \
     RegimePortfolioOptimizer as JRegimeHead
 from vqvaehmm_tpu_torch.data.checkpoint import (
-    hedger_params_from_numpy, improved_head_params_from_numpy,
-    params_from_numpy)
+    improved_head_params_from_numpy, params_from_numpy,
+    zoo_params_from_numpy)
 from vqvaehmm_tpu_torch.models.hedging import (LSTMDeltaHedger,
                                                RegimeDeltaHedger)
 from vqvaehmm_tpu_torch.models.portfolio import (HeadConfig,
@@ -138,7 +138,7 @@ def test_train_delta_hedger_matches_jax(vae, is_lstm):
     jm = jcls(JHeadConfig(**cfg))
     hp = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(4)))
     tm = tcls(HeadConfig(**cfg))
-    tm.load_state_dict(hedger_params_from_numpy(hp, tm))
+    tm.load_state_dict(zoo_params_from_numpy(hp, tm))
     batches, _ = _batches(n=2, B=4, T=16, seed=4)
     rng = np.random.default_rng(5)
     futures = [rng.normal(0, 0.01, size=(4, 15, 5)).astype(np.float32)
@@ -151,7 +151,7 @@ def test_train_delta_hedger_matches_jax(vae, is_lstm):
                                     log_fn=None)
     _same_history(got.history, want.history)
     _same_params(got.params, want.params,
-                 lambda tree: hedger_params_from_numpy(tree, tm))
+                 lambda tree: zoo_params_from_numpy(tree, tm))
 
 
 TRAINERS = ["train_portfolio", "train_portfolio_fused",

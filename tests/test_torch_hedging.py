@@ -1,6 +1,6 @@
 """The port's hedgers (vqvaehmm_tpu_torch/models/hedging.py) against the
 JAX package's with the same weights, carried across by
-data/checkpoint.py::hedger_params_from_numpy: outputs within 1e-5."""
+data/checkpoint.py::zoo_params_from_numpy: outputs within 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +11,7 @@ import vqvaehmm_tpu.models.hedging as jh
 import vqvaehmm_tpu_torch.models.hedging as th
 from tests.torch_port import close, t
 from vqvaehmm_tpu.models.portfolio import HeadConfig as JHeadConfig
-from vqvaehmm_tpu_torch.data.checkpoint import hedger_params_from_numpy
+from vqvaehmm_tpu_torch.data.checkpoint import zoo_params_from_numpy
 from vqvaehmm_tpu_torch.models.portfolio import HeadConfig
 
 B, K, A, H = 4, 3, 5, 8
@@ -22,7 +22,7 @@ def _pair(name, seed=0, **kw):
     params = jax.tree_util.tree_map(np.asarray,
                                     jm.init(jax.random.PRNGKey(seed)))
     tm = getattr(th, name)(HeadConfig(K=K, n_assets=A, hidden_dim=H), **kw)
-    tm.load_state_dict(hedger_params_from_numpy(params, tm))
+    tm.load_state_dict(zoo_params_from_numpy(params, tm))
     return jm, params, tm.eval()
 
 
@@ -113,4 +113,4 @@ def test_hedger_params_checked_against_the_module():
     _, params, _ = _pair("RegimeDeltaHedger")
     wrong = th.DynamicDeltaHedger(HeadConfig(K=K, n_assets=A, hidden_dim=H))
     with pytest.raises(ValueError, match="do not match"):
-        hedger_params_from_numpy(params, wrong)
+        zoo_params_from_numpy(params, wrong)

@@ -16,8 +16,8 @@ in `jax.tree_util.tree_flatten` order, which sorts dictionary keys:
 A reference portfolio head (`.pt`) loads through `load_head_file`, its
 family told from the state_dict's naming.  An Improved head the port
 trains is written in the JAX package's stacked layout through
-`head_params_to_numpy`; a hedger's JAX pytree crosses through
-`hedger_params_from_numpy`.
+`head_params_to_numpy`; a hedger's, another head's or a regime model's
+JAX pytree crosses through `zoo_params_from_numpy`.
 
 A training checkpoint (save_checkpoint) holds the model, the Adam state
 and the step, so a run resumes exactly; it is the port's own format
@@ -225,24 +225,37 @@ def head_params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     return out
 
 
-def hedger_params_from_numpy(tree, hedger: Optional[torch.nn.Module] = None
-                             ) -> Dict[str, torch.Tensor]:
-    """A hedger's JAX pytree (models/hedging.py: `delta1/weight`, ..., and
-    LSTMDeltaHedger's `lstm` layer list and `head`) -> a float32
-    state_dict for the port's hedger of the same class.  With `hedger`
-    given, the keys and shapes are checked against it."""
+def zoo_params_from_numpy(tree, module: Optional[torch.nn.Module] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """A downstream model's JAX pytree -> a float32 state_dict for the
+    port's module of the same class: the heads of models/portfolio.py
+    (the ensemble's stacked members included), the models of
+    models/regime.py and the hedgers.  Paths map by name (`fc1/weight` ->
+    `fc1.weight`); an `lstm` layer list becomes nn.LSTM's
+    `lstm.weight_ih_l{i}`, ..., and any other list (the transformer's
+    `encoder`) is indexed (`encoder.0.self_attn.in_proj_weight`).  With
+    `module` given, the keys and shapes are checked against it."""
     from ..ops.rnn import lstm_state_from_numpy
 
-    tree = dict(tree)
-    state = {}
-    if "lstm" in tree:
-        state.update(lstm_state_from_numpy(tree.pop("lstm"), prefix="lstm."))
-    state.update({k.replace("/", "."): torch.from_numpy(
-                      np.array(v, dtype=np.float32, copy=True))
-                  for k, v in _flatten("", tree).items()})
-    if hedger is not None:
-        validate_params_for(hedger, state,
-                            what=f"{type(hedger).__name__} pytree")
+    def walk(prefix: str, node, out: Dict[str, torch.Tensor]) -> None:
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v, out)
+        elif isinstance(node, (list, tuple)):
+            if prefix.endswith("lstm."):
+                out.update(lstm_state_from_numpy(node, prefix=prefix))
+            else:
+                for i, v in enumerate(node):
+                    walk(f"{prefix}{i}.", v, out)
+        else:
+            out[prefix[:-1]] = torch.from_numpy(
+                np.array(node, dtype=np.float32, copy=True))
+
+    state: Dict[str, torch.Tensor] = {}
+    walk("", tree, state)
+    if module is not None:
+        validate_params_for(module, state,
+                            what=f"{type(module).__name__} pytree")
     return state
 
 
@@ -298,6 +311,15 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     if not isinstance(state, Mapping):
         raise ValueError(f"{path} does not hold a state_dict")
     return dict(state)
+
+
+def save_state_dict_file(path: str,
+                         state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Write a state_dict as a reference-loadable `.pt` file: float32 CPU
+    tensors under the module's own keys (the reference's, for VAEHMM), the
+    file the JAX package's utils/torch_interop.save_torch_file writes."""
+    torch.save({k: v.detach().to("cpu", torch.float32).clone()
+                for k, v in state_dict.items()}, path)
 
 
 # the reference's head layers: RegimePortfolioOptimizer's nn.Sequential

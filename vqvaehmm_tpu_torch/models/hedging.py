@@ -2,7 +2,7 @@
 vqvaehmm_tpu/models/hedging.py; reference: delta_hedger.py:7-183), as
 nn.Modules.  Parameter names are the JAX pytree's paths with `.` for `/`
 (`delta1.weight`, ...), and the LSTM's are nn.LSTM's
-(data/checkpoint.py::hedger_params_from_numpy carries them across).
+(data/checkpoint.py::zoo_params_from_numpy carries them across).
 
 A deviation kept from the JAX package (its hedging.py:4-10): the
 reference's DynamicDeltaHedger applies Dropout(0.1) while it trains; here,

@@ -1,9 +1,23 @@
-"""The published workflow's downstream stages on the port
-(counterpart of scripts/full_recipe.py's data, head, backtest,
-walkforward and montecarlo stages):
+"""The published workflow on the port, end to end (counterpart of
+scripts/full_recipe.py), in the JAX recipe's ten stages:
 
   data        fixture panel -> the reference feature recipe -> windows of
               100 every 20 days, the whole panel and ground-truth regimes
+  train       the published configuration (150 epochs at lr 1e-5, B=64)
+              through TrainPipeline: checkpoints_published/ with
+              vae_hmm_trained.npz and a reference-loadable vae_hmm.pt,
+              train_history_published.json
+  quality     the converged configuration (40 epochs at lr 1e-3) the same
+              way, then regime recovery against the fixture's ground truth
+              under the mean-field, smoothed and Viterbi decodes
+              (quality_fixture.json, and quality_fixture_published.json
+              for the published checkpoint where it exists)
+  vq          the true-VQ family (M=8 codes of D=16, lr 3e-3, 40 epochs;
+              VQHMM_VQ_EPOCHS overrides, as in the JAX recipe) through
+              TrainPipeline's vqvae branch, its code-HMM's decodes scored
+              the same way (vq_quality_fixture.json)
+  eval        the masked reconstruction MSE of both checkpoints
+              (eval/evaluate.py, eval_results_{tag}.txt)
   head        ImprovedPortfolioOptimizer trained on the frozen posteriors
               of the quality checkpoint (train/heads.py)
   backtest    Backtester with the head and with equal weights
@@ -12,35 +26,42 @@ walkforward and montecarlo stages):
               decode, and the cost of missing the crash regime
   montecarlo  a Viterbi decode of the panel, per-regime return statistics
               and 1000 paths of 252 days
+  report      RECIPE_REPORT.md from the outdir's JSON files alone
 
-    python -m vqvaehmm_tpu_torch.recipe [--stage all|data|head|...]
-        [--outdir build/torch_recipe]
-        [--checkpoint-dir artifacts/checkpoints_quality] [--device cuda]
+    python -m vqvaehmm_tpu_torch.recipe [--stage all|data|train|...]
+        [--outdir build/torch_recipe] [--checkpoint-dir DIR]
+        [--device cuda]
 
-The model is artifacts/config_quality.json with the checkpoint
-`vae_hmm_trained.npz` of --checkpoint-dir.  Every stage runs on --device
-(the card by default: the posteriors through the encoder kernel, the
-decodes through the evidence and Viterbi kernels; --device cpu runs the
-plain versions; --device cuda without a GPU raises).  The outputs carry
-the JAX recipe's names: data/*.npy, data/returns.csv, data/prices.csv,
-portfolio_head.npz (the JAX package's stacked layout),
-head_history.json, backtest_metrics.json, walkforward_metrics.json,
-monte_carlo_stats.json, stage_log.json and the PNGs where matplotlib is
-present.  The default --outdir is under build/, so the committed
-artifacts/ are never overwritten.
+Every stage runs on --device (the card by default: training through the
+fused train and gather kernels, the posteriors through the encoder
+kernel, the decodes through the evidence and Viterbi kernels, the VQ
+family through the quantizer's kernels, evaluation through the serving
+forward; --device cpu runs the plain versions; --device cuda without a
+GPU raises).  The head, backtest, walkforward and montecarlo stages read
+the quality checkpoint `vae_hmm_trained.npz` of --checkpoint-dir: by
+default, under --stage all, the one this run's quality stage wrote
+(<outdir>/checkpoints_quality), and for a stage run alone the committed
+artifacts/checkpoints_quality.  The outputs carry the JAX recipe's names,
+the PNGs where matplotlib is present; stage_log.json records each stage's
+wall time, device, and for a card its power limit.  The default --outdir
+is under build/, so the committed artifacts/ are never overwritten, and
+the report reads nothing outside --outdir.
 
-The head's initial weights come from a torch.Generator seeded with 7 and
-the Monte Carlo draws from one seeded with 0, where the JAX recipe uses
+After SIGTERM the train and quality stages checkpoint the epoch boundary,
+publish nothing and exit 75; a rerun resumes (an auto-resume of a
+finished run leaves its history file alone).  The training runs start
+from parameters drawn from a torch.Generator seeded with the
+configuration's seed, the head from one seeded with 7 and the Monte Carlo
+draws from one seeded with 0, where the JAX recipe uses PRNGKey(42),
 PRNGKey(7) and PRNGKey(0): the streams differ, so the numbers are the
-JAX recipe's only up to those draws.  The JAX recipe's train, quality,
-eval, vq and report stages are not here: training and evaluation are the
-port's own entry points (train/pipeline.py, eval/evaluate.py).
+JAX recipe's only up to those draws.
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import itertools
 import json
 import os
 import subprocess
@@ -54,15 +75,17 @@ from .backtest import montecarlo
 from .backtest.backtester import (Backtester, RegimeBacktest,
                                   WalkForwardBacktest, compare_strategies,
                                   plot_results)
-from .core.config import load_config
+from .core.config import (Config, DataConfig, ModelConfig, PortfolioConfig,
+                          TrainConfig, VQConfig, config_to_dict, load_config)
 from .core.device import resolve_device
 from .data import market
 from .data.checkpoint import (head_params_to_numpy, load_improved_head,
                               load_params_npz, params_from_numpy,
-                              save_params_npz)
+                              save_params_npz, save_state_dict_file)
 from .models.portfolio import HeadConfig, ImprovedPortfolioOptimizer
 from .models.vae_hmm import VAEHMM
 from .train.heads import train_portfolio_fused
+from .train.pipeline import TrainPipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "market_fixture.csv")
@@ -71,11 +94,13 @@ CHECKPOINT_DIR = os.path.join(ROOT, "artifacts", "checkpoints_quality")
 OUTDIR = os.path.join(ROOT, "build", "torch_recipe")
 
 SEQ_LEN, STRIDE = 100, 20
+TRAIN_EPOCHS, QUALITY_EPOCHS, VQ_EPOCHS = 150, 40, 40
 HEAD = HeadConfig(K=3, n_assets=10, hidden_dim=64)
 HEAD_SEED, HEAD_EPOCHS, HEAD_LR = 7, 100, 1e-3
 WF_EPOCHS, WF_WIN, WF_HOR = 20, 64, 20
 MC_SEED, MC_PATHS, MC_DAYS = 0, 1000, 252
-STAGES = ["data", "head", "backtest", "walkforward", "montecarlo"]
+STAGES = ["data", "train", "quality", "vq", "eval", "head", "backtest",
+          "walkforward", "montecarlo", "report"]
 
 
 def _inference(fn):
@@ -140,6 +165,293 @@ def stage_data(outdir: str, device=None, checkpoint_dir=None) -> None:
     _write_frame(os.path.join(d, "prices.csv"), aligned_prices)
     print(f"data: x {x_seq.shape} u {u_seq.shape} "
           f"panel T={len(x_data)} assets={returns.values.shape[1]}")
+
+
+def recipe_config(outdir: str, quality: bool = False) -> Config:
+    """The reference's published configuration (B=64, 150 epochs at lr
+    1e-5, beta warm-up, clip 1.0), or with quality=True the converged one
+    (40 epochs at lr 1e-3), on the data stage's windows, checkpointing to
+    <outdir>/checkpoints_{published,quality}."""
+    d = os.path.join(outdir, "data")
+    tag = "quality" if quality else "published"
+    return Config(
+        model=ModelConfig(input_dim=5, hidden_dim=64, K=3, hidden_dim2=32,
+                          u_dim=4, trans_hidden=128),
+        data=DataConfig(min_len=20, max_len=200,
+                        x_sequences_path=os.path.join(d, "x_sequences.npy"),
+                        u_sequences_path=os.path.join(d, "u_sequences.npy")),
+        training=TrainConfig(
+            batch_size=64,
+            num_epochs=QUALITY_EPOCHS if quality else TRAIN_EPOCHS,
+            learning_rate=1e-3 if quality else 1e-5,
+            beta_warmup=True, gradient_clip=1.0, seed=42,
+            checkpoint_dir=os.path.join(outdir, "checkpoints_" + tag),
+            save_freq=10),
+        portfolio=PortfolioConfig(n_assets=10, hidden_dim=64,
+                                  transaction_cost=0.001, max_weight=0.3))
+
+
+def _write_config(cfg: Config, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=2, default=str)
+
+
+def _plot_loss(history, path: str, title: str) -> None:
+    """The loss curve as a PNG, where matplotlib is present."""
+    if find_spec("matplotlib") is None:
+        return
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(9, 4))
+    ax.plot(np.arange(1, len(history) + 1), history)
+    ax.set_xlabel("epoch")
+    ax.set_ylabel("negative ELBO")
+    ax.set_title(title)
+    ax.grid(True, alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+
+
+def _train(outdir: str, quality: bool, device) -> TrainPipeline:
+    """One recipe configuration through TrainPipeline: config_{tag}.json,
+    the checkpoints with a reference-loadable vae_hmm.pt, and
+    train_history_{tag}.json (the epoch losses in full precision).  After
+    SIGTERM it publishes nothing and exits 75; an auto-resume of a
+    finished run leaves the history file alone."""
+    tag = "quality" if quality else "published"
+    cfg = recipe_config(outdir, quality)
+    _write_config(cfg, os.path.join(outdir, f"config_{tag}.json"))
+    t0 = time.time()
+    pipe = TrainPipeline(cfg, device=device)
+    state = pipe.train(log_fn=print)
+    wall = time.time() - t0
+    if pipe.preempted:
+        print(f"train[{tag}]: preempted after {wall:.1f}s; checkpoint "
+              "saved, rerun this stage to resume")
+        raise SystemExit(75)
+    ckdir = cfg.training.checkpoint_dir
+    save_state_dict_file(os.path.join(ckdir, "vae_hmm.pt"),
+                         state.model.state_dict())
+    history = pipe.history
+    if not history:
+        print(f"train[{tag}]: already complete (resumed at final epoch); "
+              "exports refreshed, history left untouched")
+        return pipe
+    with open(os.path.join(outdir, f"train_history_{tag}.json"), "w") as f:
+        json.dump({"loss": history, "wall_seconds": wall,
+                   "epochs": cfg.training.num_epochs,
+                   "lr": cfg.training.learning_rate}, f, indent=2)
+    _plot_loss(history, os.path.join(outdir, f"loss_curve_{tag}.png"),
+               f"{tag} recipe: {cfg.training.num_epochs} epochs @ "
+               f"lr={cfg.training.learning_rate}")
+    print(f"train[{tag}]: {wall:.1f}s, final loss {history[-1]:.4f}")
+    return pipe
+
+
+def stage_train(outdir: str, device, checkpoint_dir=None) -> TrainPipeline:
+    """The published configuration (recipe_config)."""
+    return _train(outdir, False, device)
+
+
+def recipe_model(outdir: str, device, quality: bool = True) -> VAEHMM:
+    """The VAE-HMM a training stage of this run wrote, in eval() mode."""
+    cfg = recipe_config(outdir, quality)
+    model = VAEHMM(cfg.model, device=device)
+    model.load_state_dict(params_from_numpy(load_params_npz(os.path.join(
+        cfg.training.checkpoint_dir, "vae_hmm_trained.npz"))))
+    return model.eval()
+
+
+def _best_perm_acc(pred: np.ndarray, true: np.ndarray, K: int = 3):
+    """(best accuracy, permutation) over the K! relabellings of pred."""
+    best, best_perm = 0.0, None
+    for perm in itertools.permutations(range(K)):
+        acc = float((np.asarray(perm)[pred] == true).mean())
+        if acc > best:
+            best, best_perm = acc, perm
+    return best, best_perm
+
+
+def _balanced_acc(pred: np.ndarray, true: np.ndarray, perm,
+                  K: int = 3) -> float:
+    """Mean recall of the classes present, under `perm` (a constant
+    predictor scores 1/3 on the 90/8/2 fixture panel)."""
+    p = np.asarray(perm)[pred]
+    recalls = [float((p[true == k] == k).mean())
+               for k in range(K) if (true == k).any()]
+    return float(np.mean(recalls))
+
+
+def _accuracies(out: dict, preds: dict, z: np.ndarray) -> None:
+    """regime_acc_* and regime_bal_acc_* of each decode in preds
+    ((N, T) states), against z (N, T), into out."""
+    zf = z.reshape(-1)
+    for name, pred in preds.items():
+        acc, perm = _best_perm_acc(pred.reshape(-1), zf)
+        out["regime_acc_" + name] = round(acc, 4)
+        out["regime_bal_acc_" + name] = round(
+            _balanced_acc(pred.reshape(-1), zf, perm), 4)
+
+
+def _switch_rate(pred: np.ndarray) -> float:
+    """The share of steps whose state differs from the step before."""
+    return round(float((np.diff(pred, axis=1) != 0).mean()), 4)
+
+
+def _decodes(model: VAEHMM, x: np.ndarray, u: np.ndarray, device,
+             meanfield: bool = True) -> dict:
+    """The argmax of the mean-field posterior (the encoder kernel on a
+    card), of the smoothed posterior (the evidence kernel, then the
+    recursions) and the Viterbi path (the evidence and Viterbi kernels),
+    each (N, T)."""
+    with torch.inference_mode():
+        xt = torch.as_tensor(x, dtype=torch.float32, device=device)
+        ut = torch.as_tensor(u, dtype=torch.float32, device=device)
+        out = {}
+        if meanfield:
+            out["meanfield_argmax"] = model.posterior(xt).argmax(1)
+        out["smoothed_argmax"] = model.smoothed_posterior(xt, ut).argmax(1)
+        out["viterbi"] = model.viterbi_decode(xt, ut)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def stage_quality(outdir: str, device, checkpoint_dir=None) -> dict:
+    """The converged configuration trained, and its regime recovery
+    against the fixture's ground truth under three decodes
+    (quality_fixture.json); the published checkpoint's, where it exists
+    (quality_fixture_published.json).  Returns the first."""
+    _train(outdir, True, device)
+    x, u = _data(outdir, "x_sequences.npy"), _data(outdir, "u_sequences.npy")
+    z = _data(outdir, "z_windows.npy")
+    preds = _decodes(recipe_model(outdir, device), x, u, device)
+    zf = z.reshape(-1)
+    out = {"majority_share": round(float(np.bincount(zf).max() / zf.size),
+                                   4)}
+    _accuracies(out, preds, z)
+    for name, pred in preds.items():
+        out["switch_rate_" + name] = _switch_rate(pred)
+    out["switch_rate_ground_truth"] = _switch_rate(z)
+    with open(os.path.join(outdir, "quality_fixture.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    print("quality:", json.dumps(out))
+
+    if os.path.exists(os.path.join(recipe_config(outdir).training
+                                   .checkpoint_dir, "vae_hmm_trained.npz")):
+        ppreds = _decodes(recipe_model(outdir, device, quality=False), x, u,
+                          device, meanfield=False)
+        pout = {}
+        for name, pred in ppreds.items():
+            _accuracies(pout, {name: pred}, z)
+            pout["switch_rate_" + name] = _switch_rate(pred)
+        with open(os.path.join(outdir, "quality_fixture_published.json"),
+                  "w") as f:
+            json.dump(pout, f, indent=2)
+        print("quality[published config]:", json.dumps(pout))
+    return out
+
+
+def vq_config(outdir: str) -> Config:
+    """The true-VQ family on the data stage's windows: M=8 codes of D=16,
+    lr 3e-3, VQ_EPOCHS epochs (VQHMM_VQ_EPOCHS overrides), no periodic
+    checkpoint, into <outdir>/checkpoints_vq."""
+    d = os.path.join(outdir, "data")
+    return Config(
+        model=ModelConfig(input_dim=5, hidden_dim=64, K=3, hidden_dim2=32,
+                          u_dim=4, trans_hidden=128, family="vqvae"),
+        vq=VQConfig(num_codes=8, latent_dim=16),
+        data=DataConfig(min_len=20, max_len=200,
+                        x_sequences_path=os.path.join(d, "x_sequences.npy"),
+                        u_sequences_path=os.path.join(d, "u_sequences.npy")),
+        training=TrainConfig(
+            batch_size=64,
+            num_epochs=int(os.environ.get("VQHMM_VQ_EPOCHS", VQ_EPOCHS)),
+            learning_rate=3e-3, seed=42,
+            checkpoint_dir=os.path.join(outdir, "checkpoints_vq"),
+            save_freq=0))
+
+
+def stage_vq(outdir: str, device, checkpoint_dir=None) -> dict:
+    """The true-VQ family trained through TrainPipeline's vqvae branch on
+    the same windows, its codes and its code-HMM's smoothed and Viterbi
+    decodes scored against the ground truth (vq_quality_fixture.json,
+    merged into fixture_model_compare.json where that exists)."""
+    from .train.vq_pipeline import VQStack
+
+    cfg = vq_config(outdir)
+    _write_config(cfg, os.path.join(outdir, "config_vq.json"))
+    history = []
+
+    def log(msg):
+        print(msg)
+        if msg.startswith("Epoch"):
+            history.append(float(msg.rsplit(" ", 1)[-1]))
+
+    t0 = time.time()
+    pipe = TrainPipeline(cfg, device=device)
+    pipe.train(log_fn=log)
+    wall = time.time() - t0
+    if pipe.preempted:
+        print(f"vq: preempted after {wall:.1f}s; rerun this stage to resume")
+        raise SystemExit(75)
+
+    stack = VQStack.load(os.path.join(cfg.training.checkpoint_dir,
+                                      "vq_stack.npz"), device=device)
+    x, z = _data(outdir, "x_sequences.npy"), _data(outdir, "z_windows.npy")
+    with torch.inference_mode():
+        xt = torch.as_tensor(x, dtype=torch.float32, device=device)
+        lens = torch.full((x.shape[0],), x.shape[2], dtype=torch.int32,
+                          device=device)
+        codes = stack.codes(xt).cpu().numpy()
+        preds = {"smoothed_argmax": stack.regime_marginals(xt, lens)
+                 .argmax(-1).cpu().numpy(),
+                 "viterbi": stack.viterbi(xt, lens).cpu().numpy()}
+    usage = np.bincount(codes.reshape(-1),
+                        minlength=cfg.vq.num_codes) / codes.size
+    out = {"wall_seconds": round(wall, 1),
+           "epochs": cfg.training.num_epochs,
+           "final_vq_loss": round(history[-1], 4) if history else None,
+           "codebook_usage": [round(float(v), 3) for v in usage]}
+    _accuracies(out, preds, z)
+    for name, pred in preds.items():
+        out["switch_rate_" + name] = _switch_rate(pred)
+    out["switch_rate_ground_truth"] = _switch_rate(z)
+    with open(os.path.join(outdir, "vq_quality_fixture.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    cmp_path = os.path.join(outdir, "fixture_model_compare.json")
+    if os.path.exists(cmp_path):
+        with open(cmp_path) as f:
+            cmp_out = json.load(f)
+        cmp_out["vqvae_hmm_windows"] = {
+            k: v for k, v in out.items()
+            if k.startswith(("regime_", "switch_rate", "codebook"))}
+        with open(cmp_path, "w") as f:
+            json.dump(cmp_out, f, indent=2)
+    print("vq quality:", json.dumps(out))
+    return out
+
+
+def stage_eval(outdir: str, device, checkpoint_dir=None) -> dict:
+    """The masked reconstruction MSE (eval/evaluate.py: 4 batches of 32
+    random chunks, the serving forward kernel on a card) of each training
+    stage's checkpoint that exists, into eval_results_{tag}.txt."""
+    from .eval.evaluate import evaluate
+
+    data = (_data(outdir, "x_sequences.npy"),
+            _data(outdir, "u_sequences.npy"))
+    out = {}
+    for tag in ("published", "quality"):
+        cfgp = os.path.join(outdir, f"config_{tag}.json")
+        ck = os.path.join(outdir, f"checkpoints_{tag}", "vae_hmm_trained.npz")
+        if not (os.path.exists(cfgp) and os.path.exists(ck)):
+            continue
+        out[tag] = evaluate(cfgp, ck, data=data, device=device,
+                            output=os.path.join(outdir,
+                                                f"eval_results_{tag}.txt"))
+        print(f"eval[{tag}]: masked recon MSE {out[tag]:.6f}")
+    return out
 
 
 def load_trained(device, checkpoint_dir: str = CHECKPOINT_DIR) -> VAEHMM:
@@ -449,46 +761,273 @@ def stage_montecarlo(outdir: str, device,
     return mc, stats
 
 
+def _power_limit(device) -> str:
+    """The card's name and power limit as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
+    them ("unknown" where nvidia-smi cannot say)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+    return out.stdout.strip() if out.returncode == 0 else "unknown"
+
+
 def _log_stage(outdir: str, stage: str, wall_s: float, device) -> None:
     """Record a stage's wall clock and the device it ran on in
-    stage_log.json."""
+    stage_log.json: for a card its name, and its name and power limit
+    from nvidia-smi."""
     try:
         head = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
                               capture_output=True, text=True, cwd=ROOT,
                               timeout=10).stdout.strip() or "unknown"
     except (OSError, subprocess.SubprocessError):
         head = "unknown"
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
-        else "cpu"
+    cuda = device.type == "cuda"
     path = os.path.join(outdir, "stage_log.json")
     log = {}
     if os.path.exists(path):
         with open(path) as f:
             log = json.load(f)
     log[stage] = {"wall_s": round(wall_s, 1), "backend": device.type,
-                  "device": name, "git_head": head}
+                  "device": torch.cuda.get_device_name(device) if cuda
+                  else "cpu",
+                  "power_limit": _power_limit(device) if cuda else None,
+                  "git_head": head}
     with open(path, "w") as f:
         json.dump(log, f, indent=2)
+
+
+def _report_hardware(slog: dict) -> list:
+    """The report's hardware note, from stage_log.json alone."""
+    run = [s for s in slog if s != "report"]
+    if not run:
+        return []
+    where = {(slog[s]["backend"], slog[s].get("power_limit")
+              or slog[s]["device"]) for s in run}
+    heads = sorted({slog[s]["git_head"] for s in run})
+    if len(where) == 1:
+        backend, name = where.pop()
+        on = (f"one card, {name} (name and power limit as nvidia-smi "
+              "reports them)" if backend == "cuda" else "the host CPU")
+        return [f"**Hardware note:** every stage below ran on {on}, git "
+                f"head{'s' if len(heads) > 1 else ''} {', '.join(heads)}; "
+                "per-stage wall clock in the table at the end of this "
+                "report (`stage_log.json`)."]
+    by = ", ".join(f"{s}: {slog[s].get('power_limit') or slog[s]['device']}"
+                   for s in run)
+    return [f"**Hardware note:** per-stage devices: {by} "
+            "(`stage_log.json`)."]
+
+
+def stage_report(outdir: str, device=None, checkpoint_dir=None) -> str:
+    """RECIPE_REPORT.md in outdir, built from the outdir's JSON and text
+    files alone; returns its path."""
+    def load(name, default=None):
+        p = os.path.join(outdir, name)
+        if os.path.exists(p):
+            with open(p) as f:
+                return json.load(f)
+        return default
+
+    pub = load("train_history_published.json", {})
+    qual = load("train_history_quality.json", {})
+    q = load("quality_fixture.json", {})
+    qpub = load("quality_fixture_published.json", {})
+    vq = load("vq_quality_fixture.json", {})
+    bt = load("backtest_metrics.json", {})
+    wf = load("walkforward_metrics.json", {})
+    mc = load("monte_carlo_stats.json", {})
+    slog = load("stage_log.json", {})
+    evals = {}
+    for tag in ("published", "quality"):
+        p = os.path.join(outdir, f"eval_results_{tag}.txt")
+        if os.path.exists(p):
+            with open(p) as f:
+                evals[tag] = f.read().strip()
+
+    def on(stage):
+        e = slog.get(stage)
+        return (f" on {e.get('power_limit') or e['device']}" if e else "")
+
+    lines = [
+        "# Full-recipe reproduction report",
+        "",
+        "The reference's complete published workflow "
+        "(README.md:113-125, configs/config.yaml:3-34) run end to end by "
+        "the PyTorch port (`python -m vqvaehmm_tpu_torch.recipe`). Every "
+        "stage below ran through the same public entry points a user "
+        "would call; the files in this directory are their direct "
+        "outputs.",
+        "",
+        "**Data note:** the numbers below come from the committed fixture "
+        "panel (`tests/fixtures/market_fixture.csv`), a deterministic "
+        "3-regime Markov-switching simulation calibrated to 2015-2024 "
+        "stylized facts (`scripts/make_market_fixture.py`); the "
+        "reference's live yfinance pull needs a network.",
+        "",
+    ] + _report_hardware(slog) + [
+        "",
+        "## 1. Published training recipe (150 epochs, B=64, lr=1e-5)",
+        "",
+        f"- final negative ELBO: **{pub.get('loss', ['?'])[-1]}** "
+        "(loss curve: `loss_curve_published.png`)",
+        f"- wall clock: {round(pub.get('wall_seconds', 0), 1)}s"
+        f"{on('train')}",
+        "- exported checkpoints: `checkpoints_published/vae_hmm.pt` "
+        "(a reference-loadable state_dict) and `vae_hmm_trained.npz`",
+        "",
+        "## 2. Converged run (40 epochs, lr=1e-3)",
+        "",
+        f"- final negative ELBO: **{qual.get('loss', ['?'])[-1]}** "
+        f"(`loss_curve_quality.png`), wall "
+        f"{round(qual.get('wall_seconds', 0), 1)}s{on('quality')}",
+        "- the published lr (1e-5) moves the loss only slightly in 150 "
+        "epochs; the converged run is what the downstream stages use.",
+        "",
+        "### What the published config achieves downstream",
+        "",
+        "Regime accuracy of the published checkpoint "
+        f"{qpub.get('regime_acc_smoothed_argmax', '?')} (smoothed argmax) "
+        f"/ {qpub.get('regime_acc_viterbi', '?')} (Viterbi) on the "
+        "fixture's ground truth, against "
+        f"{q.get('regime_acc_smoothed_argmax', '?')} / "
+        f"{q.get('regime_acc_viterbi', '?')} for the converged run "
+        "(`quality_fixture_published.json`); the downstream stages use "
+        "the converged checkpoint.",
+        "",
+        "## 3. Evaluation (masked recon MSE)",
+        "",
+    ]
+    for tag, txt in evals.items():
+        lines.append(f"- {tag}: `{txt}`")
+    lines += [
+        "",
+        "## 4. Regime recovery vs fixture ground truth",
+        "",
+        "The fixture panel is imbalanced "
+        f"(majority regime = {q.get('majority_share', '?')} of days), so "
+        "raw accuracy is dominated by the calm regime; balanced accuracy "
+        "(mean per-class recall) scores a constant predictor at 1/3.",
+        "",
+        "| decode mode | accuracy (best perm) | balanced acc | "
+        "switch rate |",
+        "|---|---|---|---|",
+        f"| constant (majority) | {q.get('majority_share', '?')} "
+        "| 0.3333 | 0.0 |",
+    ]
+    for mode in ("meanfield_argmax", "smoothed_argmax", "viterbi"):
+        lines.append(
+            f"| {mode} | {q.get('regime_acc_' + mode, '?')} | "
+            f"{q.get('regime_bal_acc_' + mode, '?')} | "
+            f"{q.get('switch_rate_' + mode, '?')} |")
+    lines += [
+        "| ground truth | 1.0 | 1.0 | "
+        f"{q.get('switch_rate_ground_truth', '?')} |",
+        "",
+        "## 4b. True-VQ family on the same windows (model.family=vqvae)",
+        "",
+        "Trained through the same TrainPipeline on the same fixture "
+        f"windows ({vq.get('epochs', '?')} epochs, wall "
+        f"{vq.get('wall_seconds', '?')}s{on('vq')}):",
+        "",
+        "| decode mode | accuracy (best perm) | balanced acc | "
+        "switch rate |",
+        "|---|---|---|---|",
+    ]
+    for mode in ("smoothed_argmax", "viterbi"):
+        lines.append(
+            f"| {mode} | {vq.get('regime_acc_' + mode, '?')} "
+            f"| {vq.get('regime_bal_acc_' + mode, '?')} "
+            f"| {vq.get('switch_rate_' + mode, '?')} |")
+    lines += [
+        "",
+        f"Codebook usage: {vq.get('codebook_usage', '?')} "
+        "(`vq_quality_fixture.json`).",
+        "",
+        "## 5. Backtest (tx cost 10bp, slippage 5bp, rebalance every 5d)",
+        "",
+        "| metric | regime portfolio | equal weight |",
+        "|---|---|---|",
+    ]
+    rp, ew = bt.get("regime_portfolio", {}), bt.get("equal_weight", {})
+    for k in sorted(set(rp) | set(ew)):
+        lines.append(f"| {k} | {round(rp.get(k, float('nan')), 4)} | "
+                     f"{round(ew.get(k, float('nan')), 4)} |")
+    wfm = wf.get("walk_forward", {})
+    lines += [
+        "",
+        "Plot: `backtest_results.png`. The backtests use the "
+        "self-financing cash ledger (`Backtester(accounting=\"cash\")`, "
+        "the default).",
+        "",
+        "## 5b. Walk-forward (252d train / 63d test, retrain every 126d)",
+        "",
+        f"- windows: {wfm.get('n_windows', '?')}, chained total return "
+        f"{wfm.get('chained_total_return', '?')}, mean window Sharpe "
+        f"{wfm.get('mean_window_sharpe', '?')}, profitable windows "
+        f"{wfm.get('pct_windows_profitable', '?')}",
+        "- per-regime breakdown (argmax vs exact Viterbi decode) and the "
+        "crash-regime cost: `walkforward_metrics.json`",
+        "",
+        "## 6. Monte Carlo (1000 paths x 252 days, regime-conditional)",
+        "",
+    ]
+    lines += [f"- {k}: {round(v, 4)}" for k, v in mc.items()]
+    lines += [
+        "",
+        "Plot: `monte_carlo_results.png`.",
+        "",
+        "Reproduce: `python -m vqvaehmm_tpu_torch.recipe` (each stage is "
+        "resumable and runs alone with `--stage`).",
+    ]
+    if slog:
+        lines += ["", "## Per-stage execution record", "",
+                  "| stage | backend | device | power limit | wall (s) | "
+                  "git head |",
+                  "|---|---|---|---|---|---|"]
+        for s in STAGES:
+            if s in slog:
+                e = slog[s]
+                lines.append(f"| {s} | {e['backend']} | {e['device']} | "
+                             f"{e.get('power_limit') or '-'} | "
+                             f"{e['wall_s']} | {e['git_head']} |")
+    path = os.path.join(outdir, "RECIPE_REPORT.md")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print(f"wrote {path}")
+    return path
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m vqvaehmm_tpu_torch.recipe",
-        description="The published workflow's data, head, backtest, "
-                    "walk-forward and Monte Carlo stages on the port.")
+        description="The published workflow on the port, from the "
+                    "fixture panel to RECIPE_REPORT.md.")
     ap.add_argument("--stage", default="all", choices=STAGES + ["all"])
     ap.add_argument("--outdir", default=OUTDIR)
-    ap.add_argument("--checkpoint-dir", default=CHECKPOINT_DIR,
-                    help="directory of the quality vae_hmm_trained.npz")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory of the quality vae_hmm_trained.npz "
+                         "that the head, backtest, walkforward and "
+                         "montecarlo stages read (default: under --stage "
+                         "all this run's <outdir>/checkpoints_quality, "
+                         "else artifacts/checkpoints_quality)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     os.makedirs(args.outdir, exist_ok=True)
+    checkpoint_dir = args.checkpoint_dir or (
+        os.path.join(args.outdir, "checkpoints_quality")
+        if args.stage == "all" else CHECKPOINT_DIR)
     for s in STAGES if args.stage == "all" else [args.stage]:
         print(f"=== stage: {s} ===", flush=True)
         t0 = time.time()
-        globals()["stage_" + s](args.outdir, device, args.checkpoint_dir)
+        globals()["stage_" + s](args.outdir, device, checkpoint_dir)
         _log_stage(args.outdir, s, time.time() - t0, device)
     return 0
 

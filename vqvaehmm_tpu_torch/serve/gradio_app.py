@@ -3,8 +3,10 @@ vqvaehmm_tpu/serve/gradio_app.py): market data typed into a text box ->
 regime posterior -> portfolio head -> allocation table and a named regime
 (Bull/Bear/Neutral).  gradio is imported only by `build_demo`.
 
-The demo's head is the one the served model's /predict uses (its
-configured checkpoint, or a seeded random RegimePortfolioOptimizer).
+The demo's head is the served model's configured head checkpoint where
+one is set (`head_checkpoint_path`, the head /predict uses), else a
+TransformerPortfolioOptimizer drawn from a Generator seeded with 0, as
+the JAX demo builds one from PRNGKey(0).
 """
 
 from __future__ import annotations
@@ -61,12 +63,20 @@ def make_infer_fn(config_path: str = "inference_config.json",
                   device="cuda"):
     """The demo's click callback, text -> (regime, probs, allocation),
     independent of gradio.  The posterior is `VAEHMM.posterior` (kernel 8
-    on a CUDA device); the head is the served model's."""
+    on a CUDA device); the head is the configured head checkpoint's, or a
+    seeded TransformerPortfolioOptimizer where none is set."""
+    from ..models.portfolio import HeadConfig, TransformerPortfolioOptimizer
     from .app import get_model
 
     m = get_model(config_path, device)
-    head = m._get_head()
     dev = m.device
+    if m.cfg.head_checkpoint_path:
+        head = m._get_head()
+    else:
+        head = TransformerPortfolioOptimizer(
+            HeadConfig(K=m.cfg.model.K, n_assets=m.cfg.portfolio.n_assets,
+                       hidden_dim=m.cfg.portfolio.hidden_dim),
+            device=dev, generator=torch.Generator().manual_seed(0)).eval()
 
     def posterior_fn(x):
         with torch.inference_mode():

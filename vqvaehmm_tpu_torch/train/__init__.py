@@ -3,3 +3,5 @@ from .trainer import (ClippedAdam, Trainer, TrainState, beta_schedule,
                       resolve_input_pipeline, train_model, train_step)
 from .heads import (HeadTrainResult, train_delta_hedger, train_portfolio,
                     train_portfolio_fused, train_portfolio_optimizer)
+from .strategies import (MetaPortfolioOptimizer, OnlinePortfolioOptimizer,
+                         WalkForwardTrainer)
