@@ -360,6 +360,38 @@ exiting non-zero before a result is printed:
    within 1e-5 of the CPU's; the Gradio demo with no head checkpoint
    (make_infer_fn) allocating by the seeded TransformerPortfolioOptimizer,
    one kernel-8 launch a click.
+32. data-parallel kernel C, in this process at the published shape (B=64,
+   T=200, the published weights): kernel C's global-normalisation mode
+   (the TPU kernel's axis_name mode, `norm=`) called on each half of a
+   batch whose second half's longest row is DP_SHORT steps shorter than
+   the first's, the two losses and flat gradients summed, against one
+   whole-batch call: the loss within DP_LOSS_TOL relative and each
+   gradient within DP_GRAD_TOL of that tensor's largest magnitude, in
+   float32 and (against BF16_LOSS_TOL, BF16_GRAD_TOL) in the bfloat16
+   mode; each half against its plain version in the same mode (phase 7's
+   and phase 29's bars); the sentinel call (norm None) bit-equal to the
+   call given the batch's own norm (the parent's outputs are held bit for
+   bit by --compare); the halves run with their own valid_to printed,
+   how far they part.
+33. data-parallel training, the published configuration, 4 epochs.  (a)
+   A world of one over NCCL on the card: TrainPipeline(use_mesh=True)
+   bit-equal to the same run without a mesh, epoch losses and final
+   parameters; kernel C once a step, D once an epoch.  (b) A world of two
+   gloo processes sharing the card (NCCL takes one card a rank), each
+   launching kernels C and D on its half of every batch: epoch losses
+   within DP_EPOCH_TOL relative of (a), the ranks' final parameters
+   bit-equal; a run stopped by SIGTERM to rank 0 after epoch 2 (both
+   ranks stop) and resumed on one rank within DP_RESUME_TOL of the
+   uninterrupted run; a 4-seed ensemble over the two ranks bit-equal,
+   member by member, to train_ensemble in this process; sharded
+   infer_forward bit-equal to the unsharded call (one kernel-A launch a
+   rank); forward_sharded at (2, 2 x 1000, 3) within DP_HMM_TOL of
+   ops/hmm.forward, relative (floor 1: log_alpha reaches some 3000 there,
+   where a float32 rounding is 2.4e-4).  The launches of kernels C, D and
+   A a rank, a step's wall and device-busy ms a rank, and the all-reduce's
+   time inside a step timed with it (between two synchronisations, the
+   wait for the peer included) and its share of that step are printed
+   (the share is a record, not a check).
 
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
@@ -375,8 +407,10 @@ recipe `head_launches` and `walkforward_launches` of kernel 8 and
 (`ensemble_c_launches`, `ensemble_d_launches`) and, on kernel C's entry,
 the ensemble's epoch times, the host-fed epoch times of phase 28 and the
 GMM stack's wall times of phase 26 (`gmm_*`), on every kernel phase
-30's launches a recipe stage (`recipe_launches`); the last line is
-{"ok": true, "device": {...}}.
+30's launches a recipe stage (`recipe_launches`), and on kernel C's
+entries phase 32's gaps (`global_norm`) and on kernels C, D and A phase
+33's launches a rank (`dp_launches`) and kernel C's step times there
+(`dp_step`); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5187,6 +5221,400 @@ def phase_zoo(torch, np, tmp, dev="cuda"):
             "calibrate_launches": cal_launches}
 
 
+# phase 32's bars (float32; the bfloat16 mode is held to BF16_LOSS_TOL and
+# BF16_GRAD_TOL) and its short half; phase 33's
+DP_LOSS_TOL, DP_GRAD_TOL, DP_SHORT = 1e-5, 1e-5, 150
+DP_EPOCH_TOL, DP_RESUME_TOL, DP_HMM_TOL = 1e-4, 1e-5, 1e-4   # HMM: relative
+DP_STEPS = 10
+
+
+def phase_kernel_c_dp(torch, np, model):
+    """32. kernel C's global-normalisation mode on two halves against one
+    whole-batch call (the module docstring); returns {mode: gaps}."""
+    from vqvaehmm_tpu_torch.ops.fused_train import (
+        PARAM_NAMES, fused_loss_and_flat_grads, global_norm, split_grads)
+
+    dev = model.device
+    B, T = C_SHAPES[0]
+    x, u, lens = train_inputs(torch, np, np.random.default_rng(32), B, T,
+                              model.cfg.input_dim, model.cfg.u_dim, dev)
+    lens[B // 2:] = lens[B // 2:].clamp(max=T - DP_SHORT)
+    halves = (slice(0, B // 2), slice(B // 2, B))
+    norm = global_norm(lens, T)
+    if int(lens[halves[1]].max()) >= norm[0]:
+        fail(f"phase 32's second half reaches the global valid_to {norm}")
+    out = {}
+    for mode, m, loss_tol, grad_tol, plain_tol in (
+            ("float32", model, DP_LOSS_TOL, DP_GRAD_TOL, (1e-5, 1e-4)),
+            ("bfloat16", _bf16_model(torch, model), BF16_LOSS_TOL,
+             BF16_GRAD_TOL, (BF16_LOSS_TOL, BF16_GRAD_TOL))):
+        def call(rows, nm, use_kernel=True):
+            return fused_loss_and_flat_grads(m, x[rows], u[rows], lens[rows],
+                                             0.7, use_kernel=use_kernel,
+                                             norm=nm)
+
+        whole_loss, whole = call(slice(None), None)
+        own_loss, own = call(slice(None), norm)
+        parts = [call(h, norm) for h in halves]
+        local = [call(h, (int(lens[h].max()), *norm[1:])) for h in halves]
+        plain = [call(h, norm, use_kernel=False) for h in halves]
+        torch.cuda.synchronize()
+        if not (torch.equal(whole_loss, own_loss) and torch.equal(whole, own)):
+            fail(f"kernel C ({mode}) given the batch's own norm is not "
+                 "bit-equal to its sentinel call")
+        params = dict(m.named_parameters())
+        want = split_grads(params, whole)
+
+        def gaps(loss, flat, ref_loss, ref):
+            rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+            got = split_grads(params, flat)
+            share = max(max_abs(got[n], ref[n]) / float(ref[n].abs().max())
+                        for n in PARAM_NAMES if float(ref[n].abs().max()))
+            return rel, share
+
+        rel, share = gaps(parts[0][0] + parts[1][0], parts[0][1] + parts[1][1],
+                          whole_loss, want)
+        if rel > loss_tol or share > grad_tol:
+            fail(f"kernel C ({mode}): two half-batch calls summed part from "
+                 f"the whole batch by {rel:.3e} relative in the loss (tol "
+                 f"{loss_tol}) and {share:.3e} of a gradient's largest "
+                 f"magnitude (tol {grad_tol})")
+        worst_plain = (0.0, 0.0)
+        for (kl, kf), (pl, pf) in zip(parts, plain):
+            pg = gaps(kl, kf, pl, split_grads(params, pf))
+            worst_plain = tuple(map(max, worst_plain, pg))
+            if pg[0] > plain_tol[0] or pg[1] > plain_tol[1]:
+                fail(f"kernel C ({mode}) in the global-normalisation mode "
+                     f"parts from its plain version by {pg} (tol "
+                     f"{plain_tol})")
+        _, local_share = gaps(local[0][0] + local[1][0],
+                              local[0][1] + local[1][1], whole_loss, want)
+        out[mode] = {"sum_loss_rel": rel, "sum_grad_share": share,
+                     "plain_loss_rel": worst_plain[0],
+                     "plain_grad_share": worst_plain[1],
+                     "local_valid_to_grad_share": local_share}
+        say("kernel C dp", f"{mode}: two halves (longest rows {T} and "
+            f"{int(lens[halves[1]].max())}) with the global norm {norm} "
+            f"summed: loss {rel:.3e} relative (tol {loss_tol}), gradients "
+            f"within {share:.3e} of a tensor's largest magnitude (tol "
+            f"{grad_tol}); against the plain version {worst_plain[0]:.3e} /"
+            f" {worst_plain[1]:.3e}; the sentinel call bit-equal to the "
+            f"batch's own norm; each half's own valid_to parts by "
+            f"{local_share:.3e}")
+    return out
+
+
+def _rel_gap(got, want) -> float:
+    """max |got - want| / max(1, |want|): log_alpha grows to some 1.5
+    nats a step, so at T = 2000 one float32 rounding of it is above 1e-4
+    absolute."""
+    return float(((got.double() - want.double()).abs()
+                  / want.double().abs().clamp(min=1.0)).max())
+
+
+def _np_params(model):
+    return {n: p.detach().cpu().numpy().copy()
+            for n, p in model.named_parameters()}
+
+
+def _busy_ms(torch, fn, calls):
+    """Device-busy ms a call of fn() off one profiler trace of `calls`
+    calls (one pass: a rank of a world retraces nothing alone, which
+    would leave its peer in a collective)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [(e.time_range.start, e.time_range.end) for e in prof.events()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    return _busy_us(ops) / 1e3 / calls if ops else None
+
+
+def dp_rank(mesh, tmp, dev):
+    """Phase 33(b) on one rank of a world of two sharing the card: the
+    checks' raw results, to be held against each other and the one-process
+    runs by phase_dp_train."""
+    import torch
+    import torch.distributed as dist
+
+    import numpy as np
+    from vqvaehmm_tpu_torch.ops import hmm as hmm_ops
+    from vqvaehmm_tpu_torch.ops.fused_infer import fused_forward
+    from vqvaehmm_tpu_torch.ops.fused_train import (PARAM_NAMES,
+                                                    fused_loss_and_grads,
+                                                    global_norm)
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.parallel import create_mesh, forward_sharded
+    from vqvaehmm_tpu_torch.train.ensemble import train_ensemble
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+    from vqvaehmm_tpu_torch.train.trainer import make_optimizer, train_step
+
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" \
+        else (lambda: None)
+    out = {}
+    # the uninterrupted run
+    cfg = _pipeline_cfg(os.path.join(tmp, "dp_whole"))
+    fused_loss_and_grads.launches = gather_epoch.launches = 0
+    pipe = TrainPipeline(cfg, use_mesh=True, device=dev)
+    state = pipe.train(log_fn=None)
+    sync()
+    out["launches"] = {"fused_train": fused_loss_and_grads.launches,
+                       "gather": gather_epoch.launches}
+    out["history"], out["params"] = pipe.history, _np_params(state.model)
+
+    # SIGTERM to rank 0 after epoch 2, then a resume on rank 0 alone
+    scfg = _pipeline_cfg(os.path.join(tmp, "dp_stopped"))
+
+    def preempt_at_2(msg):                 # only rank 0 logs
+        if msg.startswith("Epoch 2/"):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    stopped = TrainPipeline(scfg, use_mesh=True, device=dev)
+    stopped.train(log_fn=preempt_at_2)
+    out["stopped"] = (stopped.preempted, len(stopped.history))
+    solo_group = dist.new_group([0])
+    if mesh.rank == 0:
+        resumed = TrainPipeline(scfg, use_mesh=True, device=dev,
+                                group=solo_group)
+        rstate = resumed.train(log_fn=None)
+        out["resumed"] = (resumed.mesh.size, resumed.history,
+                          _np_params(rstate.model))
+
+    # the members over the ranks
+    ecfg = _pipeline_cfg(os.path.join(tmp, "dp_ensemble"))
+    epipe = TrainPipeline(ecfg, device=dev)
+    t = ecfg.training
+    fused_loss_and_grads.launches = gather_epoch.launches = 0
+    states, hist, best = train_ensemble(
+        epipe.build_model(), epipe.load_data(), ENSEMBLE_SEEDS,
+        num_epochs=t.num_epochs, lr=t.learning_rate,
+        batch_size=t.batch_size, gradient_clip=t.gradient_clip,
+        device=dev, mesh=mesh, log_fn=None)
+    sync()
+    out["ensemble"] = (hist, best, [_np_params(s.model) for s in states],
+                       {"fused_train": fused_loss_and_grads.launches,
+                        "gather": gather_epoch.launches})
+
+    # bulk inference over the ranks: one kernel-A launch a rank
+    model = load_published(torch, mesh.device)
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.normal(size=(64, 5, 200)).astype(np.float32)
+                         ).to(mesh.device)
+    vt = torch.from_numpy(rng.integers(50, 201, size=64).astype(np.int32)
+                          ).to(mesh.device)
+    with torch.inference_mode():
+        fused_forward.launches = 0
+        got = model.infer_forward(x, valid_to=vt, mesh=mesh)
+        sync()
+        a_launches = fused_forward.launches
+        want = model.infer_forward(x, valid_to=vt)
+        sync()
+    out["infer"] = (a_launches, all(torch.equal(g, w)
+                                    for g, w in zip(got, want)),
+                    max(max_abs(g, w) for g, w in zip(got, want)))
+
+    # the HMM forward with T over the ranks
+    K, steps = 3, 2 * 1000
+    log_pi = torch.log(torch.from_numpy(rng.dirichlet(np.ones(K)).astype(
+        np.float32))).to(mesh.device)
+    log_A = torch.log(torch.from_numpy(rng.dirichlet(
+        np.ones(K), size=(2, steps, K)).astype(np.float32))).to(mesh.device)
+    log_obs = torch.from_numpy(rng.normal(size=(2, steps, K)).astype(
+        np.float32)).to(mesh.device)
+    sp = forward_sharded(log_pi, log_A, log_obs, mesh)
+    ref = hmm_ops.forward(log_pi, log_A, log_obs)
+    out["hmm"] = max(_rel_gap(sp.log_alpha,
+                              ref.log_alpha[:, mesh.rows(steps)]),
+                     _rel_gap(sp.log_likelihood, ref.log_likelihood))
+
+    # a step's wall and device time on this rank, and the all-reduce's
+    # share of the step, read inside the step
+    model = epipe.build_model()
+    opt = make_optimizer(model, t.learning_rate, t.gradient_clip)
+    B, T = t.batch_size, cfg.data.max_len
+    xs, us, ls = train_inputs(torch, np, np.random.default_rng(34), B, T,
+                              model.cfg.input_dim, model.cfg.u_dim,
+                              mesh.device)
+    norm, rows = global_norm(ls, T), mesh.rows(B)
+    xs, us, ls = xs[rows].contiguous(), us[rows].contiguous(), ls[rows]
+    in_step = []
+
+    class TimedMesh(type(mesh)):
+        """The mesh with its all-reduce timed on the host between two
+        synchronisations: the step's own all-reduce, the wait for the
+        peer rank included."""
+
+        def all_reduce_(self, t, op=dist.ReduceOp.SUM):
+            sync()
+            t0 = time.perf_counter()
+            super().all_reduce_(t, op)
+            sync()
+            in_step.append(time.perf_counter() - t0)
+            return t
+
+    timed = TimedMesh(mesh.group, mesh.rank, mesh.size, mesh.device,
+                      mesh.axis_name)
+
+    def step(on=mesh):
+        train_step(model, opt, xs, us, ls, 1.0, True, on, norm)
+
+    def steps_wall(on=mesh):
+        for _ in range(DP_STEPS):
+            step(on)
+
+    def ms_a_call(fn):
+        """Host-clock ms a call of DP_STEPS calls ending in a synchronise,
+        after one warm-up window (the same calls on every rank)."""
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return 1e3 * (time.perf_counter() - t0) / DP_STEPS
+
+    step_ms = ms_a_call(steps_wall)
+    timed_step_ms = ms_a_call(lambda: steps_wall(timed))
+    reduce_ms = 1e3 * sum(in_step[-DP_STEPS:]) / DP_STEPS
+    device_ms = _busy_ms(torch, step, DP_STEPS) \
+        if mesh.device.type == "cuda" else None
+    out["step"] = {"step_ms": step_ms, "device_ms": device_ms,
+                   "timed_step_ms": timed_step_ms,
+                   "all_reduce_ms": reduce_ms,
+                   "all_reduce_share": reduce_ms / timed_step_ms,
+                   "params": len(PARAM_NAMES)}
+    return out
+
+
+def phase_dp_train(torch, np, tmp, dev="cuda", backend="nccl"):
+    """33. data-parallel training (the module docstring): (a) a world of
+    one over `backend` in this process, (b) two gloo processes on `dev`.
+    Returns the kernels line's dp_launches and dp_step."""
+    import datetime
+
+    import torch.distributed as dist
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.ops.gather import gather_epoch
+    from vqvaehmm_tpu_torch.parallel.dryrun import run_world
+    from vqvaehmm_tpu_torch.train.ensemble import train_ensemble
+    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
+
+    card = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    cfg = _pipeline_cfg(os.path.join(tmp, "solo"))
+    t = cfg.training
+    steps = t.num_epochs * (cfg.data.samples_per_epoch // t.batch_size)
+    solo = TrainPipeline(cfg, device=card)
+    sstate = solo.train(log_fn=None)
+
+    # (a) a world of one
+    if card.type == "cuda":
+        torch.cuda.set_device(card)
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(tmp, "store_one"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        fused_loss_and_grads.launches = gather_epoch.launches = 0
+        one = TrainPipeline(_pipeline_cfg(os.path.join(tmp, "one")),
+                            use_mesh=True, device=card)
+        ostate = one.train(log_fn=None)
+        if card.type == "cuda":
+            torch.cuda.synchronize()
+        one_launches = {"fused_train": fused_loss_and_grads.launches,
+                        "gather": gather_epoch.launches}
+    finally:
+        dist.destroy_process_group()
+    want = {"fused_train": steps, "gather": t.num_epochs}
+    if one_launches != want:
+        fail(f"the world of one launched {one_launches}, not {want}")
+    if one.history != solo.history or not all(
+            torch.equal(p, q) for p, q in zip(ostate.model.parameters(),
+                                              sstate.model.parameters())):
+        fail(f"TrainPipeline(use_mesh=True) over a world of one "
+             f"({backend}) is not bit-equal to the run without a mesh: "
+             f"{one.history} vs {solo.history}")
+    say("dp train", f"(a) a world of one over {backend}: epoch losses and "
+        f"final parameters bit-equal to the run without a mesh; launches "
+        f"{one_launches}")
+
+    # (b) two gloo processes sharing the card
+    ecfg = _pipeline_cfg(os.path.join(tmp, "ensemble"))
+    epipe = TrainPipeline(ecfg, device=card)
+    _, ehist, _ = ens = train_ensemble(
+        epipe.build_model(), epipe.load_data(), ENSEMBLE_SEEDS,
+        num_epochs=t.num_epochs, lr=t.learning_rate,
+        batch_size=t.batch_size, gradient_clip=t.gradient_clip,
+        device=card, log_fn=None)
+    t0 = time.perf_counter()
+    ranks = run_world(2, dp_rank, (tmp, str(card)), device=str(card))
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    half = {"fused_train": steps, "gather": t.num_epochs}
+    for r, res in enumerate(ranks):
+        if res["launches"] != half:
+            fail(f"rank {r} launched {res['launches']}, not {half}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["history"],
+                                                      one.history))
+        if len(res["history"]) != t.num_epochs or rel > DP_EPOCH_TOL:
+            fail(f"rank {r}'s epoch losses {res['history']} part from the "
+                 f"world of one's {one.history} by {rel:.3e} relative (tol "
+                 f"{DP_EPOCH_TOL})")
+        if res["stopped"] != (True, 2):
+            fail(f"rank {r} after SIGTERM to rank 0 at epoch 2: preempted "
+                 f"and epochs {res['stopped']}")
+        if res["infer"][:2] != (1, True):
+            fail(f"rank {r}'s sharded infer_forward: kernel-A launches, "
+                 f"bit-equal, gap {res['infer']}")
+        if res["hmm"] > DP_HMM_TOL:
+            fail(f"rank {r}'s forward_sharded parts from ops/hmm.forward by "
+                 f"{res['hmm']:.3e} (tol {DP_HMM_TOL})")
+        hist, best, members, elaunch = res["ensemble"]
+        if not np.array_equal(hist, ehist) or best != ens[2] or not all(
+                np.array_equal(m[n], p.detach().cpu().numpy())
+                for m, s in zip(members, ens[0])
+                for n, p in s.model.named_parameters()):
+            fail(f"rank {r}'s 4-seed ensemble over two ranks is not "
+                 "bit-equal to train_ensemble in one process")
+        want_e = {"fused_train": 2 * steps, "gather": t.num_epochs}
+        if elaunch != want_e:
+            fail(f"rank {r}'s ensemble launched {elaunch}, not {want_e}")
+    if not all(np.array_equal(r0["params"][n], r1["params"][n])
+               for n in r0["params"]):
+        fail("the two ranks' final parameters differ")
+    size, rhist, rparams = r0["resumed"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rhist, r0["history"][2:]))
+    gap = max(float(np.abs(rparams[n] - r0["params"][n]).max())
+              for n in rparams)
+    if size != 1 or len(rhist) != 2 or rel > DP_RESUME_TOL \
+            or gap > DP_RESUME_TOL:
+        fail(f"the run resumed on {size} rank(s) parts from the "
+             f"uninterrupted run by {rel:.3e} in the losses and {gap:.3e} in "
+             f"the parameters (tol {DP_RESUME_TOL})")
+    dp_launches = {f"rank{r}": {**res["launches"],
+                                "fused_infer": res["infer"][0],
+                                "ensemble": res["ensemble"][3]}
+                   for r, res in enumerate(ranks)}
+    dp_step = {f"rank{r}": res["step"] for r, res in enumerate(ranks)}
+    say("dp train", f"(b) two gloo ranks on {card} ({wall:.1f} s): epoch "
+        f"losses {r0['history']} within {DP_EPOCH_TOL} of the world of "
+        f"one, the ranks' parameters bit-equal; SIGTERM at epoch 2 stopped "
+        f"both, the resume on one rank within {max(rel, gap):.3e}; the "
+        f"4-seed ensemble bit-equal to one process; sharded inference "
+        f"bit-equal; forward_sharded within "
+        f"{max(r0['hmm'], r1['hmm']):.3e}; launches a rank {dp_launches}")
+    for r, st in dp_step.items():
+        say("dp train", f"{r}: a step {st['step_ms']:.4f} ms of wall, "
+            f"{_ms(st['device_ms'])} of device time; inside a step timed "
+            f"with its all-reduce ({st['timed_step_ms']:.4f} ms), the "
+            f"all-reduce of the flat gradients {st['all_reduce_ms']:.4f} ms"
+            f", {100 * st['all_reduce_share']:.1f}% of that step (gloo "
+            "through the host, the wait for the peer included: a record)")
+    return dp_launches, dp_step
+
+
 def _sha(torch, *tensors) -> str:
     import hashlib
 
@@ -5703,6 +6131,13 @@ def main() -> int:
         zoo = phase_zoo(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # 32, 33: data parallelism
+    dp_gaps = phase_kernel_c_dp(torch, np, load_published(torch, dev))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        dp_launches, dp_step = phase_dp_train(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -5920,6 +6355,16 @@ def main() -> int:
                                 for s, n in recipe_launches.items()}
         if k["name"] == "fused_encode":
             k["zoo_calibrate_launches"] = zoo["calibrate_launches"]
+        # phases 32, 33: the global-normalisation mode and its launches a
+        # rank of the two-rank world
+        if k["name"] in ("fused_train", "fused_train_bf16"):
+            k["global_norm"] = dp_gaps["float32" if k["name"] == "fused_train"
+                                       else "bfloat16"]
+        if k["name"] == "fused_train":
+            k["dp_step"] = dp_step
+        if k["name"] in ("fused_train", "gather", "fused_infer"):
+            k["dp_launches"] = {r: n[k["name"]]
+                                for r, n in dp_launches.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

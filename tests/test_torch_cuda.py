@@ -400,7 +400,7 @@ def test_fused_elbo_backward_fills_grad(cuda):
     model = _model(cuda, seed=5)
     x, u, lens = _train_inputs(cuda, 4, 50, 9)
     params = [p for _, p in model.named_parameters()]
-    loss = FusedELBO.apply(model, x, u, lens, 0.5, *params)
+    loss = FusedELBO.apply(model, x, u, lens, 0.5, None, *params)
     loss.backward()
     got = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad()
@@ -2064,3 +2064,50 @@ def test_recipe_eval_stage_on_the_serving_kernel(cuda, tmp_path):
     assert sorted(got) == ["published", "quality"]
     for tag in got:
         assert abs(got[tag] - want[tag]) <= 1e-5 * want[tag]
+
+
+@pytest.mark.parametrize("dtype,loss_tol,grad_tol",
+                         [("float32", 1e-5, 1e-5), ("bfloat16", 1e-4, 5e-4)])
+def test_fused_train_global_norm_halves_sum_to_the_whole(cuda, dtype,
+                                                         loss_tol, grad_tol):
+    """Kernel C's global-normalisation mode (data parallelism): two halves
+    of a batch whose second half's longest row is short, each with the
+    whole batch's norm, summed: the whole batch's loss and gradients
+    within the bars of chip_smoke.py phase 32; the sentinel call bit-equal
+    to the call given the batch's own norm; each half against its plain
+    version in the same mode."""
+    from vqvaehmm_tpu_torch.ops.fused_train import (
+        fused_loss_and_flat_grads, global_norm)
+
+    model = _model(cuda, hidden_dim=64, hidden_dim2=32, trans_hidden=128,
+                   compute_dtype=dtype)
+    rng = np.random.default_rng(16)
+    B, T = 16, 96
+    x = torch.from_numpy(rng.normal(size=(B, 5, T)).astype(np.float32)
+                         ).to(cuda)
+    u = torch.from_numpy(rng.normal(size=(B, 4, T)).astype(np.float32)
+                         ).to(cuda)
+    lens = rng.integers(20, T + 1, size=B).astype(np.int32)
+    lens[0], lens[B // 2:] = T, np.minimum(lens[B // 2:], 50)
+    lens = torch.from_numpy(lens).to(cuda)
+    norm = global_norm(lens, T)
+    halves = (slice(0, B // 2), slice(B // 2, B))
+    whole_loss, whole = fused_loss_and_flat_grads(model, x, u, lens, 0.7,
+                                                  use_kernel=True)
+    own = fused_loss_and_flat_grads(model, x, u, lens, 0.7, use_kernel=True,
+                                    norm=norm)
+    assert torch.equal(own[0], whole_loss) and torch.equal(own[1], whole)
+    parts = [fused_loss_and_flat_grads(model, x[h], u[h], lens[h], 0.7,
+                                       use_kernel=True, norm=norm)
+             for h in halves]
+    loss = parts[0][0] + parts[1][0]
+    assert abs(float(loss - whole_loss)) <= loss_tol * abs(float(whole_loss))
+    flat = parts[0][1] + parts[1][1]
+    assert float((flat - whole).abs().max()) <= \
+        grad_tol * float(whole.abs().max())
+    for h, (pl, pf) in zip(halves, parts):
+        wl, wf = fused_loss_and_flat_grads(model, x[h], u[h], lens[h], 0.7,
+                                           use_kernel=False, norm=norm)
+        assert abs(float(pl - wl)) <= loss_tol * abs(float(wl))
+        assert float((pf - wf).abs().max()) <= \
+            10 * grad_tol * float(wf.abs().max())

@@ -63,19 +63,32 @@ def test_fused_loss_and_grads_match_jax(beta, short, layout):
         _close_grads(grads, _as_state_dict(want))
 
 
-def test_fused_elbo_backward_fills_grad():
+@pytest.mark.parametrize("shard", [False, True])
+def test_fused_elbo_backward_fills_grad(shard):
+    # shard: the first half of a batch whose longest sequence lies in the
+    # other half, under the whole batch's normalisation
     _, _, tm = model_pair(seed=5)
-    x, u, lengths = (t(a) for a in inputs(4, 24, seed=6))
+    x, u, lengths = (t(a) for a in inputs(8 if shard else 4, 24, seed=6))
+    norm = None
+    if shard:
+        lengths[4:] = 24
+        lengths[:4] = torch.minimum(lengths[:4], torch.tensor(13))
+        norm = ft.global_norm(lengths, 24)
+        x, u, lengths = x[:4], u[:4], lengths[:4]
     params = [p for _, p in tm.named_parameters()]
-    loss = FusedELBO.apply(tm, x, u, lengths, 0.6, *params)
+    loss = FusedELBO.apply(tm, x, u, lengths, 0.6, norm, *params)
     (loss * 2.0).backward()
     got = {n: p.grad.clone() for n, p in tm.named_parameters()}
     tm.zero_grad()
-    want_loss = tm.compute_loss(x, u, lengths, 0.6)
+    want_loss = tm.compute_loss(x, u, lengths, 0.6, norm=norm)
     (want_loss * 2.0).backward()
     assert float(loss.detach()) == pytest.approx(float(want_loss.detach()),
                                                  rel=1e-6)
     _close_grads(got, {n: p.grad for n, p in tm.named_parameters()})
+    f_loss, f_grads = fused_loss_and_grads(tm, x, u, lengths, 0.6, norm=norm)
+    assert float(loss.detach()) == float(f_loss)
+    for n, g in f_grads.items():
+        assert torch.equal(got[n], 2.0 * g), n
 
 
 def test_fused_loss_and_grads_dispatch():

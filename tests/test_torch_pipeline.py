@@ -111,12 +111,14 @@ def test_sigterm_checkpoints_and_resumes(tiny_config, input_pipeline):
 
 
 def test_not_ported_raise(tiny_config):
-    """The device mesh is refused; training.ensemble_seeds and
-    training.profile_dir, refused before they were ported, now train (the
-    best member saved with JAX's metadata keys) and write a trace."""
+    """The device mesh, ported since, is refused where there is no
+    process group to join (tests/test_torch_parallel.py trains on one);
+    training.ensemble_seeds and training.profile_dir, refused before they
+    were ported, now train (the best member saved with JAX's metadata
+    keys) and write a trace."""
     path, tmp = tiny_config
     cfg = load_config(path)
-    with pytest.raises(NotImplementedError, match="the parallelism item"):
+    with pytest.raises(RuntimeError, match="no process group"):
         TrainPipeline(cfg, use_mesh=True, device="cpu")
     state = TrainPipeline(_cfg(path, tmp, "ens", ensemble_seeds=[1, 2]),
                           device="cpu").train(log_fn=None)

@@ -510,25 +510,32 @@ def test_report_names_the_device_and_no_tpu(dirs, trained):
 
 def test_stage_all_reads_its_own_quality_checkpoint(tmp_path, monkeypatch):
     """--stage all runs JAX's ten stages in JAX's order, the downstream
-    ones on this run's <outdir>/checkpoints_quality; a stage alone still
-    takes --checkpoint-dir, by default the committed one."""
+    ones on this run's <outdir>/checkpoints_quality (which its quality
+    stage wrote); a stage alone reads that checkpoint too, as JAX's
+    recipe does, and --checkpoint-dir overrides it."""
     calls = []
+    own = os.path.join(str(tmp_path), "checkpoints_quality")
+
+    def stage(o, d, c, s):
+        calls.append((s, c))
+        if s == "quality":
+            os.makedirs(own, exist_ok=True)
+            open(os.path.join(own, "vae_hmm_trained.npz"), "w").close()
+
     for s in recipe.STAGES:
         monkeypatch.setattr(recipe, "stage_" + s,
-                            lambda o, d, c, s=s: calls.append((s, c)))
+                            lambda o, d, c, s=s: stage(o, d, c, s))
     monkeypatch.setattr(recipe, "_log_stage", lambda *a: None)
     out = str(tmp_path)
     assert recipe.main(["--stage", "all", "--outdir", out,
                         "--device", "cpu"]) == 0
     assert [s for s, _ in calls] == _jax_recipe().STAGES
-    own = os.path.join(out, "checkpoints_quality")
-    assert all(c == own for _, c in calls)
+    assert all(c == own for s, c in calls if s in recipe.READS_CHECKPOINT)
     calls.clear()
     recipe.main(["--stage", "head", "--outdir", out, "--device", "cpu"])
     recipe.main(["--stage", "backtest", "--outdir", out, "--device", "cpu",
                  "--checkpoint-dir", "elsewhere"])
-    assert calls == [("head", recipe.CHECKPOINT_DIR),
-                     ("backtest", "elsewhere")]
+    assert calls == [("head", own), ("backtest", "elsewhere")]
 
 
 @pytest.mark.parametrize("history", [None, []])

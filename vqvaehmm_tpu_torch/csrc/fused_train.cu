@@ -25,6 +25,12 @@
 //    holds.
 //  * loss = S_nll / max(sum(mf) * C, 1) - beta/B * S_prior + beta/B * S_qlogq
 //    with the three sums over the batch.
+//  * Global normalisation (the TPU kernel's axis_name mode, for data
+//    parallelism): where the caller passes valid_to, the mask total sum(mf)
+//    and B of the whole global batch (Dims::vt_g, msum_g, B_g), they stand
+//    in for this batch's own, so that the ranks' losses and gradients sum
+//    to the global batch's.  -1 in each means "this batch's own" and leaves
+//    the arithmetic as it is without them.
 //  * d log_prior = g - softmax(log_prior) * sum(g), g the gradient of
 //    log_pi = log_softmax(log_prior).
 //  * the backward pass: the closed-form softmax and log-softmax VJPs, the
@@ -144,7 +150,16 @@ struct Weights {
 struct Dims {
   int B, C, T, U, H1, H2, K, HP, D;
   long long u_sb, u_sc, u_st;   // strides of u: batch, channel, time
+  // the global batch's valid_to, mask total and B, or -1 for this batch's
+  int vt_g;
+  long long msum_g;
+  int B_g;
 };
+
+// B of the loss's prior and entropy terms: the global batch's where given.
+__host__ __device__ inline int batch_total(const Dims& d) {
+  return d.B_g > 0 ? d.B_g : d.B;
+}
 
 // Offsets of the 18 gradient arrays in the flat vector (state_dict order).
 struct Offsets {
@@ -382,9 +397,12 @@ __device__ __forceinline__ double block_sum(double v, double* red) {
   return s;
 }
 
-// valid_to = min(max(lengths), T), by every block for itself.
-__device__ __forceinline__ int valid_to(const int* __restrict__ lengths, int B,
-                                        int T, int* slot) {
+// valid_to = min(max(lengths), T), by every block for itself, or the
+// global batch's where given (the same for every thread of the grid).
+__device__ __forceinline__ int valid_to(const int* __restrict__ lengths,
+                                        const Dims& d, int* slot) {
+  const int B = d.B, T = d.T;
+  if (d.vt_g >= 0) return min(d.vt_g, T);
   if (threadIdx.x == 0) *slot = 0;
   __syncthreads();
   int m = 0;
@@ -394,16 +412,24 @@ __device__ __forceinline__ int valid_to(const int* __restrict__ lengths, int B,
   return min(*slot, T);
 }
 
-// 1 / max(sum_b clamp(lengths[b], 0, T) * C, 1), as the reduce kernel
-// computes the loss's denominator.
-__device__ __forceinline__ float recon_scale(const int* __restrict__ lengths,
-                                             int B, int T, int C) {
+// sum_b clamp(lengths[b], 0, T), the mask total, or the global batch's
+// where given (an integer below 2^24 either way, so exact in float).
+__device__ __forceinline__ float mask_total(const int* __restrict__ lengths,
+                                            const Dims& d) {
+  if (d.msum_g >= 0) return (float)d.msum_g;
   float msum = 0.f;
-  for (int i = 0; i < B; ++i) {
+  for (int i = 0; i < d.B; ++i) {
     const int li = lengths[i];
-    msum += (float)(li < 0 ? 0 : (li > T ? T : li));
+    msum += (float)(li < 0 ? 0 : (li > d.T ? d.T : li));
   }
-  return 1.0f / fmaxf(msum * (float)C, 1.0f);
+  return msum;
+}
+
+// 1 / max(mask total * C, 1), as the reduce kernel computes the loss's
+// denominator.
+__device__ __forceinline__ float recon_scale(const int* __restrict__ lengths,
+                                             const Dims& d) {
+  return 1.0f / fmaxf(mask_total(lengths, d) * (float)d.C, 1.0f);
 }
 
 // The stages between the products, shared by both modes' kernels: each
@@ -591,8 +617,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) train_forward_kernel(
   const float* xb = x + (size_t)b * C * T;
   const float* ub = u + (size_t)b * d.u_sb;
   const int L = lengths[b];
-  const int vt = valid_to(lengths, d.B, T, &vt_s);
-  if (threadIdx.x == 0) s_r_s = recon_scale(lengths, d.B, T, C);
+  const int vt = valid_to(lengths, d, &vt_s);
+  if (threadIdx.x == 0) s_r_s = recon_scale(lengths, d);
 
   // x on the window, zero outside [0, T) and past valid_to; u on it
   load_rows(xs, WS, xb, C, p0, W, T, vt);
@@ -708,9 +734,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) train_backward_kernel(
   const Packed at = packed<false>(d);
   float* S = scratch + (size_t)b * R.total * T;
   const int L = lengths[b];
-  const int vt = valid_to(lengths, d.B, T, &vt_s);
+  const int vt = valid_to(lengths, d, &vt_s);
   log_pi(Wt.logprior, K, logpi_s);
-  const float s_p = -beta / (float)d.B, s_h = beta / (float)d.B;
+  const float s_p = -beta / (float)batch_total(d),
+              s_h = beta / (float)batch_total(d);
 
   load_rows(douts, WS, S + (size_t)R.dout * T, 2 * C, p0, W, T, T);
   load_rows(qs, WS, S + (size_t)R.q * T, K, p0, W, T, T);
@@ -1025,8 +1052,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 3) train_forward_bf16_kernel(
   const float* xb = x + (size_t)b * C * T;
   const float* ub = u + (size_t)b * d.u_sb;
   const int L = lengths[b];
-  const int vt = valid_to(lengths, d.B, T, &vt_s);
-  if (threadIdx.x == 0) s_r_s = recon_scale(lengths, d.B, T, C);
+  const int vt = valid_to(lengths, d, &vt_s);
+  if (threadIdx.x == 0) s_r_s = recon_scale(lengths, d);
 
   // x on the window, zero outside [0, T) and past valid_to; u on it
   load_operand(xo, RC, C, W, p0, vt,
@@ -1138,9 +1165,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 3) train_backward_bf16_kernel(
   const Packed at = packed<true>(d);
   float* S = scratch + (size_t)b * R.total * T;
   const int L = lengths[b];
-  const int vt = valid_to(lengths, d.B, T, &vt_s);
+  const int vt = valid_to(lengths, d, &vt_s);
   log_pi(Wt.logprior, K, logpi_s);
-  const float s_p = -beta / (float)d.B, s_h = beta / (float)d.B;
+  const float s_p = -beta / (float)batch_total(d),
+              s_h = beta / (float)batch_total(d);
 
   const float* douts = S + (size_t)R.dout * T;
   load_operand(dop, RD, 2 * C, W, p0, T,
@@ -1403,7 +1431,7 @@ __global__ void __launch_bounds__(256) train_reduce_kernel(
     }
     // d log_prior = g - softmax(log_prior) * sum(g), g[k] = s_p sum_b q[b][k][0]
     const Rows R = rows(d);
-    const float s_p = -beta / (float)d.B;
+    const float s_p = -beta / (float)batch_total(d);
     float g[KMAX];
     for (int k = 0; k < d.K; ++k) {
       double v = 0.0;
@@ -1412,15 +1440,11 @@ __global__ void __launch_bounds__(256) train_reduce_kernel(
       g[k] = (float)tree_sum_256(v, red);
     }
     if (threadIdx.x != 0) return;
-    float msum = 0.f;
-    for (int b = 0; b < d.B; ++b) {
-      const int li = lengths[b];
-      msum += (float)(li < 0 ? 0 : (li > d.T ? d.T : li));
-    }
-    const double denom = fmax((double)msum * d.C, 1.0);
+    const double denom = fmax((double)mask_total(lengths, d) * d.C, 1.0);
     // the prior and entropy sums nearly cancel (each is about T log K a
     // sequence), so they are combined in double before the one rounding
-    *loss = (float)(s[0] / denom + (double)beta * (s[2] - s[1]) / d.B);
+    *loss = (float)(s[0] / denom
+                    + (double)beta * (s[2] - s[1]) / batch_total(d));
     float gsum = 0.f, m = -INFINITY, z = 0.f;
     for (int k = 0; k < d.K; ++k) {
       gsum += g[k];
@@ -1556,7 +1580,7 @@ extern "C" long long vqhmm_fused_train_sizes(int B, int C, int T, int U,
                                              int H1, int H2, int K, int HP,
                                              int D, int tile, int what,
                                              int bf16) {
-  Dims d{B, C, T, U, H1, H2, K, HP, D, 0, 0, 0};
+  Dims d{B, C, T, U, H1, H2, K, HP, D, 0, 0, 0, -1, -1, -1};
   switch (what) {
     case 0: return offsets(d).P;
     case 1: return rows(d).total;
@@ -1574,6 +1598,9 @@ extern "C" long long vqhmm_fused_train_sizes(int B, int C, int T, int U,
 // * rows * T floats; partials: splits * P floats; loss_partials: 3 * B *
 // ceil(T / tile) doubles.  bf16: 0 for the float32 mode, 1 for the
 // bfloat16 mode (products of bfloat16 operands on the tensor cores).
+// vt_global, msum_global, b_global: the global batch's valid_to, mask total
+// and B, for a rank of a data-parallel step, or -1 each for this batch's
+// own.
 extern "C" int vqhmm_fused_train(
     const float* x, const float* u, long long u_sb, long long u_sc,
     long long u_st, const int* lengths, const float* ew1, const float* eb1,
@@ -1584,14 +1611,20 @@ extern "C" int vqhmm_fused_train(
     const float* db3, float* packed_weights, float* scratch, float* partials,
     double* loss_partials, float* grads, float* loss, int B, int C, int T,
     int U, int H1, int H2, int K, int HP, int D, int tile, int splits,
-    int bf16, float beta, void* stream) {
+    int bf16, float beta, int vt_global, long long msum_global,
+    int b_global, void* stream) {
   Weights W{ew1, eb1, ew2, eb2, ew3, eb3, logprior, pw1, pb1, pw2, pb2,
             emb, dw1, db1, dw2, db2, dw3, db3};
-  Dims d{B, C, T, U, H1, H2, K, HP, D, u_sb, u_sc, u_st};
+  Dims d{B, C, T, U, H1, H2, K, HP, D, u_sb, u_sc, u_st, vt_global,
+         msum_global, b_global};
   const int G = widest(d);
   if (B <= 0 || T <= 0 || K <= 0 || K > KMAX || splits <= 0 ||
       splits > 65535 || (tile != 16 && tile != 32 && tile != 64) ||
-      (bf16 != 0 && bf16 != 1) ||
+      (bf16 != 0 && bf16 != 1) || vt_global < -1 || msum_global < -1 ||
+      msum_global >= (1LL << 24) || b_global < -1 || b_global == 0 ||
+      (b_global > 0 && b_global < B) ||
+      (vt_global >= 0) != (msum_global >= 0) ||
+      (vt_global >= 0) != (b_global > 0) ||
       (bf16 == 0 && 3 * tilefma::round4(maxi(G, HP)) > tilefma::WBUF))
     return (int)cudaErrorInvalidValue;
   const int tiles = (T + tile - 1) / tile;

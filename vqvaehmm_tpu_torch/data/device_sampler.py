@@ -15,6 +15,11 @@ Counterpart of vqvaehmm_tpu/data/device_sampler.py:
 
 The gathered batches are bit-equal to the host path's collate
 (data/dataset.py::epoch_arrays with the same draws).
+
+Under a mesh (parallel/mesh.py) every rank draws the same triples from
+the same seed, and takes its columns [r B / n, (r + 1) B / n) of each
+batch: the kernel gathers only those windows, and the sample stream is
+the single-device stream.
 """
 
 from __future__ import annotations
@@ -130,13 +135,18 @@ class DeviceEpochSampler:
         x, u = gather_epoch(px, pu, si, st, ln, self.max_len)
         return x, u, ln
 
-    def make_epoch_step(self, model, optimizer, fused: bool = False):
+    def make_epoch_step(self, model, optimizer, fused: bool = False,
+                        mesh=None):
         """Epoch trainer: returns epoch(seq_idx, starts, lengths, beta) ->
         mean loss (a device scalar), with the (batches, B) int32 triples
         from draw_epoch().  The epoch is gathered in chunks of whole batches
         within ops/gather.py::EPOCH_CHUNK_BYTES, one launch a chunk, each
         before its steps; a step then takes its batch from the chunk
-        (train/trainer.py::train_step).  Nothing waits for the device."""
+        (train/trainer.py::train_step).  Nothing waits for the device.
+        mesh: the triples are the global epoch's; this rank gathers and
+        trains on its columns, each batch normalised by its global lengths
+        (one host read of them an epoch, no collective)."""
+        from ..ops.fused_train import global_norms
         from ..train.trainer import train_step
 
         cfg = model.cfg
@@ -149,13 +159,20 @@ class DeviceEpochSampler:
                 f"U={U_ds})")
 
         def epoch(seq_idx, starts, lengths, beta: float) -> torch.Tensor:
+            norms = [None] * seq_idx.shape[0]
+            if mesh is not None:
+                norms = global_norms(lengths, self.max_len)
+                cols = mesh.rows(seq_idx.shape[1])
+                seq_idx, starts, lengths = (a[:, cols].contiguous() for a in
+                                            (seq_idx, starts, lengths))
             total = torch.zeros((), dtype=torch.float32, device=self.device)
             px, pu = self.pools()
             for s0, xs, us in gather_epoch_chunks(px, pu, seq_idx, starts,
                                                   lengths, self.max_len):
                 for i in range(xs.shape[0]):
                     total = total + train_step(model, optimizer, xs[i], us[i],
-                                               lengths[s0 + i], beta, fused)
+                                               lengths[s0 + i], beta, fused,
+                                               mesh, norms[s0 + i])
             return total / seq_idx.shape[0]
 
         return epoch

@@ -8,19 +8,24 @@ the panels start where the 20-day windows are full.  `Frame` stands in
 for the pandas DataFrame: a date index, column names and a float64
 matrix.
 
-Not ported: `download_data` (it needs the network); a committed
-close-price panel (tests/fixtures/market_fixture.csv) is read by
-`load_fixture_frames` instead.
+`load_portfolio_data` is the user's entry point, as in the JAX package:
+a committed close-price panel (`fixture_path` or VQHMM_MARKET_FIXTURE,
+e.g. tests/fixtures/market_fixture.csv) through the recipe to (N, feat, T)
+windows, or the synthetic fallback.  Not ported: `download_data` (it
+needs the network), so without a fixture there is no live branch.
 """
 
 from __future__ import annotations
 
 import csv
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+DEFAULT_TICKERS = ["AAPL", "MSFT", "JPM", "XOM", "JNJ", "WMT", "PG", "V",
+                   "UNH", "HD"]
 REGIME_TICKERS = ["^VIX", "^TNX", "SPY"]
 
 
@@ -41,6 +46,13 @@ class Frame:
 
     def __len__(self) -> int:
         return len(self.index)
+
+    def between(self, start: str, end: str) -> "Frame":
+        """The rows dated from `start` to `end`, both included, as pandas'
+        .loc[start:end] takes them from a date index (a partial date such
+        as "2023" covers its whole span)."""
+        return self.rows(np.array([start <= d and d[:len(end)] <= end
+                                   for d in self.index], dtype=bool))
 
 
 def load_fixture_frames(fixture_path: str
@@ -149,3 +161,61 @@ def create_sequences(x_data: np.ndarray, u_data: np.ndarray,
         xs.append(x_data[i:i + seq_len])
         us.append(u_data[i:i + seq_len])
     return np.array(xs), np.array(us)
+
+
+def load_portfolio_data(tickers: Optional[List[str]] = None,
+                        start_date: str = "2015-01-01",
+                        end_date: str = "2024-01-01",
+                        fallback_synthetic: bool = True,
+                        fixture_path: Optional[str] = None,
+                        log_fn=print) -> Dict:
+    """The market pipeline (vqvaehmm_tpu/data/market.py::
+    load_portfolio_data): the dict of (N, feat, T) float32 windows
+    ("x_sequences", "u_sequences"), the aligned "returns" and "prices"
+    Frames and the "tickers".
+
+    With `fixture_path` (or VQHMM_MARKET_FIXTURE) the panel is a committed
+    CSV, cut to [start_date, end_date]; a fixture that fails to load
+    raises.  Without one there is nothing to download here: the 32
+    synthetic windows of 100 steps of JAX's fallback, with returns and
+    prices None, or a RuntimeError under fallback_synthetic=False."""
+    tickers = tickers or DEFAULT_TICKERS
+    fixture_path = fixture_path or os.environ.get("VQHMM_MARKET_FIXTURE")
+    if fixture_path:
+        if log_fn:
+            log_fn(f"Loading fixture {fixture_path}...")
+        prices, regime_data, _ = load_fixture_frames(fixture_path)
+        prices = prices.between(start_date, end_date)
+        regime_data = regime_data.between(start_date, end_date)
+        x_data, u_data, returns, aligned = prepare_sequences(prices,
+                                                             regime_data)
+        x_seq, u_seq = create_sequences(x_data, u_data)
+        return {"x_sequences": np.transpose(x_seq, (0, 2, 1))
+                .astype(np.float32),
+                "u_sequences": np.transpose(u_seq, (0, 2, 1))
+                .astype(np.float32),
+                "returns": returns, "prices": aligned,
+                "tickers": list(prices.columns)}
+    if not fallback_synthetic:
+        raise RuntimeError(
+            "no market data: pass fixture_path or set VQHMM_MARKET_FIXTURE "
+            "(this package has no download), or allow fallback_synthetic")
+    if log_fn:
+        log_fn("market data unavailable (no fixture); using synthetic data")
+    from .synthetic import synthetic_sequences
+
+    xs, us, _ = synthetic_sequences(n_sequences=32, seq_len=100,
+                                    input_dim=5, u_dim=4, seed=0)
+    return {"x_sequences": xs, "u_sequences": us, "returns": None,
+            "prices": None, "tickers": tickers}
+
+
+def create_dataloader(x_sequences, u_sequences, batch_size: int = 32,
+                      min_len: int = 20, max_len: int = 100):
+    """RandomChunkDataset and its fixed-shape batch iterator for one epoch
+    (vqvaehmm_tpu/data/market.py::create_dataloader)."""
+    from .dataset import RandomChunkDataset, batch_iterator
+
+    dataset = RandomChunkDataset(x_sequences, u_sequences, min_len=min_len,
+                                 max_len=max_len)
+    return batch_iterator(dataset, batch_size)

@@ -266,16 +266,22 @@ class VAEHMM(nn.Module):
 
     def compute_loss(self, x: torch.Tensor, u: torch.Tensor,
                      lengths: torch.Tensor, beta: float = 1.0,
-                     bf16_operands: bool = False) -> torch.Tensor:
+                     bf16_operands: bool = False,
+                     norm: Optional[Tuple[int, int, int]] = None
+                     ) -> torch.Tensor:
         """Masked negative ELBO (vqvaehmm_tpu VAEHMM.compute_loss):
         recon / max(mask.sum()*C, 1) + beta * (prior - entropy).
         bf16_operands: the train kernel's bfloat16 arithmetic (module
-        docstring)."""
+        docstring).  norm = (valid_to, mask_total, B_total) of a global
+        batch these rows are a shard of stands in for max(lengths),
+        mask.sum() and B, so that the shards' losses (and gradients) sum
+        to the global batch's: the train kernel's global normalisation,
+        for a rank of a data-parallel step."""
         if lengths is None:
             raise ValueError("lengths required")
         B, C, T = x.shape
         mask = length_mask(lengths, T)
-        valid_to = lengths.max()
+        valid_to = lengths.max() if norm is None else norm[0]
         log_pi, log_A = self.prior(u, bf16_operands)
         log_q = torch.log_softmax(
             self.encode(x, valid_to=valid_to, fused=False,
@@ -287,7 +293,9 @@ class VAEHMM(nn.Module):
         var = torch.clamp(torch.exp(logvar), min=1e-8)
         nll = 0.5 * (torch.log(2.0 * math.pi * var) + (mu - x) ** 2 / var)
         maskf = mask.to(x.dtype)
-        denom = torch.clamp(maskf.sum() * C, min=1.0)
+        total = maskf.sum() if norm is None else torch.full(
+            (), float(norm[1]), dtype=x.dtype, device=x.device)
+        denom = torch.clamp(total * C, min=1.0)
         recon_loss = (nll * maskf[:, None, :]).sum() / denom
 
         init_loss = (q[:, :, 0] * log_pi[None, :]).sum(dim=1)
@@ -295,10 +303,11 @@ class VAEHMM(nn.Module):
                              q[:, :, :-1], q[:, :, 1:], log_A[:, 1:])
         tmask = pairwise_mask(mask).to(x.dtype)
         trans_loss = (trans * tmask).sum(dim=1)
-        prior_loss = -(init_loss + trans_loss).mean()
+        prior_loss = -(init_loss + trans_loss).mean() if norm is None \
+            else -(init_loss + trans_loss).sum() / norm[2]
 
         entropy = -(q * log_q).sum(dim=1)
-        entropy = (entropy * maskf).sum() / B
+        entropy = (entropy * maskf).sum() / (B if norm is None else norm[2])
         return recon_loss + beta * (prior_loss - entropy)
 
     def forward(self, x: torch.Tensor):
@@ -335,12 +344,26 @@ class VAEHMM(nn.Module):
         return torch.softmax(self.encode(x, fused=fused), dim=1)
 
     def infer_forward(self, x: torch.Tensor, valid_to=None,
-                      use_kernel: Optional[bool] = None):
+                      use_kernel: Optional[bool] = None, mesh=None):
         """The serving forward (mu, logvar, q): encode -> softmax ->
         decode, with valid_to a scalar or a per-sequence (B,) vector.  On a
-        CUDA tensor it is one kernel launch (ops/fused_infer.py)."""
-        return fused_forward(self, x, valid_to=valid_to,
-                             use_kernel=use_kernel)
+        CUDA tensor it is one kernel launch (ops/fused_infer.py).
+
+        mesh (parallel/mesh.py): bulk scoring over the ranks.  x (and a
+        per-sequence valid_to) is the whole batch on every rank; each rank
+        runs the forward on its rows, one launch, and an all-gather returns
+        the whole (mu, logvar, q) on every rank.  A row has no
+        cross-sequence arithmetic, so no other collective is needed; B
+        must divide over the ranks."""
+        if mesh is None:
+            return fused_forward(self, x, valid_to=valid_to,
+                                 use_kernel=use_kernel)
+        rows = mesh.rows(x.shape[0])
+        if valid_to is not None and torch.as_tensor(valid_to).dim():
+            valid_to = valid_to[rows]
+        parts = fused_forward(self, x[rows], valid_to=valid_to,
+                              use_kernel=use_kernel)
+        return tuple(mesh.all_gather(p) for p in parts)
 
     # ------------------------------------------------------------------
     # Exact HMM inference
@@ -396,3 +419,15 @@ class VAEHMM(nn.Module):
                                                        use_kernel)
         return viterbi_fused(log_pi, log_A, log_obs, lengths,
                              use_kernel=use_kernel).states
+
+
+def make_model(input_dim=5, hidden_dim=64, K=3, hidden_dim2=32, u_dim=4,
+               trans_hidden=128, device=None, generator=None, **kw) -> VAEHMM:
+    """The reference constructor's positional order, VAE_HMM(input_dim,
+    hidden_dim, K, hidden_dim2, u_dim, trans_hidden), as a VAEHMM
+    (vqvaehmm_tpu/models/vae_hmm.py::make_model); other ModelConfig fields
+    by keyword, and the module's device and generator."""
+    return VAEHMM(ModelConfig(input_dim=input_dim, hidden_dim=hidden_dim,
+                              K=K, hidden_dim2=hidden_dim2, u_dim=u_dim,
+                              trans_hidden=trans_hidden, **kw),
+                  device=device, generator=generator)

@@ -62,7 +62,7 @@ _SIGNATURES = {
     # packed weights, scratch, partials, loss partials, grads, loss,
     # B, C, T, U, H1, H2, K, HP, D, tile, splits, bf16, beta, stream
     "vqhmm_fused_train": [_P, _P, _L, _L, _L, _P] + [_P] * 18 + [_P] * 6
-    + [_I] * 12 + [ctypes.c_float, _P],
+    + [_I] * 12 + [ctypes.c_float, _I, _L, _I, _P],
     # 3 encoder and 2 prior weight arrays (or null), packed weights, C, H1,
     # H2, K, U, HP, stream
     "vqhmm_encoder_pack": [_P] * 6 + [_I] * 6 + [_P],

@@ -40,6 +40,17 @@ and the bound it meets.
   x or u.
 * `train_step_supported(cfg, B, T)`: the gate the trainer consults before
   it chooses the kernel.
+* The global-normalisation mode, the TPU kernel's `axis_name` mode, for a
+  rank of a data-parallel step (train/trainer.py, parallel/): `norm =
+  (valid_to, mask_total, B_total)` of the whole global batch, taken by
+  every function here, stands in for the batch's own max(lengths),
+  sum(clamp(lengths, 0, T)) and B (`global_norm` makes it from the
+  global lengths).  The loss and every gradient are then this rank's
+  share, already globally scaled, and the ranks' sums are the global
+  batch's (the log_prior chain is linear in the gradient, so summing
+  after it is exact).  norm=None is the batch's own, as before.
+  `fused_loss_and_flat_grads` returns the kernel's flat gradient vector
+  for the one all-reduce a data-parallel step makes.
 
 `fused_loss_and_grads.launches` counts the calls of the C entry point in
 either mode, `fused_loss_and_grads.bf16_launches` those in the bfloat16
@@ -50,7 +61,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -383,28 +394,49 @@ def _u_strides(cfg, u: torch.Tensor) -> Tuple[int, int, int]:
     return sb, s2, s1
 
 
+Norm = Optional[Tuple[int, int, int]]
+
+
+def global_norms(lengths, T: int) -> List[Tuple[int, int, int]]:
+    """(valid_to, mask_total, B_total) of each global batch of a stacked
+    epoch's lengths (batches, B_total), an array or a tensor (one host
+    read): the norm argument of each of its ranks."""
+    lens = torch.as_tensor(lengths).to("cpu", torch.int64)
+    vt = lens.max(dim=1).values.tolist()
+    msum = lens.clamp(0, T).sum(dim=1).tolist()
+    return [(v, m, lens.shape[1]) for v, m in zip(vt, msum)]
+
+
+def global_norm(lengths, T: int) -> Tuple[int, int, int]:
+    """global_norms of one global batch's lengths (B_total,)."""
+    return global_norms(torch.as_tensor(lengths).reshape(1, -1), T)[0]
+
+
 def loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
-                   lengths: torch.Tensor, beta, bf16_operands: bool = False
+                   lengths: torch.Tensor, beta, bf16_operands: bool = False,
+                   norm: Norm = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """model.compute_loss and torch.autograd.grad, grads keyed like
     state_dict(): the model's own plain path (bfloat16 activations for a
-    bfloat16 model), or with bf16_operands the kernel's bfloat16 mode."""
+    bfloat16 model), or with bf16_operands the kernel's bfloat16 mode;
+    norm: the global batch's normalisation (module docstring)."""
     names, params = zip(*model.named_parameters())
     with torch.enable_grad():
         loss = model.compute_loss(x, u, lengths, beta,
-                                  bf16_operands=bf16_operands)
+                                  bf16_operands=bf16_operands, norm=norm)
         grads = torch.autograd.grad(loss, params)
     return loss.detach(), dict(zip(names, grads))
 
 
 def fused_loss_and_grads_reference(model, x: torch.Tensor, u: torch.Tensor,
-                                   lengths: torch.Tensor, beta
+                                   lengths: torch.Tensor, beta,
+                                   norm: Norm = None
                                    ) -> Tuple[torch.Tensor,
                                               Dict[str, torch.Tensor]]:
     """Plain version: loss_and_grads in the kernel's mode for the model
     (for a float32 model, compute_loss and autograd as they are)."""
     return loss_and_grads(model, x, u, lengths, beta,
-                          bf16_operands=bf16_mode(model.cfg))
+                          bf16_operands=bf16_mode(model.cfg), norm=norm)
 
 
 def _window(full: torch.Tensor, p0: int, W: int) -> torch.Tensor:
@@ -422,7 +454,8 @@ def _conv_t(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
                                lengths: torch.Tensor, beta, tile: int,
-                               splits: Optional[int] = None
+                               splits: Optional[int] = None,
+                               norm: Norm = None
                                ) -> Tuple[torch.Tensor,
                                           Dict[str, torch.Tensor]]:
     """(loss, grads) computed the way csrc/fused_train.cu computes them, in
@@ -436,7 +469,7 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
     enters a product are rounded to bfloat16 there, and a unit's weight
     gradient sums float32 partials over chunks of 16 steps in order, as
     the kernel's mma accumulates them; the bias gradients sum the
-    unrounded gradients."""
+    unrounded gradients.  norm: the global batch's normalisation."""
     cfg = model.cfg
     _check_inputs(model, x, u, lengths)
     C, U, H1, H2, K, HP, D = _widths(cfg)
@@ -451,10 +484,11 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
     if u.shape[1] != cfg.u_dim:
         u = u.transpose(1, 2)
     lens = lengths.to(torch.int64)
-    vt = int(min(int(lens.max()), T))
-    msum = float(lens.clamp(0, T).sum())
+    vt, msum, Bt = (int(lens.max()), int(lens.clamp(0, T).sum()), B) \
+        if norm is None else norm
+    vt = min(vt, T)
     s_r = 1.0 / max(msum * C, 1.0)
-    s_p, s_h = -float(beta) / B, float(beta) / B
+    s_p, s_h = -float(beta) / Bt, float(beta) / Bt
     log_pi = torch.log_softmax(p["prior.log_prior"], 0)
     sc = {name: torch.zeros(B, rows, T)
           for name, (_, rows) in scratch_layout(cfg).items()}
@@ -614,7 +648,7 @@ def fused_loss_and_grads_tiled(model, x: torch.Tensor, u: torch.Tensor,
     g = s_p * sc["q"][:, :, 0].sum(0)
     grads["prior.log_prior"] = g - torch.softmax(p["prior.log_prior"], 0) \
         * g.sum()
-    loss = sums[0] / max(msum * C, 1.0) + float(beta) * (sums[2] - sums[1]) / B
+    loss = sums[0] / max(msum * C, 1.0) + float(beta) * (sums[2] - sums[1]) / Bt
     return loss.to(torch.float32), {n: grads[n].reshape(shapes[n])
                                     for n in PARAM_NAMES}
 
@@ -641,10 +675,11 @@ def _check_inputs(model, x, u, lengths):
             raise ValueError("x, u and lengths must be on one device")
 
 
-def _kernel_call(lib, model, params, x, u, lengths, beta, stream
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _kernel_call(lib, model, params, x, u, lengths, beta, stream,
+                 norm: Norm = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One call of the kernel through `lib` with params =
-    dict(model.named_parameters()): (loss (), flat grads (P,))."""
+    dict(model.named_parameters()): (loss (), flat grads (P,)); norm None
+    passes the kernel its sentinel, -1 each."""
     cfg = model.cfg
     weights = [params[n].detach() for n in PARAM_NAMES]
     for n, w in zip(PARAM_NAMES, weights):
@@ -673,7 +708,8 @@ def _kernel_call(lib, model, params, x, u, lengths, beta, stream
         *[w.data_ptr() for w in weights], base, base + 4 * plan.packed,
         base + 4 * (plan.packed + n_scratch), loss_partials.data_ptr(),
         grads.data_ptr(), loss.data_ptr(), *dims, plan.tile, plan.splits,
-        int(bf16_mode(cfg)), float(beta), stream)
+        int(bf16_mode(cfg)), float(beta),
+        *((-1, -1, -1) if norm is None else map(int, norm)), stream)
     _build.check(err, "fused_train kernel launch")
     return loss, grads
 
@@ -714,18 +750,19 @@ def split_grads(params, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {n: p.view(s) for n, p, s in zip(PARAM_NAMES, parts, shapes)}
 
 
-def fused_loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
-                         lengths: torch.Tensor, beta,
-                         use_kernel: Optional[bool] = None
-                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, grads) of model.compute_loss(x, u, lengths, beta) in the
-    kernel's mode for the model (bf16_mode), grads keyed like
-    state_dict().  The caller checks train_step_supported first; an
-    unsupported shape raises here.  Both modes count in `launches`."""
-    if use_kernel is None:
-        use_kernel = x.is_cuda
-    if not use_kernel:
-        return fused_loss_and_grads_reference(model, x, u, lengths, beta)
+def _check_norm(norm: Norm, B: int) -> None:
+    if norm is None:
+        return
+    vt, msum, Bt = norm
+    if not (vt >= 0 and 0 <= msum < 2 ** 24 and Bt >= B):
+        raise ValueError(f"norm=(valid_to, mask_total, B_total) must be of "
+                         f"the global batch holding these {B} rows "
+                         f"(mask_total below 2**24), got {norm}")
+
+
+def _launch(model, params, x, u, lengths, beta, norm: Norm
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The checked kernel call on CUDA tensors, counted: (loss, flat)."""
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "
                          "train step is a CUDA kernel")
@@ -735,14 +772,48 @@ def fused_loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"fused train step unsupported at B={B}, T={T} "
                          f"for {model.cfg} (see train_step_supported)")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    # one walk of the module tree a call
-    params = dict(model.named_parameters())
     loss, flat = _kernel_call(_build.library(), model, params, x, u, lengths,
-                              beta, stream)
+                              beta, stream, norm)
     with _count_lock:
         fused_loss_and_grads.launches += 1
         fused_loss_and_grads.bf16_launches += bf16_mode(model.cfg)
-    return loss, split_grads(params, flat)
+    return loss, flat
+
+
+def fused_loss_and_flat_grads(model, x: torch.Tensor, u: torch.Tensor,
+                              lengths: torch.Tensor, beta,
+                              use_kernel: Optional[bool] = None,
+                              norm: Norm = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, flat grads (P,)): fused_loss_and_grads with the gradients as
+    the kernel leaves them, one vector in PARAM_NAMES order (the plain
+    version's concatenated, on the CPU)."""
+    _check_norm(norm, x.shape[0])
+    if use_kernel or (use_kernel is None and x.is_cuda):
+        return _launch(model, dict(model.named_parameters()), x, u, lengths,
+                       beta, norm)
+    loss, grads = fused_loss_and_grads_reference(model, x, u, lengths, beta,
+                                                 norm)
+    return loss, torch.cat([grads[n].reshape(-1) for n in PARAM_NAMES])
+
+
+def fused_loss_and_grads(model, x: torch.Tensor, u: torch.Tensor,
+                         lengths: torch.Tensor, beta,
+                         use_kernel: Optional[bool] = None,
+                         norm: Norm = None
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, grads) of model.compute_loss(x, u, lengths, beta) in the
+    kernel's mode for the model (bf16_mode), grads keyed like
+    state_dict(); norm: the global batch's normalisation (module
+    docstring).  The caller checks train_step_supported first; an
+    unsupported shape raises here.  Both modes count in `launches`."""
+    _check_norm(norm, x.shape[0])
+    if use_kernel or (use_kernel is None and x.is_cuda):
+        # one walk of the module tree a call
+        params = dict(model.named_parameters())
+        loss, flat = _launch(model, params, x, u, lengths, beta, norm)
+        return loss, split_grads(params, flat)
+    return fused_loss_and_grads_reference(model, x, u, lengths, beta, norm)
 
 
 fused_loss_and_grads.launches = 0
@@ -750,20 +821,23 @@ fused_loss_and_grads.bf16_launches = 0
 
 
 class FusedELBO(torch.autograd.Function):
-    """loss = FusedELBO.apply(model, x, u, lengths, beta, *params), with
-    params = tuple(p for _, p in model.named_parameters()).  The forward
-    computes the loss and every parameter gradient in the kernel (or the
-    plain version on the CPU); the backward returns
-    grad_output * gradient for the parameters and None for the rest."""
+    """loss = FusedELBO.apply(model, x, u, lengths, beta, norm, *params),
+    with params = tuple(p for _, p in model.named_parameters()) and norm
+    the global batch's normalisation, None for a local batch (module
+    docstring).  The forward computes the loss and every parameter
+    gradient in the kernel (or the plain version on the CPU); the backward
+    returns grad_output * gradient for the parameters and None for the
+    rest."""
 
     @staticmethod
-    def forward(ctx, model, x, u, lengths, beta, *params):
-        loss, grads = fused_loss_and_grads(model, x, u, lengths, beta)
+    def forward(ctx, model, x, u, lengths, beta, norm, *params):
+        loss, grads = fused_loss_and_grads(model, x, u, lengths, beta,
+                                           norm=norm)
         ctx.save_for_backward(*[grads[n] for n, _ in
                                 model.named_parameters()])
         return loss
 
     @staticmethod
     def backward(ctx, grad_output):
-        return (None, None, None, None, None,
-                *[grad_output * g for g in ctx.saved_tensors])
+        return ((None,) * 6
+                + tuple(grad_output * g for g in ctx.saved_tensors))

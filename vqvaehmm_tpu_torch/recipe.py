@@ -39,11 +39,13 @@ family through the quantizer's kernels, evaluation through the serving
 forward; --device cpu runs the plain versions; --device cuda without a
 GPU raises).  The head, backtest, walkforward and montecarlo stages read
 the quality checkpoint `vae_hmm_trained.npz` of --checkpoint-dir: by
-default, under --stage all, the one this run's quality stage wrote
-(<outdir>/checkpoints_quality), and for a stage run alone the committed
-artifacts/checkpoints_quality.  The outputs carry the JAX recipe's names,
-the PNGs where matplotlib is present; stage_log.json records each stage's
-wall time, device, and for a card its power limit.  The default --outdir
+default the one this run's quality stage wrote
+(<outdir>/checkpoints_quality), under --stage all and for a stage run
+alone alike, and the committed artifacts/checkpoints_quality where the
+outdir holds none (`quality_checkpoint_dir`).  The outputs carry the JAX
+recipe's names, the PNGs where matplotlib is present; stage_log.json
+records each stage's wall time, device, for a card its power limit, and
+for those four stages the checkpoint they read.  The default --outdir
 is under build/, so the committed artifacts/ are never overwritten, and
 the report reads nothing outside --outdir.
 
@@ -76,7 +78,7 @@ from .backtest.backtester import (Backtester, RegimeBacktest,
                                   WalkForwardBacktest, compare_strategies,
                                   plot_results)
 from .core.config import (Config, DataConfig, ModelConfig, PortfolioConfig,
-                          TrainConfig, VQConfig, config_to_dict, load_config)
+                          TrainConfig, VQConfig, config_to_dict)
 from .core.device import resolve_device
 from .data import market
 from .data.checkpoint import (head_params_to_numpy, load_improved_head,
@@ -101,6 +103,8 @@ WF_EPOCHS, WF_WIN, WF_HOR = 20, 64, 20
 MC_SEED, MC_PATHS, MC_DAYS = 0, 1000, 252
 STAGES = ["data", "train", "quality", "vq", "eval", "head", "backtest",
           "walkforward", "montecarlo", "report"]
+# the stages that read the quality checkpoint
+READS_CHECKPOINT = ("head", "backtest", "walkforward", "montecarlo")
 
 
 def _inference(fn):
@@ -454,10 +458,19 @@ def stage_eval(outdir: str, device, checkpoint_dir=None) -> dict:
     return out
 
 
+def quality_checkpoint_dir(outdir: str) -> str:
+    """<outdir>/checkpoints_quality where it holds a vae_hmm_trained.npz,
+    else the committed artifacts/checkpoints_quality."""
+    own = os.path.join(outdir, "checkpoints_quality")
+    if os.path.exists(os.path.join(own, "vae_hmm_trained.npz")):
+        return own
+    return CHECKPOINT_DIR
+
+
 def load_trained(device, checkpoint_dir: str = CHECKPOINT_DIR) -> VAEHMM:
-    """The quality configuration's VAE-HMM in eval() mode on `device`,
-    from `checkpoint_dir`/vae_hmm_trained.npz."""
-    model = VAEHMM(load_config(CONFIG).model, device=device)
+    """The recipe's quality configuration (recipe_config) as a VAE-HMM in
+    eval() mode on `device`, from `checkpoint_dir`/vae_hmm_trained.npz."""
+    model = VAEHMM(recipe_config(OUTDIR, quality=True).model, device=device)
     model.load_state_dict(params_from_numpy(load_params_npz(
         os.path.join(checkpoint_dir, "vae_hmm_trained.npz"))))
     return model.eval()
@@ -491,11 +504,12 @@ def head_batches(outdir: str, batch_size: int = 16, horizon: int = 20):
     return batches, returns_data
 
 
-def stage_head(outdir: str, device, checkpoint_dir: str = CHECKPOINT_DIR):
+def stage_head(outdir: str, device, checkpoint_dir=None):
     """The Improved head on the frozen posteriors: HEAD_EPOCHS epochs of
     train_portfolio_fused at HEAD_LR.  Writes portfolio_head.npz and
     head_history.json; returns the HeadTrainResult."""
-    model = load_trained(device, checkpoint_dir)
+    model = load_trained(device, checkpoint_dir
+                         or quality_checkpoint_dir(outdir))
     head = initial_head(device)
     batches, returns_data = head_batches(outdir)
     res = train_portfolio_fused(head, model, batches, returns_data,
@@ -520,11 +534,12 @@ def _backtester(device, **kw) -> Backtester:
     return Backtester(tx_cost=0.001, slippage=0.0005, device=device, **kw)
 
 
-def stage_backtest(outdir: str, device, checkpoint_dir: str = CHECKPOINT_DIR):
+def stage_backtest(outdir: str, device, checkpoint_dir=None):
     """Backtester.run (rebalance every 5 days) with the trained head and
     with equal weights (reference backtest.py:295-305).  Writes
     backtest_metrics.json and backtest_results.png."""
-    model = load_trained(device, checkpoint_dir)
+    model = load_trained(device, checkpoint_dir
+                         or quality_checkpoint_dir(outdir))
     head = load_improved_head(os.path.join(outdir, "portfolio_head.npz"),
                               device=device)
     data, _, prices, rets = _panel(outdir)
@@ -680,12 +695,13 @@ def crash_cost(model, head, data, u_data, rets, z_panel, device) -> dict:
 
 
 def stage_walkforward(outdir: str, device,
-                      checkpoint_dir: str = CHECKPOINT_DIR):
+                      checkpoint_dir=None):
     """Walk-forward backtest retraining the head a window (reference:
     backtesting.py:113-142), the per-regime breakdown under the argmax and
     the Viterbi decode, and the crash-cost comparison.  Writes
     walkforward_metrics.json."""
-    model = load_trained(device, checkpoint_dir)
+    model = load_trained(device, checkpoint_dir
+                         or quality_checkpoint_dir(outdir))
     head = load_improved_head(os.path.join(outdir, "portfolio_head.npz"),
                               device=device)
     data, u_data, prices, rets = _panel(outdir)
@@ -731,12 +747,13 @@ def stage_walkforward(outdir: str, device,
 
 
 def stage_montecarlo(outdir: str, device,
-                     checkpoint_dir: str = CHECKPOINT_DIR):
+                     checkpoint_dir=None):
     """The panel's Viterbi regime path (VAEHMM.viterbi_decode), the
     per-regime return statistics, and MC_PATHS paths of MC_DAYS days with
     the trained head.  Writes monte_carlo_stats.json and
     monte_carlo_results.png; returns (the simulation, its statistics)."""
-    model = load_trained(device, checkpoint_dir)
+    model = load_trained(device, checkpoint_dir
+                         or quality_checkpoint_dir(outdir))
     head = load_improved_head(os.path.join(outdir, "portfolio_head.npz"),
                               device=device)
     data, u_data, _, rets = _panel(outdir)
@@ -777,10 +794,12 @@ def _power_limit(device) -> str:
     return out.stdout.strip() if out.returncode == 0 else "unknown"
 
 
-def _log_stage(outdir: str, stage: str, wall_s: float, device) -> None:
+def _log_stage(outdir: str, stage: str, wall_s: float, device,
+               checkpoint_dir=None) -> None:
     """Record a stage's wall clock and the device it ran on in
     stage_log.json: for a card its name, and its name and power limit
-    from nvidia-smi."""
+    from nvidia-smi; with checkpoint_dir, the quality checkpoint the stage
+    read."""
     try:
         head = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
                               capture_output=True, text=True, cwd=ROOT,
@@ -798,6 +817,9 @@ def _log_stage(outdir: str, stage: str, wall_s: float, device) -> None:
                   else "cpu",
                   "power_limit": _power_limit(device) if cuda else None,
                   "git_head": head}
+    if checkpoint_dir is not None:
+        log[stage]["checkpoint"] = os.path.join(checkpoint_dir,
+                                                "vae_hmm_trained.npz")
     with open(path, "w") as f:
         json.dump(log, f, indent=2)
 
@@ -1013,22 +1035,24 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint-dir", default=None,
                     help="directory of the quality vae_hmm_trained.npz "
                          "that the head, backtest, walkforward and "
-                         "montecarlo stages read (default: under --stage "
-                         "all this run's <outdir>/checkpoints_quality, "
+                         "montecarlo stages read (default: this run's "
+                         "<outdir>/checkpoints_quality where it holds one, "
                          "else artifacts/checkpoints_quality)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     os.makedirs(args.outdir, exist_ok=True)
-    checkpoint_dir = args.checkpoint_dir or (
-        os.path.join(args.outdir, "checkpoints_quality")
-        if args.stage == "all" else CHECKPOINT_DIR)
     for s in STAGES if args.stage == "all" else [args.stage]:
         print(f"=== stage: {s} ===", flush=True)
+        # resolved a stage: under --stage all the quality stage writes the
+        # outdir's checkpoint before the stages that read it
+        checkpoint_dir = (args.checkpoint_dir
+                          or quality_checkpoint_dir(args.outdir))
         t0 = time.time()
         globals()["stage_" + s](args.outdir, device, checkpoint_dir)
-        _log_stage(args.outdir, s, time.time() - t0, device)
+        _log_stage(args.outdir, s, time.time() - t0, device,
+                   checkpoint_dir if s in READS_CHECKPOINT else None)
     return 0
 
 

@@ -26,8 +26,20 @@ stream (train/ensemble.py) and keeps the best final loss as
 the JAX package.  `training.profile_dir` writes a torch.profiler trace of
 one steady epoch there (utils/profiling.py).  The host input pipeline
 assembles the next epoch on a thread while this one trains
-(data/prefetch.py).  Not ported, and refused with NotImplementedError:
-the device mesh (ROADMAP.md queue 1, the parallelism item).
+(data/prefetch.py).
+
+`TrainPipeline(cfg, use_mesh=True)` trains data-parallel over the ranks
+of a `torch.distributed` group (parallel/mesh.py::create_mesh, with
+`mesh.num_devices` of the config): every rank runs this pipeline, draws
+the same sample stream, and trains on its share of every batch
+(train/trainer.py, `mesh=`); only rank 0 writes checkpoints and logs, a
+barrier comes before any read, and a run saved at one world size resumes
+at another.  The SIGTERM flag and the early-stopping decision are agreed
+across the ranks at each epoch boundary (an all-reduce of the max), so
+that no rank stops alone while the others wait in a collective.  The CLI
+has no flag for it, as the JAX CLI has none: start one process a card
+with `torchrun --nproc-per-node N` on a script that builds
+`TrainPipeline(cfg, use_mesh=True)`.
 """
 
 from __future__ import annotations
@@ -93,13 +105,20 @@ def _sigterm_flag():
 class TrainPipeline:
     """End-to-end config-driven training on one device."""
 
-    def __init__(self, cfg: Config, use_mesh: bool = False, device="cuda"):
-        if use_mesh:
-            raise NotImplementedError(
-                "use_mesh: data parallelism is not ported "
-                "(ROADMAP.md queue 1, the parallelism item)")
+    def __init__(self, cfg: Config, use_mesh: bool = False, device="cuda",
+                 group=None):
+        """use_mesh: data parallelism over the default process group (or
+        `group`), this rank on `device` (cuda:LOCAL_RANK under torchrun
+        where device is "cuda")."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = None
+        if use_mesh:
+            from ..parallel.mesh import create_mesh
+
+            self.mesh = create_mesh(cfg.mesh.num_devices, group=group,
+                                    device=device)
+        self.device = resolve_device(device) if self.mesh is None \
+            else self.mesh.device
         # True after train() returned early on SIGTERM: the returned state
         # is the checkpointed partial run, not a finished model
         self.preempted = False
@@ -147,7 +166,11 @@ class TrainPipeline:
         """Train with periodic checkpoints every `save_freq` epochs and
         an automatic resume from the latest periodic checkpoint."""
         t = self.cfg.training
+        mesh = self.mesh
         if self.cfg.model.family == "vqvae":
+            if mesh is not None:
+                raise ValueError("use_mesh trains the VAE-HMM; the VQ "
+                                 "family has no data-parallel path")
             # the true-VQ family has its own trainer and archive format;
             # the knobs it honours are documented on train_vq_stack
             from .vq_pipeline import train_vq_pipeline
@@ -156,7 +179,15 @@ class TrainPipeline:
             return train_vq_pipeline(self, log_fn=log_fn, resume=resume)
         self.preempted = False
         dev = self.device
+        # rank 0 alone writes files and logs
+        writer = mesh is None or mesh.rank == 0
+        if not writer:
+            log_fn = None
         model = self.build_model()
+        if mesh is not None:
+            from ..parallel.mesh import replicate
+
+            replicate(mesh, model)
         dataset = self.load_data()
         os.makedirs(t.checkpoint_dir, exist_ok=True)
         if t.ensemble_seeds:
@@ -181,6 +212,9 @@ class TrainPipeline:
                 with torch.no_grad():
                     return float(model.compute_loss(xv, uv, lv, 1.0))
         best_loss, wait = float("inf"), 0
+        if mesh is not None:
+            # no rank reads what rank 0 may still be writing
+            mesh.barrier()
         meta = load_metadata(periodic) if resume else None
         if meta is not None and os.path.exists(periodic + ".pt"):
             state = load_checkpoint(periodic, state)
@@ -191,7 +225,9 @@ class TrainPipeline:
                 log_fn(f"Resumed from epoch {start_epoch} "
                        f"(step {state.step})")
 
-        fused = resolve_fused(t.fused, self.cfg.model, t.batch_size,
+        # under a mesh the kernel runs on the local batch
+        world = 1 if mesh is None else mesh.size
+        fused = resolve_fused(t.fused, self.cfg.model, t.batch_size // world,
                               self.cfg.data.max_len, device=dev,
                               log_fn=log_fn)
         device_input = resolve_input_pipeline(t.input_pipeline,
@@ -204,9 +240,10 @@ class TrainPipeline:
 
             sampler = DeviceEpochSampler(dataset, dev)
             gstep = sampler.make_epoch_step(model, state.optimizer,
-                                            fused=fused)
+                                            fused=fused, mesh=mesh)
         else:
-            epoch_step = make_epoch_step(model, state.optimizer, fused=fused)
+            epoch_step = make_epoch_step(model, state.optimizer, fused=fused,
+                                         mesh=mesh)
 
         if start_epoch > 0:
             # replay the sample stream's draws of epochs [0, start_epoch),
@@ -228,7 +265,8 @@ class TrainPipeline:
             if not device_input:
                 # the host assembles and uploads the next epoch on a thread
                 # while this one trains, in the synchronous loop's draw
-                # order; closed on any exit
+                # order (under a mesh the global epoch, of which each rank
+                # trains on its columns); closed on any exit
                 epochs = stack.enter_context(contextlib.closing(
                     prefetch_epochs(dataset, t.batch_size,
                                     t.num_epochs - start_epoch, device=dev)))
@@ -269,27 +307,36 @@ class TrainPipeline:
                         best_loss, wait = metric, 0
                     else:
                         wait += 1
-                if t.save_freq and (ep + 1) % t.save_freq == 0:
+                if t.save_freq and (ep + 1) % t.save_freq == 0 and writer:
                     save_checkpoint(periodic, state,
                                     metadata={"epoch": ep + 1,
                                               "loss": loss,
                                               "best_loss": best_loss,
                                               "wait": wait})
+                stop = patience > 0 and wait >= patience
+                if mesh is not None:
+                    # one rank's SIGTERM or stop is every rank's
+                    preempted_now, stop = mesh.agree(bool(preempted), stop)
+                    if preempted_now and not preempted:
+                        preempted.append(True)
                 if preempted:
                     # checkpoint this epoch boundary (the resume point a
                     # periodic save makes) and return before the process
                     # is killed; the flag tells callers the state is
                     # partial
                     self.preempted = True
-                    save_checkpoint(periodic, state, metadata={
-                        "epoch": ep + 1, "loss": loss,
-                        "best_loss": best_loss, "wait": wait,
-                        "preempted": True})
+                    if writer:
+                        save_checkpoint(periodic, state, metadata={
+                            "epoch": ep + 1, "loss": loss,
+                            "best_loss": best_loss, "wait": wait,
+                            "preempted": True})
+                    if mesh is not None:
+                        mesh.barrier()
                     if log_fn:
                         log_fn(f"SIGTERM: checkpointed epoch {ep + 1}/"
                                f"{t.num_epochs}; rerun to auto-resume")
                     return state
-                if patience > 0 and wait >= patience:
+                if stop:
                     if log_fn:
                         log_fn(f"Early stop at epoch {ep + 1}/"
                                f"{t.num_epochs}: no improvement > "
@@ -299,14 +346,16 @@ class TrainPipeline:
 
         epochs_run = start_epoch + len(history)
         ckpt_path = os.path.join(t.checkpoint_dir, "vae_hmm_trained")
-        save_checkpoint(ckpt_path, state,
-                        metadata={"epochs": epochs_run,
-                                  "early_stopped": epochs_run < t.num_epochs,
-                                  "final_loss": history[-1]
-                                  if history else None})
-        save_params_npz(os.path.join(t.checkpoint_dir,
-                                     "vae_hmm_trained.npz"),
-                        model.state_dict())
+        if writer:
+            save_checkpoint(ckpt_path, state, metadata={
+                "epochs": epochs_run,
+                "early_stopped": epochs_run < t.num_epochs,
+                "final_loss": history[-1] if history else None})
+            save_params_npz(os.path.join(t.checkpoint_dir,
+                                         "vae_hmm_trained.npz"),
+                            model.state_dict())
+        if mesh is not None:
+            mesh.barrier()
         if log_fn:
             log_fn(f"Saved checkpoint to {ckpt_path}")
         return state
@@ -316,7 +365,8 @@ class TrainPipeline:
         """training.ensemble_seeds: one model a seed over one shared epoch
         stream (train/ensemble.py), one shot; the member with the best
         final loss is saved as vae_hmm_trained (.pt with metadata, .npz)
-        and returned."""
+        and returned.  Under a mesh the members are split over the ranks
+        and rank 0 writes."""
         from .ensemble import ensemble_member, train_ensemble
 
         t = self.cfg.training
@@ -327,18 +377,22 @@ class TrainPipeline:
             gradient_clip=t.gradient_clip,
             device_data=resolve_input_pipeline(t.input_pipeline,
                                                self.device) == "device",
-            fused=t.fused, device=self.device, log_fn=log_fn)
+            fused=t.fused, device=self.device, mesh=self.mesh,
+            log_fn=log_fn)
         state = ensemble_member(states, best)
         self.history = hist[best].tolist()
         ckpt_path = os.path.join(t.checkpoint_dir, "vae_hmm_trained")
-        save_checkpoint(ckpt_path, state, metadata={
-            "epochs": t.num_epochs,
-            "ensemble_seeds": seeds,
-            "best_seed": seeds[best],
-            "final_loss": float(hist[best, -1]),
-            "per_member_final_loss": [float(l) for l in hist[:, -1]],
-        })
-        save_params_npz(ckpt_path + ".npz", state.model.state_dict())
+        if self.mesh is None or self.mesh.rank == 0:
+            save_checkpoint(ckpt_path, state, metadata={
+                "epochs": t.num_epochs,
+                "ensemble_seeds": seeds,
+                "best_seed": seeds[best],
+                "final_loss": float(hist[best, -1]),
+                "per_member_final_loss": [float(l) for l in hist[:, -1]],
+            })
+            save_params_npz(ckpt_path + ".npz", state.model.state_dict())
+        if self.mesh is not None:
+            self.mesh.barrier()
         if log_fn:
             log_fn(f"ensemble: best seed {seeds[best]} "
                    f"(loss {hist[best, -1]:.4f}) -> {ckpt_path}")

@@ -19,9 +19,19 @@ Counterpart of vqvaehmm_tpu/train/trainer.py, in eager PyTorch:
 An epoch makes one host sync: each step's loss stays on the device, and
 only the epoch mean is read back.  `"auto"` in `resolve_fused` and
 `resolve_input_pipeline` means the kernel and the device pipeline on a
-CUDA device and the plain path and the host pipeline on the CPU.  The JAX
-package's `mesh` (data parallelism) is not ported (ROADMAP.md queue 1,
-the parallelism item).
+CUDA device and the plain path and the host pipeline on the CPU.
+
+`mesh=` (parallel/mesh.py) is the JAX package's data parallelism: every
+rank holds the model and the optimizer, takes its rows of each global
+batch, computes its share of the loss and the gradients with the global
+batch's normalisation (`norm`, ops/fused_train.py: the TPU kernel's
+axis_name mode), and one all-reduce of the sum over the flat gradient
+vector and the loss gives every rank the global update.  Clip and Adam
+then run on the same global gradient on every rank, so the parameters
+stay identical across ranks.  The epoch steps take the global epoch on
+every rank (each rank draws the same stream from the same seed) and
+compute each batch's norm from its global lengths, with no collective;
+`train_step` on a bare shard agrees on it through the mesh.
 """
 
 from __future__ import annotations
@@ -35,7 +45,9 @@ import torch
 from ..core.device import resolve_device
 from ..data.dataset import RandomChunkDataset, epoch_arrays
 from ..data.prefetch import prefetch_epochs
-from ..ops.fused_train import (fused_loss_and_grads, loss_and_grads,
+from ..ops.fused_train import (PARAM_NAMES, Norm, fused_loss_and_flat_grads,
+                               fused_loss_and_grads, global_norms,
+                               loss_and_grads, split_grads,
                                train_step_supported)
 
 
@@ -217,56 +229,117 @@ class TrainState:
         return self.optimizer.updates
 
 
+def shard_norm(mesh, lengths: torch.Tensor, T: int) -> Tuple[int, int, int]:
+    """The global batch's (valid_to, mask_total, B_total) from this rank's
+    shard of its lengths: all-reduces of the max and the mask total (one
+    host read)."""
+    import torch.distributed as dist
+
+    vt = lengths.max().reshape(1).to(torch.int64)
+    msum = lengths.to(torch.int64).clamp(0, T).sum().reshape(1)
+    mesh.all_reduce_(vt, dist.ReduceOp.MAX)
+    mesh.all_reduce_(msum)
+    return int(vt.item()), int(msum.item()), lengths.shape[0] * mesh.size
+
+
+def _global_loss_and_grads(model, x, u, lengths, beta, fused: bool, mesh,
+                           norm: Norm):
+    """This rank's share of the global batch's loss and gradients, summed
+    over the ranks by one all-reduce of [flat gradients, loss]."""
+    if fused:
+        loss, flat = fused_loss_and_flat_grads(model, x, u, lengths, beta,
+                                               norm=norm)
+    else:
+        loss, grads = loss_and_grads(model, x, u, lengths, beta, norm=norm)
+        flat = torch.cat([grads[n].reshape(-1) for n in PARAM_NAMES])
+    buf = mesh.all_reduce_(torch.cat([flat, loss.reshape(1)]))
+    return buf[-1], split_grads(dict(model.named_parameters()), buf[:-1])
+
+
 def train_step(model, optimizer: ClippedAdam, x: torch.Tensor,
                u: torch.Tensor, lengths: torch.Tensor, beta: float,
-               fused: bool = False) -> torch.Tensor:
+               fused: bool = False, mesh=None,
+               norm: Norm = None) -> torch.Tensor:
     """One update; returns the loss (a device scalar, not synchronised).
     fused=True takes the loss and all gradients from
     ops/fused_train.py (one kernel call on the card, its plain version on
-    the CPU); fused=False from compute_loss and autograd."""
-    loss, grads = (fused_loss_and_grads if fused else loss_and_grads)(
-        model, x, u, lengths, beta)
+    the CPU); fused=False from compute_loss and autograd.  With a mesh,
+    (x, u, lengths) are this rank's rows of a global batch, and the update
+    and the loss returned are the global batch's on every rank; norm, the
+    global batch's normalisation, is agreed through the mesh where not
+    given (module docstring)."""
+    if mesh is None:
+        loss, grads = (fused_loss_and_grads if fused else loss_and_grads)(
+            model, x, u, lengths, beta)
+    else:
+        if norm is None:
+            norm = shard_norm(mesh, lengths, x.shape[-1])
+        loss, grads = _global_loss_and_grads(model, x, u, lengths, beta,
+                                             fused, mesh, norm)
     for name, p in model.named_parameters():
         p.grad = grads[name]
     optimizer.update()
     return loss
 
 
-def make_epoch_step(model, optimizer: ClippedAdam, fused: bool = False):
+def make_epoch_step(model, optimizer: ClippedAdam, fused: bool = False,
+                    mesh=None):
     """epoch(xs, us, lens, beta) -> mean loss (a device scalar) over the
     stacked host-assembled batches (batches, B, ...), on the model's
-    device."""
+    device.  With a mesh the arrays are the global epoch, the same on every
+    rank; each rank uploads and trains on its columns of each batch."""
     dev = model.device
 
     def epoch(xs, us, lens, beta: float) -> torch.Tensor:
+        norms = [None] * len(lens)
+        if mesh is not None:
+            norms = global_norms(lens, xs.shape[-1])
+            xs, us, lens = (a[:, mesh.rows(a.shape[1])]
+                            for a in (xs, us, lens))
         xs, us, lens = (torch.as_tensor(a).to(dev) for a in (xs, us, lens))
         total = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(xs.shape[0]):
             total = total + train_step(model, optimizer, xs[i], us[i],
-                                       lens[i], beta, fused)
+                                       lens[i], beta, fused, mesh, norms[i])
         return total / xs.shape[0]
 
     return epoch
 
 
+def _replicated(model, mesh):
+    """The model on the mesh's device with rank 0's parameters (each rank
+    draws the same ones from a seed; the broadcast makes it so whatever
+    the caller drew)."""
+    if mesh is not None:
+        from ..parallel.mesh import replicate
+
+        replicate(mesh, model.to(mesh.device))
+    return model
+
+
 class Trainer:
     """Object-style trainer (the reference Trainer API: train_epoch /
     train, grad clip 1.0, beta warm-up flag).  The model's parameters are
-    drawn from `seed` here, as the JAX Trainer draws them."""
+    drawn from `seed` here, as the JAX Trainer draws them.  mesh: data
+    parallelism, each epoch the same draws on every rank (module
+    docstring)."""
 
     def __init__(self, model, lr: float = 1e-3,
                  gradient_clip: Optional[float] = 1.0,
                  beta_warmup: bool = True, seed: int = 0,
-                 fused: bool = False, device_data: Optional[bool] = None):
+                 fused: bool = False, device_data: Optional[bool] = None,
+                 mesh=None):
         self.model = model
         model.reset_parameters(torch.Generator().manual_seed(seed))
+        _replicated(model, mesh)
         self.state = TrainState(model, make_optimizer(model, lr,
                                                       gradient_clip))
         self.beta_warmup = beta_warmup
         self._fused = fused
         self._device_data = device_data
+        self._mesh = mesh
         self._epoch_step = make_epoch_step(model, self.state.optimizer,
-                                           fused)
+                                           fused, mesh)
         self._sampler = None
 
     def train_epoch(self, dataset: RandomChunkDataset, batch_size: int,
@@ -281,7 +354,8 @@ class Trainer:
                 self._sampler = DeviceEpochSampler(dataset,
                                                    self.model.device)
                 self._gstep = self._sampler.make_epoch_step(
-                    self.model, self.state.optimizer, fused=self._fused)
+                    self.model, self.state.optimizer, fused=self._fused,
+                    mesh=self._mesh)
             return float(self._gstep(*self._sampler.draw_epoch(batch_size),
                                      beta))
         xs, us, lens = epoch_arrays(dataset, batch_size)
@@ -306,33 +380,43 @@ def train_model(model, dataset: RandomChunkDataset, num_epochs: int = 10,
                 state: Optional[TrainState] = None,
                 fused: Optional[bool] = None,
                 device_data: Optional[bool] = None,
-                device="cuda", log_fn=print) -> Tuple[TrainState, list]:
+                device="cuda", mesh=None,
+                log_fn=print) -> Tuple[TrainState, list]:
     """End-to-end training with the reference's schedule on `device`
     (which must be usable: a CUDA device without a GPU raises).  Without
     `state`, the model's parameters are drawn from `seed` and a fresh
     optimizer made.  fused / device_data: None = auto (the kernel and the
-    device input pipeline on a CUDA device).  Returns the state and the
-    per-epoch mean losses."""
-    dev = resolve_device(device)
+    device input pipeline on a CUDA device).  mesh: data parallelism on
+    the mesh's device, which takes the place of `device` (module
+    docstring); the kernel's gate takes the local batch, batch_size /
+    world, and only rank 0 logs.  Returns the state and the per-epoch mean
+    losses."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     model.to(dev)
     if state is None:
         model.reset_parameters(torch.Generator().manual_seed(seed))
+        _replicated(model, mesh)
         state = TrainState(model, make_optimizer(model, lr, gradient_clip))
     if device_data is None:
         device_data = dev.type == "cuda"
+    if mesh is not None and mesh.rank != 0:
+        log_fn = None
+    world = 1 if mesh is None else mesh.size
     fused = resolve_fused("auto" if fused is None else fused, model.cfg,
-                          batch_size, dataset.max_len, device=dev,
+                          batch_size // world, dataset.max_len, device=dev,
                           log_fn=log_fn)
     history = []
     if device_data:
         from ..data.device_sampler import DeviceEpochSampler
 
         sampler = DeviceEpochSampler(dataset, dev)
-        step = sampler.make_epoch_step(model, state.optimizer, fused=fused)
+        step = sampler.make_epoch_step(model, state.optimizer, fused=fused,
+                                       mesh=mesh)
         epochs = (sampler.draw_epoch(batch_size) for _ in range(num_epochs))
     else:
-        step = make_epoch_step(model, state.optimizer, fused=fused)
+        step = make_epoch_step(model, state.optimizer, fused, mesh)
         # the next epoch is assembled and uploaded while this one trains
+        # (under a mesh the global epoch; each rank trains on its columns)
         epochs = prefetch_epochs(dataset, batch_size, num_epochs, device=dev)
     for ep, args in enumerate(epochs):
         beta = beta_schedule(ep, num_epochs, beta_warmup)
