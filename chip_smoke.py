@@ -391,7 +391,19 @@ exiting non-zero before a result is printed:
    A a rank, a step's wall and device-busy ms a rank, and the all-reduce's
    time inside a step timed with it (between two synchronisations, the
    wait for the peer included) and its share of that step are printed
-   (the share is a record, not a check).
+   (the share is a record, not a check).  (c) The ensemble head's 2-D
+   (data x model) layout on four gloo processes sharing the card, a 2 x 2
+   grid (parallel/dryrun.py::ensemble_2d_check, the JAX dry run's case:
+   4 heads, K=3, 8 assets, hidden 16): each rank's rows within 1e-6 of
+   the one-process forward, the weights summing to 1 within 1e-4, the
+   ranks of a grid row equal.
+34. the studies and the reference CLIs: the ten entry points of
+   vqvaehmm_tpu_torch/scripts through main(argv) on the card at one seed
+   and 2 epochs (STUDY_RUNS), the counts set to 0 just before each and
+   read just after: exit 0, a JSON of finite numbers naming the card,
+   each kernel's launches exactly as _study_expected derives them from
+   the epochs and steps; the A/B's float32 arm's first-epoch loss within
+   STUDY_TOL of the same run on the CPU.
 
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
@@ -410,7 +422,8 @@ GMM stack's wall times of phase 26 (`gmm_*`), on every kernel phase
 30's launches a recipe stage (`recipe_launches`), and on kernel C's
 entries phase 32's gaps (`global_norm`) and on kernels C, D and A phase
 33's launches a rank (`dp_launches`) and kernel C's step times there
-(`dp_step`); the last line is {"ok": true, "device": {...}}.
+(`dp_step`), and on every kernel phase 34's launches an entry point
+(`study_launches`); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5615,6 +5628,252 @@ def phase_dp_train(torch, np, tmp, dev="cuda", backend="nccl"):
     return dp_launches, dp_step
 
 
+def phase_ensemble_2d(torch, np, dev="cuda"):
+    """33(c). the ensemble head's 2-D (data x model) layout on four gloo
+    ranks sharing `dev` (parallel/dryrun.py::ensemble_2d_check, the JAX
+    dry run's case): each rank's rows within 1e-6 of the one-process
+    forward on the card, the weights summing to 1 within 1e-4, the two
+    ranks of a grid row equal.  Returns the largest gaps."""
+    from vqvaehmm_tpu_torch.parallel.dryrun import (DRYRUN_BARS,
+                                                    ensemble_2d_case,
+                                                    ensemble_2d_check,
+                                                    run_world)
+
+    card = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    case = ensemble_2d_case(8, np.random.default_rng(0))
+    t0 = time.perf_counter()
+    ranks = run_world(4, ensemble_2d_check, (case,), device=str(card))
+    wall = time.perf_counter() - t0
+    gaps = {k: max(g[k] for g, _ in ranks) for k in ranks[0][0]}
+    for k, v in gaps.items():
+        if not v <= DRYRUN_BARS[k]:
+            fail(f"the 2-D ensemble head's {k} {v:.3e} is over its bar "
+                 f"{DRYRUN_BARS[k]}")
+    for r in range(4):
+        if not np.array_equal(ranks[r][1], ranks[r ^ 1][1]):
+            fail(f"ranks {r} and {r ^ 1} of one grid row hold different "
+                 "weights")
+    from vqvaehmm_tpu_torch.models.portfolio import (
+        EnsemblePortfolioOptimizer, HeadConfig)
+
+    ens = EnsemblePortfolioOptimizer(
+        HeadConfig(**case["head"]), n_models=case["n_models"],
+        generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        cpu = ens(torch.from_numpy(case["q"])).numpy()
+    cpu_gap = max(max_abs(torch.from_numpy(rows), torch.from_numpy(
+        cpu[(r // 2) * 4:(r // 2 + 1) * 4])) for r, (_, rows)
+        in enumerate(ranks))
+    say("dp train", f"(c) the ensemble head on a 2 x 2 (data x model) grid "
+        f"of four gloo ranks on {card} ({wall:.1f} s): rows within "
+        f"{gaps['ensemble_2d']:.3e} of the one-process forward there, "
+        f"weights summing to 1 within {gaps['ensemble_2d_sum']:.3e}, "
+        f"{cpu_gap:.3e} from the CPU's forward (a record)")
+    return {**gaps, "cpu_gap": cpu_gap}
+
+
+# ---------------------------------------------------------------------------
+# Phase 34: the studies and the reference CLIs (vqvaehmm_tpu_torch/scripts)
+# ---------------------------------------------------------------------------
+
+# the float32 arm's first epoch on the card against the CPU, relative
+# (floor 1), as phase 30 holds the quality run's
+STUDY_TOL = 1e-5
+# each entry point through main(argv) at one seed and 2 epochs: (module,
+# arguments, the JSON it writes)
+STUDY_RUNS = (
+    ("throughput_quality_ab", ["--seeds", "42", "--epochs", "2"],
+     "throughput_quality_ab.json"),
+    ("vq_sweep", ["--stage", "seeds", "--seeds", "42", "--epochs", "2"],
+     "vq_sweep.json"),
+    ("crash_regime", ["--seeds", "42", "--epochs", "2"],
+     "crash_regime.json"),
+    ("fixture_model_compare", [], "fixture_model_compare.json"),
+    ("quality_eval", ["--epochs", "2"], "quality_eval.json"),
+    ("vq_quality", ["--epochs", "2"], "vq_quality.json"),
+    ("quality_sweep", ["--epochs", "2"], "quality_sweep.json"),
+    ("ensemble_eval", ["--seeds", "1", "--epochs", "2"],
+     "ensemble_eval.json"),
+    ("train", ["--synthetic", "--epochs", "2", "--port-epochs", "2"],
+     "train_summary.json"),
+    ("backtest", ["--synthetic", "--n-sim", "100", "--n-days", "20"],
+     "backtest_summary.json"),
+)
+# the EM fits' iterations in this phase: the code-HMM's (VQConfig's 50 in
+# vq_sweep, vq_quality.EM_ITERS 50) and fixture_model_compare.EM_ITERS (40)
+STUDY_VQ_EM_ITERS = 5
+STUDY_FIXTURE_EM_ITERS = 2
+
+
+def _finite_numbers(obj, path="") -> list:
+    """The paths of the numbers in a JSON value that are not finite."""
+    import math
+
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items()
+                for p in _finite_numbers(v, f"{path}.{k}")]
+    if isinstance(obj, list):
+        return [p for i, v in enumerate(obj)
+                for p in _finite_numbers(v, f"{path}[{i}]")]
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return [path]
+    return []
+
+
+def _study_expected(name, vq_epochs) -> dict:
+    """Each kernel's launches of one STUDY_RUNS entry as the code implies
+    them: a training step one kernel-C launch (the bfloat16 arm's counted
+    in both fused_train and fused_train_bf16, as the wrapper counts them)
+    and an epoch one kernel-D launch, at 15 steps an epoch of the recipe's
+    1000 samples in 64, 8 of the synthetic studies' 256 in 32 and 4 of
+    the ensemble's 128 in 32; a mean-field posterior one kernel-8 launch,
+    a smoothed posterior one kernel-11 launch, a Viterbi path one each of
+    kernels 11 and B (a code-HMM's or a chain's: one of B), the serving
+    forward one of A; a VQ step one quantizer launch each way, a VQ epoch
+    (polish epochs included) one gather, a panel pass, a code lookup, one
+    nearest-code launch.  vq_epochs: the epochs each VQ training of the
+    run took, in order."""
+    e = {}
+
+    def add(**kw):
+        for k, v in kw.items():
+            e[k] = e.get(k, 0) + v
+
+    if name == "throughput_quality_ab":
+        # two arms of 2 x 15 steps, each scored: smoothed and Viterbi
+        add(fused_train=60, fused_train_bf16=30, gather=4,
+            fused_evidence=4, viterbi=2)
+    elif name == "vq_sweep":
+        # two points: their training (the trainer's panel passes: one,
+        # and one more a polish epoch) and their score (the codes of the
+        # smoothed and the Viterbi decode); then the joint finetune of
+        # the default point: its score, and two outer iterations of two
+        # lookups, 10 steps and a score
+        for ep in vq_epochs:
+            add(quantize_forward=15 * ep, quantize_backward=15 * ep,
+                gather=ep, vq_nearest=1 + (ep - 2) + 2, viterbi=1)
+        add(vq_nearest=2 + 2 * 4, viterbi=1 + 2,
+            quantize_forward=20, quantize_backward=20)
+    elif name == "crash_regime":
+        # four arms (current, two pools, K=5) of 2 x 15 steps, each scored
+        # by its three decodes; the reference's model runs no kernel
+        add(fused_train=120, gather=8, fused_encode=4, fused_evidence=8,
+            viterbi=4)
+    elif name == "fixture_model_compare":
+        # the chain on every day and held out, the Gaussian HMM
+        add(viterbi=3)
+    elif name == "quality_eval":
+        add(fused_train=16, gather=2, fused_encode=1, fused_evidence=2,
+            viterbi=1, fused_infer=1)
+    elif name == "vq_quality":
+        # 2 full-batch steps; the codes twice (usage, the fit); the path
+        add(quantize_forward=2, quantize_backward=2, vq_nearest=2,
+            viterbi=1)
+    elif name == "quality_sweep":
+        add(fused_train=9 * 16, gather=9 * 2, fused_encode=9,
+            fused_evidence=9 * 2, viterbi=9)
+    elif name == "ensemble_eval":
+        add(fused_train=8, gather=2, fused_encode=1)
+    elif name == "train":
+        # 2 x 15 steps; the head's 8 batches of frozen posteriors
+        add(fused_train=30, gather=2, fused_encode=8)
+    return e
+
+
+def phase_studies(torch, np, tmp, dev="cuda"):
+    """34. the ten entry points of vqvaehmm_tpu_torch/scripts through their
+    main(argv) on the card (STUDY_RUNS), each with the launch counts set
+    to 0 just before it and read just after: exit 0, a JSON of finite
+    numbers naming the card, each kernel's launches as _study_expected;
+    the float32 arm's first-epoch loss against the same run on the CPU
+    within STUDY_TOL.  Returns {entry: {kernel: launches}}."""
+    import dataclasses
+    import importlib
+
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+    from vqvaehmm_tpu_torch.scripts import fixture_model_compare
+    from vqvaehmm_tpu_torch.scripts import throughput_quality_ab as ab
+    from vqvaehmm_tpu_torch.scripts import vq_quality, vq_sweep
+
+    counters = launch_counters()
+    out = os.path.join(tmp, "studies")
+    vq_epochs, real_vq = [], vq_sweep.train_vq_stack
+    real_cfg = vq_sweep.base_config
+    real_em = (vq_quality.EM_ITERS, fixture_model_compare.EM_ITERS)
+
+    def recording_vq(*a, **k):
+        stack, state, pre = real_vq(*a, **k)
+        vq_epochs.append(len(stack.history))
+        return stack, state, pre
+
+    def cut_em(*a, **k):
+        cfg = real_cfg(*a, **k)
+        return dataclasses.replace(cfg, vq=dataclasses.replace(
+            cfg.vq, hmm_iters=STUDY_VQ_EM_ITERS))
+
+    vq_sweep.train_vq_stack = recording_vq
+    vq_sweep.base_config = cut_em
+    vq_quality.EM_ITERS = STUDY_VQ_EM_ITERS
+    fixture_model_compare.EM_ITERS = STUDY_FIXTURE_EM_ITERS
+    launches, walls = {}, {}
+    try:
+        for name, argv, fname in STUDY_RUNS:
+            mod = importlib.import_module(f"vqvaehmm_tpu_torch.scripts.{name}")
+            if name == "throughput_quality_ab":
+                # the recipe's data stage, outside the counted run
+                _quiet(mod.load_windows, out)
+            vq_epochs.clear()
+            for c in counters.values():
+                c.launches = 0
+            fused_loss_and_grads.bf16_launches = 0
+            t0 = time.perf_counter()
+            rc = _quiet(mod.main, ["--device", dev, "--outdir", out, *argv])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            got = {k: c.launches for k, c in counters.items()}
+            got["fused_train_bf16"] = fused_loss_and_grads.bf16_launches
+            launches[name] = got
+            if rc != 0:
+                fail(f"{name}.main exited {rc}")
+            with open(os.path.join(out, fname)) as f:
+                res = json.load(f)
+            bad = _finite_numbers(res)
+            if bad:
+                fail(f"{name} wrote numbers that are not finite: {bad[:5]}")
+            if dev == "cuda" and \
+                    res.get("device") != torch.cuda.get_device_name(0):
+                fail(f"{name}'s JSON names the device {res.get('device')}")
+            want = {k: 0 for k in got}
+            want.update(_study_expected(name, list(vq_epochs)))
+            if got != want:
+                fail(f"{name} launched {got}, predicted {want}")
+    finally:
+        vq_sweep.train_vq_stack = real_vq
+        vq_sweep.base_config = real_cfg
+        vq_quality.EM_ITERS, fixture_model_compare.EM_ITERS = real_em
+    with open(os.path.join(out, "throughput_quality_ab.json")) as f:
+        card_first = json.load(f)["parity"]["per_seed"][0]["train_history"][0]
+    mo, to = ab.VARIANTS["parity"]
+    _, cpu_hist, _ = _quiet(ab.run_variant, out, "parity", 42, mo, to, 2,
+                            torch.device("cpu"))
+    rel = abs(card_first - cpu_hist[0]) / max(1.0, abs(cpu_hist[0]))
+    if rel > STUDY_TOL:
+        fail(f"the A/B's float32 arm: first epoch {card_first} on the card, "
+             f"{cpu_hist[0]} on the CPU ({rel:.3e} relative, tol "
+             f"{STUDY_TOL})")
+    say("studies", f"ten entry points on the card in "
+        f"{sum(walls.values()):.1f} s ("
+        + ", ".join(f"{n} {w:.1f}" for n, w in walls.items())
+        + f"); launches as predicted: "
+        + "; ".join(f"{n} {{" + ", ".join(f"{k} {v}" for k, v in
+                                           sorted(l.items()) if v) + "}"
+                    for n, l in launches.items())
+        + f"; the float32 arm's first epoch {card_first:.6f} within "
+        f"{rel:.3e} of the CPU's")
+    return launches
+
+
 def _sha(torch, *tensors) -> str:
     import hashlib
 
@@ -6138,6 +6397,13 @@ def main() -> int:
         dp_launches, dp_step = phase_dp_train(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_ensemble_2d(torch, np)
+    # 34. the studies and the reference CLIs
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_studies_")
+    try:
+        study_launches = phase_studies(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -6365,6 +6631,9 @@ def main() -> int:
         if k["name"] in ("fused_train", "gather", "fused_infer"):
             k["dp_launches"] = {r: n[k["name"]]
                                 for r, n in dp_launches.items()}
+        # phase 34: each study's and reference CLI's launches
+        k["study_launches"] = {e: n[k["name"]]
+                               for e, n in study_launches.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,9 +10,9 @@ dryrun_checks on dryrun_case's inputs, with JAX's initial parameters and
 members) and the jobs of tests/torch_parallel_worker.py; the tests read
 its results.  Bars: one step 1e-5 (loss and parameters), epochs and the
 ensemble 1e-4, the sharded forward 5e-5 (tests/test_sharded_hmm.py's),
-sharded inference 1e-5.  Kernel C's global-normalisation mode is held on
-the CPU through its two plain versions, against JAX's axis_name mode and
-against the whole batch."""
+sharded inference 1e-5, the 2-D ensemble head 1e-6.  Kernel C's
+global-normalisation mode is held on the CPU through its two plain
+versions, against JAX's axis_name mode and against the whole batch."""
 
 import json
 
@@ -110,13 +110,28 @@ def _ensemble_init(seeds):
         for i in range(len(seeds))]
 
 
+def _jax_ensemble_head(case):
+    """JAX's EnsemblePortfolioOptimizer of the dry run's 2-D check and its
+    init at PRNGKey(1), as in __graft_entry__.py::dryrun_multichip."""
+    from vqvaehmm_tpu.models import EnsemblePortfolioOptimizer, HeadConfig
+
+    ens = EnsemblePortfolioOptimizer(HeadConfig(**case["head"]),
+                                     n_models=case["n_models"])
+    return ens, ens.init(jax.random.PRNGKey(1))
+
+
 def _case(n):
-    """dryrun_case(n) with JAX's initial parameters and members."""
+    """dryrun_case(n) with JAX's initial parameters, members and
+    ensemble head."""
+    from vqvaehmm_tpu_torch.data.checkpoint import zoo_params_from_numpy
+
     case = dryrun_case(n)
     assert case["widths"] == WIDTHS
     _, params = _jax_params()
     case["params"] = params_from_numpy(_np_tree(params))
     case["ensemble"]["init"] = _ensemble_init(case["ensemble"]["seeds"])[3]
+    _, head = _jax_ensemble_head(case["ensemble_2d"])
+    case["ensemble_2d"]["params"] = zoo_params_from_numpy(_np_tree(head))
     return case
 
 
@@ -419,6 +434,36 @@ def test_global_norm_matches_jax_axis_name_mode():
 
 
 @pytest.mark.parametrize("n", [2, 4])
+def test_ensemble_2d_layout_matches_jax(world2, world4, n):
+    """The ensemble head on the (n/2) x 2 grid (members over "model",
+    rows over "data") against JAX's, its parameters sharded P("model") and
+    the batch P("data") over an (n/2, 2) device mesh, as the JAX dry run
+    lays it out: each rank's rows within 1e-6 of JAX's, the ranks of one
+    grid row equal, the weights summing to 1 within 1e-4."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    case = dryrun_case(n)["ensemble_2d"]
+    ens, params = _jax_ensemble_head(case)
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(n // 2, 2),
+                ("data", "model"))
+    params = jax.tree_util.tree_map(
+        lambda a: jax.device_put(a, NamedSharding(mesh, P("model"))),
+        params)
+    q = jax.device_put(jnp.asarray(case["q"]),
+                       NamedSharding(mesh, P("data")))
+    want = np.asarray(jax.jit(lambda p, qq: ens(p, qq), out_shardings=
+                              NamedSharding(mesh, P("data")))(params, q))
+    got = _out(world2 if n == 2 else world4, "ensemble_2d")
+    per = want.shape[0] // (n // 2)
+    for r, rows in enumerate(got):
+        i = r // 2                       # the rank's row of the grid
+        np.testing.assert_allclose(rows, want[i * per:(i + 1) * per],
+                                   atol=1e-6, rtol=0)
+        np.testing.assert_allclose(rows.sum(-1), 1.0, atol=1e-4, rtol=0)
+        assert np.array_equal(rows, got[2 * i + (1 - r % 2)])
+
+
+@pytest.mark.parametrize("n", [2, 4])
 def test_dryrun_multichip(world2, world4, n):
     """parallel/dryrun.py's checks on the n-rank world (what
     dryrun_multichip(n) runs): every check (the sharded step in both
@@ -429,6 +474,7 @@ def test_dryrun_multichip(world2, world4, n):
     assert dryrun_failures(ranks) == []
     assert set(ranks[0]["gaps"]) >= {
         "step_params_fused1", "resume_half_params", "sampler_epoch_params",
-        "forward_sharded_alpha", "infer_sharded", "ensemble_params"}
+        "forward_sharded_alpha", "infer_sharded", "ensemble_params",
+        "ensemble_2d", "ensemble_2d_sum"}
     assert all("resume_half_params" in r["gaps"] for r in ranks[:n // 2])
     json.dumps(ranks[0]["gaps"])

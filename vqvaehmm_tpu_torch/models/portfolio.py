@@ -18,6 +18,7 @@ serves all members, as JAX's vmap does.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -251,7 +252,15 @@ class EnsemblePortfolioOptimizer(nn.Module):
     """n_models MLPs K -> h -> n_assets, their softmax weights averaged.
     The members' parameters are stacked on a leading axis (fc1.weight
     (n, h, K), ...: the JAX package's stacked pytree), so each layer is
-    one batched product over all members."""
+    one batched product over all members.
+
+    On a 2-D (data x model) grid (parallel/mesh.py::create_mesh_2d),
+    `shard_members(mesh)` gives each rank its column's slice of the
+    members and `forward(q, mesh)` takes its row's slice of the batch: the
+    member mean is one all-reduce of the members' sum over the "model"
+    axis, divided by n_models, and the output stays sharded by data (the
+    JAX dry run's layout, the members over "model" and the batch over
+    "data")."""
 
     def __init__(self, cfg: HeadConfig, n_models: int = 5, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -262,10 +271,31 @@ class EnsemblePortfolioOptimizer(nn.Module):
         self.fc2 = _ExpertLinear(n_models, cfg.hidden_dim, cfg.n_assets,
                                  device, generator)
 
-    def forward(self, regime_probs: torch.Tensor) -> torch.Tensor:
+    def shard_members(self, mesh) -> "EnsemblePortfolioOptimizer":
+        """A copy on mesh.device holding this rank's members, rows
+        mesh.model.rows(n_models) of every stacked parameter; n_models
+        stays the ensemble's size."""
+        rows = mesh.model.rows(self.n_models)
+        part = copy.deepcopy(self).to(mesh.device)
+        for layer in (part.fc1, part.fc2):
+            layer.weight = nn.Parameter(layer.weight.detach()[rows].clone())
+            layer.bias = nn.Parameter(layer.bias.detach()[rows].clone())
+        return part
+
+    def forward(self, regime_probs: torch.Tensor, mesh=None) -> torch.Tensor:
+        """(B, n_assets) weights; with `mesh`, this rank's rows of the
+        batch through the members of shard_members(mesh)."""
         q = _last_step(regime_probs)
         h = torch.relu(self.fc1(q))                        # (n, B, h)
-        return torch.softmax(self.fc2(h), dim=-1).mean(dim=0)
+        w = torch.softmax(self.fc2(h), dim=-1)
+        if mesh is None:
+            return w.mean(dim=0)
+        if w.shape[0] * mesh.model.size != self.n_models:
+            raise ValueError(
+                f"forward(mesh=) takes the module shard_members(mesh) "
+                f"returned: {w.shape[0]} members here over "
+                f"{mesh.model.size} model ranks, not {self.n_models}")
+        return mesh.model.all_reduce_(w.sum(dim=0)) / self.n_models
 
 
 class HierarchicalPortfolioOptimizer(nn.Module):

@@ -1,2 +1,3 @@
-from .mesh import Mesh, create_mesh, replicate, shard_batch
+from .mesh import (Mesh, Mesh2D, create_mesh, create_mesh_2d, replicate,
+                   shard_batch)
 from .sharded_hmm import forward_sharded

@@ -1,6 +1,5 @@
 """A dry run of the data-parallel paths over n gloo CPU processes (the
-port's counterpart of __graft_entry__.py::dryrun_multichip, less the 2-D
-layout of the ensemble head).
+port's counterpart of __graft_entry__.py::dryrun_multichip).
 
     python -m vqvaehmm_tpu_torch.parallel.dryrun [N]
 
@@ -12,7 +11,8 @@ world with its traceback.  The ranks compute on the CPU, or on one CUDA
 device they share (`device=`: gloo takes CUDA tensors, where NCCL takes
 one card a rank).  `dryrun_multichip(n)` runs `dryrun_checks` on such a
 world: each data-parallel path against the same computation in one
-process, on tiny shapes.
+process, on tiny shapes; on an even world that includes the 2-D (data x
+model) layout of the ensemble head (`ensemble_2d_check`).
 """
 
 from __future__ import annotations
@@ -119,7 +119,7 @@ def dryrun_case(n: int) -> dict:
     B, T, K, Tsp = 2 * n, 24, 3, 8 * n
     lengths = rng.integers(8, T + 1, size=B).astype(np.int32)
     lengths[0] = T
-    return dict(
+    case = dict(
         widths=dict(input_dim=5, hidden_dim=16, K=K, hidden_dim2=8,
                     u_dim=4, trans_hidden=16),
         params=None,
@@ -136,6 +136,47 @@ def dryrun_case(n: int) -> dict:
                                 samples_per_epoch=2 * B, seed=3),
                       kw=dict(num_epochs=2, lr=1e-3, batch_size=B,
                               gradient_clip=1.0, fused=True)))
+    case["ensemble_2d"] = ensemble_2d_case(B, rng)
+    return case
+
+
+def ensemble_2d_case(B: int, rng) -> dict:
+    """The JAX dry run's 2-D check: an ensemble of 4 heads (K=3, 8 assets,
+    hidden 16; params None: drawn from a generator seeded with 1) on B
+    regime distributions drawn from rng."""
+    return dict(n_models=4, head=dict(K=3, n_assets=8, hidden_dim=16),
+                params=None,
+                q=rng.dirichlet(np.ones(3), size=B).astype(np.float32))
+
+
+def ensemble_2d_check(mesh, case: dict) -> tuple:
+    """The ensemble head on the world as a (size / 2) x 2 grid: each rank
+    its half of the members and its rows of the batch (models/
+    portfolio.py::EnsemblePortfolioOptimizer.shard_members), against the
+    one-process forward on the same rows.  mesh: this rank's Mesh of the
+    world, whose size must be even.  Returns ({"ensemble_2d": the largest
+    gap to the one-process rows, "ensemble_2d_sum": the largest gap of a
+    row's weights' sum to 1}, this rank's rows of weights)."""
+    from ..models.portfolio import EnsemblePortfolioOptimizer, HeadConfig
+    from .mesh import create_mesh_2d
+
+    dev = mesh.device
+    grid = create_mesh_2d(mesh.size // 2, 2, device=dev)
+    ens = EnsemblePortfolioOptimizer(
+        HeadConfig(**case["head"]), n_models=case["n_models"],
+        generator=torch.Generator().manual_seed(1))
+    if case["params"] is not None:
+        ens.load_state_dict({k: torch.as_tensor(v)
+                             for k, v in case["params"].items()})
+    q = torch.from_numpy(case["q"])
+    rows = grid.data.rows(q.shape[0])
+    with torch.no_grad():
+        want = ens.to(dev)(q.to(dev))[rows]
+        got = ens.shard_members(grid)(q[rows].to(dev), mesh=grid)
+    return ({"ensemble_2d": _gap(got.cpu(), want.cpu()),
+             "ensemble_2d_sum": float((got.sum(-1).double() - 1.0)
+                                      .abs().max())},
+            got.cpu().numpy())
 
 
 def dryrun_checks(mesh, workdir: str, case: dict = None) -> dict:
@@ -255,13 +296,22 @@ def dryrun_checks(mesh, workdir: str, case: dict = None) -> dict:
                                   for a, b in zip(states, solo_states))
     outputs["ensemble"] = (hist, best, [_numpy_params(s.model)
                                         for s in states])
+
+    # the ensemble head on the (data x model) grid
+    if n % 2 == 0:
+        two, outputs["ensemble_2d"] = ensemble_2d_check(mesh,
+                                                        case["ensemble_2d"])
+        gaps.update(two)
     return {"gaps": gaps, "outputs": outputs}
 
 
 # each check's bar: the steps and the resume at float32's 1e-5, the
-# recursions and the ensemble's epochs of several steps at 1e-4
+# recursions and the ensemble's epochs of several steps at 1e-4, the 2-D
+# ensemble head's rows at 1e-6 and its weights' sums at 1e-4 (the JAX dry
+# run's)
 DRYRUN_BARS = {"forward_sharded_alpha": 1e-4, "forward_sharded_ll": 1e-4,
-               "ensemble_losses": 1e-4, "ensemble_params": 1e-4}
+               "ensemble_losses": 1e-4, "ensemble_params": 1e-4,
+               "ensemble_2d": 1e-6, "ensemble_2d_sum": 1e-4}
 
 
 def dryrun_failures(ranks) -> list:

@@ -13,7 +13,14 @@ all_gather sit:
 * `shard_batch(mesh, tree, dim=0)`: this rank's rows of batch-leading
   tensors, rows [r B / n, (r + 1) B / n), on its device;
 * `replicate(mesh, tree)`: parameters (a module or a dict of tensors)
-  broadcast from rank 0 in place.
+  broadcast from rank 0 in place;
+* `create_mesh_2d(n_data, n_model)` -> `Mesh2D`: the world as an
+  n_data x n_model grid (rank r at row r // n_model, column r % n_model),
+  a `Mesh` over this rank's column (the "data" axis: the ranks that hold
+  the same members, each its rows of a batch) and one over its row (the
+  "model" axis: the ranks that hold the same rows, each its members), the
+  layout the JAX dry run gives the ensemble head (models/portfolio.py::
+  EnsemblePortfolioOptimizer.shard_members).
 
 The model, its parameters and the optimizer state are replicated; each
 rank takes its share of every batch, and one all-reduce of the sum over
@@ -141,6 +148,39 @@ def create_mesh(num_devices: Optional[int] = None, axis_name: str = "data",
             f"has {size} rank(s); start one process a device "
             f"(torchrun --nproc-per-node {num_devices})")
     return Mesh(group, dist.get_rank(group), size, dev, axis_name)
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """One rank's view of a (data x model) grid over one world: `data`
+    spans this rank's column of the grid, `model` its row."""
+
+    data: Mesh
+    model: Mesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+def create_mesh_2d(n_data: int, n_model: int, device=None) -> Mesh2D:
+    """This rank's Mesh2D over the default process group, which must hold
+    n_data * n_model ranks.  Every rank creates every row's and every
+    column's group, in one order (torch.distributed requires it of
+    new_group), and keeps its own two.  device: as create_mesh's."""
+    if not dist.is_initialized():
+        raise RuntimeError("create_mesh_2d needs a started process group")
+    world = dist.get_world_size()
+    if world != n_data * n_model:
+        raise ValueError(f"a {n_data} x {n_model} grid needs "
+                         f"{n_data * n_model} ranks; the group has {world}")
+    rows = [dist.new_group([i * n_model + j for j in range(n_model)],
+                           timeout=TIMEOUT) for i in range(n_data)]
+    cols = [dist.new_group([i * n_model + j for i in range(n_data)],
+                           timeout=TIMEOUT) for j in range(n_model)]
+    i, j = divmod(dist.get_rank(), n_model)
+    return Mesh2D(data=create_mesh(n_data, "data", cols[j], device),
+                  model=create_mesh(n_model, "model", rows[i], device))
 
 
 def _map(tree, fn):
