@@ -404,6 +404,19 @@ exiting non-zero before a result is printed:
    each kernel's launches exactly as _study_expected derives them from
    the epochs and steps; the A/B's float32 arm's first-epoch loss within
    STUDY_TOL of the same run on the CPU.
+35. the examples, the notebooks and the deployment surface:
+   vqvaehmm_tpu_torch/examples' five device examples through run("cuda"),
+   the counts set to 0 just before each and read just after, each
+   kernel's launches exactly as _example_expected derives them, every
+   output finite, and the first epoch or step of the three that train
+   within EXAMPLE_TOL of the same run on the CPU; the cells of both
+   notebooks/*_torch.ipynb on the card; MODE=train (2 epochs) and
+   MODE=serve (/health, one /infer a mode, exit 0 on SIGTERM) through
+   entrypoint_torch.sh as subprocesses; and the port built as a wheel,
+   installed with pip --target and run outside the checkout with only
+   that directory on PYTHONPATH: its kernels built into a fresh
+   XDG_CACHE_HOME, kernel A launched once and within 1e-4 of its plain
+   version.
 
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
@@ -423,7 +436,8 @@ GMM stack's wall times of phase 26 (`gmm_*`), on every kernel phase
 entries phase 32's gaps (`global_norm`) and on kernels C, D and A phase
 33's launches a rank (`dp_launches`) and kernel C's step times there
 (`dp_step`), and on every kernel phase 34's launches an entry point
-(`study_launches`); the last line is {"ok": true, "device": {...}}.
+(`study_launches`) and phase 35's an example (`example_launches`); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5706,13 +5720,16 @@ STUDY_FIXTURE_EM_ITERS = 2
 
 
 def _finite_numbers(obj, path="") -> list:
-    """The paths of the numbers in a JSON value that are not finite."""
+    """The paths of the numbers in a JSON value (or one holding tuples and
+    numpy arrays and scalars) that are not finite."""
     import math
 
+    if hasattr(obj, "tolist"):
+        obj = obj.tolist()
     if isinstance(obj, dict):
         return [p for k, v in obj.items()
                 for p in _finite_numbers(v, f"{path}.{k}")]
-    if isinstance(obj, list):
+    if isinstance(obj, (list, tuple)):
         return [p for i, v in enumerate(obj)
                 for p in _finite_numbers(v, f"{path}[{i}]")]
     if isinstance(obj, float) and not math.isfinite(obj):
@@ -5871,6 +5888,363 @@ def phase_studies(torch, np, tmp, dev="cuda"):
                     for n, l in launches.items())
         + f"; the float32 arm's first epoch {card_first:.6f} within "
         f"{rel:.3e} of the CPU's")
+    return launches
+
+
+EXAMPLE_TOL = 1e-5      # a training's first epoch or step, card vs CPU
+EXAMPLE_STREAM_T = 60   # the streaming example's ticks
+# the installed port, run outside the checkout: kernel A at a published
+# width on random weights, against its plain version
+INSTALLED_CHECK = r"""
+import json, os, sys, torch
+import vqvaehmm_tpu_torch as vt
+from vqvaehmm_tpu_torch.ops import _build
+from vqvaehmm_tpu_torch.ops.fused_infer import (fused_forward,
+                                                fused_forward_reference)
+site, cache = sys.argv[1], sys.argv[2]
+assert vt.__file__.startswith(site), vt.__file__
+assert str(_build.BUILD_DIR).startswith(cache), _build.BUILD_DIR
+lib = _build.library()
+assert lib._name.startswith(cache), lib._name
+model = vt.make_model(5, 64, 3, 32, u_dim=4, trans_hidden=128,
+                      device="cuda",
+                      generator=torch.Generator().manual_seed(0)).eval()
+x = torch.randn(8, 5, 200, generator=torch.Generator().manual_seed(1)
+                ).to("cuda")
+with torch.inference_mode():
+    got = fused_forward(model, x, use_kernel=True)
+    want = fused_forward_reference(model, x)
+torch.cuda.synchronize()
+print(json.dumps({"package": vt.__file__, "library": lib._name,
+                  "build_seconds": _build.build_seconds,
+                  "launches": fused_forward.launches,
+                  "max_abs_err": max(float((g - w).abs().max())
+                                     for g, w in zip(got, want))}))
+"""
+
+
+def _example_expected(name) -> dict:
+    """Each kernel's launches of one example's run on the card as the code
+    implies them: a training step one kernel-C launch and an epoch one
+    kernel-D launch (train_example: 15 epochs of 256 samples in 32; the
+    device-pipeline example: three epochs of 4 steps, gathered once by
+    DeviceEpochSampler.epoch and once by make_epoch_step, the host path's
+    none); a mean-field posterior one kernel-8 launch (train_example: 4
+    frozen batches of the head and the allocation; backtest_example: one
+    a run that trades, the backtest and the 3 walk-forward windows); a
+    filter step one kernel-11 launch (a tick settles one frame and peeks
+    two: 3T - 1 steps over the stream and its end, and the batch filtered
+    posterior one); a VQ step one quantizer launch each way, a loss
+    evaluation one forward, the codes one nearest-code launch (twice:
+    the usage and the EM fit); every other kernel none, kernel C's
+    bfloat16 mode among them (every example trains in float32)."""
+    return {"train_example": {"fused_train": 15 * 8, "gather": 15,
+                              "fused_encode": 4 + 1},
+            "backtest_example": {"fused_encode": 1 + 3},
+            "device_pipeline_example": {"fused_train": 3 * 4, "gather": 2},
+            "streaming_example": {"fused_evidence":
+                                  3 * EXAMPLE_STREAM_T - 1 + 1},
+            "vqvae_example": {"quantize_forward": 150 + 3,
+                              "quantize_backward": 150,
+                              "vq_nearest": 2}}[name]
+
+
+def _entrypoint(tmp, mode, env, *args, **kw):
+    """entrypoint_torch.sh under MODE=mode with env added, as a
+    subprocess started from the checkout; Popen keyword arguments."""
+    full = dict(os.environ, MODE=mode, **env)
+    return subprocess.Popen(["sh", os.path.join(ROOT, "entrypoint_torch.sh"),
+                             *args], cwd=ROOT, env=full,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, **kw)
+
+
+def _mode_train(tmp):
+    """MODE=train for 2 epochs of configs/train_config.json (its data files
+    are absent: the synthetic pool), started: returns a function that
+    waits for it and checks exit 0, the fused kernel and a trained
+    archive, and gives its wall seconds."""
+    ck = os.path.join(tmp, "mode_train")
+    t0 = time.perf_counter()
+    proc = _entrypoint(tmp, "train", {"TRAIN_CONFIG": os.path.join(
+        ROOT, "configs", "train_config.json")}, "training.num_epochs=2",
+        f"training.checkpoint_dir={ck}")
+
+    def finish() -> float:
+        try:
+            out, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != 0:
+            print(out[-4000:], flush=True)
+            fail(f"MODE=train exited {proc.returncode}")
+        if not os.path.exists(os.path.join(ck, "vae_hmm_trained.npz")):
+            fail(f"MODE=train wrote no vae_hmm_trained.npz under {ck}")
+        if "fused=True" not in out:
+            fail("MODE=train did not train with the fused kernel on the card")
+        return time.perf_counter() - t0
+    finish.proc = proc
+    return finish
+
+
+def _mode_serve(np, tmp) -> float:
+    """MODE=serve on the published checkpoint: /health, one /infer a mode
+    with finite answers, then SIGTERM and exit 0."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = _serving_config(tmp, "mode_serve.json")
+    t0 = time.perf_counter()
+    proc = _entrypoint(tmp, "serve", {"VQHMM_INFERENCE_CONFIG": cfg,
+                                      "PORT": str(port),
+                                      "VQHMM_REQUIRE_CHECKPOINT": "1"})
+    url = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            if proc.poll() is not None:
+                print(proc.stdout.read()[-4000:], flush=True)
+                fail(f"MODE=serve exited {proc.returncode} before serving")
+            try:
+                if _request(url + "/health")[:2] == (200, {"status": "ok"}):
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if time.perf_counter() - t0 > 180:
+                fail("MODE=serve did not answer /health within 180 s")
+            time.sleep(0.5)
+        rng = np.random.default_rng(5)
+        for mode in ("mean_field", "smoothed", "filtered", "viterbi"):
+            p = {"x": rng.normal(size=(5, 120)).astype(np.float32).tolist()}
+            if mode != "mean_field":
+                p["u"] = rng.normal(size=(4, 120)).astype(np.float32).tolist()
+                p["mode"] = mode
+            status, body, _ = _request(url + "/infer", p)
+            if status != 200 or _finite_numbers(body):
+                fail(f"MODE=serve /infer {mode}: {status} {str(body)[:200]}")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        print(out[-4000:], flush=True)
+        fail(f"MODE=serve exited {proc.returncode} after SIGTERM")
+    return time.perf_counter() - t0
+
+
+def _installed(tmp) -> dict:
+    """The port as a wheel (what Dockerfile.torch copies: pyproject.toml,
+    MANIFEST.in, the package), installed with pip --target into a fresh
+    directory and run from a directory outside the checkout with only it
+    on PYTHONPATH: its kernels built into a fresh XDG_CACHE_HOME, kernel A
+    launched and held against its plain version.  It runs beside the rest
+    of phase 35 on a worker thread, so it raises RuntimeError where the
+    other steps call fail."""
+    src, wheel, site, cache, work = (os.path.join(tmp, n) for n in (
+        "wheel_src", "wheel", "site", "cache", "work"))
+    os.makedirs(src)
+    os.makedirs(work)
+    for name in ("pyproject.toml", "MANIFEST.in"):
+        shutil.copy(os.path.join(ROOT, name), src)
+    shutil.copytree(os.path.join(ROOT, "vqvaehmm_tpu_torch"),
+                    os.path.join(src, "vqvaehmm_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    t0 = time.perf_counter()
+    for cmd in ([sys.executable, "-m", "pip", "wheel", "--no-deps",
+                 "--no-build-isolation", "-w", wheel, src],
+                [sys.executable, "-m", "pip", "install", "--no-deps",
+                 "--no-index", "--target", site]):
+        if cmd[3] == "install":
+            cmd.append(next(os.path.join(wheel, f) for f in
+                            os.listdir(wheel) if f.endswith(".whl")))
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300, cwd=work)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd[2:4])} failed: "
+                               f"{(proc.stdout + proc.stderr)[-3000:]}")
+    pip_s = time.perf_counter() - t0
+    if not any(f.endswith(".cu") for f in os.listdir(os.path.join(
+            site, "vqvaehmm_tpu_torch", "csrc"))):
+        raise RuntimeError("the installed package holds no kernel source")
+    env = dict(os.environ, PYTHONPATH=site, XDG_CACHE_HOME=cache)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", INSTALLED_CHECK, site,
+                           cache], capture_output=True, text=True,
+                          timeout=600, cwd=work, env=env)
+    if proc.returncode != 0:
+        raise RuntimeError("the installed port failed: "
+                           f"{(proc.stdout + proc.stderr)[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res.update(pip_seconds=pip_s, run_seconds=time.perf_counter() - t0)
+    if res["launches"] != 1:
+        raise RuntimeError(f"the installed port launched kernel A "
+                           f"{res['launches']} times")
+    if res["max_abs_err"] > 1e-4:
+        raise RuntimeError(f"the installed port's kernel A is "
+                           f"{res['max_abs_err']:.3e} from its plain "
+                           "version (tol 1e-4)")
+    return res
+
+
+def phase_examples(torch, np, tmp, dev="cuda"):
+    """35. the port's examples, notebooks, MODE switch and installed
+    package on the card: the five device examples through run(device), the
+    counts set to 0 just before each and read just after, every launch as
+    _example_expected, every output finite, and the first epoch or step of
+    the three that train within EXAMPLE_TOL of the same run on the CPU;
+    both *_torch.ipynb notebooks' cells; MODE=train and MODE=serve through
+    entrypoint_torch.sh; the installed wheel outside the checkout.
+    The wheel's build and install and MODE=train run beside the rest
+    (a worker thread, a subprocess), as the phase's time limit needs.
+    Returns {example: {kernel: launches}}."""
+    import concurrent.futures
+    import functools
+
+    from vqvaehmm_tpu_torch.examples import (backtest_example,
+                                             device_pipeline_example,
+                                             streaming_example,
+                                             train_example, vqvae_example)
+
+    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
+
+    counters = launch_counters()
+    runs = {"train_example": train_example, "backtest_example":
+            backtest_example, "device_pipeline_example":
+            device_pipeline_example, "streaming_example": streaming_example,
+            "vqvae_example": vqvae_example}
+    launches, outs, walls = {}, {}, {}
+    t_phase = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    installed = pool.submit(_installed, tmp)
+    train_done = _mode_train(tmp)
+    try:
+        for name, mod in runs.items():
+            for c in counters.values():
+                c.launches = 0
+            fused_loss_and_grads.bf16_launches = 0
+            t0 = time.perf_counter()
+            quiet = name not in ("backtest_example",
+                                 "device_pipeline_example")
+            kw = {"log_fn": None} if quiet else {}
+            outs[name] = _quiet(functools.partial(mod.run, dev, **kw))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            got = {k: c.launches for k, c in counters.items()}
+            got["fused_train_bf16"] = fused_loss_and_grads.bf16_launches
+            launches[name] = got
+            want = {k: 0 for k in got}
+            want.update(_example_expected(name))
+            if got != want:
+                fail(f"{name} launched {got}, predicted {want}")
+            if _finite_numbers({k: v for k, v in outs[name].items()
+                                if k != "table"}):
+                fail(f"{name} gave a value that is not finite")
+        if not outs["streaming_example"]["matches"] or \
+                not outs["device_pipeline_example"]["same"]:
+            fail("an example's own check failed on the card: streaming "
+                 f"{outs['streaming_example']['matches']}, device gather "
+                 f"{outs['device_pipeline_example']['same']}")
+        # the first epoch or step on the CPU: the card's sample stream (the
+        # device input pipeline) for train_example, whose CPU default is the
+        # host path's
+        real_train = train_example.train_model
+        train_example.train_model = functools.partial(real_train,
+                                                      device_data=True)
+        try:
+            cpu = {"train_example": _quiet(functools.partial(
+                       train_example.run, "cpu", head_epochs=1, log_fn=None)),
+                   "device_pipeline_example": _quiet(
+                       device_pipeline_example.run, "cpu"),
+                   "vqvae_example": _quiet(functools.partial(
+                       vqvae_example.run, "cpu", steps=1, log_fn=None))}
+        finally:
+            train_example.train_model = real_train
+        gaps = {"train_example": _rel(outs["train_example"]["history"][0],
+                                      cpu["train_example"]["history"][0]),
+                "device_pipeline_example": max(
+                    _rel(outs["device_pipeline_example"][k],
+                         cpu["device_pipeline_example"][k])
+                    for k in ("host", "device", "gather_in_step")),
+                "vqvae_example": _rel(outs["vqvae_example"]["history"][0],
+                                      cpu["vqvae_example"]["history"][0])}
+        for name, gap in gaps.items():
+            if gap > EXAMPLE_TOL:
+                fail(f"{name}: the first epoch/step {gap:.3e} relative "
+                     f"from the CPU (tol {EXAMPLE_TOL})")
+        examples_s = time.perf_counter() - t_phase
+        # both notebooks' cells as written: on a machine with a card their
+        # device is "cuda"
+        t0 = time.perf_counter()
+        notebook_launches = {}
+        for name in ("visualize_torch", "vqvaehmm_walkthrough_torch"):
+            with open(os.path.join(ROOT, "notebooks", f"{name}.ipynb")) as f:
+                cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                         if c["cell_type"] == "code"]
+            for c in counters.values():
+                c.launches = 0
+            fused_loss_and_grads.bf16_launches = 0
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            try:
+                ns = {}
+                for cell in cells:
+                    _quiet(exec, compile(cell, name, "exec"), ns)
+            finally:
+                os.chdir(cwd)
+            got = {k: c.launches for k, c in counters.items() if c.launches}
+            if fused_loss_and_grads.bf16_launches:
+                got["fused_train_bf16"] = fused_loss_and_grads.bf16_launches
+            # the notebook chose the card and trained (in float32) and
+            # decoded on it
+            if ns.get("device") != dev or "fused_train_bf16" in got or \
+                    not all(got.get(k) for k in ("fused_train", "gather",
+                                                 "fused_encode",
+                                                 "fused_evidence")):
+                fail(f"{name} ran on {ns.get('device')!r} with launches "
+                     f"{got}")
+            notebook_launches[name] = got
+        notebooks_s = time.perf_counter() - t0
+        serve_s = _mode_serve(np, tmp)
+        train_s = train_done()
+        try:
+            inst = installed.result(timeout=900)
+        except RuntimeError as e:
+            fail(str(e))
+        finally:
+            pool.shutdown()
+    finally:
+        # nothing the phase started outlives it, should a step fail
+        if train_done.proc.poll() is None:
+            train_done.proc.kill()
+            train_done.proc.communicate()
+    phase_s = time.perf_counter() - t_phase
+    say("examples", "five examples on the card in "
+        + ", ".join(f"{n} {w:.1f} s" for n, w in walls.items())
+        + "; launches as predicted: "
+        + "; ".join(f"{n} {{" + ", ".join(f"{k} {v}" for k, v in
+                                           sorted(l.items()) if v) + "}"
+                    for n, l in launches.items())
+        + "; first epoch/step from the CPU: "
+        + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items())
+        + f" ({examples_s:.1f} s with the CPU runs); train_example's "
+        f"allocation {np.round(outs['train_example']['allocation'], 3)}, "
+        f"Sharpe {outs['backtest_example']['metrics']['sharpe_ratio']:.4f}, "
+        f"VQ usage {outs['vqvae_example']['usage']}/4")
+    say("examples", f"both notebooks' cells on the card in {notebooks_s:.1f} "
+        "s (launches: " + "; ".join(
+            f"{n} {{" + ", ".join(f"{k} {v}" for k, v in sorted(l.items()))
+            + "}" for n, l in notebook_launches.items())
+        + f"); MODE=train (2 epochs) {train_s:.1f} s, MODE=serve (/health, "
+        f"four /infer modes, SIGTERM exit 0) {serve_s:.1f} s; the installed "
+        f"wheel: pip {inst['pip_seconds']:.1f} s, kernels built into "
+        f"{inst['library']} in {inst['build_seconds']:.1f} s, kernel A "
+        f"{inst['max_abs_err']:.3e} from its plain version "
+        f"({inst['run_seconds']:.1f} s with the process); phase 35 in "
+        f"{phase_s:.1f} s")
     return launches
 
 
@@ -6404,6 +6778,12 @@ def main() -> int:
         study_launches = phase_studies(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # 35. the examples, the notebooks, the MODE switch, the installed port
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        example_launches = phase_examples(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -6634,6 +7014,9 @@ def main() -> int:
         # phase 34: each study's and reference CLI's launches
         k["study_launches"] = {e: n[k["name"]]
                                for e, n in study_launches.items()}
+        # phase 35: each example's launches
+        k["example_launches"] = {e: n[k["name"]]
+                                 for e, n in example_launches.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

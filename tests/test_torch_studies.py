@@ -26,7 +26,6 @@ pointed at a temporary directory, on the data stage of the JAX recipe
 
 import ast
 import dataclasses
-import importlib.util
 import json
 import os
 import subprocess
@@ -39,7 +38,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port import t
+from tests.torch_port import (ab_arm, bf16_step_gaps, jax_em_draws,
+                               jax_script, t)
 from vqvaehmm_tpu_torch import recipe
 from vqvaehmm_tpu_torch.scripts import (backtest, crash_regime,
                                         ensemble_eval,
@@ -54,14 +54,6 @@ SPE = 128            # samples an epoch: 2 steps of B=64
 MODULES = [throughput_quality_ab, vq_sweep, crash_regime,
            fixture_model_compare, quality_eval, vq_quality, quality_sweep,
            ensemble_eval, train, backtest]
-
-
-def _jax_script(name):
-    spec = importlib.util.spec_from_file_location(
-        f"jax_script_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _cut_data(outdir):
@@ -82,7 +74,7 @@ def dirs(tmp_path_factory):
     N_WIN windows."""
     port, jax_dir = (str(tmp_path_factory.mktemp(n)) for n in ("port", "jax"))
     recipe.stage_data(port)
-    _jax_script("full_recipe").stage_data(jax_dir)
+    jax_script("full_recipe").stage_data(jax_dir)
     for d in (port, jax_dir):
         _cut_data(d)
     return port, jax_dir
@@ -108,76 +100,71 @@ def _keys_contain(got, want, path=""):
 # -- the float32 arm of the A/B, trained and scored -------------------------
 
 
+def _ab_arm(dirs, arm):
+    """One arm of the A/B at seed 42 for 2 epochs of SPE samples
+    (tests/torch_port.py::ab_arm)."""
+    return ab_arm(*dirs, arm, epochs=2, spe=SPE)
+
+
 @pytest.fixture(scope="module")
 def ab_runs(dirs):
-    """The parity arm at seed 42 for 2 epochs through each package's
-    run_variant, the port's from JAX's initial parameters; JAX's epoch
-    losses in full precision off its epoch step."""
-    import vqvaehmm_tpu.data.dataset as jds
-    import vqvaehmm_tpu.data.device_sampler as jsampler
-    from vqvaehmm_tpu import VAEHMM as JVAEHMM
-    from vqvaehmm_tpu.core.config import config_from_dict
-    from vqvaehmm_tpu_torch.core.config import config_to_dict
-    from vqvaehmm_tpu_torch.data.checkpoint import params_from_numpy
-    from vqvaehmm_tpu_torch.train.pipeline import TrainPipeline
-
-    port, jax_dir = dirs
-    jab = _jax_script("throughput_quality_ab")
-    mp = pytest.MonkeyPatch()
-    real_cfg, real_jcfg = recipe.recipe_config, jab._recipe_config
-
-    def cut(cfg):
-        return dataclasses.replace(cfg, data=dataclasses.replace(
-            cfg.data, samples_per_epoch=SPE))
-
-    mp.setattr(recipe, "recipe_config", lambda o, quality=False:
-               cut(real_cfg(o, quality)))
-    mp.setattr(jab, "_recipe_config", lambda o, quality=False:
-               cut(real_jcfg(o, quality)))
-    mp.setattr(jab, "OUTDIR", jax_dir)
-    mp.setattr(jds, "_fastdata", None)
-    mp.setenv("VQHMM_AB_EPOCHS", "2")
-
-    def jax_init(self):
-        model = recipe.VAEHMM(self.cfg.model, device=self.device)
-        jm = JVAEHMM(config_from_dict(config_to_dict(self.cfg)).model)
-        model.load_state_dict(params_from_numpy(jax.tree_util.tree_map(
-            np.asarray, jm.init(jax.random.PRNGKey(self.cfg.training.seed)))))
-        return model
-
-    jax_losses = []
-    real_step = jsampler.DeviceEpochSampler.make_epoch_step
-
-    def spy(self, *a, **k):
-        step = real_step(self, *a, **k)
-
-        def epoch(state, *args):
-            state, loss = step(state, *args)
-            jax_losses.append(float(loss))
-            return state, loss
-        return epoch
-
-    mp.setattr(TrainPipeline, "build_model", jax_init)
-    mp.setattr(jsampler.DeviceEpochSampler, "make_epoch_step", spy)
-    try:
-        mo, to = throughput_quality_ab.VARIANTS["parity"]
-        got = throughput_quality_ab.run_variant(port, "parity", 42, mo, to,
-                                                2, CPU)
-        want = jab.run_variant("parity", 42, *jab.VARIANTS["parity"])
-        return got, want, jax_losses, jab
-    finally:
-        mp.undo()
+    return _ab_arm(dirs, "parity")
 
 
 def test_ab_float32_arm_trains_as_jax(ab_runs):
     """The same first epoch: the arm's loss within 1e-5 (JAX's from its
     epoch step, unrounded), the second within JAX's logged 4 places."""
-    (params, history, _), (_, jax_history, _), jax_losses, _ = ab_runs
+    (params, history, _), (_, jax_history, _), jax_losses, _, _ = ab_runs
     assert len(history) == len(jax_history) == len(jax_losses) == 2
     assert abs(history[0] - jax_losses[0]) <= 1e-5 * max(1.0,
                                                          abs(jax_losses[0]))
     assert abs(history[1] - jax_history[1]) <= 1e-4 * max(
         1.0, abs(jax_history[1])) + 5e-5
+
+
+def test_ab_bfloat16_arm_trains_as_jax(dirs):
+    """The throughput arm from JAX's initial parameters: the port's kernel
+    C in its bfloat16-operand mode (the plain version on the CPU) against
+    TPU kernel 5 in bf16_matmuls mode (interpret mode), on one sample
+    stream.  The first epoch's loss within 1e-5 relative, the bar that
+    tests/test_torch_bf16_train.py holds one step of the two to (the
+    products of two bfloat16 values are exact in float32, so only the
+    order of the float32 sums differs); the second within JAX's logged 4
+    places, as the float32 arm's."""
+    (_, history, _), (_, jax_history, _), jax_losses, _, calls = _ab_arm(
+        dirs, "throughput")
+    assert calls, "TPU kernel 5 was not called"
+    assert len(history) == len(jax_history) == len(jax_losses) == 2
+    assert abs(history[0] - jax_losses[0]) <= 1e-5 * abs(jax_losses[0])
+    assert abs(history[1] - jax_history[1]) <= 1e-4 * max(
+        1.0, abs(jax_history[1])) + 5e-5
+
+
+BF16_PART_STEPS = 19     # the bfloat16 arm's first 19 steps at seed 42
+BF16_PART_WORST = 2e-4   # twice the worst step's measured gap, 1.04e-4
+
+
+def test_ab_bfloat16_arm_parts_from_jax_by_sum_order(tmp_path):
+    """Where the bfloat16 arm's curves part from JAX's (the A/B's widths,
+    the whole fixture, seed 42; artifacts_torch/bf16_trajectory_cpu.json):
+    along the port's own run, at each step's parameters, TPU kernel 5 in
+    bf16_matmuls mode (interpret mode) against the port's two orders of
+    the float32 sums, its plain version and the time tiles and split
+    partial sums of csrc/fused_train.cu (fused_loss_and_grads_tiled).  An
+    activation summed in another order can round to the neighbouring
+    bfloat16 value (2^-8 apart), which moves a gradient with cancelling
+    terms by more than the one-step bar of 1e-4 of its leaf's largest
+    entry.  So, a step's gap being the worst leaf's distance from JAX's
+    kernel to the nearer of the two port orders (the tiled one computed
+    where JAX's kernel parts from the plain version by more than the
+    bar): the median step within the bar, and the worst step within
+    BF16_PART_WORST (measured: 1.04e-4 at step 15, where the port's two
+    orders part from each other by up to 1.87e-3, at step 18)."""
+    out = str(tmp_path)
+    recipe.stage_data(out)
+    to_jax, _ = bf16_step_gaps(out, BF16_PART_STEPS, tiled_where=1e-4)
+    assert float(np.median(to_jax)) <= 1e-4, to_jax
+    assert max(to_jax) <= BF16_PART_WORST, to_jax
 
 
 def test_ab_scoring_matches_jax_on_shared_parameters(dirs, ab_runs):
@@ -188,7 +175,7 @@ def test_ab_scoring_matches_jax_on_shared_parameters(dirs, ab_runs):
     from vqvaehmm_tpu_torch.data.checkpoint import params_from_numpy
 
     port, jax_dir = dirs
-    _, (jparams, _, _), _, jab = ab_runs
+    _, (jparams, _, _), _, jab, _ = ab_runs
     mp = pytest.MonkeyPatch()
     mp.setattr(jab, "OUTDIR", jax_dir)
     try:
@@ -249,7 +236,7 @@ def test_ab_main_aggregates_as_jax(dirs, tmp_path, monkeypatch):
     truth's switch rate exactly equal, the port's keys containing JAX's,
     JAX's distributions beside them."""
     port, jax_dir = dirs
-    jab = _jax_script("throughput_quality_ab")
+    jab = jax_script("throughput_quality_ab")
     monkeypatch.setattr(jab, "OUTDIR", jax_dir)
 
     def fake_rows(tag, seed):
@@ -307,7 +294,7 @@ def test_ab_main_aggregates_as_jax(dirs, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_dist_equals_jax(seed):
-    jab = _jax_script("throughput_quality_ab")
+    jab = jax_script("throughput_quality_ab")
     rng = np.random.default_rng(seed)
     rows = [{"a": float(v), "b": int(w)} for v, w in
             zip(rng.normal(size=5), rng.integers(0, 9, size=5))]
@@ -321,7 +308,7 @@ def test_dist_equals_jax(seed):
 @pytest.mark.parametrize("n_states", [3, 5])
 def test_crash_helpers_equal_jax(n_states):
     """majority_map, score and agg on random decodes with crash runs."""
-    jcr = _jax_script("crash_regime")
+    jcr = jax_script("crash_regime")
     rng = np.random.default_rng(n_states)
     z = rng.choice(3, p=[0.8, 0.15, 0.05], size=(6, 40))
     z[2, 10:15] = 2
@@ -342,7 +329,7 @@ def test_crash_torch_ref_bit_equal_to_jax_script(dirs, monkeypatch):
     """The reference's own model, one epoch on each script's windows:
     the same rows (both are torch on the CPU, from one seed)."""
     port, jax_dir = dirs
-    jcr = _jax_script("crash_regime")
+    jcr = jax_script("crash_regime")
     monkeypatch.setattr(jcr, "OUTDIR", jax_dir)
     monkeypatch.setenv("VQHMM_CR_EPOCHS", "1")
     want = jcr.stage_torch_ref([42])
@@ -358,7 +345,7 @@ def test_crash_main_and_arms_aggregate_as_jax(dirs, monkeypatch):
     seeded draw, scored by each script's own score): the per-seed rows,
     summaries by mode and pools equal, the port's keys containing JAX's."""
     port, jax_dir = dirs
-    jcr = _jax_script("crash_regime")
+    jcr = jax_script("crash_regime")
     monkeypatch.setattr(jcr, "OUTDIR", jax_dir)
     monkeypatch.setattr(jcr, "ARTIFACT",
                         os.path.join(jax_dir, "crash_regime.json"))
@@ -406,6 +393,27 @@ def test_crash_main_and_arms_aggregate_as_jax(dirs, monkeypatch):
         "crash_regime.json")["k5_merge"]["summary_by_mode"]
 
 
+@pytest.mark.parametrize("stage,tag", [("oversample_gt", "gt"),
+                                       ("oversample_vol", "vol")])
+def test_crash_oversampled_pools_equal_jax(dirs, monkeypatch, stage, tag):
+    """Which windows each oversampling repeats: the pool each package's
+    stage writes (its training stood in for) is exactly JAX's, x and u,
+    and so is the stage's pool block."""
+    port, jax_dir = dirs
+    jcr = jax_script("crash_regime")
+    monkeypatch.setattr(jcr, "OUTDIR", jax_dir)
+    monkeypatch.setattr(jcr, "run_framework_arm", lambda *a, **k: {})
+    monkeypatch.setattr(crash_regime, "run_framework_arm",
+                        lambda *a, **k: {})
+    want = getattr(jcr, "stage_" + stage)([42])
+    got = getattr(crash_regime, "stage_" + stage)(port, [42], 1, CPU)
+    assert got["pool"] == want["pool"]
+    for name in (f"x_{tag}.npy", f"u_{tag}.npy"):
+        a, b = (np.load(os.path.join(d, "crash_pools", name))
+                for d in (port, jax_dir))
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
 # -- vq_sweep ---------------------------------------------------------------
 
 
@@ -430,7 +438,7 @@ class _Stack:
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_score_stack_equals_jax(seed):
-    jvs = _jax_script("vq_sweep")
+    jvs = jax_script("vq_sweep")
     stack = _Stack(seed)
     x = np.zeros((5, 5, 30), np.float32)
     z = np.random.default_rng(seed + 10).integers(0, 3, size=(5, 30))
@@ -454,7 +462,7 @@ def test_vq_sweep_stages_aggregate_as_jax(dirs, monkeypatch):
     the grids, the best point, the seeds' distributions and paired
     deltas exactly equal, the port's keys containing JAX's."""
     port, jax_dir = dirs
-    jvs = _jax_script("vq_sweep")
+    jvs = jax_script("vq_sweep")
     monkeypatch.setattr(jvs, "OUTDIR", jax_dir)
     monkeypatch.setattr(jvs, "ARTIFACT", os.path.join(jax_dir,
                                                       "vq_sweep.json"))
@@ -497,6 +505,49 @@ def _cut_vq(cfg):
         vq=dataclasses.replace(cfg.vq, hmm_iters=2))
 
 
+def test_vq_seed_arm_trains_and_scores_as_jax(dirs, monkeypatch):
+    """The seeds stage's n8_c0.5 arm (its default point's run_point is
+    held in test_vq_joint_stage_follows_jax) through each package's
+    run_point, cut to one epoch and 2 EM iterations, the port from JAX's
+    initial parameters and EM restarts: the final VQ loss within 1e-4
+    relative and every score of the row (balanced accuracy, accuracy and
+    switch rate, smoothed and Viterbi) equal."""
+    num_codes, commitment = 8, 0.5
+    import vqvaehmm_tpu.data.dataset as jds
+    from vqvaehmm_tpu.train import vq_pipeline as jax_vq
+    from vqvaehmm_tpu_torch.data.checkpoint import vq_params_from_numpy
+
+    port, jax_dir = dirs
+    jvs = jax_script("vq_sweep")
+    monkeypatch.setattr(jds, "_fastdata", None)
+    monkeypatch.setattr(jvs, "OUTDIR", jax_dir)
+    real_jcfg, real_cfg = jvs.base_config, vq_sweep.base_config
+    monkeypatch.setattr(jvs, "base_config",
+                        lambda *a, **k: _cut_vq(real_jcfg(*a, **k)))
+    monkeypatch.setattr(vq_sweep, "base_config",
+                        lambda *a, **k: _cut_vq(real_cfg(*a, **k)))
+    want, _, _, jcfg, _ = jvs.run_point(1, num_codes, commitment, 1.0,
+                                        "arm", seed=42)
+    real_train = vq_sweep.train_vq_stack
+
+    def from_jax(cfg, dataset, **kw):
+        seed = cfg.training.seed
+        init = jax_vq.make_vq_model(jcfg).init(jax.random.PRNGKey(seed))
+        return real_train(
+            cfg, dataset, init_state=vq_params_from_numpy(
+                jax.tree_util.tree_map(np.asarray, init)),
+            em_init=jax_em_draws(seed, cfg.vq.hmm_restarts, cfg.model.K,
+                                  cfg.vq.num_codes), **kw)
+
+    monkeypatch.setattr(vq_sweep, "train_vq_stack", from_jax)
+    got = vq_sweep.Study(port, CPU).run_point(1, num_codes, commitment, 1.0,
+                                              "arm", seed=42)[0]
+    assert abs(got["final_vq_loss"] - want["final_vq_loss"]) <= 1e-4 * abs(
+        want["final_vq_loss"])
+    for k in vq_sweep.SCORE_KEYS:
+        assert got[k] == want[k], k
+
+
 def test_vq_joint_stage_follows_jax(dirs, tmp_path, monkeypatch):
     """stage_joint at 1 outer iteration of 2 finetune steps from JAX's
     trained default point (1 epoch, its archive loaded by the port): the
@@ -509,7 +560,7 @@ def test_vq_joint_stage_follows_jax(dirs, tmp_path, monkeypatch):
     from vqvaehmm_tpu_torch.train.vq_pipeline import VQStack
 
     port, jax_dir = dirs
-    jvs = _jax_script("vq_sweep")
+    jvs = jax_script("vq_sweep")
     monkeypatch.setattr(jds, "_fastdata", None)
     monkeypatch.setattr(jvs, "OUTDIR", jax_dir)
     real_jcfg, real_cfg = jvs.base_config, vq_sweep.base_config
@@ -563,18 +614,8 @@ def test_vq_joint_stage_follows_jax(dirs, tmp_path, monkeypatch):
 
     def port_em(codes, K, V, n_iters, seed, lengths, n_init, sticky):
         seen["port"]["codes"] = codes.numpy()
-        draws = []
-        for key in jax.random.split(jax.random.PRNGKey(seed), n_init):
-            k1, k2, k3 = jax.random.split(key, 3)
-            draws.append((
-                jnp.log(jax.random.dirichlet(k1, jnp.ones(K))),
-                jnp.log(jax.random.dirichlet(k2, jnp.full(K, 2.0),
-                                             shape=(K,))),
-                jnp.log(jax.random.dirichlet(k3, jnp.ones(V), shape=(K,)))))
-        init = tuple(np.stack([np.asarray(d[i]) for d in draws])
-                     for i in range(3))
         return real_em(codes, K, V, n_iters, seed, lengths, n_init=n_init,
-                       sticky=sticky, init=init)
+                       sticky=sticky, init=jax_em_draws(seed, n_init, K, V))
 
     monkeypatch.setattr(jax, "jit", jit)
     monkeypatch.setattr(jhmm, "fit_categorical_em", jax_em)
@@ -610,7 +651,7 @@ def test_quality_eval_member_follows_jax(tmp_path, monkeypatch, capsys):
     from vqvaehmm_tpu_torch.data.checkpoint import params_from_numpy
     from vqvaehmm_tpu_torch.train.trainer import TrainState, make_optimizer
 
-    jq = _jax_script("quality_eval")
+    jq = jax_script("quality_eval")
     monkeypatch.setattr(jds, "_fastdata", None)
     jax_hist, real_jtrain = [], vt.train_model
 
@@ -653,7 +694,7 @@ def test_quality_eval_member_follows_jax(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("K", [2, 3])
 def test_fixture_compare_helpers_equal_jax(K):
-    jfc = _jax_script("fixture_model_compare")
+    jfc = jax_script("fixture_model_compare")
     rng = np.random.default_rng(K)
     pred, true = rng.integers(0, K, size=300), rng.integers(0, K, size=300)
     assert recipe._best_perm_acc(pred, true, K)[0] == \
@@ -765,9 +806,9 @@ def test_printed_json_scripts_write_jax_keys(tmp_path, monkeypatch):
                                                                 size=(2, 50))
     for name in ("quality_eval", "quality_sweep"):
         assert recipe._best_perm_acc(pred, true, 3)[0] == \
-            _jax_script(name).best_perm_accuracy(pred, true, 3)
+            jax_script(name).best_perm_accuracy(pred, true, 3)
     assert quality_sweep.switches_per_100(pred) == \
-        _jax_script("quality_sweep").switches_per_100(pred)
+        jax_script("quality_sweep").switches_per_100(pred)
 
 
 def test_reference_clis_write_their_files(tmp_path):

@@ -6,7 +6,7 @@ shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas=-v -c csrc/<name>.cu -o <name>.o  # each
-    nvcc -shared -o build/torch_kernels/libvqhmm_<hash>.so *.o
+    nvcc -shared -o <BUILD_DIR>/libvqhmm_<hash>.so *.o
 
 One process a source makes the build as long as its slowest source
 (fused_train.cu) rather than the sum of all: on an H100 machine, 7.5 s
@@ -21,6 +21,12 @@ never served from a stale build.  Each C entry point returns
 `cudaGetLastError()` after its launch, and `check` raises when that is
 not 0: a launch the CUDA runtime refused never runs, and no later
 synchronise reports it.
+
+`BUILD_DIR` is `build/torch_kernels/` of a source checkout, and the
+user's cache directory for an installed package (`build_dir`): the
+library's name carries the sources' hash, so versions never collide, and
+objects tagged with the pid and an `os.replace` keep builds that start at
+once in several processes (the workers of a server) apart.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -114,6 +120,23 @@ _SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 12,
                     # shared memory
                     "vqhmm_vq_quantize_sizes": [_I] * 5}
 
+
+
+def build_dir(package: Path) -> Path:
+    """Where the library of the package at `package` is built: in a source
+    checkout (the package's parent holds pyproject.toml, and the package
+    its csrc/) `build/torch_kernels/` beside it, which .gitignore lists;
+    otherwise, as for a package installed into an environment's
+    directories, `${XDG_CACHE_HOME:-~/.cache}/vqvaehmm_tpu_torch/`."""
+    root = package.parent
+    if (root / "pyproject.toml").is_file() and (package / "csrc").is_dir():
+        return root / "build" / "torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / PACKAGE.name
+
+
+BUILD_DIR = build_dir(PACKAGE)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None

@@ -494,9 +494,17 @@ def get_model(config_path: str = "inference_config.json", device="cuda"):
 get_model.cache_clear = _handle.cache_clear
 
 
-def create_app(config_path: str = "inference_config.json", device="cuda"):
+def default_config_path() -> str:
+    """The serving config a factory called without one reads: the
+    VQHMM_INFERENCE_CONFIG variable, as the JAX package's module-level
+    apps read it, else inference_config.json."""
+    return os.environ.get("VQHMM_INFERENCE_CONFIG", "inference_config.json")
+
+
+def create_app(config_path: Optional[str] = None, device="cuda"):
     """The FastAPI app (fastapi is imported here, so the package never
-    needs it)."""
+    needs it); config_path None is default_config_path()."""
+    config_path = config_path or default_config_path()
     import time as _time
 
     from fastapi import FastAPI, HTTPException, Request, Response

@@ -23,9 +23,10 @@ import asyncio
 import json
 import os
 import time
+from typing import Optional
 
 from .app import MAX_BODY as _MAX_BODY
-from .app import get_model, reload_gate
+from .app import default_config_path, get_model, reload_gate
 from .batching import ServerBusy
 from .metrics import CONTENT_TYPE as _METRICS_CT
 from .metrics import METRICS
@@ -76,11 +77,11 @@ def _call(config_path: str, device, path: str, req: dict):
     return model.predict(req["x"])
 
 
-def create_asgi_app(config_path: str = "inference_config.json",
-                    device="cuda"):
-    """The ASGI callable.  The model is built at the first request, or
-    here already when VQHMM_BATCH is set, so no live request pays the
-    batcher's warmup."""
+def create_asgi_app(config_path: Optional[str] = None, device="cuda"):
+    """The ASGI callable (config_path None is app.default_config_path()).
+    The model is built at the first request, or here already when
+    VQHMM_BATCH is set, so no live request pays the batcher's warmup."""
+    config_path = config_path or default_config_path()
     if os.environ.get("VQHMM_BATCH", "") not in ("", "0"):
         try:
             get_model(config_path, device)
