@@ -417,11 +417,41 @@ exiting non-zero before a result is printed:
    that directory on PYTHONPATH: its kernels built into a fresh
    XDG_CACHE_HOME, kernel A launched once and within 1e-4 of its plain
    version.
+36. the default-precision mode: a float32 model whose matmul_precision is
+   not "highest" (artifacts_torch/inference_config_default_precision.json,
+   the published widths and checkpoint) runs kernels A, 8, 11 and 10 with
+   both operands of every product rounded to bfloat16 and float32 sums on
+   the tensor cores (the TPU kernels' highest=False).  (a) Each kernel
+   against its plain version (use_kernel=False on the card) at
+   PRECISION_SHAPES with ragged lengths and non-zero tails: each output
+   within BF16_INFER_TOL of its largest magnitude, at most
+   BF16_INFER_SHARE of its values past BF16_INFER_EXACT (where the
+   float32 path parts at most of them), kernel 10 bit-equal to kernel 11
+   -> kernel B and equal to the plain decode or tied within the two
+   evidences' gap; every tile width and split bit-equal; rows of a batch
+   bit-equal to the rows alone; a model or grid the mode's gate refuses
+   raises with no launch; the launches exact, all in the mode (the
+   wrappers' .bf16_launches); a record of the plain route with TF32 on
+   and off.  (b) The slice through its entry points, the counts set to 0
+   just before and read just after: the stdlib server solo and
+   micro-batched (/infer in four modes, /predict), a /stream session on
+   the batched server, evaluate's CLI, Backtester.run and
+   RegimeBacktest(decode_fn=fused_viterbi_states) on the fixture panel;
+   every launch of A, 8, 11 and 10 in the mode and as many as the calls
+   imply; the /stream columns bit-equal to the batch filtered posterior;
+   each answer against the same entry point with the kernels' plain route
+   (_plain_route) within the bars.  (c) Both modes and the plain version
+   of each kernel at PRECISION_SHAPES, back to back and as device-busy
+   time, with the mode's bound (its products at 989 TFLOP/s of dense
+   bf16).  Phase 2 prints the mode's kernels' registers and HMMA counts
+   and fails where a mode's kernel has none or a float32 one has any.
 
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
 of its operations over 67 TFLOP/s of fp32, or for kernel C's bfloat16
-mode over 989 TFLOP/s of dense bf16 on the tensor cores, and its input
+mode over 989 TFLOP/s of dense bf16 on the tensor cores (for the
+inference kernels' bfloat16-operand mode the products at that rate and
+the rest at fp32's), and its input
 and output bytes over 3.35 TB/s, from this run's shapes, and for kernel
 D from the lengths of the windows it timed), kernel C's bfloat16 mode an
 entry of its own (`fused_train_bf16`, with phase 29's launches, times
@@ -436,12 +466,19 @@ GMM stack's wall times of phase 26 (`gmm_*`), on every kernel phase
 entries phase 32's gaps (`global_norm`) and on kernels C, D and A phase
 33's launches a rank (`dp_launches`) and kernel C's step times there
 (`dp_step`), and on every kernel phase 34's launches an entry point
-(`study_launches`) and phase 35's an example (`example_launches`); the
-last line is {"ok": true, "device": {...}}.
+(`study_launches`) and phase 35's an example (`example_launches`);
+kernels A, 8, 11 and 10's bfloat16-operand mode has entries of its own
+(`fused_infer_bf16`, `fused_encode_bf16`, `fused_evidence_bf16`,
+`fused_decode_bf16`: phase 36's launches, errors, times in both modes and
+the mode's bound, HMMA in the SASS); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import importlib
 import itertools
 import json
 import os
@@ -507,6 +544,15 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def bound_mixed_ms(flops16: float, flops32: float, nbytes: float):
+    """bound_ms of work whose products are bfloat16 on the tensor cores
+    (flops16, at the dense bf16 rate) and whose other operations are
+    float32 (flops32, at the fp32 rate)."""
+    t_ops = 1e3 * (flops16 / PEAK_BF16_FLOPS + flops32 / PEAK_FLOPS)
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def token_flops(cfg):
     """FLOPs a time step of the encoder, the prior MLP and the decoder."""
     C, H1, H2, K, D = (cfg.input_dim, cfg.hidden_dim, cfg.hidden_dim2,
@@ -517,8 +563,13 @@ def token_flops(cfg):
     return enc, prior, dec
 
 
-def weight_bytes(*modules) -> int:
-    return sum(4 * p.numel() for m in modules for p in m.parameters())
+def weight_bytes(*modules, bf16: bool = False) -> int:
+    """Bytes of the modules' parameters, each read once: float32, or with
+    bf16 the weights (two or more dimensions) as the bfloat16 values that
+    the bfloat16-operand kernels read packed, and the biases (one
+    dimension) as float32."""
+    return sum((2 if bf16 and p.dim() > 1 else 4) * p.numel()
+               for m in modules for p in m.parameters())
 
 
 def kernel_bounds(model, B, T, vq=(8, 16)):
@@ -532,10 +583,30 @@ def kernel_bounds(model, B, T, vq=(8, 16)):
     w_enc = weight_bytes(model.encoder)
     w_pri = weight_bytes(model.prior_module)
     w_all = weight_bytes(model)
+    # the bfloat16-operand modes read their weights packed in bfloat16
+    b_enc = weight_bytes(model.encoder, bf16=True)
+    b_pri = weight_bytes(model.prior_module, bf16=True)
+    b_dec = weight_bytes(model.decoder, bf16=True)
+    scan = B * (T - 1) * (2 * K * K + K)
+    evid = 4 * (K + K * K)
     return {
         # x -> mu, logvar, q
         "fused_infer": bound_ms(N * (enc + K + dec),
                                 4 * N * (3 * C + K) + 4 * B + w_all - w_pri),
+        # the bfloat16-operand modes of kernels A, 8, 11 and 10: the same
+        # inputs and outputs, the products at the dense bf16 rate and the
+        # softmax, log-softmax and scan at fp32's
+        "fused_infer_bf16": bound_mixed_ms(
+            N * (enc + dec), N * K, 4 * N * (3 * C + K) + 4 * B + b_enc
+            + b_dec),
+        "fused_encode_bf16": bound_mixed_ms(N * enc, 0, 4 * N * (C + K)
+                                            + 4 * B + b_enc),
+        "fused_evidence_bf16": bound_mixed_ms(
+            N * (enc + prior), N * evid,
+            4 * N * (C + U + K + K * K) + 4 * B + b_enc + b_pri),
+        "fused_decode_bf16": bound_mixed_ms(
+            N * (enc + prior), N * evid + scan,
+            4 * N * (C + U + 1) + 8 * B + b_enc + b_pri),
         # log_A, log_obs, lengths, log_pi -> states, score
         "viterbi": bound_ms(B * (T - 1) * (2 * K * K + K),
                             4 * N * (K * K + K + 1) + 8 * B + 4 * K),
@@ -2073,7 +2144,7 @@ def _wall(torch, fn, repeats=5):
     return statistics.median(out), min(out), max(out)
 
 
-def _device_trace(torch, fn, calls=10, kernels=None):
+def _device_trace(torch, fn, calls=10, kernels=None, name=None):
     """(device-busy ms a call of fn(), device operations a call), from a
     torch.profiler trace of the card alone: the union of its kernels'
     intervals over `calls` calls, and their count.  Unlike a back-to-back
@@ -2085,7 +2156,10 @@ def _device_trace(torch, fn, calls=10, kernels=None):
     CUDA-event time beside it stands).  kernels: the kernels fn launches a
     call, where its wrapper counts them; the time a call is then the mean
     of the kernels the trace holds times that count, which a lost event
-    does not bias."""
+    does not bias.  name: a kernel fn launches once a call; a trace is
+    then taken only where it holds `calls` events of that name (phase 36
+    read two kernels about half their time from traces that were not
+    checked so)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2096,10 +2170,16 @@ def _device_trace(torch, fn, calls=10, kernels=None):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ops = [(e.time_range.start, e.time_range.end) for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        ops = [(e.time_range.start, e.time_range.end) for e in events]
         busy = _busy_us(ops)
+        held = None if name is None else sum(name in e.name for e in events)
+        if held is not None and held != calls:
+            say("times", f"a profiler trace of {calls} calls held {held} "
+                f"events of {name} (attempt {attempt + 1} of 3)")
+            continue
         if kernels is not None and ops and len(ops) <= calls * kernels:
             return busy / 1e3 / len(ops) * kernels, len(ops) / calls
         if busy > 0.0 and len(ops) >= calls:
@@ -2110,9 +2190,9 @@ def _device_trace(torch, fn, calls=10, kernels=None):
     return None, None
 
 
-def _device_ms(torch, fn, calls=10, kernels=None):
+def _device_ms(torch, fn, calls=10, kernels=None, name=None):
     """Device-busy ms a call of fn() (see _device_trace)."""
-    return _device_trace(torch, fn, calls, kernels)[0]
+    return _device_trace(torch, fn, calls, kernels, name)[0]
 
 
 def _ms(value) -> str:
@@ -4699,9 +4779,27 @@ ZOO_TOL = 1e-5
 ZOO_RUN_TOL = 1e-4          # 20 online updates, 3 walk-forward windows
 
 
+class _ModeCount:
+    """A wrapper's count of its bfloat16-operand mode's launches
+    (`.bf16_launches`), read and set as `.launches`."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.bf16_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.bf16_launches = n
+
+
 def launch_counters():
-    """name (the kernels line's) -> the wrapper whose `.launches` counts
-    that kernel's launches."""
+    """name (the kernels line's) -> the object whose `.launches` counts
+    that kernel's launches: the wrapper, or for a bfloat16-operand mode
+    (`*_bf16`) its _ModeCount, which a launch of the mode counts beside
+    the wrapper's own count of both modes."""
     from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
                                                      fused_viterbi_states)
     from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
@@ -4713,12 +4811,17 @@ def launch_counters():
                                            quantize_st_fused_forward,
                                            vq_nearest)
 
-    return {"fused_infer": fused_forward, "viterbi": viterbi_fused,
-            "fused_train": fused_loss_and_grads, "gather": gather_epoch,
-            "fused_encode": fused_encode, "fused_evidence": fused_evidence,
-            "fused_decode": fused_viterbi_states, "vq_nearest": vq_nearest,
-            "quantize_forward": quantize_st_fused_forward,
-            "quantize_backward": quantize_st_fused_backward}
+    counters = {"fused_infer": fused_forward, "viterbi": viterbi_fused,
+                "fused_train": fused_loss_and_grads, "gather": gather_epoch,
+                "fused_encode": fused_encode,
+                "fused_evidence": fused_evidence,
+                "fused_decode": fused_viterbi_states,
+                "vq_nearest": vq_nearest,
+                "quantize_forward": quantize_st_fused_forward,
+                "quantize_backward": quantize_st_fused_backward}
+    for name in ("fused_train", *INFER_BF16):
+        counters[f"{name}_bf16"] = _ModeCount(counters[name])
+    return counters
 
 
 def _quiet(fn, *args):
@@ -4767,7 +4870,7 @@ def _recipe_expected(np, recipe, out, counters):
     n_win = wf["walk_forward"]["n_windows"]
     per_regime = sum(r["n_periods"] > 21 for mode in wf["per_regime"].values()
                      for r in mode.values())
-    zero = {**dict.fromkeys(counters, 0), "fused_train_bf16": 0}
+    zero = dict.fromkeys(counters, 0)
     exp = {
         "data": {},
         "train": {"fused_train": steps(pub),
@@ -4888,12 +4991,9 @@ def phase_recipe(torch, np, tmp, kind):
                     os.path.join(out[d], "checkpoints_quality")]
             for f in counters.values():
                 f.launches = 0
-            bf16 = counters["fused_train"]
-            bf16.bf16_launches = 0
             rc, walls[(s, d)] = _timed(torch, _quiet, recipe.main, argv)
             if d == "cuda":
                 launches[s] = {k: f.launches for k, f in counters.items()}
-                launches[s]["fused_train_bf16"] = bf16.bf16_launches
             if rc != 0:
                 fail(f"the recipe's {s} stage on {d} exited {rc}")
     expected, polish = _recipe_expected(np, recipe, out["cuda"], counters)
@@ -5805,9 +5905,7 @@ def phase_studies(torch, np, tmp, dev="cuda"):
     the float32 arm's first-epoch loss against the same run on the CPU
     within STUDY_TOL.  Returns {entry: {kernel: launches}}."""
     import dataclasses
-    import importlib
 
-    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
     from vqvaehmm_tpu_torch.scripts import fixture_model_compare
     from vqvaehmm_tpu_torch.scripts import throughput_quality_ab as ab
     from vqvaehmm_tpu_torch.scripts import vq_quality, vq_sweep
@@ -5842,14 +5940,12 @@ def phase_studies(torch, np, tmp, dev="cuda"):
             vq_epochs.clear()
             for c in counters.values():
                 c.launches = 0
-            fused_loss_and_grads.bf16_launches = 0
             t0 = time.perf_counter()
             rc = _quiet(mod.main, ["--device", dev, "--outdir", out, *argv])
             if dev == "cuda":
                 torch.cuda.synchronize()
             walls[name] = time.perf_counter() - t0
             got = {k: c.launches for k, c in counters.items()}
-            got["fused_train_bf16"] = fused_loss_and_grads.bf16_launches
             launches[name] = got
             if rc != 0:
                 fail(f"{name}.main exited {rc}")
@@ -6108,8 +6204,6 @@ def phase_examples(torch, np, tmp, dev="cuda"):
                                              streaming_example,
                                              train_example, vqvae_example)
 
-    from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
-
     counters = launch_counters()
     runs = {"train_example": train_example, "backtest_example":
             backtest_example, "device_pipeline_example":
@@ -6124,7 +6218,6 @@ def phase_examples(torch, np, tmp, dev="cuda"):
         for name, mod in runs.items():
             for c in counters.values():
                 c.launches = 0
-            fused_loss_and_grads.bf16_launches = 0
             t0 = time.perf_counter()
             quiet = name not in ("backtest_example",
                                  "device_pipeline_example")
@@ -6134,7 +6227,6 @@ def phase_examples(torch, np, tmp, dev="cuda"):
                 torch.cuda.synchronize()
             walls[name] = time.perf_counter() - t0
             got = {k: c.launches for k, c in counters.items()}
-            got["fused_train_bf16"] = fused_loss_and_grads.bf16_launches
             launches[name] = got
             want = {k: 0 for k in got}
             want.update(_example_expected(name))
@@ -6186,7 +6278,6 @@ def phase_examples(torch, np, tmp, dev="cuda"):
                          if c["cell_type"] == "code"]
             for c in counters.values():
                 c.launches = 0
-            fused_loss_and_grads.bf16_launches = 0
             cwd = os.getcwd()
             os.chdir(tmp)
             try:
@@ -6196,8 +6287,6 @@ def phase_examples(torch, np, tmp, dev="cuda"):
             finally:
                 os.chdir(cwd)
             got = {k: c.launches for k, c in counters.items() if c.launches}
-            if fused_loss_and_grads.bf16_launches:
-                got["fused_train_bf16"] = fused_loss_and_grads.bf16_launches
             # the notebook chose the card and trained (in float32) and
             # decoded on it
             if ns.get("device") != dev or "fused_train_bf16" in got or \
@@ -6246,6 +6335,526 @@ def phase_examples(torch, np, tmp, dev="cuda"):
         f"({inst['run_seconds']:.1f} s with the process); phase 35 in "
         f"{phase_s:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 36. the default-precision mode of the inference kernels A, 8, 11 and 10
+# ---------------------------------------------------------------------------
+
+PRECISION_CONFIG = os.path.join(
+    ROOT, "artifacts_torch", "inference_config_default_precision.json")
+PRECISION_SHAPES = ((64, 200), (1, 200), (460, 20), (1, 2327))
+# the kernels with a bfloat16-operand mode (the kernels line's names), the
+# source and the TPU kernel each replaces, and the kernel its SASS names
+INFER_BF16 = {
+    "fused_infer": ("fused_infer.cu", "pallas_infer.py:45",
+                    "fused_infer_bf16_kernel"),
+    "fused_encode": ("fused_encoder.cu", "pallas_encoder.py:32",
+                     "fused_encoder_bf16_kernel"),
+    "fused_evidence": ("fused_decode.cu", "pallas_decode.py:225",
+                       "fused_evidence_bf16_kernel"),
+    "fused_decode": ("fused_decode.cu", "pallas_decode.py:104",
+                     "fused_decode_kernelILi3ELb1E")}
+# the float32 kernels of the same four, which issue no HMMA
+INFER_FP32_SASS = ("fused_infer_kernel", "fused_encoder_kernel",
+                   "fused_evidence_kernel", "fused_decode_kernelILi3ELb0E")
+# (kernel, mode) -> what the profiler's name of the kernel holds, one
+# launch a call (phase 36c's device traces must hold all of them)
+INFER_TRACE_NAMES = {
+    ("fused_infer", "fp32"): "fused_infer_kernel",
+    ("fused_infer", "bf16"): "fused_infer_bf16_kernel",
+    ("fused_encode", "fp32"): "fused_encoder_kernel",
+    ("fused_encode", "bf16"): "fused_encoder_bf16_kernel",
+    ("fused_evidence", "fp32"): "fused_evidence_kernel",
+    ("fused_evidence", "bf16"): "fused_evidence_bf16_kernel",
+    ("fused_decode", "fp32"): "fused_decode_kernel<3, false>",
+    ("fused_decode", "bf16"): "fused_decode_kernel<3, true>"}
+# The mode against its plain version on the card (both round every
+# product's operands to bfloat16 and sum in float32).  Where the two sums
+# of a layer round alike, an output agrees within BF16_INFER_EXACT; where
+# the tensor cores' chunk sum and cuBLAS's part by a float32 rounding at a
+# value that lies on a bfloat16 rounding boundary, that operand rounds to
+# the neighbouring bfloat16, 2^-8 of it apart, and the outputs its
+# receptive field reaches move.  BF16_INFER_TOL bounds that move in each
+# output, as a share of the output's largest magnitude (at least 1): about
+# four times the largest share measured on the card (NVIDIA H100 80GB
+# HBM3, 700.00 W; this phase and the cases of tests/test_torch_cuda.py::
+# test_inference_bf16_matches_plain: logvar 4.607e-04, q 1.463e-05,
+# logits 6.437e-05, log_A 1.225e-04, log_obs 3.469e-05), and one bfloat16
+# step, 2^-8, for mu (2.167e-03 measured).  Such steps are rare: at most
+# BF16_INFER_SHARE of an output's values part by more than
+# BF16_INFER_EXACT (0.901% measured, 5 of 555 values), where the float32
+# path parts at most of them.  tests/test_torch_cuda.py holds the same
+# constants.
+BF16_INFER_EXACT = 1e-5
+BF16_INFER_TOL = {"mu": 2 ** -8, "logvar": 2e-3, "q": 6e-5,
+                  "logits": 2.6e-4, "log_A": 5e-4, "log_obs": 1.4e-4}
+BF16_INFER_SHARE = 0.02
+
+
+@contextlib.contextmanager
+def _plain_route():
+    """The model's kernel wrappers (vqvaehmm_tpu_torch/models/vae_hmm.py)
+    held to their plain route (use_kernel=False) inside the block: the
+    entry points then compute what their kernels are held against, in the
+    model's mode."""
+    from vqvaehmm_tpu_torch.models import vae_hmm
+
+    def plain(fn):
+        def call(*args, use_kernel=None, **kw):
+            return fn(*args, use_kernel=False, **kw)
+        return call
+
+    names = ("fused_forward", "fused_encode", "fused_evidence",
+             "viterbi_fused")
+    real = {n: getattr(vae_hmm, n) for n in names}
+    for n, fn in real.items():
+        setattr(vae_hmm, n, plain(fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(vae_hmm, n, fn)
+
+
+def _bf16_gap(torch, got, want, f32, tol, what):
+    """(max-abs error, as a share of max(1, |want|), share of values past
+    BF16_INFER_EXACT, the float32 path's share past it) of one output of
+    the mode against its plain version; fails where the share of the
+    scale passes `tol` or the share past BF16_INFER_EXACT passes
+    BF16_INFER_SHARE."""
+    def past_exact(a):
+        diff = (a.double() - want.double()).abs()
+        return float((diff > BF16_INFER_EXACT).double().mean()) \
+            if diff.numel() else 0.0
+
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    past, past32 = past_exact(got), past_exact(f32)
+    if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)} or values not finite")
+    if err > tol * scale or past > BF16_INFER_SHARE:
+        fail(f"{what}: the bfloat16-operand kernel is {err:.3e} from its "
+             f"plain version ({err / scale:.3e} of the scale, bar "
+             f"{tol:.3e}), {past:.2%} of its values past "
+             f"{BF16_INFER_EXACT:g} (bar {BF16_INFER_SHARE:.0%})")
+    return err, err / scale, past, past32
+
+
+def _mode_counts(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def _decode_tie(torch, model, x, u, lens, got, want):
+    """Where the mode's decode `got` and the plain decode `want` part: the
+    largest score gap under the plain evidence, and its bar.  A path
+    optimal under the kernel's evidence scores within twice the two
+    evidences' gap, summed over the steps, of the plain optimum."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+
+    ev = fused_evidence(model, x, u, lens)
+    plain = fused_evidence(model, x, u, lens, use_kernel=False)
+    gap, _ = _tie_gap(torch, plain, got, want, lens)
+    slack = 2 * float((ev[1] - plain[1]).abs().amax(dim=(2, 3)).sum(1).max()
+                      + (ev[2] - plain[2]).abs().amax(dim=2).sum(1).max())
+    return gap, TIE_ATOL + slack
+
+
+def phase_precision_kernels(torch, np, m16, m32):
+    """36a. the four kernels' bfloat16-operand mode against its plain
+    version on the card, and its launches (tests/test_torch_cuda.py holds
+    its contracts on the card: tiles and rows bit-equal, the /stream
+    columns, the gate)."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+    from vqvaehmm_tpu_torch.ops import fused_infer as fi
+    from vqvaehmm_tpu_torch.ops.fused_train import infer_bf16_mode
+    from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
+
+    dev = m16.device
+    if not infer_bf16_mode(m16.cfg, dev) or infer_bf16_mode(m32.cfg, dev):
+        fail("the default-precision model does not take the bfloat16-"
+             "operand mode, or the published one does")
+    counters = launch_counters()
+    rng = np.random.default_rng(36)
+    worst = {n: [0.0, 0.0, 0.0, 0.0] for n in ("mu", "logvar", "q",
+                                               "logits", "log_A", "log_obs")}
+    ties, tie_gap, parted = 0, 0.0, []
+    n0 = _mode_counts(counters)
+    calls = 0
+    for B, T in PRECISION_SHAPES:
+        x, u, lens = decode_inputs(torch, np, rng, m16, B, T, True, False)
+        where = f"B={B} T={T}"
+        a = fi.fused_forward(m16, x, valid_to=lens)
+        a_plain = fi.fused_forward(m16, x, valid_to=lens, use_kernel=False)
+        a32 = fi.fused_forward_reference(m16, x, valid_to=lens)
+        lg = fe.fused_encode(m16, x, valid_to=lens)
+        lg_plain = fe.fused_encode(m16, x, valid_to=lens, use_kernel=False)
+        lg32 = fe.fused_encode_reference(m16, x, valid_to=lens)
+        ev = fd.fused_evidence(m16, x, u, lens)
+        ev_plain = fd.fused_evidence(m16, x, u, lens, use_kernel=False)
+        ev32 = fd.fused_evidence_reference(m16, x, u, lens)
+        st = fd.fused_viterbi_states(m16, x, u, lens)
+        st_plain = fd.fused_viterbi_states(m16, x, u, lens, use_kernel=False)
+        staged = viterbi_fused(*ev, lens).states
+        calls += 1
+        torch.cuda.synchronize()
+        for name, g, w, f in (("mu", a[0], a_plain[0], a32[0]),
+                              ("logvar", a[1], a_plain[1], a32[1]),
+                              ("q", a[2], a_plain[2], a32[2]),
+                              ("logits", lg, lg_plain, lg32),
+                              ("log_A", ev[1], ev_plain[1], ev32[1]),
+                              ("log_obs", ev[2], ev_plain[2], ev32[2])):
+            got = _bf16_gap(torch, g, w, f, BF16_INFER_TOL[name],
+                            f"{name} at {where}")
+            worst[name] = [max(p, q) for p, q in zip(worst[name], got)]
+        if not torch.equal(ev[0], ev_plain[0]):
+            fail(f"log_pi of the mode differs from its plain version at "
+                 f"{where}")
+        if not torch.equal(st, staged):
+            fail(f"kernel 10 in the mode differs from kernel 11 -> kernel B "
+                 f"at {int((st != staged).sum())} steps at {where}")
+        if not torch.equal(st, st_plain):
+            parted.append((x, u, lens, st, st_plain, where))
+        for b in range(B):
+            L = int(lens[b])
+            if not bool((st[b, L:] == st[b, L - 1]).all()):
+                fail(f"kernel 10 in the mode: row {b} not frozen past {L}")
+    got = {k: v - n0[k] for k, v in _mode_counts(counters).items()}
+    want = dict.fromkeys(got, 0)
+    want.update({n: calls for n in ("fused_infer", "fused_encode",
+                                    "fused_evidence", "fused_decode")})
+    want.update({f"{n}_bf16": calls for n in INFER_BF16})
+    want["viterbi"] = calls
+    if got != want:
+        fail(f"the mode's checks launched {got}, the calls imply {want}")
+    for x, u, lens, st, st_plain, where in parted:
+        gap, bar = _decode_tie(torch, m16, x, u, lens, st, st_plain)
+        ties, tie_gap = ties + 1, max(tie_gap, gap)
+        if gap > bar:
+            fail(f"kernel 10 in the mode differs from its plain version at "
+                 f"{int((st != st_plain).sum())} steps and scores {gap:.3e} "
+                 f"apart (> {bar:.3e}) at {where}")
+    for name, (err, share, past, past32) in worst.items():
+        # the mode is not the float32 path: the bar refuses that
+        if past32 <= BF16_INFER_SHARE:
+            fail(f"{name}: only {past32:.2%} of the float32 path's values "
+                 f"part from the mode's plain version by more than "
+                 f"{BF16_INFER_EXACT:g}; the bar cannot tell the modes apart")
+
+    # a record, not a check: the plain route under the process-wide TF32
+    # flags.  A bfloat16-rounded operand is exact in TF32, but cuBLAS then
+    # sums on the tensor cores, in another order
+    x, _, lens = decode_inputs(torch, np, rng, m16, 64, 200, True, False)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    routes = []
+    for on in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = on
+        torch.backends.cudnn.allow_tf32 = on
+        routes.append(fi.fused_forward(m16, x, valid_to=lens,
+                                       use_kernel=False))
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = flags
+    tf32 = [max_abs(a, b) for a, b in zip(*routes)]
+
+    say("precision", "the bfloat16-operand mode against its plain version "
+        f"on the card at {PRECISION_SHAPES}, ragged lengths, non-zero tails "
+        "(max-abs error; as a share of the output's scale; share of values "
+        f"past {BF16_INFER_EXACT:g}; the float32 path's share past it): "
+        + "; ".join(f"{n} {v[0]:.3e}, {v[1]:.3e}, {v[2]:.3%}, {v[3]:.1%}"
+                    for n, v in worst.items())
+        + f"; kernel 10 states bit-equal to kernel 11 -> kernel B, and to "
+        f"the plain decode but at {ties} shapes ({tie_gap:.3e} of score); "
+        f"launches {got}; kernel A's plain route with TF32 "
+        f"on against off at (64, 200), max-abs (mu, logvar, q): "
+        + ", ".join(f"{v:.3e}" for v in tf32))
+    return {n: max(worst[k][0] for k in keys) for n, keys in (
+        ("fused_infer", ("mu", "logvar", "q")), ("fused_encode", ("logits",)),
+        ("fused_evidence", ("log_A", "log_obs")))} | {
+        "fused_decode": tie_gap, "shares": worst, "plain_tf32_gap": tf32}
+
+
+def phase_precision_slice(torch, np, tmp):
+    """36b. the default-precision configuration through its entry points
+    on the card: the stdlib server solo and micro-batched, /infer in four
+    modes, /predict, a /stream session; evaluate's CLI; Backtester.run and
+    RegimeBacktest with the one-kernel decode.  The counts are set to 0
+    just before and read just after; every kernel of the path in the
+    mode.  The answers against the same entry points with the kernels'
+    plain route (_plain_route), read after the counts."""
+    from vqvaehmm_tpu_torch.backtest import Backtester, RegimeBacktest
+    from vqvaehmm_tpu_torch.data import market
+    from vqvaehmm_tpu_torch.data.checkpoint import load_improved_head
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_viterbi_states
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+    from vqvaehmm_tpu_torch.serve.httpd import serve
+
+    # the CLI's module (the package's `evaluate` is its function)
+    evaluate = importlib.import_module("vqvaehmm_tpu_torch.eval.evaluate")
+    counters = launch_counters()
+    prices, regime, _ = market.load_fixture_frames(FIXTURE)
+    xf, uf, ret, aligned = market.prepare_sequences(prices, regime)
+    xs, us = market.create_sequences(xf, uf)
+    data, u_data = (np.transpose(a)[None].astype(np.float32)
+                    for a in (xf, uf))
+    panel = (data, aligned.values, ret.values)
+    for name, a in (("x.npy", np.transpose(xs, (0, 2, 1))),
+                    ("u.npy", np.transpose(us, (0, 2, 1)))):
+        np.save(os.path.join(tmp, name), a.astype(np.float32))
+    rng = np.random.default_rng(37)
+    reqs = [("/infer", "mean_field", 37), ("/infer", "mean_field", 200),
+            ("/infer", "viterbi", 200), ("/infer", "smoothed", 200),
+            ("/infer", "filtered", 200), ("/predict", "predict", 200)]
+    payloads = []
+    for path, mode, T in reqs:
+        p = {"x": rng.normal(size=(5, T)).astype(np.float32).tolist()}
+        if mode in ("viterbi", "smoothed", "filtered"):
+            p["u"] = rng.normal(size=(4, T)).astype(np.float32).tolist()
+            p["mode"] = mode
+        payloads.append(p)
+    S = 60                          # /stream frames from the fixture panel
+    head = load_improved_head(HEAD_CHECKPOINT, device="cuda")
+    m16 = load_published(torch, torch.device("cuda"), PRECISION_CONFIG)
+    bt = Backtester(device="cuda", initial_capital=100000.0, tx_cost=0.001,
+                    slippage=0.0005)
+
+    def head_fn(q):
+        with torch.inference_mode():
+            return head(q)
+
+    def posterior_fn(x):
+        with torch.inference_mode():
+            return m16.posterior(x)
+
+    decoded = []
+
+    def decode_fn(x, u):
+        with torch.inference_mode():
+            decoded.append(fused_viterbi_states(m16, x, u))
+        return decoded[-1]
+
+    solo, url = _serve_bg(serve, PRECISION_CONFIG, "cuda",
+                          warmup_lengths=())
+    batched, burl = _serve_bg(serve, PRECISION_CONFIG, "cuda", batch=True,
+                              warmup_lengths=(37, 200))
+    try:
+        for h in (solo, batched):
+            if not h.vqhmm_model.checkpoint_loaded or \
+                    h.vqhmm_model.cfg.model.matmul_precision != "default":
+                fail("a server of the default-precision config did not load "
+                     "the published checkpoint at matmul_precision default")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        served = {u_: [_request(u_ + path, p)[1] for (path, _, _), p in
+                       zip(reqs, payloads)] for u_ in (url, burl)}
+        settled = {}
+        for t in range(S):
+            status, out, _ = _request(burl + "/stream", {
+                "x_t": data[0, :, t].tolist(), "u_t": u_data[0, :, t].tolist(),
+                "session": "precision", "finish": t == S - 1})
+            settled.update({d["t"]: d["regime_probs"] for d in out["settled"]})
+        evaluate.main(["--config", PRECISION_CONFIG, "--checkpoint",
+                       CHECKPOINT, "--data", os.path.join(tmp, "x.npy"),
+                       os.path.join(tmp, "u.npy"), "--device", "cuda",
+                       "--output", os.path.join(tmp, "eval.txt")])
+        run = bt.run(head_fn, posterior_fn, *panel, rebalance_freq=5)
+        per = RegimeBacktest(bt).run(head_fn, posterior_fn, *panel, K=3,
+                                     decode="viterbi", u=u_data,
+                                     decode_fn=decode_fn)
+        torch.cuda.synchronize()
+        got = _mode_counts(counters)
+        slice_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            card_batch = batched.vqhmm_model.model.filtered_posterior(
+                *(torch.from_numpy(a[:, :, :S]).cuda()
+                  for a in (data, u_data)), torch.tensor([S], device="cuda"))
+    finally:
+        _stop(solo)
+        _stop(batched)
+        batched.vqhmm_model.close()
+    with open(os.path.join(tmp, "eval.txt")) as f:
+        mse = float(f.read().split(":")[1])
+    states = decoded[0][0].cpu().numpy()
+    counts = np.bincount(states, minlength=3)
+    trading = 1 + sum(1 for k in per if counts[k] > 21)
+    # each server: every /infer and /predict one forward (A), the three
+    # exact modes one evidence (11), the Viterbi mode one kernel B; the
+    # stream 3S - 3 evidence steps (S - 2 settled, peeks of 1 and then 2,
+    # 2 settled at finish); evaluate's 4 batches; a posterior stack a
+    # Backtester.run that trades; the panel's one-kernel decode
+    want = dict.fromkeys(got, 0)
+    want.update(fused_infer=2 * len(reqs) + 4, fused_evidence=2 * 3 + 3 * S
+                - 3, viterbi=2, fused_encode=trading, fused_decode=1)
+    want.update({f"{n}_bf16": want[n] for n in INFER_BF16})
+    if got != want:
+        fail(f"the default-precision slice launched {got}; its requests, "
+             f"stream, evaluate and backtests imply {want}")
+    if sorted(settled) != list(range(S)):
+        fail(f"/stream settled {len(settled)} of {S} frames")
+    streamed = torch.tensor([settled[t] for t in range(S)]).T
+    if not torch.equal(streamed, card_batch[0].cpu()):
+        fail("the mode's /stream columns differ from the card's batch "
+             "filtered posterior by "
+             f"{float((streamed - card_batch[0].cpu()).abs().max()):.3e}")
+
+    # the same entry points with the kernels' plain route, after the counts
+    ref = InferenceModel(PRECISION_CONFIG, device="cuda")
+    gaps = {}
+    with _plain_route():
+        for (path, mode, T), p, a, b in zip(reqs, payloads, *served.values()):
+            want_ = ref.predict(p["x"]) if path == "/predict" else \
+                ref.infer(p["x"], u=p.get("u"), mode=mode)
+            for key in want_:
+                if key in ("mode", "states"):
+                    continue
+                w = torch.tensor(want_[key])
+                for where, ans in (("solo", a), ("batched", b)):
+                    g = torch.tensor(ans[key])
+                    # mu and logvar at theirs, the probabilities and the
+                    # weights at q's
+                    tol = BF16_INFER_TOL.get(key, BF16_INFER_TOL["q"])
+                    e = _bf16_gap(torch, g, w, w, tol, f"{path} {mode} {key} "
+                                  f"({where})")
+                    k = f"{mode}.{key}"
+                    gaps[k] = max(gaps.get(k, (0, 0)), e[1:3])
+            if mode == "viterbi":
+                x1, u1 = (torch.tensor(p[k]).cuda()[None] for k in ("x", "u"))
+                w = torch.tensor(want_["states"]).cuda()[None]
+                for ans in (a, b):
+                    g = torch.tensor(ans["states"]).cuda()[None]
+                    if not torch.equal(g, w):
+                        gap, bar = _decode_tie(torch, ref.model, x1, u1,
+                                               None, g, w)
+                        if gap > bar:
+                            fail(f"the served Viterbi path differs from the "
+                                 f"plain route's, {gap:.3e} of score apart "
+                                 f"(> {bar:.3e})")
+        mse_plain = evaluate.evaluate(PRECISION_CONFIG, CHECKPOINT, (
+            np.load(os.path.join(tmp, "x.npy")),
+            np.load(os.path.join(tmp, "u.npy"))),
+            output=os.path.join(tmp, "eval_plain.txt"), log_fn=None)
+        run_plain = bt.run(head_fn, posterior_fn, *panel, rebalance_freq=5)
+        with torch.inference_mode():
+            st_plain = fused_viterbi_states(
+                m16, *(torch.from_numpy(a).cuda() for a in (data, u_data)),
+                use_kernel=False)[0].cpu().numpy()
+    gaps["evaluate MSE"] = _rel(mse, mse_plain)
+    gaps["backtest"] = _metrics_gap(run, run_plain)
+    # the two end-to-end metrics, relative, at mu's bar (a bfloat16 step)
+    for key in ("evaluate MSE", "backtest"):
+        if gaps[key] > BF16_INFER_TOL["mu"]:
+            fail(f"{key} with the mode's kernels {gaps[key]:.3e} relative "
+                 f"from the plain route (bar {BF16_INFER_TOL['mu']:.3e})")
+    if not np.isfinite(mse) or not np.isfinite(run.equity_curve).all():
+        fail(f"evaluate MSE {mse} or the backtest's equity not finite")
+    flips = int((states != st_plain).sum())
+    if flips:
+        xd, ud = (torch.from_numpy(a).cuda() for a in (data, u_data))
+        with torch.inference_mode():
+            gap, bar = _decode_tie(torch, m16, xd, ud, None, decoded[0],
+                                   torch.from_numpy(st_plain).cuda()[None])
+        if gap > bar:
+            fail(f"the panel's one-kernel decode in the mode differs from "
+                 f"the plain decode at {flips} of {states.size} steps, "
+                 f"{gap:.3e} of score apart (> {bar:.3e})")
+    say("precision", f"{PRECISION_CONFIG.replace(ROOT + os.sep, '')} on the "
+        f"card, solo and micro-batched servers, evaluate, Backtester.run, "
+        f"RegimeBacktest(decode_fn=fused_viterbi_states) in {slice_s:.1f} s: "
+        f"launches {got}; /stream columns bit-equal to the batch filtered "
+        f"posterior; against the plain route, as a share of each output's "
+        f"scale (and the share of its values past {BF16_INFER_EXACT:g}): "
+        + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else
+                    f"{k} {v[0]:.3e} ({v[1]:.3%})"
+                    for k, v in sorted(gaps.items()))
+        + f"; evaluate MSE {mse:.6g}; panel regimes "
+        f"{counts.tolist()}, {flips} steps from the plain decode")
+    return got
+
+
+def phase_precision_times(torch, np, m16, m32):
+    """36c. the four kernels in both modes and the mode's plain versions,
+    back to back with CUDA events and as device-busy time a call."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+    from vqvaehmm_tpu_torch.ops import fused_infer as fi
+
+    rng = np.random.default_rng(38)
+    res = {}
+    with torch.inference_mode():
+        for B, T in PRECISION_SHAPES:
+            x, u, _ = decode_inputs(torch, np, rng, m16, B, T, False, False)
+            for name, call in (
+                    ("fused_infer", lambda m, k: fi.fused_forward(
+                        m, x, valid_to=T, use_kernel=k)),
+                    ("fused_encode", lambda m, k: fe.fused_encode(
+                        m, x, use_kernel=k)),
+                    ("fused_evidence", lambda m, k: fd.fused_evidence(
+                        m, x, u, use_kernel=k)),
+                    ("fused_decode", lambda m, k: fd.fused_viterbi_states(
+                        m, x, u, use_kernel=k))):
+                for mode, m, k in (("fp32", m32, None), ("bf16", m16, None),
+                                   ("plain", m16, False)):
+                    slow = mode == "plain" and name == "fused_decode"
+                    fn = functools.partial(call, m, k)
+                    res[(name, B, T, mode)] = _time(
+                        torch, fn, iters=1 if slow else 20,
+                        windows=3 if slow else 5) + (
+                        _device_ms(torch, fn, 1 if slow else 10,
+                                   name=INFER_TRACE_NAMES.get((name, mode))),)
+    for (name, B, T, mode), (med, lo, hi, dev_ms) in res.items():
+        line = (f"{name} {mode} B={B} T={T}: {med:.4f} ms [{lo:.4f}, "
+                f"{hi:.4f}] back to back; device busy {_ms(dev_ms)} a call")
+        if mode != "plain":
+            bound = kernel_bounds(m16, B, T)[
+                name + ("_bf16" if mode == "bf16" else "")][0]
+            line += f", bound {bound:.3e} ms" + (
+                f" ({100 * bound / dev_ms:.2f}%)" if dev_ms else "")
+        say("times", line)
+    res["evidence_rounds"] = _evidence_rounds(torch, np, m16, m32)
+    return res
+
+
+# rounds of _evidence_rounds
+EVIDENCE_ROUNDS = 6
+
+
+def _evidence_rounds(torch, np, m16, m32):
+    """Kernel 11 at (64, 200), measured again in one process: phase 16's
+    float32 call (its inputs, the published model), this phase's float32
+    call and its bfloat16-operand call, in turn over EVIDENCE_ROUNDS rounds
+    (the order reversed every other round), each round's device-busy ms a
+    call, the device operations its trace held a call (2: the log-softmax
+    of log_pi and the kernel) and back-to-back event ms.  {call: [(device
+    ms, operations, event ms), ...]}"""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+
+    x16, u16, _ = decode_inputs(torch, np, np.random.default_rng(16), m32,
+                                64, 200, False, False)
+    x36, u36, _ = decode_inputs(torch, np, np.random.default_rng(38), m16,
+                                64, 200, False, False)
+    calls = {"phase 16 float32": lambda: fused_evidence(m32, x16, u16),
+             "float32": lambda: fused_evidence(m32, x36, u36),
+             "bf16": lambda: fused_evidence(m16, x36, u36)}
+    names = {k: INFER_TRACE_NAMES[("fused_evidence",
+                                   "bf16" if k == "bf16" else "fp32")]
+             for k in calls}
+    rounds = {k: [] for k in calls}
+    with torch.inference_mode():
+        for r in range(EVIDENCE_ROUNDS):
+            for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                rounds[k].append(_device_trace(
+                    torch, calls[k], 10, name=names[k]) + (
+                    _time(torch, calls[k], iters=20, windows=3)[0],))
+    say("times", f"kernel 11 at B=64 T=200 over {EVIDENCE_ROUNDS} rounds "
+        "in turn, device busy ms a call / device operations a call / event "
+        "ms: " + "; ".join(
+            f"{k}: " + ", ".join(f"{_ms(d)} / {n} / {e:.4f}"
+                                 for d, n, e in v)
+            for k, v in rounds.items()))
+    return rounds
 
 
 def _sha(torch, *tensors) -> str:
@@ -6673,6 +7282,22 @@ def main() -> int:
     say("build", "the scan kernels at K = 3 (Viterbi, one-kernel decode): "
         + "; ".join(kernel_resources(_build.build_log, (
             "viterbi_kernelILi3E", "fused_decode_kernelILi3E"))))
+    infer16 = [v[2] for v in INFER_BF16.values()]
+    say("build", "the bfloat16-operand mode of kernels A, 8, 11 and 10 "
+        "(tile_mma.cuh): " + "; ".join(kernel_resources(
+            _build.build_log, infer16 + ["infer_pack_bf16_kernel",
+                                         "encoder_pack_bf16_kernel"])))
+    hmma.update(_build.sass_counts(infer16 + list(INFER_FP32_SASS)))
+    say("build", "HMMA instructions in the SASS of kernels A, 8, 11 and 10 "
+        "(K = 3) in both modes: " + "; ".join(
+            f"{n} {hmma[n]}" for n in infer16 + list(INFER_FP32_SASS)))
+    for name in infer16:
+        if hmma[name] == 0:
+            fail(f"{name} issues no tensor-core instruction (HMMA)")
+    for name in INFER_FP32_SASS:
+        if hmma[name]:
+            fail(f"{name} issues {hmma[name]} HMMA instructions; the float32 "
+                 f"mode's contract is full float32")
 
     dev = torch.device("cuda")
     model = load_published(torch, dev)
@@ -6784,6 +7409,18 @@ def main() -> int:
         example_launches = phase_examples(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # 36. the default-precision mode of kernels A, 8, 11 and 10
+    t36 = time.perf_counter()
+    m16 = load_published(torch, dev, PRECISION_CONFIG)
+    with torch.inference_mode():
+        err16 = phase_precision_kernels(torch, np, m16, model)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_precision_")
+    try:
+        slice16 = phase_precision_slice(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ptimes = phase_precision_times(torch, np, m16, model)
+    say("precision", f"phase 36 in {time.perf_counter() - t36:.1f} s")
     bounds = kernel_bounds(model, 64, 200)
 
     kernels = [
@@ -6995,6 +7632,51 @@ def main() -> int:
         entry[f"device_ms_by_kernel_{key}"] = tsplits[("fused_train_bf16",
                                                       B, T)]
     kernels.append(entry)
+    # phase 36: the bfloat16-operand mode of kernels A, 8, 11 and 10
+    for name, (source, line, sass) in INFER_BF16.items():
+        b16 = kernel_bounds(model, 64, 200)[f"{name}_bf16"]
+        entry = {"name": f"{name}_bf16", "route": "cuda",
+                 "source": f"vqvaehmm_tpu_torch/csrc/{source}",
+                 "replaces": f"vqvaehmm_tpu/ops/{line}",
+                 "mode": "highest=False: both operands of every product "
+                         "rounded to bfloat16, float32 sums (a float32 model "
+                         "at matmul_precision other than highest)",
+                 "launches": slice16[f"{name}_bf16"],
+                 "max_abs_err": err16[name],
+                 "ms": ptimes[(name, 64, 200, "bf16")][0],
+                 "plain_ms": ptimes[(name, 64, 200, "plain")][0],
+                 "bound_ms": b16[0], "bound_by": b16[1],
+                 "fp32_bound_ms": bounds[name][0], "library_ms": None,
+                 "shape": "B=64 T=200",
+                 "device_ms": ptimes[(name, 64, 200, "bf16")][3],
+                 "plain_device_ms": ptimes[(name, 64, 200, "plain")][3],
+                 "fp32_ms": ptimes[(name, 64, 200, "fp32")][0],
+                 "fp32_device_ms": ptimes[(name, 64, 200, "fp32")][3],
+                 "hmma": hmma[sass]}
+        outs = {"fused_infer": ("mu", "logvar", "q"),
+                "fused_encode": ("logits",),
+                "fused_evidence": ("log_A", "log_obs")}.get(name, ())
+        if outs:
+            entry["max_share_err"] = max(err16["shares"][o][1] for o in outs)
+            entry["share_past_exact"] = max(err16["shares"][o][2]
+                                            for o in outs)
+        if name == "fused_decode":
+            entry["max_abs_err_is"] = "score gap of a tie, 0 if none"
+        if name == "fused_infer":
+            entry["plain_tf32_gap"] = err16["plain_tf32_gap"]
+        if name == "fused_evidence":
+            entry["device_ms_rounds"] = {
+                k: [d for d, _, _ in v]
+                for k, v in ptimes["evidence_rounds"].items()}
+        for B, T in PRECISION_SHAPES[1:]:
+            for mode, key in (("bf16", ""), ("plain", "plain_"),
+                              ("fp32", "fp32_")):
+                entry[f"{key}ms_{B}x{T}"] = ptimes[(name, B, T, mode)][0]
+                entry[f"{key}device_ms_{B}x{T}"] = ptimes[(name, B, T,
+                                                           mode)][3]
+            entry[f"bound_ms_{B}x{T}"] = kernel_bounds(
+                model, B, T)[f"{name}_bf16"][0]
+        kernels.append(entry)
     for k in kernels:
         # phase 30: each stage's launches of the kernel in the recipe run
         k["recipe_launches"] = {s: n[k["name"]]

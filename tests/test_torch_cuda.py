@@ -674,40 +674,58 @@ def test_fused_evidence_rows_independent(cuda):
                 assert torch.equal(log_obs[i:i + 1], o)
 
 
-def test_packed_weights_follow_in_place_updates(cuda):
-    """The packed weights are kept a model and keyed on the parameters'
-    versions: after an in-place update, and after load_state_dict, the
-    kernels answer with the new weights, bit-equal to a fresh model."""
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_packed_weights_follow_in_place_updates(cuda, precision):
+    """The packed weights are kept a model, a kernel family and a mode,
+    and keyed on the parameters' versions: after an in-place update, and
+    after load_state_dict, the kernels (8, 11 and A, in the float32 mode
+    and in the bfloat16-operand mode) answer with the new weights,
+    bit-equal to a fresh model; kernel A's weights are packed once a
+    version, not once a call."""
     from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.ops.fused_encoder import kernel_cache
 
+    P = dict(matmul_precision=precision)
     model = _model(cuda, seed=6, hidden_dim=64, hidden_dim2=32,
-                   trans_hidden=128)
+                   trans_hidden=128, **P)
     x, u, lens = _train_inputs(cuda, 3, 50, 11)
     with torch.inference_mode():
         before = model.encode(x, valid_to=lens)
         ev_before = fused_evidence(model, x, u, lens)
+        a_before = fused_forward(model, x, valid_to=lens)
+        packed = kernel_cache(model).weights(model, x.device, "infer",
+                                             precision != "highest")[0]
+        fused_forward(model, x, valid_to=lens)
+        assert kernel_cache(model).weights(
+            model, x.device, "infer", precision != "highest")[0] is packed
+    assert packed.dtype == (torch.float32 if precision == "highest"
+                            else torch.bfloat16)
     with torch.no_grad():
         for p in model.parameters():
             p.mul_(1.5)
     other = _model(cuda, seed=7, hidden_dim=64, hidden_dim2=32,
-                   trans_hidden=128)
+                   trans_hidden=128, **P)
     for update in ("in place", "load_state_dict"):
         if update == "load_state_dict":
             model.load_state_dict(other.state_dict())
         fresh = _model(cuda, seed=8, hidden_dim=64, hidden_dim2=32,
-                       trans_hidden=128)
+                       trans_hidden=128, **P)
         fresh.load_state_dict(model.state_dict())
         with torch.inference_mode():
             got = model.encode(x, valid_to=lens)
             ev = fused_evidence(model, x, u, lens)
+            a = fused_forward(model, x, valid_to=lens)
             assert torch.equal(got, fresh.encode(x, valid_to=lens)), update
             for g, w in zip(ev, fused_evidence(fresh, x, u, lens)):
                 assert torch.equal(g, w), update
+            for g, w in zip(a, fused_forward(fresh, x, valid_to=lens)):
+                assert torch.equal(g, w), update
         assert not torch.equal(got, before)
         assert not torch.equal(ev[1], ev_before[1])
+        assert not torch.equal(a[0], a_before[0])
     # a model made under inference_mode keeps no versions: its weights are
     # packed every call, so an update in place is seen too
-    widths = dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128)
+    widths = dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128, **P)
     with torch.inference_mode():
         frozen = _model(cuda, seed=9, **widths)
         first = frozen.encode(x, valid_to=lens)
@@ -820,7 +838,9 @@ def test_exact_modes_take_kernel_evidence(cuda):
 def test_plain_versions_launch_no_kernel(cuda):
     """What the kernels are held against stays plain PyTorch on the card:
     no reference, and no differentiable path of the model, reaches a
-    hand-written kernel."""
+    hand-written kernel; nor do the plain versions of the inference
+    kernels' bfloat16-operand mode (a default-precision model's wrappers
+    with use_kernel=False, and the references with bf16_operands=True)."""
     from vqvaehmm_tpu_torch.ops.fused_decode import (
         fused_evidence, fused_evidence_reference, fused_viterbi_states,
         fused_viterbi_states_reference)
@@ -866,6 +886,21 @@ def test_plain_versions_launch_no_kernel(cuda):
                model.viterbi_decode):
         fn(x, u, lens, use_kernel=False)
     model.posterior(x, fused=False)
+    m16 = _model(cuda, seed=8, matmul_precision="default")
+    with torch.inference_mode():
+        fused_forward(m16, x, valid_to=lens, use_kernel=False)
+        fused_forward_reference(m16, x, valid_to=lens, bf16_operands=True)
+        fused_encode(m16, x, valid_to=lens, use_kernel=False)
+        fused_encode_reference(m16, x, valid_to=lens, bf16_operands=True)
+        fused_evidence(m16, x, u, lens, use_kernel=False)
+        fused_evidence_reference(m16, x, u, lens, bf16_operands=True)
+        fused_viterbi_states(m16, x, u, lens, use_kernel=False)
+        fused_viterbi_states_reference(m16, x, u, lens, bf16_operands=True)
+        for fn in (m16.smoothed_posterior, m16.filtered_posterior,
+                   m16.viterbi_decode):
+            fn(x, u, lens, use_kernel=False)
+        m16.infer_forward(x, valid_to=lens, use_kernel=False)
+        m16.posterior(x, fused=False)
     torch.cuda.synchronize()
     assert [w.launches for w in wrappers] == before
 
@@ -2111,3 +2146,223 @@ def test_fused_train_global_norm_halves_sum_to_the_whole(cuda, dtype,
         assert abs(float(pl - wl)) <= loss_tol * abs(float(wl))
         assert float((pf - wf).abs().max()) <= \
             10 * grad_tol * float(wf.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16-operand mode of kernels A, 8, 11 and 10: a float32 model at
+# a matmul_precision other than "highest" (ops/fused_train.py::
+# infer_bf16_mode).  The bars are chip_smoke.py's (phase 36): the mode
+# against its plain version, which rounds the same operands and sums in
+# float32 in another order, agrees within BF16_INFER_EXACT but where such
+# a sum moves an operand across a bfloat16 rounding boundary; there an
+# output moves by up to BF16_INFER_TOL[output] of its largest magnitude
+# (at least 1), each about four times the largest share measured on the
+# card (2^-8 for mu), at no more than BF16_INFER_SHARE of the values.
+# ---------------------------------------------------------------------------
+
+DEFAULT = dict(matmul_precision="default")
+BF16_INFER_EXACT, BF16_INFER_SHARE = 1e-5, 0.02
+BF16_INFER_TOL = {"mu": 2 ** -8, "logvar": 2e-3, "q": 6e-5,
+                  "logits": 2.6e-4, "log_A": 5e-4, "log_obs": 1.4e-4}
+
+
+def _bf16_gap(got, want):
+    """(max-abs error as a share of max(1, |want|), share of values past
+    BF16_INFER_EXACT) of one output of the mode against its plain
+    version."""
+    diff = (got.double() - want.double()).abs()
+    scale = max(1.0, float(want.abs().max()))
+    return (float(diff.max()) / scale,
+            float((diff > BF16_INFER_EXACT).double().mean()))
+
+
+def _bf16_counts():
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    return [(f.launches, f.bf16_launches) for f in (
+        fused_forward, fused_encode, fused_evidence, fused_viterbi_states)]
+
+
+@pytest.mark.parametrize("widths", [
+    dict(), dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128),
+    dict(input_dim=7, hidden_dim=24, hidden_dim2=40, K=5, trans_hidden=36)])
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 37), (64, 200), (2, 600)])
+def test_inference_bf16_matches_plain(cuda, widths, B, T, record_property):
+    """Each of the four kernels in the mode against its plain version
+    (use_kernel=False on the card, the references with
+    bf16_operands=True): the outputs within the mode's bars, the decode
+    bit-equal to kernel 11 -> kernel B and equal to the plain decode or
+    tied; one launch each, counted in both counts.  The same weights at
+    "highest" take the float32 kernels, which the mode's count skips.
+    Each output's readings (its share of the scale, its share of values
+    past BF16_INFER_EXACT) are recorded as a property of the case, which
+    --junitxml writes out."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import (
+        fused_evidence, fused_evidence_reference, fused_viterbi_states,
+        fused_viterbi_states_reference)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import (fused_encode,
+                                                      fused_encode_reference)
+
+    model = _model(cuda, seed=21, **widths, **DEFAULT)
+    C = model.cfg.input_dim
+    x, u, lens = _train_inputs(cuda, B, T, B * 7 + T, C=C)
+    before = _bf16_counts()
+    with torch.inference_mode():
+        got_a = fused_forward(model, x, valid_to=lens)
+        got_8 = fused_encode(model, x, valid_to=lens)
+        got_11 = fused_evidence(model, x, u, lens)
+        states = fused_viterbi_states(model, x, u, lens)
+        after = _bf16_counts()
+        two_stage = viterbi_fused(*got_11, lens).states
+        want_a = fused_forward_reference(model, x, valid_to=lens,
+                                         bf16_operands=True)
+        assert all(torch.equal(g, w) for g, w in zip(want_a, fused_forward(
+            model, x, valid_to=lens, use_kernel=False)))
+        want_8 = fused_encode_reference(model, x, valid_to=lens,
+                                        bf16_operands=True)
+        want_11 = fused_evidence_reference(model, x, u, lens,
+                                           bf16_operands=True)
+        plain = fused_viterbi_states_reference(model, x, u, lens,
+                                               bf16_operands=True)
+        f32 = _model(cuda, seed=21, **widths)
+        f32_a = fused_forward(f32, x, valid_to=lens)
+    assert after == [(n + 1, m + 1) for n, m in before]
+    assert _bf16_counts()[0] == (after[0][0] + 1, after[0][1])
+    gaps = {}
+    for g, w, name in zip((*got_a, got_8, *got_11[1:]),
+                          (*want_a, want_8, *want_11[1:]),
+                          ("mu", "logvar", "q", "logits", "log_A",
+                           "log_obs")):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        gaps[name] = _bf16_gap(g, w)
+        record_property(name, gaps[name])
+    for name, (share, past) in gaps.items():
+        assert share <= BF16_INFER_TOL[name], (name, share)
+        assert past <= BF16_INFER_SHARE, (name, past)
+    assert torch.equal(got_11[0], want_11[0])
+    assert not torch.equal(f32_a[0], got_a[0])
+    assert torch.equal(states, two_stage)
+    if not torch.equal(states, plain):
+        # a path optimal under the kernel's evidence scores within twice
+        # the two evidences' gap, summed over the steps, of the optimum
+        full = lens.long()
+        sg = _path_scores(*want_11, states, full).double()
+        sw = _path_scores(*want_11, plain, full).double()
+        slack = 2 * ((got_11[1] - want_11[1]).abs().amax(dim=(2, 3)).sum(1)
+                     + (got_11[2] - want_11[2]).abs().amax(dim=2).sum(1))
+        assert bool(((sg - sw).abs() <= 1e-4 + slack.double()).all())
+
+
+@pytest.mark.parametrize("B,T", [(3, 37), (64, 200), (460, 20), (1, 2327)])
+def test_inference_bf16_tiles_and_rows_bit_equal(cuda, B, T):
+    """In the mode every tile width (and split) of kernels A, 8 and 11
+    gives the same bits, and a row of a batch of A, 8, 11 and 10 is
+    bit-equal to the row alone: each output's sum is one fixed sequence
+    of chunks wherever its step sits in a tile or a halo."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+    from vqvaehmm_tpu_torch.ops import fused_infer as fi
+
+    model = _model(cuda, seed=22, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128, **DEFAULT)
+    x, u, lens = _train_inputs(cuda, B, T, B + 3 * T, btu=True)
+    outs = ([], [], [])
+    with torch.inference_mode():
+        for tile in fi.TILES:
+            a = tuple(torch.empty((B, c, T), device=cuda) for c in (5, 5, 3))
+            fi._launch(model, x, lens, tile, a, bf16=True)
+            lg = torch.empty((B, 3, T), device=cuda)
+            fe._launch(model, x, lens, tile, lg, bf16=True)
+            outs[0].append(a)
+            outs[1].append((lg,))
+            for split in (False, True):
+                ev = (torch.empty((B, T, 3), device=cuda),
+                      torch.empty((B, T, 3, 3), device=cuda))
+                fd._launch_evidence(model, x, u, lens, tile, split, ev,
+                                    bf16=True)
+                outs[2].append(ev)
+        for kind in outs:
+            for o in kind[1:]:
+                assert all(torch.equal(p, q) for p, q in zip(o, kind[0]))
+        whole = (fi.fused_forward(model, x, valid_to=lens),
+                 (fe.fused_encode(model, x, valid_to=lens),),
+                 fd.fused_evidence(model, x, u)[1:],
+                 (fd.fused_viterbi_states(model, x, u),))
+        # the launches above ran the mode the wrappers run
+        for w, kind in zip(whole[:2], outs[:2]):
+            assert all(torch.equal(p, q) for p, q in zip(w, kind[0]))
+        for i in sorted({0, B // 2, B - 1}):
+            r = slice(i, i + 1)
+            alone = (fi.fused_forward(model, x[r], valid_to=lens[r]),
+                     (fe.fused_encode(model, x[r], valid_to=lens[r]),),
+                     fd.fused_evidence(model, x[r], u[r])[1:],
+                     (fd.fused_viterbi_states(model, x[r], u[r]),))
+            for w, a in zip(whole, alone):
+                assert all(torch.equal(p[r], q) for p, q in zip(w, a)), i
+
+
+def test_inference_bf16_stream_bit_equal_to_batch(cuda, tmp_path):
+    """A default-precision model's /stream session (kernel 11's mode on
+    each step's window): every settled column bit-equal to the card's
+    batch filtered posterior, which runs the same mode on the whole
+    sequence; 3T - 3 evidence steps, all in the mode."""
+    import json
+
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+    from vqvaehmm_tpu_torch.serve.app import InferenceModel
+
+    path = _serving_config(tmp_path, cuda, seed=9, hidden_dim=64,
+                           hidden_dim2=32, trans_hidden=128)
+    cfg = json.loads(open(path).read())
+    cfg["model"]["matmul_precision"] = "default"
+    open(path, "w").write(json.dumps(cfg))
+    m = InferenceModel(path, device=cuda)
+    rng = np.random.default_rng(13)
+    T = 40
+    x = rng.normal(size=(5, T)).astype(np.float32)
+    u = rng.normal(size=(4, T)).astype(np.float32)
+    n0 = (fused_evidence.launches, fused_evidence.bf16_launches)
+    got = {}
+    for t in range(T):
+        out = m.stream("s", x_t=x[:, t].tolist(), u_t=u[:, t].tolist(),
+                       finish=t == T - 1)
+        got.update({d["t"]: d["regime_probs"] for d in out["settled"]})
+    assert (fused_evidence.launches - n0[0],
+            fused_evidence.bf16_launches - n0[1]) == (3 * T - 3, 3 * T - 3)
+    with torch.inference_mode():
+        batch = m.model.filtered_posterior(
+            torch.from_numpy(x)[None].to(cuda),
+            torch.from_numpy(u)[None].to(cuda),
+            torch.tensor([T], device=cuda))[0].cpu()
+    assert sorted(got) == list(range(T))
+    assert torch.equal(torch.tensor([got[t] for t in range(T)]).T, batch)
+
+
+def test_inference_bf16_gates_raise(cuda):
+    """A model the mode's gate refuses (operands past a block's shared
+    memory at every tile), and a decode grid the mode cannot keep
+    resident, raise: no kernel launches and nothing falls back to the
+    float32 kernels or to the plain path."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    wide = _model(cuda, hidden_dim=8, hidden_dim2=3000, **DEFAULT)
+    x = torch.zeros((1, 5, 16), device=cuda)
+    u = torch.zeros((1, 4, 16), device=cuda)
+    before = _bf16_counts()
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="bfloat16"):
+            fused_forward(wide, x)
+        for fn in (fused_encode, lambda m, a: fused_evidence(m, a, u),
+                   lambda m, a: fused_viterbi_states(m, a, u)):
+            with pytest.raises(ValueError, match="unsupported"):
+                fn(wide, x)
+        many = _model(cuda, K=8, **DEFAULT)
+        with pytest.raises(ValueError, match="resident"):
+            fused_viterbi_states(many, torch.zeros((256, 5, 2000),
+                                                   device=cuda),
+                                 torch.zeros((256, 4, 2000), device=cuda))
+    assert _bf16_counts() == before

@@ -97,21 +97,26 @@ def test_shared_header_enters_the_build_digest():
     """The encoder stages live in headers that several sources include: an
     edited header must change the library's name, so the build hashes the
     headers beside the sources.  Kernels 8, 10 and 11 share
-    encoder_fma.cuh (on tile_fma.cuh); kernels B and 10 share the scan of
-    maxplus_scan.cuh; kernel C's bfloat16 mode is on tile_mma.cuh."""
+    encoder_fma.cuh (on tile_fma.cuh) and, in their bfloat16-operand
+    mode, encoder_mma.cuh (on tile_mma.cuh); kernels B and 10 share the
+    scan of maxplus_scan.cuh; kernel C's bfloat16 mode and kernel A's are
+    on tile_mma.cuh."""
     from vqvaehmm_tpu_torch.ops import _build
 
     names = [h.name for h in _build.headers()]
-    assert names == ["encoder_fma.cuh", "maxplus_scan.cuh", "tile_fma.cuh",
-                     "tile_mma.cuh"]
+    assert names == ["encoder_fma.cuh", "encoder_mma.cuh",
+                     "maxplus_scan.cuh", "tile_fma.cuh", "tile_mma.cuh"]
     users = [s.name for s in _build.sources()
              if '#include "tile_mma.cuh"' in s.read_text()]
-    assert users == ["fused_train.cu"]
-    users = [s.name for s in _build.sources()
-             if '#include "encoder_fma.cuh"' in s.read_text()]
-    assert users == ["fused_decode.cu", "fused_encoder.cu"]
+    assert users == ["fused_infer.cu", "fused_train.cu"]
+    for header in ("encoder_fma.cuh", "encoder_mma.cuh"):
+        users = [s.name for s in _build.sources()
+                 if f'#include "{header}"' in s.read_text()]
+        assert users == ["fused_decode.cu", "fused_encoder.cu"]
     assert '#include "tile_fma.cuh"' in (
         _build.CSRC / "encoder_fma.cuh").read_text()
+    assert '#include "tile_mma.cuh"' in (
+        _build.CSRC / "encoder_mma.cuh").read_text()
     users = [s.name for s in _build.sources()
              if '#include "tile_fma.cuh"' in s.read_text()]
     assert users == ["fused_infer.cu", "fused_train.cu", "viterbi.cu"]

@@ -71,6 +71,19 @@
 // on one warp) and its four grid barriers, and keeps every tile of the
 // batch resident, which bounds B * T (the launcher refuses a plan whose
 // tiles do not fit).
+//
+// The bfloat16-operand mode (the TPU kernels' highest=False, taken by a
+// float32 model whose matmul_precision is not "highest"): the same two
+// designs with the evidence stages of encoder_mma.cuh, each layer an
+// implicit GEMM of mma.sync.m16n8k16 (tile_mma.cuh) on bfloat16 operands
+// with float32 sums, the weights packed once a model in mma fragment order
+// (vqhmm_encoder_pack, bf16 = 1) and read from L2: fused_evidence_bf16_kernel
+// (blocks of encmma::THREADS threads, split as the float32 kernel) and
+// fused_decode_kernel<K, true> (the same persistent blocks, phases and
+// scan).  The log-softmax, the scan and the backtrace are the float32
+// mode's.  Its bound is the card's dense bf16 rate, 989 TFLOP/s: the
+// evidence is then bound by its bytes at every shape, and what holds it
+// there is a block's chain of five layers and their barriers.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -80,6 +93,7 @@
 #include <cooperative_groups.h>
 
 #include "encoder_fma.cuh"
+#include "encoder_mma.cuh"
 #include "maxplus_scan.cuh"
 
 namespace {
@@ -168,11 +182,60 @@ __global__ void __launch_bounds__(encfma::MAX_THREADS, 2)
              stage != 0 ? log_A + ((size_t)b * T + t0) * KK : nullptr);
 }
 
+// The float32 rows of a bfloat16-mode block as the log-softmax and the
+// tile writer read them.
+__device__ __forceinline__ encfma::Rows tile_rows(const encmma::Ops& s) {
+  encfma::Rows r{};
+  r.lg = s.lg;
+  r.ap = s.ap;
+  return r;
+}
+
+// The bfloat16 mode of fused_evidence_kernel: the same blocks, stages and
+// outputs, the layers on the tensor cores (encoder_mma.cuh); W.wp holds
+// the weights vqhmm_encoder_pack packed in the bfloat16 mode.
+__global__ void __launch_bounds__(encmma::THREADS, encmma::BLOCKS_PER_SM)
+    fused_evidence_bf16_kernel(const float* __restrict__ x,
+                               const float* __restrict__ u, long long u_sb,
+                               long long u_sc, long long u_st,
+                               const int* __restrict__ lengths,
+                               encfma::Weights W,
+                               float* __restrict__ log_obs,
+                               float* __restrict__ log_A, encfma::Dims d,
+                               int B, int T, int tile, int tiles, int split) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const encmma::Ops s = encmma::carve(smem_b, d, tile);
+  const tilemma::bf16* wp = reinterpret_cast<const tilemma::bf16*>(W.wp);
+  const int K = d.K, KK = d.K * d.K;
+  // stage 0: the encoder, 1: the prior, 2: both
+  const int unit = split ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+  const int stage = split ? (int)(blockIdx.x & 1) : 2;
+  const int b = unit / tiles;
+  const int t0 = (unit - b * tiles) * tile;
+  const int n = min(tile, T - t0);
+
+  if (stage != 1)
+    encmma::encoder_stage(x + (size_t)b * d.C * T, wp, W.eb1, W.eb2, d, T,
+                          t0, n, batch_bound(lengths, B, T), s,
+                          encmma::raw_logits(s));
+  if (stage != 0)
+    encmma::prior_stage(u + b * u_sb, u_sc, u_st, wp, W.pb1, d, T, t0, n, s);
+  const encfma::Rows r = tile_rows(s);
+  tile_log_softmax(r, W, K, n, s.WS, stage == 0 ? K : 0,
+                   stage == 1 ? K : K + 1);
+  write_tile(r, K, n, s.WS,
+             stage != 1 ? log_obs + ((size_t)b * T + t0) * K : nullptr,
+             stage != 0 ? log_A + ((size_t)b * T + t0) * KK : nullptr);
+}
+
 // Floats of a block of the decode before the tile store: the evidence
-// stage's shared memory, rounded to 16 bytes.
+// stage's shared memory in the mode, rounded to 16 bytes.
+template <bool BF16>
 __host__ __device__ inline int decode_stage_floats(const encfma::Dims& d,
                                                    int tile) {
-  return (encfma::smem_bytes(d, tile) / 4 + 3) & ~3;
+  const int bytes = BF16 ? encmma::smem_bytes(d, tile)
+                         : encfma::smem_bytes(d, tile);
+  return (bytes / 4 + 3) & ~3;
 }
 
 // Floats of one tile in the store: log_obs (tile * K), log_A
@@ -203,8 +266,9 @@ constexpr int DECODE_THREADS = 320;
 
 // Dynamic shared memory of a decode block holding ntb tiles: the stage,
 // the tile store, the scratch.
+template <bool BF16>
 inline long long decode_smem(const encfma::Dims& d, int tile, int ntb) {
-  return 4LL * (decode_stage_floats(d, tile) +
+  return 4LL * (decode_stage_floats<BF16>(d, tile) +
                 (long long)ntb * tile_floats(d.K, tile) + scratch_floats(d.K));
 }
 
@@ -222,7 +286,40 @@ __device__ __forceinline__ TileAt tile_at(int unit, int tiles, int tile,
   return at;
 }
 
-template <int K>
+// One tile's evidence as kernel 11 computes it in the mode, from the stage
+// region at smem into the store: so (n * K) and sa (n * K * K).  No
+// barrier after the write.
+template <bool BF16>
+__device__ __forceinline__ void tile_evidence(
+    float* smem, const float* __restrict__ x, const float* __restrict__ u,
+    long long u_sb, long long u_sc, long long u_st, const encfma::Weights& W,
+    const encfma::Dims& d, int T, int tile, const TileAt& at, int vt,
+    float* so, float* sa) {
+  if constexpr (BF16) {
+    const encmma::Ops s =
+        encmma::carve(reinterpret_cast<unsigned char*>(smem), d, tile);
+    const tilemma::bf16* wp = reinterpret_cast<const tilemma::bf16*>(W.wp);
+    encmma::encoder_stage(x + (size_t)at.b * d.C * T, wp, W.eb1, W.eb2, d,
+                          T, at.t0, at.n, vt, s, encmma::raw_logits(s));
+    encmma::prior_stage(u + at.b * u_sb, u_sc, u_st, wp, W.pb1, d, T, at.t0,
+                        at.n, s);
+    const encfma::Rows r = tile_rows(s);
+    tile_log_softmax(r, W, d.K, at.n, s.WS, 0, d.K + 1);
+    write_tile(r, d.K, at.n, s.WS, so, sa);
+  } else {
+    const int WS = encfma::row_stride(tile);
+    const encfma::Rows s = encfma::carve(smem, d, WS);
+    tilefma::Pipe pipe{smem, 0, false};
+    encfma::encoder_stage(x + (size_t)at.b * d.C * T, W, d, T, at.t0, at.n,
+                          WS, vt, s, pipe, encfma::prior_first(W, d));
+    encfma::prior_stage(u + at.b * u_sb, u_sc, u_st, W, d, at.t0, at.n, WS,
+                        s, pipe);
+    tile_log_softmax(s, W, d.K, at.n, WS, 0, d.K + 1);
+    write_tile(s, d.K, at.n, WS, so, sa);
+  }
+}
+
+template <int K, bool BF16>
 __global__ void __launch_bounds__(DECODE_THREADS, 2)
     fused_decode_kernel(const float* __restrict__ x,
                         const float* __restrict__ u, long long u_sb,
@@ -237,10 +334,8 @@ __global__ void __launch_bounds__(DECODE_THREADS, 2)
   cg::grid_group grid = cg::this_grid();
   constexpr int KK = K * K;
   constexpr int AG = KK + K;          // scratch floats a segment
-  const int WS = encfma::row_stride(tile);
-  const encfma::Rows s = encfma::carve(smem, d, WS);
   const int tf = tile_floats(K, tile);
-  float* store = smem + decode_stage_floats(d, tile);
+  float* store = smem + decode_stage_floats<BF16>(d, tile);
   float* chunk = store + ntb * tf;
   const int S = mpscan::seg_len(T), G = mpscan::num_segments(T);
   const int units = B * tiles;
@@ -251,15 +346,10 @@ __global__ void __launch_bounds__(DECODE_THREADS, 2)
     const int unit = blockIdx.x + k * gridDim.x;
     if (unit >= units) break;
     const TileAt at = tile_at(unit, tiles, tile, T);
-    tilefma::Pipe pipe{smem, 0, false};
-    encfma::encoder_stage(x + (size_t)at.b * d.C * T, W, d, T, at.t0, at.n,
-                          WS, vt, s, pipe, encfma::prior_first(W, d));
-    encfma::prior_stage(u + at.b * u_sb, u_sc, u_st, W, d, at.t0, at.n, WS,
-                        s, pipe);
-    tile_log_softmax(s, W, K, at.n, WS, 0, K + 1);
     float* so = store + k * tf;
     float* sa = so + tile * K;
-    write_tile(s, K, at.n, WS, so, sa);
+    tile_evidence<BF16>(smem, x, u, u_sb, u_sc, u_st, W, d, T, tile, at, vt,
+                        so, sa);
     __syncthreads();
     unsigned* sb = reinterpret_cast<unsigned*>(sa + tile * KK);
     const int L = lengths ? lengths[at.b] : T;
@@ -426,7 +516,7 @@ __global__ void __launch_bounds__(DECODE_THREADS, 2)
 // (ntb) for which the resident blocks (the runtime's occupancy of this
 // kernel at that shared memory, on every SM) cover the B * ceil(T / tile)
 // tiles.  out = {grid, ntb, threads, smem}.
-template <int K>
+template <int K, bool BF16>
 cudaError_t decode_plan(const encfma::Dims& d, int B, int T, int tile,
                         int* out) {
   int dev = 0, sms = 0;
@@ -434,20 +524,21 @@ cudaError_t decode_plan(const encfma::Dims& d, int B, int T, int tile,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_decode_kernel<K>,
+    err = cudaFuncSetAttribute(fused_decode_kernel<K, BF16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                encfma::SMEM_LIMIT);
   if (err != cudaSuccess) return err;
   int G = d.H1 > d.H2 ? d.H1 : d.H2;
   G = G > d.HP ? G : d.HP;
-  const int threads = encfma::block_threads(tile, G, DECODE_THREADS);
+  const int threads = BF16 ? encmma::THREADS
+                           : encfma::block_threads(tile, G, DECODE_THREADS);
   const long long units = (long long)B * ((T + tile - 1) / tile);
   for (int ntb = 1;; ++ntb) {
-    const long long smem = decode_smem(d, tile, ntb);
+    const long long smem = decode_smem<BF16>(d, tile, ntb);
     if (smem > encfma::SMEM_LIMIT) return cudaErrorInvalidValue;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_decode_kernel<K>, threads, (size_t)smem);
+        &per_sm, fused_decode_kernel<K, BF16>, threads, (size_t)smem);
     if (err != cudaSuccess) return err;
     if ((long long)per_sm * sms * ntb >= units) {
       out[0] = (int)((units + ntb - 1) / ntb);
@@ -459,7 +550,7 @@ cudaError_t decode_plan(const encfma::Dims& d, int B, int T, int tile,
   }
 }
 
-template <int K>
+template <int K, bool BF16>
 cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
                           long long u_sc, long long u_st, const int* lengths,
                           encfma::Weights W, const float* log_pi, float* agg,
@@ -467,7 +558,7 @@ cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
                           encfma::Dims d, int B, int T, int tile,
                           cudaStream_t stream) {
   int plan[4];
-  const cudaError_t err = decode_plan<K>(d, B, T, tile, plan);
+  const cudaError_t err = decode_plan<K, BF16>(d, B, T, tile, plan);
   if (err != cudaSuccess) return err;
   int tiles = (T + tile - 1) / tile, ntb = plan[1];
   void* args[] = {(void*)&x,       (void*)&u,    (void*)&u_sb,
@@ -476,46 +567,63 @@ cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
                   (void*)&sel,     (void*)&ends, (void*)&states,
                   (void*)&d,       (void*)&B,    (void*)&T,
                   (void*)&tile,    (void*)&tiles, (void*)&ntb};
-  return cudaLaunchCooperativeKernel((const void*)fused_decode_kernel<K>,
+  return cudaLaunchCooperativeKernel((const void*)fused_decode_kernel<K, BF16>,
                                      dim3(plan[0]), dim3(plan[2]), args,
                                      (size_t)plan[3], stream);
 }
 
 }  // namespace
 
-// Dynamic shared memory of an evidence block at tile width `tile`.
+// Dynamic shared memory of an evidence block at tile width `tile`; bf16:
+// the bfloat16-operand mode's.
 extern "C" int vqhmm_fused_evidence_smem_bytes(int C, int H1, int H2, int K,
-                                               int U, int HP, int tile) {
-  return encfma::smem_bytes(encfma::Dims{C, H1, H2, K, U, HP}, tile);
+                                               int U, int HP, int tile,
+                                               int bf16) {
+  const encfma::Dims d{C, H1, H2, K, U, HP};
+  return bf16 ? encmma::smem_bytes(d, tile) : encfma::smem_bytes(d, tile);
 }
 
-// packed_weights: vqhmm_encoder_pack's layout with the prior (HP > 0);
-// lengths may be null.
+// packed_weights: vqhmm_encoder_pack's layout with the prior (HP > 0), in
+// the same mode; lengths may be null.  bf16: the bfloat16-operand mode,
+// which stages no weights (no weight-buffer bound).
 extern "C" int vqhmm_fused_evidence(
     const float* x, const float* u, long long u_sb, long long u_sc,
-    long long u_st, const int* lengths, const float* packed_weights,
+    long long u_st, const int* lengths, const void* packed_weights,
     const float* eb1, const float* eb2, const float* eb3, const float* pb1,
     const float* pb2, float* log_obs, float* log_A, int B, int C, int T,
-    int U, int H1, int H2, int K, int HP, int tile, int split, void* stream) {
+    int U, int H1, int H2, int K, int HP, int tile, int split, int bf16,
+    void* stream) {
   const encfma::Dims d{C, H1, H2, K, U, HP};
-  const int smem = encfma::smem_bytes(d, tile);
+  const int smem = vqhmm_fused_evidence_smem_bytes(C, H1, H2, K, U, HP, tile,
+                                                   bf16);
   if (!encfma::tile_ok(tile) || B <= 0 || T <= 0 || U <= 0 || HP <= 0 ||
-      !encfma::layers_fit(d) || smem > encfma::SMEM_LIMIT)
+      K <= 0 || !(bf16 || encfma::layers_fit(d)) ||
+      smem > encfma::SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const int tiles = (T + tile - 1) / tile;
   const long long blocks = (long long)tiles * B * (split ? 2 : 1);
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const void* kernel = bf16 ? (const void*)fused_evidence_bf16_kernel
+                            : (const void*)fused_evidence_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_evidence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const encfma::Weights W{packed_weights, eb1, eb2, eb3, pb1, pb2};
-  int G = H1 > H2 ? H1 : H2;
-  G = G > HP ? G : HP;
-  fused_evidence_kernel<<<(unsigned)blocks, encfma::block_threads(tile, G),
-                          smem, (cudaStream_t)stream>>>(
-      x, u, u_sb, u_sc, u_st, lengths, W, log_obs, log_A, d, B, T, tile,
-      tiles, split ? 1 : 0);
+  const encfma::Weights W{reinterpret_cast<const float*>(packed_weights),
+                          eb1, eb2, eb3, pb1, pb2};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) {
+    fused_evidence_bf16_kernel<<<(unsigned)blocks, encmma::THREADS, smem,
+                                 st>>>(x, u, u_sb, u_sc, u_st, lengths, W,
+                                       log_obs, log_A, d, B, T, tile, tiles,
+                                       split ? 1 : 0);
+  } else {
+    int G = H1 > H2 ? H1 : H2;
+    G = G > HP ? G : HP;
+    fused_evidence_kernel<<<(unsigned)blocks, encfma::block_threads(tile, G),
+                            smem, st>>>(x, u, u_sb, u_sc, u_st, lengths, W,
+                                        log_obs, log_A, d, B, T, tile, tiles,
+                                        split ? 1 : 0);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -532,42 +640,51 @@ extern "C" int vqhmm_fused_evidence(
     default: return (int)cudaErrorInvalidValue;                          \
   }
 
-static bool decode_dims_ok(const encfma::Dims& d, int B, int T, int tile) {
+// bf16: the bfloat16 mode, which stages no weights (no weight-buffer
+// bound).
+static bool decode_dims_ok(const encfma::Dims& d, int B, int T, int tile,
+                           bool bf16) {
   return encfma::tile_ok(tile) && B > 0 && T > 0 && d.U > 0 && d.HP > 0 &&
-         encfma::layers_fit(d) && (long long)B * T <= INT_MAX;
+         (bf16 || encfma::layers_fit(d)) && (long long)B * T <= INT_MAX;
 }
 
-// The decode's plan for the current device: out = {grid, ntb, threads,
-// smem}; an error where no number of tiles a block fits a block's shared
-// memory with every tile resident.
+// The decode's plan for the current device in either mode: out = {grid,
+// ntb, threads, smem}; an error where no number of tiles a block fits a
+// block's shared memory with every tile resident.
 extern "C" int vqhmm_fused_decode_plan(int B, int C, int T, int U, int H1,
                                        int H2, int K, int HP, int tile,
-                                       int* out) {
+                                       int bf16, int* out) {
   const encfma::Dims d{C, H1, H2, K, U, HP};
-  if (!decode_dims_ok(d, B, T, tile)) return (int)cudaErrorInvalidValue;
-#define VQHMM_PLAN(KV) decode_plan<KV>(d, B, T, tile, out)
+  if (!decode_dims_ok(d, B, T, tile, bf16)) return (int)cudaErrorInvalidValue;
+#define VQHMM_PLAN(KV)                                        \
+  (bf16 ? decode_plan<KV, true>(d, B, T, tile, out)           \
+        : decode_plan<KV, false>(d, B, T, tile, out))
   VQHMM_DECODE_SWITCH(VQHMM_PLAN)
 #undef VQHMM_PLAN
 }
 
-// packed_weights as for the evidence; lengths may be null; agg a scratch
-// of B * G * (K * K + K) floats, sel and ends of B * G words (G the
-// segments of maxplus_scan.cuh).  K is bounded by the 4-bit backpointers
-// and the template instances.
+// packed_weights as for the evidence, in the same mode; lengths may be
+// null; agg a scratch of B * G * (K * K + K) floats, sel and ends of B * G
+// words (G the segments of maxplus_scan.cuh).  K is bounded by the 4-bit
+// backpointers and the template instances.
 extern "C" int vqhmm_fused_decode(
     const float* x, const float* u, long long u_sb, long long u_sc,
-    long long u_st, const int* lengths, const float* packed_weights,
+    long long u_st, const int* lengths, const void* packed_weights,
     const float* eb1, const float* eb2, const float* eb3, const float* pb1,
     const float* pb2, const float* log_pi, float* agg, unsigned* sel,
     int* ends, int* states, int B, int C, int T, int U, int H1, int H2, int K,
-    int HP, int tile, void* stream) {
+    int HP, int tile, int bf16, void* stream) {
   const encfma::Dims d{C, H1, H2, K, U, HP};
-  if (!decode_dims_ok(d, B, T, tile)) return (int)cudaErrorInvalidValue;
-  const encfma::Weights W{packed_weights, eb1, eb2, eb3, pb1, pb2};
+  if (!decode_dims_ok(d, B, T, tile, bf16)) return (int)cudaErrorInvalidValue;
+  const encfma::Weights W{reinterpret_cast<const float*>(packed_weights),
+                          eb1, eb2, eb3, pb1, pb2};
   cudaStream_t st = (cudaStream_t)stream;
-#define VQHMM_LAUNCH(KV)                                                   \
-  launch_decode<KV>(x, u, u_sb, u_sc, u_st, lengths, W, log_pi, agg, sel, \
-                    ends, states, d, B, T, tile, st)
+#define VQHMM_LAUNCH(KV)                                                     \
+  (bf16 ? launch_decode<KV, true>(x, u, u_sb, u_sc, u_st, lengths, W, log_pi, \
+                                  agg, sel, ends, states, d, B, T, tile, st)  \
+        : launch_decode<KV, false>(x, u, u_sb, u_sc, u_st, lengths, W,        \
+                                   log_pi, agg, sel, ends, states, d, B, T,   \
+                                   tile, st))
   VQHMM_DECODE_SWITCH(VQHMM_LAUNCH)
 #undef VQHMM_LAUNCH
 }

@@ -26,9 +26,9 @@
 // whose few outputs are spread over the block a (step, output) each), the
 // weights stream through shared memory in cp.async slabs laid out so
 // that a warp reads them as neighbouring 16-byte words, and the lanes of
-// a warp share their input window.  A first small kernel of the call
-// packs the torch weights into that order (32 768 floats at the published
-// widths), so that a block stages a slab as one contiguous run.
+// a warp share their input window.  A small pack kernel lays the torch
+// weights out in that order (32 768 floats at the published widths), so
+// that a block stages a slab as one contiguous run.
 //
 // Bound.  At the published widths a token costs about 65 kFLOP against 72
 // bytes of input and output, so the kernel is bound by operations: fp32
@@ -53,12 +53,34 @@
 //    output's summation order is fixed (input channels ascending, taps 0,
 //    1, 2 nested), so a row of a batch is bit-identical to the same row
 //    computed alone, at any tile width.
+//
+// The weights are packed by vqhmm_fused_infer_pack, which the wrapper
+// calls once a weight version and mode (ops/fused_encoder.py::KernelCache)
+// and which also raises the kernel's dynamic shared-memory limit, so a
+// request launches the forward alone.
+//
+// The bfloat16-operand mode (the TPU kernel's highest=False, taken by a
+// float32 model whose matmul_precision is not "highest";
+// fused_infer_bf16_kernel): both operands of every product rounded to the
+// nearest bfloat16 and the sums float32, on the tensor cores: the same
+// window and stages, each layer an implicit GEMM of mma.sync.m16n8k16
+// (tile_mma.cuh::layer) over bfloat16 operands kept time-major in two
+// ping-pong buffers sized by the widest of H1, H2, D and K, the weights
+// in mma fragment order read from L2.  x is rounded as it is staged and q
+// as the codebook product's operand (K padded to a chunk of 16); the
+// biases, ReLUs, masks and the softmax stay float32, the logits and q in
+// K float32 rows, (mu, logvar) in 2C.  Its plain version is
+// VAEHMM.encode/decode(bf16_operands=True) (ops/nn.py::bf16_matmul).
+// Its bound is the card's dense bf16 rate, 989 TFLOP/s, against which a
+// token's 65 kFLOP leave it bound by bytes at every shape; what holds it
+// there is one block's chain of seven layers and their barriers.
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstddef>
 
 #include "tile_fma.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -66,6 +88,8 @@ constexpr int HALO = 4;                // one step per k=3 convolution
 constexpr int JB = 4;                  // time steps per thread in a conv
 constexpr int MAX_THREADS = 512;
 constexpr float NEG = -1e30f;
+// shared memory a Hopper block may use (227 KB, NVIDIA H100 data sheet)
+constexpr int SMEM_LIMIT = 232448;
 
 __host__ __device__ inline int row_stride(int tile) {
   return tile + 2 * HALO + JB;         // window plus room for over-reads
@@ -110,6 +134,33 @@ struct PackJobs {
 __global__ void __launch_bounds__(256) infer_pack_kernel(PackJobs jobs,
                                                    float* __restrict__ dst) {
   tilefma::pack_weights(jobs.j, NPACK, dst);
+}
+
+// First bfloat16 value of each layer in the bfloat16 mode's packed weights
+// (tile_mma.cuh's fragment order; the codebook as the transposed layer).
+__host__ __device__ inline Packed packed_bf16(int C, int H1, int H2, int K,
+                                              int D) {
+  using tilemma::packed_elems;
+  Packed p;
+  long long at = 0;
+  p.ew1 = at; at += packed_elems(H1, C, 3);
+  p.ew2 = at; at += packed_elems(H2, H1, 3);
+  p.ew3 = at; at += packed_elems(K, H2, 1);
+  p.emb = at; at += packed_elems(D, K, 1);
+  p.dw1 = at; at += packed_elems(D, D, 3);
+  p.dw2 = at; at += packed_elems(D, D, 3);
+  p.dw3 = at; at += packed_elems(2 * C, D, 1);
+  p.total = at;
+  return p;
+}
+
+struct MmaPackJobs {
+  tilemma::PackJob j[NPACK];
+};
+
+__global__ void __launch_bounds__(256) infer_pack_bf16_kernel(
+    MmaPackJobs jobs, tilemma::bf16* __restrict__ dst) {
+  tilemma::pack_fragments(jobs.j, NPACK, dst);
 }
 
 __device__ __forceinline__ bool outside(int p, int T, int vt) {
@@ -216,6 +267,123 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_infer_kernel(
   }
 }
 
+// The bfloat16 mode's block: 8 warps, at most 3 an SM (85 registers a
+// thread).  Shared memory: bfloat16 operands of op_rows_bf16(tile) rows
+// (x, then two ping-pong buffers of the widest of H1, H2, D and K), then
+// float32 rows of row_stride(tile) floats: K for the logits and q, 2C for
+// (mu, logvar).
+constexpr int MMA_THREADS = 256;
+
+__host__ __device__ inline int op_rows_bf16(int tile) {
+  return tile + 2 * HALO;
+}
+
+__host__ __device__ inline int operand_bf16(int H1, int H2, int K, int D) {
+  const int h = H1 > H2 ? H1 : H2;
+  const int e = D > K ? D : K;
+  return h > e ? h : e;
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 3) fused_infer_bf16_kernel(
+    const float* __restrict__ x, const int* __restrict__ valid_to,
+    const tilemma::bf16* __restrict__ wp, const float* __restrict__ eb1,
+    const float* __restrict__ eb2, const float* __restrict__ eb3,
+    const float* __restrict__ db1, const float* __restrict__ db2,
+    const float* __restrict__ db3, float* __restrict__ mu,
+    float* __restrict__ logvar, float* __restrict__ q_out, int C, int T,
+    int H1, int H2, int K, int D, int tile, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  using tilemma::bf16;
+  using tilemma::Out;
+  const int WS = row_stride(tile), NR = op_rows_bf16(tile);
+  const int RC = tilemma::op_stride(C);
+  const int RG = tilemma::op_stride(operand_bf16(H1, H2, K, D));
+  bf16* xo = reinterpret_cast<bf16*>(smem_b);    // NR rows of RC
+  bf16* opA = xo + NR * RC;                      // NR rows of RG
+  bf16* opB = opA + NR * RG;                     // NR rows of RG
+  float* qs = reinterpret_cast<float*>(opB + NR * RG);   // K rows
+  float* F = qs + K * WS;                        // 2C rows
+
+  const int b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - b * tiles) * tile;
+  const int n = min(tile, T - t0);
+  const int W = n + 2 * HALO;
+  const int p0 = t0 - HALO;
+  const int vt = valid_to[b];
+  const float* xb = x + (size_t)b * C * T;
+  const tilemma::Win win{p0, T, t0, n};
+  const Packed at = packed_bf16(C, H1, H2, K, D);
+
+  // 1. x on the whole window, zero outside [0, T) and past valid_to and
+  //    in the padding channels, rounded to bfloat16
+  const int C16 = tilemma::round16(C);
+  for (int idx = threadIdx.x; idx < C16 * W; idx += blockDim.x) {
+    const int c = idx / W, j = idx - c * W;
+    const int p = p0 + j;
+    const float v = (c < C && !outside(p, T, vt)) ? xb[(size_t)c * T + p]
+                                                  : 0.f;
+    xo[j * RC + c] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+  // 2. h1 = relu(conv1(x)), masked
+  tilemma::layer<3>(wp + at.ew1, H1, C, xo, RC, NR, 1, W - 1,
+                    Out{eb1, true, true, vt, nullptr, nullptr, nullptr, 0,
+                        opA, RG}, win);
+  // 3. h2 = relu(conv2(h1)), not masked
+  tilemma::layer<3>(wp + at.ew2, H2, H1, opA, RG, NR, 2, W - 2,
+                    Out{eb2, true, false, T, nullptr, nullptr, nullptr, 0,
+                        opB, RG}, win);
+  // 4. logits = W3 h2 + b3 into the K float32 rows; q = softmax over K
+  //    (row max clamped at -1e30) in place, and as the codebook's operand
+  tilemma::layer<1>(wp + at.ew3, K, H2, opB, RG, NR, 2, W - 2,
+                    Out{eb3, false, false, T, nullptr, nullptr, qs, WS,
+                        nullptr, 0}, win);
+  for (int j = 2 + threadIdx.x; j < W - 2; j += blockDim.x) {
+    float m = -INFINITY;
+    for (int k = 0; k < K; ++k) m = fmaxf(m, qs[k * WS + j]);
+    const float msafe = fmaxf(m, NEG);
+    float z = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float e = expf(qs[k * WS + j] - msafe);
+      qs[k * WS + j] = e;
+      z += e;
+    }
+    for (int k = 0; k < K; ++k) {
+      const float q = qs[k * WS + j] / z;
+      qs[k * WS + j] = q;
+      opA[j * RG + k] = __float2bfloat16_rn(q);
+    }
+  }
+  tilemma::zero_pad(opA, RG, K, 2, W - 2);
+  __syncthreads();
+  // 5. e = E^T q, masked
+  tilemma::layer<1>(wp + at.emb, D, K, opA, RG, NR, 2, W - 2,
+                    Out{nullptr, false, true, vt, nullptr, nullptr, nullptr,
+                        0, opB, RG}, win);
+  // 6. hd1 = relu(dconv1(e)), masked
+  tilemma::layer<3>(wp + at.dw1, D, D, opB, RG, NR, 3, W - 3,
+                    Out{db1, true, true, vt, nullptr, nullptr, nullptr, 0,
+                        opA, RG}, win);
+  // 7. hd2 = relu(dconv2(hd1)), not masked
+  tilemma::layer<3>(wp + at.dw2, D, D, opA, RG, NR, HALO, W - HALO,
+                    Out{db2, true, false, T, nullptr, nullptr, nullptr, 0,
+                        opB, RG}, win);
+  // 8. (mu, logvar) = W hd2 + b on the tile into the 2C float32 rows
+  tilemma::layer<1>(wp + at.dw3, 2 * C, D, opB, RG, NR, HALO, W - HALO,
+                    Out{db3, false, false, T, nullptr, nullptr, F, WS,
+                        nullptr, 0}, win);
+  for (int idx = threadIdx.x; idx < 2 * C * n; idx += blockDim.x) {
+    const int o = idx / n, jj = idx - o * n;
+    float* dst = o < C ? mu + ((size_t)b * C + o) * T
+                       : logvar + ((size_t)b * C + (o - C)) * T;
+    dst[t0 + jj] = F[o * WS + HALO + jj];
+  }
+  for (int idx = threadIdx.x; idx < K * n; idx += blockDim.x) {
+    const int k = idx / n, jj = idx - k * n;
+    q_out[((size_t)b * K + k) * T + t0 + jj] = qs[k * WS + HALO + jj];
+  }
+}
+
 inline int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
 
 // Rows of a ping-pong buffer: the widest activation a stage leaves there,
@@ -227,59 +395,109 @@ inline int buffer_rows(int C, int H1, int H2, int D) {
 
 }  // namespace
 
-// Floats of the packed weights the wrapper allocates.
+// Values of the packed weights: floats (bf16 = 0), or the bfloat16 mode's
+// bfloat16 values (bf16 = 1).
 extern "C" long long vqhmm_fused_infer_packed_floats(int C, int H1, int H2,
-                                                     int K, int D) {
-  return packed(C, H1, H2, K, D).total;
+                                                     int K, int D, int bf16) {
+  return bf16 ? packed_bf16(C, H1, H2, K, D).total
+              : packed(C, H1, H2, K, D).total;
 }
 
-// Dynamic shared memory of a block at tile width `tile`.
+// The bfloat16 mode's dynamic shared memory of a block.
+static int bf16_smem_bytes(int C, int H1, int H2, int K, int D, int tile) {
+  return 2 * op_rows_bf16(tile) *
+             (tilemma::op_stride(C) +
+              2 * tilemma::op_stride(operand_bf16(H1, H2, K, D))) +
+         (int)sizeof(float) * row_stride(tile) * (K + 2 * C);
+}
+
+// Dynamic shared memory of a block at tile width `tile` in the mode.
 extern "C" int vqhmm_fused_infer_smem_bytes(int C, int H1, int H2, int K,
-                                            int D, int tile) {
+                                            int D, int tile, int bf16) {
+  if (bf16) return bf16_smem_bytes(C, H1, H2, K, D, tile);
   return (int)(sizeof(float) * (2 * tilefma::WBUF + tilefma::ROW_PAD +
                                 (size_t)row_stride(tile) *
                                     (C + 2 * buffer_rows(C, H1, H2, D) + K)));
 }
 
+// Pack the torch weights (Conv1d (O, I, W), Embedding (K, D)) into dst in
+// the mode's order: floats in tile_fma.cuh's staging order (bf16 = 0),
+// bfloat16 values in mma fragment order (bf16 = 1); and raise the mode's
+// kernel's dynamic shared-memory limit to a block's most, so that a
+// launch sets no attribute.
+extern "C" int vqhmm_fused_infer_pack(const float* ew1, const float* ew2,
+                                      const float* ew3, const float* emb,
+                                      const float* dw1, const float* dw2,
+                                      const float* dw3, void* dst, int C,
+                                      int H1, int H2, int K, int D, int bf16,
+                                      void* stream) {
+  if (bf16 != 0 && bf16 != 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      bf16 ? (const void*)fused_infer_bf16_kernel
+           : (const void*)fused_infer_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    const Packed at = packed_bf16(C, H1, H2, K, D);
+    const MmaPackJobs jobs{{{ew1, H1, C, 3, 0, at.ew1},
+                            {ew2, H2, H1, 3, 0, at.ew2},
+                            {ew3, K, H2, 1, 0, at.ew3},
+                            {emb, D, K, 1, 1, at.emb},
+                            {dw1, D, D, 3, 0, at.dw1},
+                            {dw2, D, D, 3, 0, at.dw2},
+                            {dw3, 2 * C, D, 1, 0, at.dw3}}};
+    infer_pack_bf16_kernel<<<(unsigned)((at.total + 255) / 256), 256, 0, s>>>(
+        jobs, reinterpret_cast<tilemma::bf16*>(dst));
+  } else {
+    const Packed at = packed(C, H1, H2, K, D);
+    const PackJobs jobs{{{ew1, H1, C, 3, 0, at.ew1},
+                         {ew2, H2, H1, 3, 0, at.ew2},
+                         {ew3, K, H2, 1, 0, at.ew3},
+                         {emb, D, K, 1, 1, at.emb},
+                         {dw1, D, D, 3, 0, at.dw1},
+                         {dw2, D, D, 3, 0, at.dw2},
+                         {dw3, 2 * C, D, 1, 0, at.dw3}}};
+    infer_pack_kernel<<<(unsigned)((at.total + 255) / 256), 256, 0, s>>>(
+        jobs, reinterpret_cast<float*>(dst));
+  }
+  return (int)cudaGetLastError();
+}
+
+// The forward in the mode (bf16 0: float32, 1: bfloat16 operands) from
+// weights vqhmm_fused_infer_pack packed in that mode.
 extern "C" int vqhmm_fused_infer(
-    const float* x, const int* valid_to,
-    const float* ew1, const float* eb1, const float* ew2, const float* eb2,
-    const float* ew3, const float* eb3, const float* emb,
-    const float* dw1, const float* db1, const float* dw2, const float* db2,
-    const float* dw3, const float* db3,
-    float* packed_weights, float* mu, float* logvar, float* q,
-    int B, int C, int T, int H1, int H2, int K, int D, int tile,
+    const float* x, const int* valid_to, const void* packed_weights,
+    const float* eb1, const float* eb2, const float* eb3, const float* db1,
+    const float* db2, const float* db3, float* mu, float* logvar, float* q,
+    int B, int C, int T, int H1, int H2, int K, int D, int tile, int bf16,
     void* stream) {
   const int maxH = max3(H1, H2, D);
-  const int smem = vqhmm_fused_infer_smem_bytes(C, H1, H2, K, D, tile);
-  if (tile != 16 && tile != 32 && tile != 64) return (int)cudaErrorInvalidValue;
+  const int smem = vqhmm_fused_infer_smem_bytes(C, H1, H2, K, D, tile, bf16);
+  if ((tile != 16 && tile != 32 && tile != 64) || (bf16 != 0 && bf16 != 1))
+    return (int)cudaErrorInvalidValue;
   const int tiles = (T + tile - 1) / tile;
   const long long blocks = (long long)tiles * B;
+  if (B <= 0 || T <= 0 || K <= 0 || blocks > INT_MAX ||
+      smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    fused_infer_bf16_kernel<<<(unsigned)blocks, MMA_THREADS, smem, s>>>(
+        x, valid_to, reinterpret_cast<const tilemma::bf16*>(packed_weights),
+        eb1, eb2, eb3, db1, db2, db3, mu, logvar, q, C, T, H1, H2, K, D, tile,
+        tiles);
+    return (int)cudaGetLastError();
+  }
   // a slab holds at least one input channel of every output
-  if (B <= 0 || T <= 0 || blocks > INT_MAX ||
-      3 * tilefma::round4(maxH) > tilefma::WBUF ||
+  if (3 * tilefma::round4(maxH) > tilefma::WBUF ||
       tilefma::round4(K) > tilefma::WBUF ||
       tilefma::round4(2 * C) > tilefma::WBUF)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_infer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const Packed at = packed(C, H1, H2, K, D);
-  const PackJobs jobs{{{ew1, H1, C, 3, 0, at.ew1},
-                       {ew2, H2, H1, 3, 0, at.ew2},
-                       {ew3, K, H2, 1, 0, at.ew3},
-                       {emb, D, K, 1, 1, at.emb},
-                       {dw1, D, D, 3, 0, at.dw1},
-                       {dw2, D, D, 3, 0, at.dw2},
-                       {dw3, 2 * C, D, 1, 0, at.dw3}}};
-  cudaStream_t s = (cudaStream_t)stream;
-  infer_pack_kernel<<<(unsigned)((at.total + 255) / 256), 256, 0, s>>>(
-      jobs, packed_weights);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   fused_infer_kernel<<<(unsigned)blocks, block_threads(tile, maxH), smem, s>>>(
-      x, valid_to, packed_weights, eb1, eb2, eb3, db1, db2, db3, mu, logvar, q,
-      C, T, H1, H2, K, D, tile, tiles, buffer_rows(C, H1, H2, D));
+      x, valid_to, reinterpret_cast<const float*>(packed_weights), eb1, eb2,
+      eb3, db1, db2, db3, mu, logvar, q, C, T, H1, H2, K, D, tile, tiles,
+      buffer_rows(C, H1, H2, D));
   return (int)cudaGetLastError();
 }
 

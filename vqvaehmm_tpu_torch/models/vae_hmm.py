@@ -42,6 +42,14 @@ recursion (kernel B) takes its float32 evidence.  `bf16_operands=True`
 is the other bfloat16 arithmetic, that of the train kernel's bfloat16
 mode: float32 activations, both operands of every product rounded to
 bfloat16 (ops/nn.py::bf16_matmul).
+
+That is also the arithmetic of the inference kernels' bfloat16-operand
+mode, the TPU kernels' `highest=False`: a float32 model whose
+matmul_precision is not "highest" runs kernels A, 8, 10 and 11 in it on a
+CUDA tensor (ops/fused_train.py::infer_bf16_mode), and their wrappers'
+plain route there (`use_kernel=False`) computes with
+`bf16_operands=True`.  `encode(fused=False)`, `compute_loss` and
+`forward` keep the model's own products on every device.
 """
 
 from __future__ import annotations
@@ -370,11 +378,13 @@ class VAEHMM(nn.Module):
     # ------------------------------------------------------------------
 
     def _hmm_evidence(self, x: torch.Tensor,
-                      lengths: Optional[torch.Tensor]) -> torch.Tensor:
+                      lengths: Optional[torch.Tensor],
+                      bf16_operands: bool = False) -> torch.Tensor:
         """Encoder evidence (B, T, K) in plain PyTorch, the encoder bounded
-        at max(lengths)."""
+        at max(lengths); bf16_operands: see the module's docstring."""
         valid_to = lengths.max() if lengths is not None else None
-        logits = self.encode(x, valid_to=valid_to, fused=False)
+        logits = self.encode(x, valid_to=valid_to, fused=False,
+                             bf16_operands=bf16_operands)
         return torch.log_softmax(logits, dim=1).transpose(1, 2)
 
     def _evidence_inputs(self, x: torch.Tensor, u: torch.Tensor,

@@ -52,11 +52,13 @@ _L = ctypes.c_longlong
 # C signatures: every pointer and the stream are c_void_p (ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the address)
 _SIGNATURES = {
-    # x, valid_to, 13 weight arrays, packed weights, mu, logvar, q,
-    # B, C, T, H1, H2, K, D, tile, stream
-    "vqhmm_fused_infer": [_P] * 2 + [_P] * 13 + [_P] * 4 + [_I] * 8 + [_P],
-    # C, H1, H2, K, D, tile -> dynamic shared memory bytes per block
-    "vqhmm_fused_infer_smem_bytes": [_I] * 6,
+    # x, valid_to, packed weights, 6 biases, mu, logvar, q, B, C, T, H1,
+    # H2, K, D, tile, bf16, stream
+    "vqhmm_fused_infer": [_P] * 3 + [_P] * 6 + [_P] * 3 + [_I] * 9 + [_P],
+    # 7 weight arrays, packed weights, C, H1, H2, K, D, bf16, stream
+    "vqhmm_fused_infer_pack": [_P] * 8 + [_I] * 6 + [_P],
+    # C, H1, H2, K, D, tile, bf16 -> dynamic shared memory bytes per block
+    "vqhmm_fused_infer_smem_bytes": [_I] * 7,
     # log_pi, log_A, a_stride_b, a_stride_t, log_obs, lengths,
     # backpointer words, states, score, B, T, K, lanes, seqs, stream
     "vqhmm_viterbi": [_P, _P, _L, _L, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
@@ -70,28 +72,29 @@ _SIGNATURES = {
     "vqhmm_fused_train": [_P, _P, _L, _L, _L, _P] + [_P] * 18 + [_P] * 6
     + [_I] * 12 + [ctypes.c_float, _I, _L, _I, _P],
     # 3 encoder and 2 prior weight arrays (or null), packed weights, C, H1,
-    # H2, K, U, HP, stream
-    "vqhmm_encoder_pack": [_P] * 6 + [_I] * 6 + [_P],
+    # H2, K, U, HP, bf16, stream
+    "vqhmm_encoder_pack": [_P] * 6 + [_I] * 7 + [_P],
     # x, valid_to, packed weights, 3 encoder biases, logits, B, C, T, H1,
-    # H2, K, tile, stream
-    "vqhmm_fused_encode": [_P] * 3 + [_P] * 3 + [_P] + [_I] * 7 + [_P],
-    # C, H1, H2, K, tile -> dynamic shared memory bytes per block
-    "vqhmm_fused_encode_smem_bytes": [_I] * 5,
+    # H2, K, tile, bf16, stream
+    "vqhmm_fused_encode": [_P] * 3 + [_P] * 3 + [_P] + [_I] * 8 + [_P],
+    # C, H1, H2, K, tile, bf16 -> dynamic shared memory bytes per block
+    "vqhmm_fused_encode_smem_bytes": [_I] * 6,
     # x, u, u strides (batch, channel, time), lengths (or null), packed
     # weights, 3 encoder and 2 prior biases, log_obs, log_A, B, C, T, U,
-    # H1, H2, K, HP, tile, split, stream
+    # H1, H2, K, HP, tile, split, bf16, stream
     "vqhmm_fused_evidence": [_P, _P, _L, _L, _L, _P, _P] + [_P] * 5
-    + [_P] * 2 + [_I] * 10 + [_P],
+    + [_P] * 2 + [_I] * 11 + [_P],
     # x, u, u strides (batch, channel, time), lengths (or null), packed
     # weights, 3 encoder and 2 prior biases, log_pi, the segment scratch
     # (aggregates, selector maps, end states), states, B, C, T, U, H1, H2,
-    # K, HP, tile, stream
+    # K, HP, tile, bf16, stream
     "vqhmm_fused_decode": [_P, _P, _L, _L, _L, _P, _P] + [_P] * 5
-    + [_P] * 5 + [_I] * 9 + [_P],
-    # B, C, T, U, H1, H2, K, HP, tile, out[4] -> error code
-    "vqhmm_fused_decode_plan": [_I] * 9 + [_P],
-    # C, H1, H2, K, U, HP, tile -> dynamic shared memory bytes per block
-    "vqhmm_fused_evidence_smem_bytes": [_I] * 7,
+    + [_P] * 5 + [_I] * 10 + [_P],
+    # B, C, T, U, H1, H2, K, HP, tile, bf16, out[4] -> error code
+    "vqhmm_fused_decode_plan": [_I] * 10 + [_P],
+    # C, H1, H2, K, U, HP, tile, bf16 -> dynamic shared memory bytes per
+    # block
+    "vqhmm_fused_evidence_smem_bytes": [_I] * 8,
     # z, z strides (batch, channel, time), codebook, z_q, idx, B, T, M, D,
     # stream
     "vqhmm_vq_nearest": [_P, _L, _L, _L, _P, _P, _P] + [_I] * 4 + [_P],
@@ -112,10 +115,11 @@ _SIGNATURES = {
 # entry points returning a long long: B, C, T, U, H1, H2, K, HP, D, tile,
 # what, bf16
 _SIZE_SIGNATURES = {"vqhmm_fused_train_sizes": [_I] * 12,
-                    # C, H1, H2, K, D -> floats of the packed weights
-                    "vqhmm_fused_infer_packed_floats": [_I] * 5,
-                    # C, H1, H2, K, U, HP -> floats of the packed weights
-                    "vqhmm_encoder_packed_floats": [_I] * 6,
+                    # C, H1, H2, K, D, bf16 -> values (floats, or
+                    # bfloat16 values where bf16) of the packed weights
+                    "vqhmm_fused_infer_packed_floats": [_I] * 6,
+                    # C, H1, H2, K, U, HP, bf16 -> the same
+                    "vqhmm_encoder_packed_floats": [_I] * 7,
                     # B, T, M, D, what -> the quantizer's blocks and
                     # shared memory
                     "vqhmm_vq_quantize_sizes": [_I] * 5}
@@ -229,9 +233,10 @@ def library() -> ctypes.CDLL:
 
 def sass_counts(names, opcode: str = "HMMA") -> dict:
     """{name: instructions of `opcode` in the built library's SASS} for the
-    kernels named (plain, unmangled names), read with the toolkit's
-    cuobjdump --dump-sass: HMMA counts the tensor-core instructions.  A
-    kernel the SASS does not hold raises."""
+    kernels named (plain, unmangled names; a template instance as its
+    mangled tail, e.g. "fused_decode_kernelILi3ELb1E"), read with the
+    toolkit's cuobjdump --dump-sass: HMMA counts the tensor-core
+    instructions.  A kernel the SASS does not hold raises."""
     import re
 
     lib = library()
@@ -240,13 +245,19 @@ def sass_counts(names, opcode: str = "HMMA") -> dict:
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError("cuobjdump --dump-sass failed: " + proc.stderr)
+
+    def mangled(n):
+        # a mangled name holds a name's length just before the name, and a
+        # template's arguments after it
+        base = n.split("IL", 1)[0]
+        return f"{len(base)}{n}"
+
     counts, current = {}, None
     for line in proc.stdout.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
-            # a mangled name holds a name's length just before the name
             current = next((n for n in names
-                            if f"{len(n)}{n}" in found.group(1)), None)
+                            if mangled(n) in found.group(1)), None)
             if current is not None:
                 counts[current] = 0
         elif current is not None and re.search(rf"\b{opcode}\b", line):

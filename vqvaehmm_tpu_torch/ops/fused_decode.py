@@ -33,8 +33,19 @@ and the plain version for a CPU tensor or a bfloat16 model,
 `use_kernel=False` computes the plain version.  There is no fallback.
 `fused_evidence` refuses, as `fused_encode` does, where grad mode is on
 and an input or weight requires grad (the decode returns integer states,
-which carry none anyway).  `fused_evidence.launches` and
-`fused_viterbi_states.launches` count the kernels' launches.
+which carry none anyway).
+
+Two modes of arithmetic, as the TPU kernels' `highest` flag has
+(ops/fused_train.py::infer_bf16_mode, ops/fused_infer.py::operand_mode):
+float32, and on a CUDA tensor of a float32 model whose matmul_precision
+is not "highest" the bfloat16-operand mode (the evidence stages of
+csrc/encoder_mma.cuh on the tensor cores), whose plain versions are the
+references with `bf16_operands=True`; `use_kernel=False` takes them on
+the card.  Each mode has its own plans, shared memory and gate
+(`supported(..., bf16=True)`); a model or shape the mode refuses raises.
+`fused_evidence.launches` and `fused_viterbi_states.launches` count the
+kernels' launches in either mode, their `.bf16_launches` those in the
+bfloat16-operand mode.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ from . import _build
 from .fused_encoder import (TILES, check_x, encoder_dims, kernel_cache,
                             layers_fit, plan_for, refuse_grad,
                             smem_dims_bytes)
-from .fused_infer import H100_SMS, SMEM_LIMIT, kernel_route
+from .fused_infer import H100_SMS, SMEM_LIMIT, kernel_route, operand_mode
 from .fused_train import _u_strides
 from .fused_viterbi import MAX_K, num_segments
 from .hmm import viterbi
@@ -64,24 +75,28 @@ def _chunk_floats(K: int) -> int:
 _count_lock = threading.Lock()
 
 
-def evidence_smem_bytes(cfg, tile: int) -> int:
-    """Shared memory an evidence block uses at tile width `tile`
-    (csrc/fused_decode.cu::vqhmm_fused_evidence_smem_bytes)."""
-    return smem_dims_bytes(tile, encoder_dims(cfg, prior=True))
+def evidence_smem_bytes(cfg, tile: int, bf16: bool = False) -> int:
+    """Shared memory an evidence block uses at tile width `tile` in the
+    mode (csrc/fused_decode.cu::vqhmm_fused_evidence_smem_bytes)."""
+    return smem_dims_bytes(tile, encoder_dims(cfg, prior=True), bf16)
 
 
-def evidence_plan(cfg, B: int, T: int, sms: int = H100_SMS):
-    return plan_for(B, T, encoder_dims(cfg, prior=True), sms, can_split=True)
+def evidence_plan(cfg, B: int, T: int, sms: int = H100_SMS,
+                  bf16: bool = False):
+    return plan_for(B, T, encoder_dims(cfg, prior=True), sms, can_split=True,
+                    bf16=bf16)
 
 
-def decode_smem_bytes(cfg, tile: int, ntb: int = 1) -> int:
+def decode_smem_bytes(cfg, tile: int, ntb: int = 1,
+                      bf16: bool = False) -> int:
     """Shared memory of a decode block at tile width `tile` holding `ntb`
-    tiles (csrc/fused_decode.cu::decode_smem): the evidence stage, rounded
-    to 16 bytes; each tile's log_obs, log_A and backpointer words; the
-    scratch of the fold and the reverse pass (the chunk that stages
-    products and selector maps, 32 chunk products and deltas, 68 words)."""
+    tiles (csrc/fused_decode.cu::decode_smem): the evidence stage in the
+    mode, rounded to 16 bytes; each tile's log_obs, log_A and backpointer
+    words; the scratch of the fold and the reverse pass (the chunk that
+    stages products and selector maps, 32 chunk products and deltas, 68
+    words)."""
     K = cfg.K
-    stage = -(-evidence_smem_bytes(cfg, tile) // 16) * 16
+    stage = -(-evidence_smem_bytes(cfg, tile, bf16) // 16) * 16
     return stage + 4 * (ntb * tile * (K + K * K + 1) + _chunk_floats(K)
                         + 32 * (K * K + K) + 68)
 
@@ -94,53 +109,63 @@ class DecodePlan(NamedTuple):
     smem: int          # dynamic shared memory a block, bytes
 
 
-def supported(cfg, B: int, T: int) -> bool:
+def supported(cfg, B: int, T: int, bf16: bool = False) -> bool:
     """True when the evidence and decode kernels take this model on
-    Hopper: float32 compute, u-conditioned transitions, at most MAX_K
-    regimes (4-bit backpointers), every layer's slab of one input channel
-    within a weight buffer of the evidence kernel, and a block's rows and
-    one tile within a block's shared memory at the narrowest tile.  The
-    evidence tiles the time axis, so T sets it no bound; the decode keeps
-    every tile resident, so B * T is bounded by its plan (`decode_plan`,
-    which raises)."""
+    Hopper in the mode: float32 compute, u-conditioned transitions, at
+    most MAX_K regimes (4-bit backpointers), in the float32 mode every
+    layer's slab of one input channel within a weight buffer of the
+    evidence kernel (the bfloat16 mode stages no weights), and a block's
+    rows and one tile within a block's shared memory at the narrowest
+    tile.  The evidence tiles the time axis, so T sets it no bound; the
+    decode keeps every tile resident, so B * T is bounded by its plan
+    (`decode_plan`, which raises)."""
     return (cfg.compute_dtype == "float32" and cfg.u_dim is not None
             and B >= 0 and T >= 0 and 1 <= cfg.K <= MAX_K
-            and layers_fit(*encoder_dims(cfg, prior=True))
-            and evidence_smem_bytes(cfg, TILES[-1]) <= SMEM_LIMIT
-            and decode_smem_bytes(cfg, TILES[-1]) <= SMEM_LIMIT)
+            and (bf16 or layers_fit(*encoder_dims(cfg, prior=True)))
+            and evidence_smem_bytes(cfg, TILES[-1], bf16) <= SMEM_LIMIT
+            and decode_smem_bytes(cfg, TILES[-1], 1, bf16) <= SMEM_LIMIT)
 
 
 def fused_evidence_reference(model, x: torch.Tensor, u: torch.Tensor,
-                             lengths: Optional[torch.Tensor] = None
+                             lengths: Optional[torch.Tensor] = None,
+                             bf16_operands: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Plain version: the model's prior and encoder evidence."""
-    log_pi, log_A = model.prior(u)
-    return log_pi, log_A, model._hmm_evidence(x, lengths)
+    """Plain version: the model's prior and encoder evidence;
+    bf16_operands: the bfloat16-operand mode's."""
+    log_pi, log_A = model.prior(u, bf16_operands)
+    return log_pi, log_A, model._hmm_evidence(x, lengths, bf16_operands)
 
 
 def fused_viterbi_states_reference(model, x: torch.Tensor, u: torch.Tensor,
-                                   lengths: Optional[torch.Tensor] = None
+                                   lengths: Optional[torch.Tensor] = None,
+                                   bf16_operands: bool = False
                                    ) -> torch.Tensor:
-    """Plain version: the plain evidence, then the sequential decode of
-    ops/hmm.py."""
-    return viterbi(*fused_evidence_reference(model, x, u, lengths),
+    """Plain version: the plain evidence (in the mode), then the
+    sequential decode of ops/hmm.py."""
+    return viterbi(*fused_evidence_reference(model, x, u, lengths,
+                                             bf16_operands),
                    lengths).states
 
 
-def _prepare(model, x, u, lengths, what: str):
+def _prepare(model, x, u, lengths, what: str, bf16: bool):
     """Checks shared by the two kernels; (x, lengths int32 or None)."""
     cfg = model.cfg
     check_x(model, x, what)
     B, C, T = x.shape
-    if not kernel_cache(model).supported("decode", cfg, supported):
+    if not kernel_cache(model).supported(
+            "decode_bf16" if bf16 else "decode", cfg,
+            lambda c, b, t: supported(c, b, t, bf16)):
+        mode = ("in its bfloat16-operand mode" if bf16 else
+                "layers whose slab of one input channel fits a weight "
+                "buffer")
         raise ValueError(
             f"{what} unsupported for {cfg}: it takes float32, 1 <= K <= "
-            f"{MAX_K}, layers whose slab of one input channel fits a weight "
-            f"buffer and at most {SMEM_LIMIT} bytes of shared memory a "
-            f"block (needs {decode_smem_bytes(cfg, TILES[-1])} for the decode, "
-            f"{evidence_smem_bytes(cfg, TILES[-1])} for the evidence; see "
-            "supported)")
+            f"{MAX_K}, {mode} and at most {SMEM_LIMIT} bytes of shared "
+            f"memory a block (needs "
+            f"{decode_smem_bytes(cfg, TILES[-1], 1, bf16)} for the decode, "
+            f"{evidence_smem_bytes(cfg, TILES[-1], bf16)} "
+            "for the evidence; see supported)")
     if u.dtype != torch.float32 or u.device != x.device:
         raise ValueError(f"u must be float32 on {x.device}, got {u.dtype} "
                          f"on {u.device}")
@@ -169,15 +194,16 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(log_pi (K,), log_A (B, T, K, K), log_obs (B, T, K)) for x (B, C, T)
     and u (B, U, T) or (B, T, U), the encoder bounded at max(lengths)."""
+    bf16 = operand_mode(model, x)
     if not kernel_route(model, x, use_kernel):
-        return fused_evidence_reference(model, x, u, lengths)
+        return fused_evidence_reference(model, x, u, lengths, bf16)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "
                          "evidence is a CUDA kernel")
     cfg = model.cfg
     refuse_grad("fused evidence", x, [
         *model.encoder.parameters(), *model.prior_module.parameters(), u])
-    x, lens = _prepare(model, x, u, lengths, "fused evidence")
+    x, lens = _prepare(model, x, u, lengths, "fused evidence", bf16)
     B, _, T = x.shape
     K = cfg.K
     # K values used in no product: the TPU wrapper computes them outside
@@ -188,52 +214,62 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
     if B == 0 or T == 0:
         return log_pi, log_A, log_obs
     plan = kernel_cache(model).plan("evidence", encoder_dims(cfg, prior=True),
-                                    B, T, x.device, can_split=True)
+                                    B, T, x.device, can_split=True, bf16=bf16)
     _launch_evidence(model, x, u, lens, plan.tile, plan.split,
-                     (log_obs, log_A))
+                     (log_obs, log_A), bf16)
     with _count_lock:
         fused_evidence.launches += 1
+        fused_evidence.bf16_launches += bf16
     return log_pi, log_A, log_obs
 
 
 def _launch_evidence(model, x, u, lens, tile: int, split: bool,
-                     out) -> None:
-    """One launch of the evidence kernel at tile width `tile`, the encoder
-    and the prior in blocks of their own with `split`, into out = (log_obs,
-    log_A); lens (B,) int32 contiguous or None, whose maximum the kernel
-    bounds the encoder at.  It does not count: fused_evidence does."""
+                     out, bf16: bool = False) -> None:
+    """One launch of the evidence kernel at tile width `tile`, in the
+    bfloat16-operand mode where bf16, the encoder and the prior in blocks
+    of their own with `split`, into out = (log_obs, log_A); lens (B,)
+    int32 contiguous or None, whose maximum the kernel bounds the encoder
+    at.  It does not count: fused_evidence does."""
     cfg = model.cfg
     B, _, T = x.shape
-    packed, bs = kernel_cache(model).weights(model, x.device)
+    packed, bs = kernel_cache(model).weights(model, x.device, bf16=bf16)
     err = _build.library().vqhmm_fused_evidence(
         x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u),
         None if lens is None else lens.data_ptr(),
         packed.data_ptr(), *[b.data_ptr() for b in bs], out[0].data_ptr(),
-        out[1].data_ptr(), *_dims(cfg, B, T), tile, int(split),
+        out[1].data_ptr(), *_dims(cfg, B, T), tile, int(split), int(bf16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_evidence kernel launch")
 
 
 fused_evidence.launches = 0
+fused_evidence.bf16_launches = 0
 
 
-def decode_plan(model, B: int, T: int, device) -> DecodePlan:
-    """The decode's launch plan at (B, T), kept a shape: the evidence
-    plan's tile without the split, and the fewest tiles a block for which
-    the blocks the runtime can keep resident cover every tile
+def decode_plan(model, B: int, T: int, device,
+                bf16: Optional[bool] = None) -> DecodePlan:
+    """The decode's launch plan at (B, T) in the mode (the model's on
+    `device` where bf16 is None), kept a shape: the evidence plan's tile
+    without the split, and the fewest tiles a block for which the blocks
+    the runtime can keep resident cover every tile
     (csrc/fused_decode.cu::vqhmm_fused_decode_plan).  Raises where no
     number of tiles a block fits a block's shared memory."""
+    from .fused_train import infer_bf16_mode
+
+    if bf16 is None:
+        bf16 = infer_bf16_mode(model.cfg, device)
     cache = kernel_cache(model)
     dims = encoder_dims(model.cfg, prior=True)
-    key = ("decode", B, T, _build.sm_count(device))
+    key = ("decode", bf16, B, T, _build.sm_count(device))
     with cache.lock:
         plan = cache.plans.get(key)
     if plan is not None:
         return plan
-    tile = cache.plan("decode", dims, B, T, device).tile
+    tile = cache.plan("decode", dims, B, T, device, bf16=bf16).tile
     out = (ctypes.c_int * 4)()
-    err = _build.library().vqhmm_fused_decode_plan(
-        *_dims(model.cfg, B, T), tile, out)
+    lib = _build.library()
+    err = lib.vqhmm_fused_decode_plan(*_dims(model.cfg, B, T), tile,
+                                      int(bf16), out)
     if err != 0:
         raise ValueError(
             f"the fused decode cannot keep the {B * -(-T // tile)} tiles of "
@@ -241,7 +277,7 @@ def decode_plan(model, B: int, T: int, device) -> DecodePlan:
             f"more needs {4 * tile * (model.cfg.K + model.cfg.K ** 2 + 1)} "
             f"bytes of its {SMEM_LIMIT} of shared memory (CUDA error {err})")
     plan = DecodePlan(tile, out[0], out[1], out[2], out[3])
-    if plan.smem != decode_smem_bytes(model.cfg, tile, plan.ntb):
+    if plan.smem != decode_smem_bytes(model.cfg, tile, plan.ntb, bf16):
         raise RuntimeError("fused_decode kernel and wrapper disagree on "
                            "the shared-memory layout")
     with cache.lock:
@@ -254,21 +290,22 @@ def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
                          use_kernel: Optional[bool] = None) -> torch.Tensor:
     """MAP regime path (B, T) int32 from raw x (B, C, T) and u (B, U, T) or
     (B, T, U) in one launch."""
+    bf16 = operand_mode(model, x)
     if not kernel_route(model, x, use_kernel):
-        return fused_viterbi_states_reference(model, x, u, lengths)
+        return fused_viterbi_states_reference(model, x, u, lengths, bf16)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "
                          "decode is a CUDA kernel")
     cfg = model.cfg
-    x, lens = _prepare(model, x, u, lengths, "fused decode")
+    x, lens = _prepare(model, x, u, lengths, "fused decode", bf16)
     B, _, T = x.shape
     if T == 0:
         raise ValueError("Viterbi decode of an empty sequence (T=0)")
     states = torch.empty((B, T), dtype=torch.int32, device=x.device)
     if B == 0:
         return states
-    plan = decode_plan(model, B, T, x.device)
-    packed, bs = kernel_cache(model).weights(model, x.device)
+    plan = decode_plan(model, B, T, x.device, bf16)
+    packed, bs = kernel_cache(model).weights(model, x.device, bf16=bf16)
     log_pi = torch.log_softmax(model.prior_module.log_prior.detach(),
                                dim=0).contiguous()
     G, K = num_segments(T), cfg.K
@@ -278,17 +315,20 @@ def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
     agg = torch.empty(B * G * (K * K + K), dtype=torch.float32,
                       device=x.device)
     words = torch.empty((2, B * G), dtype=torch.int32, device=x.device)
-    err = _build.library().vqhmm_fused_decode(
+    lib = _build.library()
+    err = lib.vqhmm_fused_decode(
         x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u),
         None if lens is None else lens.data_ptr(), packed.data_ptr(),
         *[b.data_ptr() for b in bs], log_pi.data_ptr(), agg.data_ptr(),
         words[0].data_ptr(), words[1].data_ptr(), states.data_ptr(),
-        *_dims(cfg, B, T), plan.tile,
+        *_dims(cfg, B, T), plan.tile, int(bf16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_decode kernel launch")
     with _count_lock:
         fused_viterbi_states.launches += 1
+        fused_viterbi_states.bf16_launches += bf16
     return states
 
 
 fused_viterbi_states.launches = 0
+fused_viterbi_states.bf16_launches = 0

@@ -9,13 +9,25 @@ is the wrapper, `fused_encode_reference` its plain PyTorch version,
 the inference path (posterior extraction for the backtester and bulk
 scoring); its outputs carry no gradient.
 
-The encoder and the evidence kernel (ops/fused_decode.py) share what is
-kept a model (`kernel_cache`): the weights packed in the kernels' staging
-order, keyed on the parameters' `_version`, storage and device, so that
-a request or a posterior call does not pack them again (a model made
-under `torch.inference_mode` has parameters without a version: they are
-packed every call); the gates' answers; and the launch plans of the
-shapes seen.
+The encoder, the evidence kernel (ops/fused_decode.py) and the serving
+forward (ops/fused_infer.py) keep what they need a model in
+`kernel_cache`: the weights packed in the kernels' order, a pack a
+kernel family and mode, keyed on the parameters' `_version`, storage and
+device, so that a request or a posterior call does not pack them again (a
+model made under `torch.inference_mode` has parameters without a
+version: they are packed every call); the gates' answers; and the launch
+plans of the shapes seen.
+
+Two modes of arithmetic, as the TPU kernel's `highest` flag has
+(ops/fused_train.py::infer_bf16_mode, ops/fused_infer.py::operand_mode):
+float32, and on a CUDA tensor of a float32 model whose matmul_precision
+is not "highest" the bfloat16-operand mode (both operands of every
+product rounded to bfloat16, float32 sums, on the tensor cores:
+csrc/encoder_mma.cuh), whose plain version is
+`fused_encode_reference(bf16_operands=True)`; `use_kernel=False` takes
+that plain version on the card.  Each mode has its own plan, shared
+memory and gate (`encode_supported(..., bf16=True)`); a model the mode's
+gate refuses raises.
 
 Dispatch is that of ops/fused_infer.py (`kernel_route`):
 `use_kernel=None` takes the kernel for a CUDA tensor of a float32 model
@@ -26,8 +38,9 @@ call that takes the kernel launches it or raises.  One such exception:
 with grad mode on and x or the encoder's weights requiring grad the
 kernel refuses, so that no caller trains through a detached tensor
 unawares.
-`fused_encode.launches` counts the kernel's launches (the pack kernel,
-once a weight version, is not counted).
+`fused_encode.launches` counts the kernel's launches in either mode (the
+pack kernel, once a weight version and mode, is not counted),
+`fused_encode.bf16_launches` those in the bfloat16-operand mode.
 """
 
 from __future__ import annotations
@@ -39,7 +52,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .fused_infer import H100_SMS, SMEM_LIMIT, kernel_route, valid_to_rows
+from .fused_infer import (H100_SMS, SMEM_LIMIT, _op_stride, kernel_route,
+                          operand_mode, valid_to_rows)
+from .fused_infer import packed_bf16 as infer_packed_bf16
+from .fused_infer import packed_floats as infer_packed_floats
 
 # csrc/encoder_fma.cuh and tile_fma.cuh: the tile widths, the halo of the
 # two k=3 convolutions, the steps a thread computes, the threads a block
@@ -62,6 +78,10 @@ _FIXED_STEPS = 32
 # one that runs both (measured on an H100 at the four main-path shapes:
 # 0.55-0.65)
 _SPLIT_COST = 0.6
+# the bfloat16-operand mode's blocks (csrc/encoder_mma.cuh): THREADS
+# threads, at most BLOCKS_PER_SM resident an SM
+MMA_THREADS = 256
+MMA_BLOCKS_PER_SM = 3
 
 _count_lock = threading.Lock()
 
@@ -83,9 +103,19 @@ def window_rows(C: int, H1: int, H2: int, K: int, U: int = 0,
     return max(C + H1 + H2, U + HP) + K + (K * K if HP > 0 else 0)
 
 
-def smem_dims_bytes(tile: int, dims: Tuple[int, ...]) -> int:
+def smem_dims_bytes(tile: int, dims: Tuple[int, ...],
+                    bf16: bool = False) -> int:
     """Dynamic shared memory of a block at tile width `tile` (the count of
-    encoder_fma.cuh::smem_bytes): two weight buffers, a pad, the rows."""
+    encoder_fma.cuh::smem_bytes): two weight buffers, a pad, the rows.
+    bf16 (encoder_mma.cuh::smem_bytes): bfloat16 operands of tile + 2 HALO
+    rows, x, u where HP > 0, two ping-pong buffers of the widest of H1, H2
+    and HP; then, where HP > 0, K + K * K float32 rows."""
+    if bf16:
+        C, H1, H2, K, U, HP = dims
+        ops = _op_stride(C) + (_op_stride(U) if HP > 0 else 0) \
+            + 2 * _op_stride(max(H1, H2, HP))
+        return (2 * (tile + 2 * HALO) * ops
+                + 4 * row_stride(tile) * (K + K * K if HP > 0 else 0))
     return 4 * (2 * WBUF + ROW_PAD + row_stride(tile) * window_rows(*dims))
 
 
@@ -95,6 +125,22 @@ def packed_floats(C: int, H1: int, H2: int, K: int, U: int = 0,
     of round4(O) a layer."""
     return (C * 3 * _round4(H1) + H1 * 3 * _round4(H2) + H2 * _round4(K)
             + U * _round4(HP) + HP * _round4(K * K))
+
+
+def layers(C: int, H1: int, H2: int, K: int, U: int = 0, HP: int = 0):
+    """(O, I, taps) of the packed layers in order: the encoder's three,
+    then, where HP > 0, the prior's two."""
+    enc = ((H1, C, 3), (H2, H1, 3), (K, H2, 1))
+    return enc + (((HP, U, 1), (K * K, HP, 1)) if HP > 0 else ())
+
+
+def packed_bf16(C: int, H1: int, H2: int, K: int, U: int = 0,
+                HP: int = 0) -> int:
+    """bfloat16 values of the bfloat16 mode's packed weights
+    (encoder_mma.cuh::packed): round16(O) x taps x round16(I) a layer, in
+    mma fragment order."""
+    return sum(-(-O // 16) * 16 * taps * -(-I // 16) * 16
+               for O, I, taps in layers(C, H1, H2, K, U, HP))
 
 
 def layers_fit(C: int, H1: int, H2: int, K: int, U: int = 0,
@@ -121,10 +167,11 @@ def encoder_dims(cfg, prior: bool = False) -> Tuple[int, ...]:
             cfg.u_dim if prior else 0, cfg.trans_hidden if prior else 0)
 
 
-def smem_bytes(cfg, tile: int) -> int:
+def smem_bytes(cfg, tile: int, bf16: bool = False) -> int:
     """Shared memory a block of the encoder kernel uses at tile width
-    `tile` (csrc/fused_encoder.cu::vqhmm_fused_encode_smem_bytes)."""
-    return smem_dims_bytes(tile, encoder_dims(cfg))
+    `tile` in the mode (csrc/fused_encoder.cu::
+    vqhmm_fused_encode_smem_bytes)."""
+    return smem_dims_bytes(tile, encoder_dims(cfg), bf16)
 
 
 class Plan(NamedTuple):
@@ -137,25 +184,32 @@ class Plan(NamedTuple):
 
 
 def plan_for(B: int, T: int, dims: Tuple[int, ...], sms: int = H100_SMS,
-             can_split: bool = False) -> Optional[Plan]:
-    """The launch plan at (B, T) for widths `dims`, or None where no tile
-    fits a block's shared memory.  As ops/fused_train.py::train_plan
-    chooses, the tile is the one whose grid costs least: waves of resident
-    blocks (as many an SM as its shared memory, registers and threads
-    hold) times the steps a block computes (min(tile, T)), its halo and a
-    fixed part; the wider of two that cost the same (its block has more
-    threads for the same steps).  With can_split (the evidence), each
-    tile is also costed with the encoder and the prior in blocks of their
-    own: twice the blocks, each _SPLIT_COST of the time."""
+             can_split: bool = False, bf16: bool = False) -> Optional[Plan]:
+    """The launch plan at (B, T) for widths `dims` in the mode, or None
+    where no tile fits a block's shared memory.  As
+    ops/fused_train.py::train_plan chooses, the tile is the one whose grid
+    costs least: waves of resident blocks (as many an SM as its shared
+    memory, registers and threads hold; in the bfloat16 mode, blocks of
+    MMA_THREADS, at most MMA_BLOCKS_PER_SM) times the steps a block
+    computes (min(tile, T)), its halo and a fixed part; the wider of two
+    that cost the same (its block has more threads for the same steps).
+    With can_split (the evidence), each tile is also costed with the
+    encoder and the prior in blocks of their own: twice the blocks, each
+    _SPLIT_COST of the time."""
     G = max(dims[1], dims[2], dims[5])
     best = None
     for t in TILES:
-        smem = smem_dims_bytes(t, dims)
+        smem = smem_dims_bytes(t, dims, bf16)
         if smem > SMEM_LIMIT:
             continue
-        threads = block_threads(t, G)
-        per_sm = min(_SM_SMEM // (smem + 1024), _SM_REGS // (_REGS * threads),
-                     _SM_THREADS // threads)
+        if bf16:
+            threads = MMA_THREADS
+            per_sm = min(_SM_SMEM // (smem + 1024), MMA_BLOCKS_PER_SM)
+        else:
+            threads = block_threads(t, G)
+            per_sm = min(_SM_SMEM // (smem + 1024),
+                         _SM_REGS // (_REGS * threads),
+                         _SM_THREADS // threads)
         blocks = B * -(-T // t)
         for split in (False, True) if can_split else (False,):
             grid = 2 * blocks if split else blocks
@@ -167,20 +221,22 @@ def plan_for(B: int, T: int, dims: Tuple[int, ...], sms: int = H100_SMS,
     return None if best is None else best[1]
 
 
-def encode_plan(cfg, B: int, T: int, sms: int = H100_SMS) -> Optional[Plan]:
-    return plan_for(B, T, encoder_dims(cfg), sms)
+def encode_plan(cfg, B: int, T: int, sms: int = H100_SMS,
+                bf16: bool = False) -> Optional[Plan]:
+    return plan_for(B, T, encoder_dims(cfg), sms, bf16=bf16)
 
 
-def encode_supported(cfg, B: int, T: int) -> bool:
-    """True when the encoder kernel takes this model on Hopper: float32
-    compute, every layer's slab of one input channel within a weight
-    buffer, and a block's rows within a block's shared memory at the
-    narrowest tile.  The kernel tiles along T, so B and T set no bound
-    beyond the grid's."""
+def encode_supported(cfg, B: int, T: int, bf16: bool = False) -> bool:
+    """True when the encoder kernel takes this model on Hopper in the mode:
+    float32 compute, in the float32 mode every layer's slab of one input
+    channel within a weight buffer (the bfloat16 mode stages no weights),
+    and a block's rows within a block's shared memory at the narrowest
+    tile.  The kernel tiles along T, so B and T set no bound beyond the
+    grid's."""
     dims = encoder_dims(cfg)
     return (cfg.compute_dtype == "float32" and B >= 0 and T >= 0
-            and layers_fit(*dims)
-            and smem_dims_bytes(TILES[-1], dims) <= SMEM_LIMIT)
+            and (bf16 or layers_fit(*dims))
+            and smem_dims_bytes(TILES[-1], dims, bf16) <= SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------
@@ -188,29 +244,71 @@ def encode_supported(cfg, B: int, T: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _kernel_tensors(model):
-    """The tensors the two kernels read: the encoder's three layers and,
-    where the model has u-conditioned transitions, the prior's two, as
-    (weights, biases)."""
+def _kernel_tensors(model, what: str):
+    """The tensors a kernel family reads, as (weights, biases): for
+    "encoder" (kernels 8, 10, 11) the encoder's three layers and, where
+    the model has u-conditioned transitions, the prior's two; for "infer"
+    (kernel A) the encoder's three layers, the codebook and the decoder's
+    three."""
     enc = model.encoder
     ws = [enc.conv1.weight, enc.conv2.weight, enc.to_logits.weight]
     bs = [enc.conv1.bias, enc.conv2.bias, enc.to_logits.bias]
-    if model.cfg.u_dim is not None:
+    if what == "infer":
+        dec = model.decoder
+        ws += [dec.embeddings.weight, dec.conv1.weight, dec.conv2.weight,
+               dec.to_params.weight]
+        bs += [dec.conv1.bias, dec.conv2.bias, dec.to_params.bias]
+    elif model.cfg.u_dim is not None:
         net = model.prior_module.transition_net
         ws += [net[0].weight, net[2].weight]
         bs += [net[0].bias, net[2].bias]
     return ws, bs
 
 
+def _pack(lib, model, what: str, bf16: bool, ws, device) -> torch.Tensor:
+    """The weights `ws` of `what` packed by the library's pack kernel in
+    the mode, on the current stream: floats in tile_fma.cuh's staging
+    order, or bfloat16 values in tile_mma.cuh's fragment order.  The
+    library's count of packed values is held against the wrapper's."""
+    cfg = model.cfg
+    if what == "infer":
+        dims = (cfg.input_dim, cfg.hidden_dim, cfg.hidden_dim2, cfg.K,
+                cfg.hidden_dim)
+        n = lib.vqhmm_fused_infer_packed_floats(*dims, int(bf16))
+        want = (infer_packed_bf16 if bf16 else infer_packed_floats)(*dims)
+    else:
+        dims = encoder_dims(cfg, len(ws) == 5)
+        n = lib.vqhmm_encoder_packed_floats(*dims, int(bf16))
+        want = (packed_bf16 if bf16 else packed_floats)(*dims)
+    if n != want:
+        raise RuntimeError(f"{what} pack kernel and wrapper disagree: {n} "
+                           f"packed values, {want} expected (bf16={bf16})")
+    packed = torch.empty(n, dtype=torch.bfloat16 if bf16 else torch.float32,
+                         device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if what == "infer":
+        err = lib.vqhmm_fused_infer_pack(
+            *[w.data_ptr() for w in ws], packed.data_ptr(), *dims, int(bf16),
+            stream)
+    else:
+        pw = [ws[3].data_ptr(), ws[4].data_ptr()] if len(ws) == 5 \
+            else [None, None]
+        err = lib.vqhmm_encoder_pack(*[w.data_ptr() for w in ws[:3]], *pw,
+                                     packed.data_ptr(), *dims, int(bf16),
+                                     stream)
+    _build.check(err, f"{what} pack kernel launch")
+    return packed
+
+
 class KernelCache:
-    """One model's packed weights (valid while `key` holds), the gates'
-    answers and the launch plans of the shapes seen."""
+    """One model's packed weights, a (kernel family, mode) each and valid
+    while its key holds, the gates' answers and the launch plans of the
+    shapes seen."""
 
     def __init__(self):
         self.lock = threading.Lock()
-        self.key = None
-        self.packed = None
-        self.biases = None
+        # (what, bf16) -> (key, packed, biases)
+        self.packs = {}
         self.gates = {}
         self.plans = {}
 
@@ -222,65 +320,61 @@ class KernelCache:
         return self.gates[what]
 
     def plan(self, what: str, dims, B: int, T: int, device,
-             can_split: bool = False) -> Plan:
-        """The plan at (B, T), computed once a shape and held once against
-        the built library's shared-memory count."""
+             can_split: bool = False, bf16: bool = False) -> Plan:
+        """The plan at (B, T) in the mode, computed once a shape and held
+        once against the built library's shared-memory count."""
         sms = _build.sm_count(device)
-        key = (what, B, T, sms)
+        key = (what, bf16, B, T, sms)
         if key not in self.plans:
-            plan = plan_for(B, T, dims, sms, can_split)
+            plan = plan_for(B, T, dims, sms, can_split, bf16)
             if plan is None:
                 raise ValueError(f"no tile of {TILES} fits {what} at widths "
-                                 f"{dims} in {SMEM_LIMIT} bytes")
+                                 f"{dims} in {SMEM_LIMIT} bytes (bf16="
+                                 f"{bf16})")
             lib = _build.library()
-            got = (lib.vqhmm_fused_encode_smem_bytes(*dims[:4], plan.tile)
-                   if what == "encode" else
-                   lib.vqhmm_fused_evidence_smem_bytes(*dims, plan.tile))
+            if what == "encode":
+                got = lib.vqhmm_fused_encode_smem_bytes(*dims[:4], plan.tile,
+                                                        int(bf16))
+            else:
+                got = lib.vqhmm_fused_evidence_smem_bytes(*dims, plan.tile,
+                                                          int(bf16))
             if got != plan.smem:
                 raise RuntimeError(f"{what} kernel and wrapper disagree on "
-                                   f"the shared memory at tile {plan.tile}: "
-                                   f"{got} != {plan.smem} bytes")
+                                   f"the shared memory at tile {plan.tile} "
+                                   f"(bf16={bf16}): {got} != {plan.smem} "
+                                   "bytes")
             self.plans[key] = plan
         return self.plans[key]
 
-    def weights(self, model, device) -> Tuple[torch.Tensor, list]:
-        """(packed weights, the biases) on `device`, packed again by the
-        pack kernel where a parameter changed since the last pack."""
-        ws, bs = _kernel_tensors(model)
+    def weights(self, model, device, what: str = "encoder",
+                bf16: bool = False) -> Tuple[torch.Tensor, list]:
+        """(packed weights, the biases) of `what` ("encoder": kernels 8, 10
+        and 11; "infer": kernel A) in the mode on `device`, packed again by
+        the pack kernel where a parameter changed since the last pack."""
+        ws, bs = _kernel_tensors(model, what)
         # an inference tensor (a model made under torch.inference_mode)
         # keeps no version: its weights are packed again every call
         key = None if any(p.is_inference() for p in ws + bs) else (
             device, tuple((p._version, p.data_ptr()) for p in ws + bs))
         with self.lock:
-            if key is None or key != self.key:
-                ws = [w.detach() for w in ws]
-                bs = [b.detach() for b in bs]
-                for w in ws + bs:
-                    if w.device != device or w.dtype != torch.float32 \
-                            or not w.is_contiguous():
-                        raise ValueError(
-                            "model weights must be contiguous float32 on "
-                            f"{device} (got {w.dtype} on {w.device})")
-                dims = encoder_dims(model.cfg, len(ws) == 5)
-                lib = _build.library()
-                n = lib.vqhmm_encoder_packed_floats(*dims)
-                if n != packed_floats(*dims):
-                    raise RuntimeError("encoder pack kernel and wrapper "
-                                       f"disagree: {n} packed floats")
-                packed = torch.empty(n, dtype=torch.float32, device=device)
-                pw = [ws[3].data_ptr(), ws[4].data_ptr()] if len(ws) == 5 \
-                    else [None, None]
-                stream = torch.cuda.current_stream(device)
-                err = lib.vqhmm_encoder_pack(
-                    *[w.data_ptr() for w in ws[:3]], *pw, packed.data_ptr(),
-                    *dims, stream.cuda_stream)
-                _build.check(err, "encoder pack kernel launch")
-                if key is None:
-                    return packed, bs
-                # a caller on another stream must find the pack done
-                stream.synchronize()
-                self.key, self.packed, self.biases = key, packed, bs
-            return self.packed, self.biases
+            kept = self.packs.get((what, bf16))
+            if key is not None and kept is not None and kept[0] == key:
+                return kept[1], kept[2]
+            ws = [w.detach() for w in ws]
+            bs = [b.detach() for b in bs]
+            for w in ws + bs:
+                if w.device != device or w.dtype != torch.float32 \
+                        or not w.is_contiguous():
+                    raise ValueError(
+                        "model weights must be contiguous float32 on "
+                        f"{device} (got {w.dtype} on {w.device})")
+            packed = _pack(_build.library(), model, what, bf16, ws, device)
+            if key is None:
+                return packed, bs
+            # a caller on another stream must find the pack done
+            torch.cuda.current_stream(device).synchronize()
+            self.packs[(what, bf16)] = (key, packed, bs)
+            return packed, bs
 
 
 _caches: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -302,10 +396,13 @@ def kernel_cache(model) -> KernelCache:
 # ---------------------------------------------------------------------------
 
 
-def fused_encode_reference(model, x: torch.Tensor,
-                           valid_to=None) -> torch.Tensor:
-    """Plain version: the model's own convolution stack, (B, K, T)."""
-    return model.encode(x, valid_to=valid_to, fused=False)
+def fused_encode_reference(model, x: torch.Tensor, valid_to=None,
+                           bf16_operands: bool = False) -> torch.Tensor:
+    """Plain version: the model's own convolution stack, (B, K, T);
+    bf16_operands: the bfloat16-operand mode's
+    (VAEHMM.encode(bf16_operands=True))."""
+    return model.encode(x, valid_to=valid_to, fused=False,
+                        bf16_operands=bf16_operands)
 
 
 def refuse_grad(what: str, x: torch.Tensor, params) -> None:
@@ -335,8 +432,9 @@ def fused_encode(model, x: torch.Tensor, valid_to=None,
     """x (B, C, T) -> regime logits (B, K, T), with valid_to None, a scalar
     or a per-sequence (B,) vector (the semantics of VAEHMM.encode).  Row i
     of a batched call is bit-equal to the row computed alone."""
+    bf16 = operand_mode(model, x)
     if not kernel_route(model, x, use_kernel):
-        return fused_encode_reference(model, x, valid_to)
+        return fused_encode_reference(model, x, valid_to, bf16)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor; the fused "
                          "encoder is a CUDA kernel")
@@ -345,36 +443,43 @@ def fused_encode(model, x: torch.Tensor, valid_to=None,
     check_x(model, x, "fused encoder")
     cache = kernel_cache(model)
     B, C, T = x.shape
-    if not cache.supported("encode", cfg, encode_supported):
+    gate = "encode_bf16" if bf16 else "encode"
+    if not cache.supported(gate, cfg, lambda c, b, t: encode_supported(
+            c, b, t, bf16)):
+        mode = ("in its bfloat16-operand mode" if bf16 else
+                f"in float32, takes hidden widths up to {WBUF // 3}")
         raise ValueError(
-            f"fused encoder unsupported for {cfg}: it computes in float32, "
-            f"takes hidden widths up to {WBUF // 3} and needs "
-            f"{smem_bytes(cfg, TILES[-1])} bytes of shared memory a block, "
-            f"of at most {SMEM_LIMIT} (see encode_supported)")
+            f"fused encoder unsupported for {cfg}: it computes {mode} and "
+            f"needs {smem_bytes(cfg, TILES[-1], bf16)} bytes of shared "
+            f"memory a block, of at most {SMEM_LIMIT} (see "
+            "encode_supported)")
     vt = valid_to_rows(valid_to, B, T, x.device)
     logits = torch.empty((B, cfg.K, T), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
         return logits
-    plan = cache.plan("encode", encoder_dims(cfg), B, T, x.device)
-    _launch(model, x, vt, plan.tile, logits)
+    plan = cache.plan("encode", encoder_dims(cfg), B, T, x.device, bf16=bf16)
+    _launch(model, x, vt, plan.tile, logits, bf16)
     with _count_lock:
         fused_encode.launches += 1
+        fused_encode.bf16_launches += bf16
     return logits
 
 
-def _launch(model, x, vt, tile: int, logits) -> None:
-    """One launch of the kernel at tile width `tile` into `logits`, vt the
-    (B,) int32 bound.  It does not count: fused_encode does."""
+def _launch(model, x, vt, tile: int, logits, bf16: bool = False) -> None:
+    """One launch of the kernel at tile width `tile`, in the
+    bfloat16-operand mode where bf16, into `logits`, vt the (B,) int32
+    bound.  It does not count: fused_encode does."""
     cfg = model.cfg
     B, C, T = x.shape
-    packed, bs = kernel_cache(model).weights(model, x.device)
+    packed, bs = kernel_cache(model).weights(model, x.device, bf16=bf16)
     x = x.contiguous()
     err = _build.library().vqhmm_fused_encode(
         x.data_ptr(), vt.data_ptr(), packed.data_ptr(),
         *[b.data_ptr() for b in bs[:3]], logits.data_ptr(), B, C, T,
-        cfg.hidden_dim, cfg.hidden_dim2, cfg.K, tile,
+        cfg.hidden_dim, cfg.hidden_dim2, cfg.K, tile, int(bf16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_encoder kernel launch")
 
 
 fused_encode.launches = 0
+fused_encode.bf16_launches = 0

@@ -13,8 +13,20 @@ and the plain version for a CPU tensor or a bfloat16 model;
 `use_kernel=False` computes the plain version.  There is no fallback: a
 call that takes the kernel launches it or raises.
 
-`fused_forward.launches` counts the kernel's launches, so a run can show
-that its main path went through the kernel.
+Two modes of arithmetic, as the TPU kernel's `highest` flag has
+(ops/fused_train.py::infer_bf16_mode): float32, and on a CUDA tensor of a
+float32 model whose matmul_precision is not "highest" the
+bfloat16-operand mode (both operands of every product rounded to
+bfloat16, float32 sums, on the tensor cores), whose plain version is
+`fused_forward_reference(bf16_operands=True)`; `use_kernel=False` takes
+that plain version on the card.  Each mode has its own launch plan and
+shared-memory count; a shape the mode's plan refuses raises.  The packed
+weights are kept a model, weight version and mode
+(ops/fused_encoder.py::KernelCache).
+
+`fused_forward.launches` counts the kernel's launches in either mode,
+`fused_forward.bf16_launches` those in the bfloat16-operand mode, so a
+run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -65,11 +77,24 @@ class LaunchPlan(NamedTuple):
     smem: int          # dynamic shared memory a block, bytes
 
 
-def smem_bytes(tile: int, C: int, H1: int, H2: int, K: int, D: int) -> int:
+def _op_stride(n: int) -> int:
+    """bfloat16 values a row of an operand of n channels
+    (csrc/tile_mma.cuh::op_stride)."""
+    return -(-n // 16) * 16 + 8
+
+
+def smem_bytes(tile: int, C: int, H1: int, H2: int, K: int, D: int,
+               bf16: bool = False) -> int:
     """Dynamic shared memory of a block at tile width `tile` (the same
     count as csrc/fused_infer.cu::vqhmm_fused_infer_smem_bytes): two weight
     buffers, a pad, then C + 2 max(H1, H2, D, 2C) + K rows of the window
-    (the last layer leaves its 2C rows of mu and logvar in a buffer)."""
+    (the last layer leaves its 2C rows of mu and logvar in a buffer).
+    bf16 (the same entry at bf16 = 1): bfloat16 operands of
+    tile + 2 HALO rows, x and two ping-pong buffers of the widest of H1,
+    H2, D and K, then K + 2C float32 rows of the window."""
+    if bf16:
+        return (2 * (tile + 2 * HALO) * (_op_stride(C) + 2 * _op_stride(
+            max(H1, H2, D, K))) + 4 * (tile + 2 * HALO + JB) * (K + 2 * C))
     return 4 * (2 * WBUF + ROW_PAD + (tile + 2 * HALO + JB)
                 * (C + 2 * max(H1, H2, D, 2 * C) + K))
 
@@ -81,30 +106,51 @@ def _packed(O: int, I: int, taps: int) -> int:
 
 
 def packed_floats(C: int, H1: int, H2: int, K: int, D: int) -> int:
-    """Floats of the packed weights a call allocates (the same count as
+    """Floats of the packed weights (the same count as
     csrc/fused_infer.cu::packed)."""
     return (_packed(H1, C, 3) + _packed(H2, H1, 3) + _packed(K, H2, 1)
             + _packed(D, K, 1) + 2 * _packed(D, D, 3) + _packed(2 * C, D, 1))
 
 
+def layers(C: int, H1: int, H2: int, K: int, D: int):
+    """(O, I, taps, transposed) of the seven packed layers in order: the
+    encoder's three, the codebook as the transposed layer e = E^T q, the
+    decoder's three."""
+    return ((H1, C, 3, False), (H2, H1, 3, False), (K, H2, 1, False),
+            (D, K, 1, True), (D, D, 3, False), (D, D, 3, False),
+            (2 * C, D, 1, False))
+
+
+def packed_bf16(C: int, H1: int, H2: int, K: int, D: int) -> int:
+    """bfloat16 values of the bfloat16 mode's packed weights
+    (csrc/fused_infer.cu::packed_bf16): each layer round16(O) x taps x
+    round16(I), in mma fragment order (csrc/tile_mma.cuh)."""
+    return sum(-(-O // 16) * 16 * taps * -(-I // 16) * 16
+               for O, I, taps, _ in layers(C, H1, H2, K, D))
+
+
 @functools.lru_cache(maxsize=None)
 def launch_plan(B: int, T: int, C: int, H1: int, H2: int, K: int, D: int,
-                sms: int = H100_SMS) -> LaunchPlan:
+                sms: int = H100_SMS, bf16: bool = False) -> LaunchPlan:
     """The widest tile for which the grid still has a block for every SM
-    and a block's shared memory fits; where B * T is too small for that,
-    the narrowest tile that fits (the most blocks).  Raises where no tile
-    fits or a layer is too wide for a weight buffer."""
-    if 3 * ((max(H1, H2, D) + 3) // 4 * 4) > WBUF \
-            or (max(K, 2 * C) + 3) // 4 * 4 > WBUF:
+    and a block's shared memory (in the mode: `smem_bytes`) fits; where
+    B * T is too small for that, the narrowest tile that fits (the most
+    blocks).  Raises where no tile fits or, in the float32 mode, a layer
+    is too wide for a weight buffer (the bfloat16 mode stages no
+    weights)."""
+    if not bf16 and (3 * ((max(H1, H2, D) + 3) // 4 * 4) > WBUF
+                     or (max(K, 2 * C) + 3) // 4 * 4 > WBUF):
         raise ValueError(f"fused forward takes hidden widths up to "
                          f"{WBUF // 3} and K, 2 * input_dim up to {WBUF}, "
                          f"got hidden={H1}/{H2}, K={K}, input_dim={C}")
-    fits = [LaunchPlan(t, B * -(-T // t), smem_bytes(t, C, H1, H2, K, D))
-            for t in TILES]
+    fits = [LaunchPlan(t, B * -(-T // t),
+                       smem_bytes(t, C, H1, H2, K, D, bf16)) for t in TILES]
     fits = [p for p in fits if p.smem <= SMEM_LIMIT]
     if not fits:
+        mode = "its bfloat16-operand mode" if bf16 else "float32"
         raise ValueError(
-            f"fused forward needs {smem_bytes(TILES[-1], C, H1, H2, K, D)} "
+            f"fused forward in {mode} needs "
+            f"{smem_bytes(TILES[-1], C, H1, H2, K, D, bf16)} "
             f"bytes of shared memory per block at C={C}, hidden={H1}/{H2}, "
             f"K={K}; a Hopper block may use at most {SMEM_LIMIT} bytes")
     for p in fits:
@@ -114,34 +160,38 @@ def launch_plan(B: int, T: int, C: int, H1: int, H2: int, K: int, D: int,
 
 
 def kernel_route(model, x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
-    """Whether a call of one of the float32 inference kernels (A, 8, 10,
-    11) launches it: use_kernel as given, and for None the kernel for a
-    CUDA tensor of a float32 model.  A bfloat16 model takes its plain
-    path on every device, as the JAX package routes such a model around
-    these kernels (vqvaehmm_tpu/models/vae_hmm.py, posterior and
+    """Whether a call of one of the inference kernels (A, 8, 10, 11)
+    launches it: use_kernel as given, and for None the kernel for a CUDA
+    tensor of a float32 model.  A bfloat16 model takes its plain path on
+    every device, as the JAX package routes such a model around these
+    kernels (vqvaehmm_tpu/models/vae_hmm.py, posterior and
     infer_forward)."""
     if use_kernel is None:
         return x.is_cuda and model.cfg.compute_dtype == "float32"
     return use_kernel
 
 
-def fused_forward_reference(model, x: torch.Tensor, valid_to=None
+def operand_mode(model, x: torch.Tensor) -> bool:
+    """The mode of kernels A, 8, 10 and 11 and of their wrappers' plain
+    route for x: ops/fused_train.py::infer_bf16_mode on x's device."""
+    # fused_train imports this module's constants
+    from .fused_train import infer_bf16_mode
+
+    return infer_bf16_mode(model.cfg, x.device)
+
+
+def fused_forward_reference(model, x: torch.Tensor, valid_to=None,
+                            bf16_operands: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """Plain version: (mu, logvar, q), each (B, C|K, T)."""
-    logits = model.encode(x, valid_to=valid_to, fused=False)
+    """Plain version: (mu, logvar, q), each (B, C|K, T).  bf16_operands:
+    the bfloat16-operand mode's (VAEHMM.encode/decode(bf16_operands=True))."""
+    logits = model.encode(x, valid_to=valid_to, fused=False,
+                          bf16_operands=bf16_operands)
     q = torch.softmax(logits, dim=1)
-    mu, logvar = model.decode(q, valid_to=valid_to)
+    mu, logvar = model.decode(q, valid_to=valid_to,
+                              bf16_operands=bf16_operands)
     return mu, logvar, q
-
-
-def _weights(model):
-    enc, dec = model.encoder, model.decoder
-    return (enc.conv1.weight, enc.conv1.bias, enc.conv2.weight,
-            enc.conv2.bias, enc.to_logits.weight, enc.to_logits.bias,
-            dec.embeddings.weight, dec.conv1.weight, dec.conv1.bias,
-            dec.conv2.weight, dec.conv2.bias, dec.to_params.weight,
-            dec.to_params.bias)
 
 
 def fused_forward(model, x: torch.Tensor, valid_to=None,
@@ -152,8 +202,9 @@ def fused_forward(model, x: torch.Tensor, valid_to=None,
     The kernel is inference-only, as its TPU counterpart is: its outputs
     carry no gradient (use_kernel=False gives the differentiable plain
     version)."""
+    bf16 = operand_mode(model, x)
     if not kernel_route(model, x, use_kernel):
-        return fused_forward_reference(model, x, valid_to)
+        return fused_forward_reference(model, x, valid_to, bf16)
     cfg = model.cfg
     if cfg.compute_dtype != "float32":
         raise ValueError(f"the fused forward computes in float32; a "
@@ -174,54 +225,53 @@ def fused_forward(model, x: torch.Tensor, valid_to=None,
     if B == 0 or T == 0:
         return mu, logvar, q
     plan = launch_plan(B, T, C, cfg.hidden_dim, cfg.hidden_dim2, cfg.K,
-                       cfg.hidden_dim, _build.sm_count(x.device))
-    _launch(model, x, valid_to, plan.tile, (mu, logvar, q))
+                       cfg.hidden_dim, _build.sm_count(x.device), bf16)
+    _launch(model, x, valid_to, plan.tile, (mu, logvar, q), bf16)
     with _count_lock:
         fused_forward.launches += 1
+        fused_forward.bf16_launches += bf16
     return mu, logvar, q
 
 
-def _launch(model, x, valid_to, tile: int, out) -> None:
-    """One launch of the kernel at tile width `tile` into out = (mu,
-    logvar, q).  It does not count: fused_forward does."""
+def _launch(model, x, valid_to, tile: int, out, bf16: bool = False) -> None:
+    """One launch of the kernel at tile width `tile`, in the
+    bfloat16-operand mode where bf16, into out = (mu, logvar, q).  It does
+    not count: fused_forward does."""
+    from .fused_encoder import kernel_cache   # it imports this module
+
     cfg = model.cfg
     B, C, T = x.shape
     H1, H2, K, D = cfg.hidden_dim, cfg.hidden_dim2, cfg.K, cfg.hidden_dim
     lib = _build.library()
-    n_packed = _checked_sizes(lib, C, H1, H2, K, D, tile)
-    weights = [w.detach() for w in _weights(model)]
-    for w in weights:
-        if w.device != x.device or w.dtype != torch.float32 \
-                or not w.is_contiguous():
-            raise ValueError("model weights must be contiguous float32 on "
-                             f"{x.device} (got {w.dtype} on {w.device})")
+    _check_smem(lib, C, H1, H2, K, D, tile, bf16)
+    packed, bs = kernel_cache(model).weights(model, x.device, "infer", bf16)
     x = x.contiguous()
     vt = valid_to_rows(valid_to, B, T, x.device)
-    packed = torch.empty(n_packed, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.vqhmm_fused_infer(
-        x.data_ptr(), vt.data_ptr(), *[w.data_ptr() for w in weights],
-        packed.data_ptr(), *[o.data_ptr() for o in out], B, C, T, H1, H2, K, D, tile, stream)
+        x.data_ptr(), vt.data_ptr(), packed.data_ptr(),
+        *[b.data_ptr() for b in bs], *[o.data_ptr() for o in out], B, C, T,
+        H1, H2, K, D, tile, int(bf16),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_infer kernel launch")
 
 
-_sizes: dict = {}
+_smem_checked: set = set()
 
 
-def _checked_sizes(lib, C, H1, H2, K, D, tile) -> int:
-    """Floats of the packed weights, after the wrapper's shared-memory and
-    packed sizes were held once against the built library's."""
-    key = (C, H1, H2, K, D, tile)
-    if key not in _sizes:
-        smem = lib.vqhmm_fused_infer_smem_bytes(C, H1, H2, K, D, tile)
-        n_packed = lib.vqhmm_fused_infer_packed_floats(C, H1, H2, K, D)
-        if smem != smem_bytes(tile, C, H1, H2, K, D) or smem > SMEM_LIMIT \
-                or n_packed != packed_floats(C, H1, H2, K, D):
+def _check_smem(lib, C, H1, H2, K, D, tile, bf16) -> None:
+    """Hold the wrapper's shared-memory count once against the built
+    library's, a shape and mode."""
+    key = (C, H1, H2, K, D, tile, bf16)
+    if key not in _smem_checked:
+        smem = lib.vqhmm_fused_infer_smem_bytes(C, H1, H2, K, D, tile,
+                                                int(bf16))
+        if smem != smem_bytes(tile, C, H1, H2, K, D, bf16) \
+                or smem > SMEM_LIMIT:
             raise RuntimeError(
-                f"fused_infer kernel and wrapper disagree at tile {tile}: "
-                f"{smem} bytes of shared memory, {n_packed} packed floats")
-        _sizes[key] = n_packed
-    return _sizes[key]
+                f"fused_infer kernel and wrapper disagree at tile {tile} "
+                f"(bf16={bf16}): {smem} bytes of shared memory")
+        _smem_checked.add(key)
 
 
 fused_forward.launches = 0
+fused_forward.bf16_launches = 0

@@ -361,6 +361,23 @@ def bf16_mode(cfg) -> bool:
     return cfg.compute_dtype == "bfloat16"
 
 
+def infer_bf16_mode(cfg, device) -> bool:
+    """Whether the inference kernels A, 8, 11 and 10 (ops/fused_infer.py,
+    fused_encoder.py, fused_decode.py), and their plain versions where the
+    wrappers take them, run in the bfloat16-operand mode on `device`: a
+    float32 model whose matmul_precision is not "highest", on a CUDA
+    device.  That is the JAX package's rule, `highest =
+    matmul_precision == "highest"` (vqvaehmm_tpu/ops/pallas_infer.py:193,
+    pallas_decode.py:296 and :338, models/vae_hmm.py:184), so "float32"
+    takes the mode too, though JAX's XLA path then runs Precision.HIGH.  A
+    bfloat16 model keeps its plain path, as JAX routes it around these
+    kernels.  On the CPU the products are float32 at every precision, as
+    they are in JAX's CPU backend and interpret mode."""
+    return (torch.device(device).type == "cuda"
+            and cfg.compute_dtype == "float32"
+            and cfg.matmul_precision != "highest")
+
+
 def train_step_supported(cfg, B: int, T: int) -> bool:
     """True when the fused train kernels take these shapes on Hopper:
     float32 or bfloat16 compute (the two modes), u-conditioned
