@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OLD NEW
     python3 chip_smoke.py --kernel-times DIR
-    python3 chip_smoke.py --scan-clocks
+    python3 chip_smoke.py --scan-clocks [DIR]
 
 Run from the root of a checkout, on a machine with one CUDA card.  It
 imports nothing of JAX.  With --compare it times the serving forward
@@ -26,11 +26,19 @@ other orders) and whether each repeats bit for bit; a checkout without
 git history is enough
 (`git archive <commit> | tar -x -C OLD`).  --kernel-times DIR is one such process; where the
 checkout's evidence wrapper takes a forced tile and split, it also times
-every (tile, split) of kernel 11 at those shapes.  --scan-clocks builds
-the kernels again into build/scan_clocks with kernels B and 10
+every (tile, split) of kernel 11 at those shapes; it also times kernels
+A, 8, 11 and 10 in the default-precision mode at the four bulk shapes and
+hashes their outputs, and hashes kernel A's float32 outputs.
+--scan-clocks [DIR] builds the kernels of the checkout at DIR (this one
+by default) again into DIR/build/scan_clocks with kernels B and 10
 instrumented (thread 0 of block 0 reads the SM's clock after each phase of
-the scan) and prints the cycles of each phase at B = 1 over T and at the
-bulk shapes.  Without arguments it
+the scan) and the default-precision mode of kernels A and 11 stamped
+(after each call, barrier and loop of their bodies and of the evidence
+stages: the weights, the x staging, each product layer, the softmax, the
+writes), and prints the cycles of each phase at B = 1 over T and at the
+bulk shapes, and of each stamp of A and 11 at (1, 5), (1, 200) and
+(64, 200); run it on two checkouts in one call to compare their clocks.
+Without arguments it
 runs these phases, each printing one line, any failure
 exiting non-zero before a result is printed:
 
@@ -444,7 +452,10 @@ exiting non-zero before a result is printed:
    of each kernel at PRECISION_SHAPES, back to back and as device-busy
    time, with the mode's bound (its products at 989 TFLOP/s of dense
    bf16).  Phase 2 prints the mode's kernels' registers and HMMA counts
-   and fails where a mode's kernel has none or a float32 one has any.
+   and fails where a mode's kernel has none or a float32 one has any, or
+   where kernel A's mode spills.  Kernels A and 11 of the mode stage
+   their weights in shared memory ahead of their chain of layers
+   (tile_mma.cuh::staged_layer; resident at the published widths).
 
 The line before the last is a JSON summary of the kernels, each with the
 least time the card could take for the same work (`bound_ms`: the larger
@@ -482,6 +493,7 @@ import importlib
 import itertools
 import json
 import os
+import re
 import shutil
 import signal
 import socket
@@ -6366,7 +6378,9 @@ INFER_TRACE_NAMES = {
     ("fused_encode", "fp32"): "fused_encoder_kernel",
     ("fused_encode", "bf16"): "fused_encoder_bf16_kernel",
     ("fused_evidence", "fp32"): "fused_evidence_kernel",
-    ("fused_evidence", "bf16"): "fused_evidence_bf16_kernel",
+    # the first design's kernel, or its staged twin where the grid leaves
+    # an SM a block at most (fused_decode.cu::evidence_stage)
+    ("fused_evidence", "bf16"): "fused_evidence_bf16",
     ("fused_decode", "fp32"): "fused_decode_kernel<3, false>",
     ("fused_decode", "bf16"): "fused_decode_kernel<3, true>"}
 # The mode against its plain version on the card (both round every
@@ -6871,8 +6885,10 @@ def kernel_times(torch, np, root: str) -> dict:
     and B at BULK_SHAPES with the package of the checkout at `root` (its
     kernels built there): back-to-back CUDA-event ms and device-busy ms a
     call, the published weights (fresh weights from a seed at the probe
-    shape); for C (its float32 mode), 8, 11, 10 and B also a SHA-256 of
-    the output bytes from fixed seeded inputs.
+    shape); for A and C (their float32 modes), 8, 11, 10 and B also a
+    SHA-256 of the output bytes from fixed seeded inputs; and kernels A,
+    8, 11 and 10 in the default-precision mode (PRECISION_CONFIG) at
+    PRECISION_SHAPES, ragged lengths, timed and hashed alike.
     Where the checkout's wrappers take a forced tile (and split), every
     tile of kernel 8 and (tile, split) of kernel 11 is timed at each bulk
     shape too."""
@@ -6897,7 +6913,30 @@ def kernel_times(torch, np, root: str) -> dict:
             fn = lambda: fused_forward(model, x, valid_to=T,  # noqa: E731
                                        use_kernel=True)
             out[f"A {B}x{T}"] = {"events_ms": _time(torch, fn)[0],
-                                 "device_ms": _device_ms(torch, fn)}
+                                 "device_ms": _device_ms(torch, fn),
+                                 "sha256": _sha(torch, *fn())}
+        # the default-precision mode of A, 8, 11 and 10 (the published
+        # weights at matmul_precision "default"), ragged lengths
+        m16 = load_published(torch, dev, PRECISION_CONFIG)
+        for B, T in PRECISION_SHAPES:
+            g = np.random.default_rng(B * 10007 + T + 36)
+            x, u, lens = train_inputs(torch, np, g, B, T,
+                                      m16.cfg.input_dim, m16.cfg.u_dim, dev,
+                                      short=max(1, T - 3))
+            for key, fn in (
+                    (f"A mode {B}x{T}", lambda: fused_forward(
+                        m16, x, valid_to=lens, use_kernel=True)),
+                    (f"8 mode {B}x{T}", lambda: fused_encode(
+                        m16, x, valid_to=lens, use_kernel=True)),
+                    (f"11 mode {B}x{T}", lambda: fused_evidence(
+                        m16, x, u, lens, use_kernel=True)),
+                    (f"10 mode {B}x{T}", lambda: fused_viterbi_states(
+                        m16, x, u, lens, use_kernel=True))):
+                res = fn()
+                out[key] = {"events_ms": _time(torch, fn)[0],
+                            "device_ms": _device_ms(torch, fn),
+                            "sha256": _sha(torch, *(
+                                res if isinstance(res, tuple) else (res,)))}
     for B, T in C_SHAPES:
         m, iters = (probe, 2) if (B, T) == C_SHAPES[-1] else (model, 20)
         x, u, lens = train_inputs(torch, np, rng, B, T, m.cfg.input_dim,
@@ -7119,12 +7158,154 @@ def _clocked_source(text, marker, barrier, first, sym):
                    f'(int)cudaMemcpyFromSymbol(out, {sym}, 64); }}\n')
 
 
-def scan_clocks(torch, np) -> int:
-    """Where the time of kernels B and 10 goes: the library built again into
-    build/scan_clocks with the two scan kernels instrumented (thread 0 of
-    block 0 reads the SM's clock after each phase's barrier), then the
+# the bfloat16-operand mode's kernels A and 11, and the evidence stages of
+# kernel 11, instrumented by scan_clocks: (source, the functions whose
+# statements are stamped, whether they are kernels whose block 0 starts the
+# record)
+_STAMPED = (("fused_infer.cu", ("fused_infer_bf16_kernel(",), True),
+            ("fused_decode.cu", ("fused_evidence_bf16_kernel(",
+                                 "fused_evidence_bf16_staged_kernel("), True),
+            ("encoder_mma.cuh", ("encoder_stage(", "prior_stage("), False))
+# the stamps' record, one a translation unit (internal linkage), written by
+# thread 0 of block 0 alone
+_STAMP_PRELUDE = """static __device__ long long clk_ts_[64];
+static __device__ int clk_id_[64];
+static __device__ int clk_n_;
+#define CLK_STAMP(id) do { if (blockIdx.x == 0 && threadIdx.x == 0) { \\
+    const int n_ = clk_n_; \\
+    if (n_ < 64) { clk_ts_[n_] = clock64(); clk_id_[n_] = (id); } \\
+    clk_n_ = n_ + 1; } } while (0)
+"""
+_CALL = re.compile(r"^[A-Za-z_][\w:]*(\s*<[^;()]*>)?\(")
+
+
+def _stamped_source(text, markers, kernel, labels, where):
+    """`text` with CLK_STAMP(id) after each statement of the functions at
+    `markers` that is a call, a barrier or an if/for/while statement, at
+    the body's level and in the body of a for loop there over `item` (a
+    kernel's loop over its items), and (kernel) the record restarted at
+    the body's first line; labels[id] gets `where`, the line and the
+    statement's first line."""
+    lines = text.split("\n")
+    out, i = [], 0
+    while i < len(lines):
+        line = lines[i]
+        out.append(line)
+        if not any(m in line for m in markers) or line.strip().startswith(
+                ("//", "*")) or line.rstrip().endswith(";"):
+            i += 1
+            continue
+        # the signature, to the line that opens the body
+        depth = line.count("(") - line.count(")")
+        while not (depth == 0 and lines[i].rstrip().endswith("{")):
+            i += 1
+            out.append(lines[i])
+            depth += lines[i].count("(") - lines[i].count(")")
+        i += 1
+        if kernel:
+            labels.append(f"{where}: block start")
+            out.append("  if (blockIdx.x == 0 && threadIdx.x == 0) "
+                       f"clk_n_ = 0; CLK_STAMP({len(labels) - 1});")
+        # blocks: [kind, the start line of the block's current statement];
+        # kind "stamp" (the body, a for loop's body in it), "skip" (other
+        # blocks), "init" (a brace initialiser)
+        blocks, parens = [["stamp", None]], 0
+        while blocks:
+            line = lines[i]
+            code = line.split("//")[0]
+            out.append(line)
+            ends = []
+            for k, ch in enumerate(code):
+                top = blocks[-1]
+                if top[0] != "init" and top[1] is None and not ch.isspace():
+                    top[1] = i
+                if ch == "(":
+                    parens += 1
+                elif ch == ")":
+                    parens -= 1
+                elif ch == "{":
+                    before = code[:k].rstrip()
+                    block = (not before or before.endswith((")", "else",
+                                                            "do", ";", "{"))
+                             or top[1] == i and code[:k].strip() == "")
+                    if not block:
+                        blocks.append(["init", None])
+                    else:
+                        first = lines[top[1]].strip() if top[1] is not None \
+                            else ""
+                        kind = "stamp" if (len(blocks) == 1 and top[0] ==
+                                           "stamp" and first.startswith(
+                                               ("for ", "for("))
+                                           and "item" in first) else "skip"
+                        blocks.append([kind, None])
+                elif ch == "}":
+                    kind = blocks.pop()[0]
+                    if blocks and kind != "init" and parens == 0:
+                        ends.append(len(blocks) - 1)
+                elif ch == ";" and parens == 0 and top[0] != "init":
+                    ends.append(len(blocks) - 1)
+                for level in ends:
+                    b = blocks[level]
+                    if b[1] is None:
+                        continue
+                    nxt = code[k + 1:].strip() or next(
+                        (ln.split("//")[0].strip() for ln in lines[i + 1:]
+                         if ln.split("//")[0].strip()), "")
+                    if nxt.startswith("else"):
+                        continue
+                    first = lines[b[1]].strip()
+                    if b[0] == "stamp" and (
+                            first.startswith(("if ", "if(", "for ", "for(",
+                                              "while ", "__syncthreads"))
+                            or (_CALL.match(first)
+                                and not first.startswith("return"))):
+                        labels.append(f"{where}:{b[1] + 1} {first[:56]}")
+                        out.append(f"  CLK_STAMP({len(labels) - 1});")
+                    b[1] = None
+                ends = []
+            i += 1
+    return "\n".join(out)
+
+
+def _scan_targets(torch, np, dev, root):
+    """The calls scan_clocks reads the stamps of: (name, call, the
+    translation unit's tag, a plan to print) for kernel A's and kernel
+    11's bfloat16-operand mode at (1, 5), (1, 200) and (64, 200), the
+    default-precision configuration's published weights."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_infer as fi
+
+    m16 = load_published(torch, dev, PRECISION_CONFIG)
+    rng = np.random.default_rng(39)
+    cfg = m16.cfg
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for B, T in ((1, 5), (1, 200), (64, 200)):
+        x, u, _ = decode_inputs(torch, np, rng, m16, B, T, False, False)
+        out.append((f"A mode B={B} T={T}",
+                    functools.partial(fi.fused_forward, m16, x, valid_to=T),
+                    "fused_infer", fi.launch_plan(
+                        B, T, cfg.input_dim, cfg.hidden_dim, cfg.hidden_dim2,
+                        cfg.K, cfg.hidden_dim, sms, True)))
+        out.append((f"11 mode B={B} T={T}",
+                    functools.partial(fd.fused_evidence, m16, x, u),
+                    "fused_decode", fd.evidence_plan(cfg, B, T, sms, True)))
+    return out
+
+
+def scan_clocks(torch, np, root=ROOT) -> int:
+    """Where the time of kernels B and 10, and of the bfloat16-operand mode
+    of kernels A and 11, goes, in the checkout at `root` (its package and
+    its sources): the library built again into root/build/scan_clocks with
+    the two scan kernels instrumented (thread 0 of block 0 reads the SM's
+    clock after each phase's barrier) and the two mode kernels and their
+    evidence stages stamped (thread 0 of block 0 reads the clock after
+    each call, barrier and loop of their bodies: the weights, the x
+    staging, each product layer, the softmax, the writes), then the
     cycles of each phase at B = 1 over T and at the bulk shapes, with the
-    device-busy time a call of the uninstrumented kernel B beside them."""
+    device-busy time a call of the uninstrumented kernel B beside them,
+    and the stamps' cycles of A and 11 in the mode at (1, 5), (1, 200)
+    and (64, 200)."""
     import ctypes
 
     from vqvaehmm_tpu_torch.ops import _build
@@ -7135,17 +7316,35 @@ def scan_clocks(torch, np) -> int:
 
     dev = torch.device("cuda")
     plain_lib = _build.library()
-    out_dir = os.path.join(ROOT, "build", "scan_clocks")
+    out_dir = os.path.join(root, "build", "scan_clocks")
     os.makedirs(out_dir, exist_ok=True)
+    labels = []
+    for name, markers, kernel in _STAMPED:
+        if name.endswith(".cuh"):
+            with open(os.path.join(out_dir, name), "w") as f:
+                f.write(_stamped_source(
+                    (_build.CSRC / name).read_text(), markers, kernel, labels,
+                    name))
     objs, procs = [], []
     for src in _build.sources():
-        path = str(src)
+        path, text = str(src), None
         for name, marker, barrier, first, sym in _CLOCKED:
             if src.name == name:
-                path = os.path.join(out_dir, name)
-                with open(path, "w") as f:
-                    f.write(_clocked_source(src.read_text(), marker, barrier,
-                                            first, sym))
+                text = _clocked_source(src.read_text(), marker, barrier,
+                                       first, sym)
+        for name, markers, kernel in _STAMPED:
+            if src.name == name:
+                text = _STAMP_PRELUDE + _stamped_source(
+                    text or src.read_text(), markers, kernel, labels, name)
+                text += (f'\nextern "C" int read_clk_{src.stem}(long long* '
+                         'ts, int* ids, int* n) { cudaMemcpyFromSymbol(ts, '
+                         'clk_ts_, sizeof(clk_ts_)); cudaMemcpyFromSymbol('
+                         'ids, clk_id_, sizeof(clk_id_)); return (int)'
+                         'cudaMemcpyFromSymbol(n, clk_n_, sizeof(int)); }\n')
+        if text is not None:
+            path = os.path.join(out_dir, src.name)
+            with open(path, "w") as f:
+                f.write(text)
         objs.append(os.path.join(out_dir, src.name + ".o"))
         procs.append(subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
@@ -7161,12 +7360,15 @@ def scan_clocks(torch, np) -> int:
     lib = _build.bind(ctypes.CDLL(lib_path))
     for _, _, _, _, sym in _CLOCKED:
         getattr(lib, f"read_{sym}").argtypes = [ctypes.c_void_p]
+    for tag in ("fused_infer", "fused_decode"):
+        getattr(lib, f"read_clk_{tag}").argtypes = [ctypes.c_void_p] * 3
     model = load_published(torch, dev)
     rng = np.random.default_rng(5)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip(), flush=True)
+    say("scan clocks", f"the checkout at {root}")
     shapes = [(1, 40), (1, 200), (1, 600), (1, 1200), (1, 2327), (1, 4654),
               (64, 200), (460, 20)]
     with torch.inference_mode():
@@ -7194,6 +7396,26 @@ def scan_clocks(torch, np) -> int:
                     f"{what}: {list(clk)[:n] + [clk[7]]}; {plan}"
                     + (f"; uninstrumented, device busy {_ms(busy)} a call"
                        if name == "B" else ""))
+        for name, fn, tag, plan in _scan_targets(torch, np, dev, root):
+            _build._lib = plain_lib
+            busy = _device_ms(torch, fn)
+            _build._lib = lib
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            ts, ids, n = ((ctypes.c_longlong * 64)(), (ctypes.c_int * 64)(),
+                          ctypes.c_int())
+            err = getattr(lib, f"read_clk_{tag}")(ts, ids,
+                                                  ctypes.byref(n))
+            if err or not 1 <= n.value <= 64:
+                fail(f"{name}: the stamps were not read ({err}, "
+                     f"{n.value} stamps)")
+            phases = [f"{labels[ids[k]]}: {ts[k] - ts[k - 1]}"
+                      for k in range(1, n.value)]
+            say("scan clocks", f"kernel {name}: {ts[n.value - 1] - ts[0]} "
+                f"cycles in block 0, by stamp: " + "; ".join(phases)
+                + f"; {plan}; uninstrumented, device busy {_ms(busy)} a "
+                "call")
     _build._lib = plain_lib
     return 0
 
@@ -7225,12 +7447,13 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--compare"] and len(sys.argv) == 4:
         return compare_checkouts(*map(os.path.abspath, sys.argv[2:]))
-    if sys.argv[1:] == ["--scan-clocks"]:
-        sys.path.insert(0, ROOT)
-        return scan_clocks(torch, np)
+    if sys.argv[1:2] == ["--scan-clocks"] and len(sys.argv) <= 3:
+        root = os.path.abspath(sys.argv[2]) if len(sys.argv) == 3 else ROOT
+        sys.path.insert(0, root)
+        return scan_clocks(torch, np, root)
     if sys.argv[1:]:
         print("usage: chip_smoke.py [--kernel-times DIR | --compare OLD NEW "
-              "| --scan-clocks]", flush=True)
+              "| --scan-clocks [DIR]]", flush=True)
         return 2
     sys.path.insert(0, ROOT)
 
@@ -7282,11 +7505,23 @@ def main() -> int:
     say("build", "the scan kernels at K = 3 (Viterbi, one-kernel decode): "
         + "; ".join(kernel_resources(_build.build_log, (
             "viterbi_kernelILi3E", "fused_decode_kernelILi3E"))))
-    infer16 = [v[2] for v in INFER_BF16.values()]
+    infer16 = [v[2] for v in INFER_BF16.values()] + [
+        "fused_evidence_bf16_staged_kernel"]
     say("build", "the bfloat16-operand mode of kernels A, 8, 11 and 10 "
         "(tile_mma.cuh): " + "; ".join(kernel_resources(
             _build.build_log, infer16 + ["infer_pack_bf16_kernel",
                                          "encoder_pack_bf16_kernel"])))
+    # kernel A's mode (each instance: its weights resident, on a ring, in
+    # L2) spills nothing
+    log = _build.build_log.splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and \
+                "fused_infer_bf16_kernel" in line:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", " ".join(log[i:i + 4]))
+            if found is None or found.groups() != ("0", "0"):
+                fail(f"kernel A's bfloat16-operand mode spills: "
+                     f"{' '.join(log[i:i + 4])}")
     hmma.update(_build.sass_counts(infer16 + list(INFER_FP32_SASS)))
     say("build", "HMMA instructions in the SASS of kernels A, 8, 11 and 10 "
         "(K = 3) in both modes: " + "; ".join(

@@ -139,7 +139,8 @@ def test_fused_forward_more_outputs_than_hidden_rows(cuda, widths, B, T):
 def test_fused_forward_shared_memory_bound(cuda):
     model = _model(cuda, hidden_dim=1024, hidden_dim2=8)
     x = torch.zeros((1, 5, 8), device=cuda)
-    with pytest.raises(ValueError, match=str(SMEM_LIMIT)):
+    # outside autograd: under it the default dispatch takes the plain path
+    with torch.no_grad(), pytest.raises(ValueError, match=str(SMEM_LIMIT)):
         fused_forward(model, x)
 
 
@@ -765,39 +766,118 @@ def test_encoder_gates_refuse_layers_wider_than_a_weight_buffer(cuda):
             fe._launch(model, x, vt, 48, out)
 
 
-def test_inference_kernels_refuse_autograd(cuda):
-    """With grad mode on and weights that require grad, the paths that
-    would hand back a detached tensor raise instead; they launch under
-    no_grad, with frozen weights, and the plain version stays
-    differentiable."""
-    from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
+def _autograd_entries(model, u, lens, bf16):
+    """(name, default call, plain call) of the six entry points through
+    the inference kernels, each reduced to a float tensor: the plain
+    version is the wrappers' plain route in the model's mode (posterior:
+    fused_encode(use_kernel=False), not encode(fused=False), which keeps
+    the model's own products); the decodes' states through the decoder."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_viterbi_states
     from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
 
-    model = _model(cuda, seed=3)
+    def decoded(states):
+        onehot = torch.nn.functional.one_hot(states.long(), 3)
+        return model.decode(onehot.transpose(1, 2).float())[0]
+
+    return (
+        ("posterior", lambda x: model.posterior(x),
+         lambda x: torch.softmax(fused_encode(model, x, use_kernel=False),
+                                 dim=1)),
+        ("infer_forward",
+         lambda x: torch.cat(model.infer_forward(x, valid_to=lens), 1),
+         lambda x: torch.cat(model.infer_forward(x, valid_to=lens,
+                                                 use_kernel=False), 1)),
+        ("smoothed_posterior", lambda x: model.smoothed_posterior(x, u, lens),
+         lambda x: model.smoothed_posterior(x, u, lens, use_kernel=False)),
+        ("filtered_posterior", lambda x: model.filtered_posterior(x, u, lens),
+         lambda x: model.filtered_posterior(x, u, lens, use_kernel=False)),
+        ("viterbi_decode",
+         lambda x: decoded(model.viterbi_decode(x, u, lens)) + 0 * x.sum(),
+         lambda x: decoded(model.viterbi_decode(x, u, lens,
+                                                use_kernel=False))
+         + 0 * x.sum()),
+        ("fused_viterbi_states",
+         lambda x: decoded(fused_viterbi_states(model, x, u, lens))
+         + 0 * x.sum(),
+         lambda x: decoded(fused_viterbi_states(model, x, u, lens,
+                                                use_kernel=False))
+         + 0 * x.sum()))
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_inference_kernels_refuse_autograd(cuda, precision):
+    """The kernels carry no gradient, so the routing steps aside as JAX's
+    auto-dispatch does: under autograd (grad mode on, weights or x
+    requiring grad) the default call of each of the six entry points
+    takes the differentiable plain version, in the model's mode, and its
+    gradients (x's and every weight's) equal the plain version's bit for
+    bit (cuDNN held to its deterministic algorithms for the float32
+    convolutions' backward), launching none of kernels A, 8, 11 and 10;
+    under no_grad and inference_mode they launch; use_kernel=True
+    (fused=True) under autograd raises for A, 8, 11 and 10, so nothing
+    hands back a detached tensor."""
+    from vqvaehmm_tpu_torch.ops.fused_decode import (fused_evidence,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    counted = (fused_forward, fused_encode, fused_evidence,
+               fused_viterbi_states)
+    model = _model(cuda, seed=3, matmul_precision=precision)
+    bf16 = precision != "highest"
     x, u, lens = _train_inputs(cuda, 2, 40, 9)
-    before = (fused_encode.launches, fused_evidence.launches)
-    calls = (lambda: model.posterior(x), lambda: model.encode(x),
-             lambda: fused_encode(model, x),
-             lambda: fused_evidence(model, x, u, lens),
-             lambda: model.smoothed_posterior(x, u, lens),
-             lambda: model.filtered_posterior(x, u, lens),
-             lambda: model.viterbi_decode(x, u, lens))
-    for call in calls:
-        with pytest.raises(RuntimeError, match="fused=False"):
-            call()
-    assert (fused_encode.launches, fused_evidence.launches) == before
-    assert model.posterior(x, fused=False).requires_grad
-    with torch.no_grad():
-        for call in calls:
-            call()
+    w = torch.randn((2, 13, 40), generator=torch.Generator().manual_seed(4))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, default, plain in _autograd_entries(model, u, lens, bf16):
+            grads = []
+            for call in (default, plain):
+                model.zero_grad(set_to_none=True)
+                xx = x.clone().requires_grad_(True)
+                before = [c.launches for c in counted]
+                out = call(xx)
+                assert [c.launches for c in counted] == before, name
+                assert out.requires_grad, name
+                (out * w[:, :out.shape[1]].to(cuda)).sum().backward()
+                grads.append([xx.grad] + [p.grad for p in
+                                          model.parameters()])
+            for g, p in zip(*grads):
+                assert (g is None) == (p is None), name
+                assert g is None or torch.equal(g, p), name
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # outside autograd every entry point launches its kernels
+    for mode in (torch.no_grad, torch.inference_mode):
+        before = [c.launches for c in counted]
+        with mode():
+            for _, default, _ in _autograd_entries(model, u, lens, bf16):
+                default(x)
+        got = [c.launches - b for c, b in zip(counted, before)]
+        assert got == [1, 1, 3, 1], (mode, got)
+    # a forced kernel under autograd raises, through x alone too
+    forced = (lambda xx: fused_forward(model, xx, use_kernel=True),
+              lambda xx: model.infer_forward(xx, use_kernel=True),
+              lambda xx: model.posterior(xx, fused=True),
+              lambda xx: model.encode(xx, fused=True),
+              lambda xx: fused_encode(model, xx, use_kernel=True),
+              lambda xx: fused_evidence(model, xx, u, lens, use_kernel=True),
+              lambda xx: model.smoothed_posterior(xx, u, lens,
+                                                  use_kernel=True),
+              lambda xx: fused_viterbi_states(model, xx, u, lens,
+                                              use_kernel=True))
+    before = [c.launches for c in counted]
+    for call in forced:
+        with pytest.raises(RuntimeError, match="no gradient"):
+            call(x)
     for p in model.parameters():
         p.requires_grad_(False)
-    for call in calls:
-        call()
-    with pytest.raises(RuntimeError, match="fused=False"):
-        model.posterior(x.clone().requires_grad_(True))
-    assert (fused_encode.launches, fused_evidence.launches) == \
-        (before[0] + 6, before[1] + 8)
+    for call in forced:
+        with pytest.raises(RuntimeError, match="no gradient"):
+            call(x.clone().requires_grad_(True))
+    assert [c.launches for c in counted] == before
+    # frozen weights and x: nothing for autograd to record, the kernels run
+    q = model.posterior(x)
+    assert not q.requires_grad and fused_encode.launches == before[1] + 1
 
 
 def test_bulk_kernels_refuse_cpu_tensors():
@@ -2185,9 +2265,17 @@ def _bf16_counts():
         fused_forward, fused_encode, fused_evidence, fused_viterbi_states)]
 
 
+# widths whose bfloat16-mode weights are resident at the narrowest tile
+# and stream through the ring at the wider ones (kernel A: ring at tiles
+# 32 and 64; kernel 11: at 64), so that the tiles' bits hold the ring to
+# the resident path
+RING_WIDTHS = dict(hidden_dim=96, hidden_dim2=136, trans_hidden=384)
+
+
 @pytest.mark.parametrize("widths", [
     dict(), dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128),
-    dict(input_dim=7, hidden_dim=24, hidden_dim2=40, K=5, trans_hidden=36)])
+    dict(input_dim=7, hidden_dim=24, hidden_dim2=40, K=5, trans_hidden=36),
+    RING_WIDTHS])
 @pytest.mark.parametrize("B,T", [(1, 1), (3, 37), (64, 200), (2, 600)])
 def test_inference_bf16_matches_plain(cuda, widths, B, T, record_property):
     """Each of the four kernels in the mode against its plain version
@@ -2255,34 +2343,51 @@ def test_inference_bf16_matches_plain(cuda, widths, B, T, record_property):
         assert bool(((sg - sw).abs() <= 1e-4 + slack.double()).all())
 
 
+@pytest.mark.parametrize("widths", ["published", "ring"])
 @pytest.mark.parametrize("B,T", [(3, 37), (64, 200), (460, 20), (1, 2327)])
-def test_inference_bf16_tiles_and_rows_bit_equal(cuda, B, T):
+def test_inference_bf16_tiles_and_rows_bit_equal(cuda, B, T, widths):
     """In the mode every tile width (and split) of kernels A, 8 and 11
-    gives the same bits, and a row of a batch of A, 8, 11 and 10 is
-    bit-equal to the row alone: each output's sum is one fixed sequence
-    of chunks wherever its step sits in a tile or a halo."""
+    gives the same bits, whatever the grid that walks the items (kernel A
+    on a persistent grid of 1 and 7 blocks too) and wherever the weights
+    are read from (kernel 11 staged and from L2), and a row of a batch of
+    A, 8, 11 and 10 is bit-equal to the row alone: each output's sum is
+    one fixed sequence of chunks wherever its step sits in a tile or a
+    halo and wherever its weights were read from (shared memory, the
+    ring, L2)."""
     from vqvaehmm_tpu_torch.ops import fused_decode as fd
     from vqvaehmm_tpu_torch.ops import fused_encoder as fe
     from vqvaehmm_tpu_torch.ops import fused_infer as fi
 
-    model = _model(cuda, seed=22, hidden_dim=64, hidden_dim2=32,
-                   trans_hidden=128, **DEFAULT)
+    w = RING_WIDTHS if widths == "ring" else dict(
+        hidden_dim=64, hidden_dim2=32, trans_hidden=128)
+    model = _model(cuda, seed=22, **w, **DEFAULT)
+    cfg = model.cfg
+    kinds = {fi.bf16_stage(t, 5, cfg.hidden_dim, cfg.hidden_dim2, 3,
+                           cfg.hidden_dim).weights for t in fi.TILES}
+    kinds11 = {fe.evidence_stage(t, fe.encoder_dims(cfg, prior=True))
+               .weights for t in fi.TILES}
+    assert kinds == kinds11 == ({"resident", "ring"} if widths == "ring"
+                                else {"resident"})
     x, u, lens = _train_inputs(cuda, B, T, B + 3 * T, btu=True)
     outs = ([], [], [])
     with torch.inference_mode():
         for tile in fi.TILES:
-            a = tuple(torch.empty((B, c, T), device=cuda) for c in (5, 5, 3))
-            fi._launch(model, x, lens, tile, a, bf16=True)
+            items = B * -(-T // tile)
+            for grid in sorted({items, min(items, 1), min(items, 7)}):
+                a = tuple(torch.empty((B, c, T), device=cuda)
+                          for c in (5, 5, 3))
+                fi._launch(model, x, lens, tile, a, bf16=True, grid=grid)
+                outs[0].append(a)
             lg = torch.empty((B, 3, T), device=cuda)
             fe._launch(model, x, lens, tile, lg, bf16=True)
-            outs[0].append(a)
             outs[1].append((lg,))
             for split in (False, True):
-                ev = (torch.empty((B, T, 3), device=cuda),
-                      torch.empty((B, T, 3, 3), device=cuda))
-                fd._launch_evidence(model, x, u, lens, tile, split, ev,
-                                    bf16=True)
-                outs[2].append(ev)
+                for staged in (True, False):
+                    ev = (torch.empty((B, T, 3), device=cuda),
+                          torch.empty((B, T, 3, 3), device=cuda))
+                    fd._launch_evidence(model, x, u, lens, tile, split, ev,
+                                        bf16=True, staged=staged)
+                    outs[2].append(ev)
         for kind in outs:
             for o in kind[1:]:
                 assert all(torch.equal(p, q) for p, q in zip(o, kind[0]))
@@ -2338,6 +2443,32 @@ def test_inference_bf16_stream_bit_equal_to_batch(cuda, tmp_path):
             torch.tensor([T], device=cuda))[0].cpu()
     assert sorted(got) == list(range(T))
     assert torch.equal(torch.tensor([got[t] for t in range(T)]).T, batch)
+
+
+def test_inference_bf16_kernel_a_reads_l2_at_its_gate_edge(cuda):
+    """Kernel A of the mode at the widest operand its gate takes: no room
+    beside the operands for even two ring slots, so its weights are read
+    from L2 (tile_mma.cuh::staged_layer's DIRECT); the outputs within the
+    mode's bars of its plain version, one launch in the mode."""
+    from vqvaehmm_tpu_torch.ops import fused_infer as fi
+
+    edge = max(h for h in range(16, 4000, 16)
+               if fi.operand_bytes(16, 5, 8, h, 3, 8) <= SMEM_LIMIT)
+    model = _model(cuda, seed=23, hidden_dim=8, hidden_dim2=edge, **DEFAULT)
+    assert fi.launch_plan(1, 12, 5, 8, edge, 3, 8, bf16=True).weights == \
+        "direct"
+    x, _, lens = _train_inputs(cuda, 1, 12, 24)
+    before = (fused_forward.launches, fused_forward.bf16_launches)
+    with torch.inference_mode():
+        got = fused_forward(model, x, valid_to=lens)
+        want = fused_forward_reference(model, x, valid_to=lens,
+                                       bf16_operands=True)
+    assert (fused_forward.launches, fused_forward.bf16_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for g, w, name in zip(got, want, ("mu", "logvar", "q")):
+        assert bool(torch.isfinite(g).all()), name
+        share, past = _bf16_gap(g, w)
+        assert share <= BF16_INFER_TOL[name], (name, share)
 
 
 def test_inference_bf16_gates_raise(cuda):

@@ -497,9 +497,12 @@ def test_mode_entries_take_bf16_as_the_sources_do(entry):
 
 def test_bf16_smem_follows_the_cuda_source():
     """The wrappers' shared-memory counts of the mode restate the CUDA
-    sources' formulas: kernel A's (vqhmm_fused_infer_smem_bytes at bf16 =
-    1) and encoder_mma.cuh::smem_bytes for kernels 8 and 11, the decode's stage
-    region in front of its tiles."""
+    sources' formulas: kernel A's operands (fused_infer.cu::
+    bf16_operand_bytes) and encoder_mma.cuh::smem_bytes for kernels 8 and
+    11 and the decode's stage region in front of its tiles; kernels A and
+    11 then hold their weights where tile_mma.cuh::stage_plan puts them
+    (resident at the published widths: the next item's raw inputs, the
+    barriers, every packed value)."""
     infer = (_build.CSRC / "fused_infer.cu").read_text()
     assert ("return 2 * op_rows_bf16(tile) *\n             "
             "(tilemma::op_stride(C) +\n              "
@@ -507,8 +510,10 @@ def test_bf16_smem_follows_the_cuda_source():
             "         (int)sizeof(float) * row_stride(tile) * (K + 2 * C);"
             ) in infer
     assert "constexpr int MMA_THREADS = 256;" in infer
-    assert "__launch_bounds__(MMA_THREADS, 3) fused_infer_bf16_kernel" \
+    assert f"constexpr int MMA_BLOCKS_PER_SM = {fi.MMA_BLOCKS_PER_SM};" \
         in infer
+    assert "__launch_bounds__(MMA_THREADS, MMA_BLOCKS_PER_SM)\n    " \
+        "fused_infer_bf16_kernel" in infer
     mma = (_build.CSRC / "encoder_mma.cuh").read_text()
     assert "return 2 * op_rows(tile) * (op_stride(d.C) + ru + 2 * " \
         "op_stride(widest(d))) +" in mma
@@ -516,14 +521,18 @@ def test_bf16_smem_follows_the_cuda_source():
     assert re.search(rf"constexpr int BLOCKS_PER_SM = "
                      rf"{fe.MMA_BLOCKS_PER_SM};", mma)
     for tile in fe.TILES:
+        ops_a = 2 * (tile + 8) * (_st(5) + 2 * _st(64)) + 4 * (tile + 12) * 13
+        assert fi.operand_bytes(tile, 5, 64, 32, 3, 64) == ops_a
         assert fi.smem_bytes(tile, 5, 64, 32, 3, 64, True) == \
-            2 * (tile + 8) * (_st(5) + 2 * _st(64)) + 4 * (tile + 12) * 13
+            ops_a + 4 * 5 * (tile + 8) + fi.CTRL_BYTES + 2 * 36352
         assert fe.smem_bytes(_cfg(), tile, True) == \
             2 * (tile + 4) * (_st(5) + 2 * _st(64))
-        assert fd.evidence_smem_bytes(_cfg(), tile, True) == \
-            2 * (tile + 4) * (_st(5) + _st(4) + 2 * _st(128)) \
+        ops_11 = 2 * (tile + 4) * (_st(5) + _st(4) + 2 * _st(128)) \
             + 4 * (tile + 8) * 12
-        stage = -(-fd.evidence_smem_bytes(_cfg(), tile, True) // 16) * 16
+        assert fd.evidence_stage_bytes(_cfg(), tile, True) == ops_11
+        assert fd.evidence_smem_bytes(_cfg(), tile, True) == \
+            ops_11 + fi.CTRL_BYTES + 2 * 13824
+        stage = -(-ops_11 // 16) * 16
         assert fd.decode_smem_bytes(_cfg(), tile, 2, True) == stage + 4 * (
             2 * tile * 13 + 2048 + 32 * 12 + 68)
 

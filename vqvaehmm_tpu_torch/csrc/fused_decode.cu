@@ -77,13 +77,20 @@
 // designs with the evidence stages of encoder_mma.cuh, each layer an
 // implicit GEMM of mma.sync.m16n8k16 (tile_mma.cuh) on bfloat16 operands
 // with float32 sums, the weights packed once a model in mma fragment order
-// (vqhmm_encoder_pack, bf16 = 1) and read from L2: fused_evidence_bf16_kernel
-// (blocks of encmma::THREADS threads, split as the float32 kernel) and
+// (vqhmm_encoder_pack, bf16 = 1): fused_evidence_bf16_kernel (blocks of
+// encmma::THREADS threads, split as the float32 kernel) and
 // fused_decode_kernel<K, true> (the same persistent blocks, phases and
-// scan).  The log-softmax, the scan and the backtrace are the float32
-// mode's.  Its bound is the card's dense bf16 rate, 989 TFLOP/s: the
-// evidence is then bound by its bytes at every shape, and what holds it
-// there is a block's chain of five layers and their barriers.
+// scan, its weights read from L2).  The log-softmax, the scan and the
+// backtrace are the float32 mode's.  Its bound is the card's dense bf16
+// rate, 989 TFLOP/s: the evidence is then bound by its bytes at every
+// shape.  What held the evidence's first design was its layers' weights,
+// read from L2 on each layer's critical path (PERF.md, chip_smoke.py
+// --scan-clocks); its second design, fused_evidence_bf16_staged_kernel,
+// stages the weights of the block's stage in shared memory ahead of its
+// layers (tile_mma.cuh::staged_layer) where the grid leaves an SM a block
+// at most, with the same sums, so its outputs, and kernel 10's evidence,
+// are bit-equal to the first's; on larger grids the first design runs
+// (evidence_stage).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -191,6 +198,23 @@ __device__ __forceinline__ encfma::Rows tile_rows(const encmma::Ops& s) {
   return r;
 }
 
+// Kernel 11's blocks in the mode: the operands (encmma::smem_bytes), then,
+// where `staged`, the weights as tile_mma.cuh::stage_plan places them
+// beside them; else none (DIRECT, read from L2).  The caller stages where
+// the grid leaves an SM a block at most: a block's chain of layers is then
+// the critical path, and its weights' latency is what holds it.  On a
+// larger grid the other blocks' warps hide that latency, and each block's
+// copy of its weights costs more than it saves (kernel 11's chain is two
+// to five short layers; PERF.md), so the first design's kernel,
+// which reads L2, runs there.
+__host__ __device__ inline tilemma::StagePlan evidence_stage(
+    const encfma::Dims& d, int tile, bool staged) {
+  const int base = encmma::smem_bytes(d, tile);
+  if (!staged) return tilemma::StagePlan{tilemma::DIRECT, 0, base};
+  return tilemma::stage_plan(base, 0, encmma::packed(d).total,
+                             encfma::SMEM_LIMIT);
+}
+
 // The bfloat16 mode of fused_evidence_kernel: the same blocks, stages and
 // outputs, the layers on the tensor cores (encoder_mma.cuh); W.wp holds
 // the weights vqhmm_encoder_pack packed in the bfloat16 mode.
@@ -226,6 +250,111 @@ __global__ void __launch_bounds__(encmma::THREADS, encmma::BLOCKS_PER_SM)
   write_tile(r, K, n, s.WS,
              stage != 1 ? log_obs + ((size_t)b * T + t0) * K : nullptr,
              stage != 0 ? log_A + ((size_t)b * T + t0) * KK : nullptr);
+}
+
+// The same with the weights staged in shared memory ahead of the block's
+// chain (tile_mma.cuh::staged_layer: the encoder's three layers, the
+// prior's two, or a split block's own stage's; RESIDENT or RING, one
+// instance each), where the grid leaves an SM a block at most; the sums
+// are fused_evidence_bf16_kernel's, so are the outputs.
+template <int KIND>
+__global__ void __launch_bounds__(encmma::THREADS, encmma::BLOCKS_PER_SM)
+    fused_evidence_bf16_staged_kernel(const float* __restrict__ x,
+                               const float* __restrict__ u, long long u_sb,
+                               long long u_sc, long long u_st,
+                               const int* __restrict__ lengths,
+                               encfma::Weights W,
+                               float* __restrict__ log_obs,
+                               float* __restrict__ log_A, encfma::Dims d,
+                               int B, int T, int tile, int tiles, int split) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  using tilemma::Out;
+  const encmma::Ops s = encmma::carve(smem_b, d, tile);
+  const int K = d.K, KK = d.K * d.K;
+  // stage 0: the encoder, 1: the prior, 2: both
+  const int unit = split ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+  const int stage = split ? (int)(blockIdx.x & 1) : 2;
+  const int b = unit / tiles;
+  const int t0 = (unit - b * tiles) * tile;
+  const int n = min(tile, T - t0);
+  const int Wn = n + 2 * encfma::HALO;
+  const int p0 = t0 - encfma::HALO;
+  const int vt = batch_bound(lengths, B, T);
+  const bool enc = stage != 1, pri = stage != 0;
+  unsigned char* after = smem_b + encmma::smem_bytes(d, tile);
+  const encmma::Packed at = encmma::packed(d);
+  tilemma::Staged st;
+  st.slots = evidence_stage(d, tile, KIND != tilemma::DIRECT).slots;
+  st.wp = reinterpret_cast<const tilemma::bf16*>(W.wp);
+  st.bar = reinterpret_cast<uint64_t*>(after);
+  st.ring_chain = reinterpret_cast<tilemma::ChainLayer*>(
+      after + 8 * 2 * tilemma::RING_SLOTS);
+  st.sw = reinterpret_cast<tilemma::bf16*>(after + tilemma::CTRL_BYTES);
+  // the chain: the encoder's layers 0-2, the prior's 3-4; the block's
+  // range of it by its stage
+  const auto chain = [&](int l) {
+    switch (l) {
+      case 0: return tilemma::ChainLayer{at.w1, d.H1, d.C, 3, 1, 1};
+      case 1: return tilemma::ChainLayer{at.w2, d.H2, d.H1, 3, 2, 2};
+      case 2: return tilemma::ChainLayer{at.w3, K, d.H2, 1, 2, 2};
+      case 3: return tilemma::ChainLayer{at.p1, d.HP, d.U, 1, 2, 2};
+      case 4: return tilemma::ChainLayer{at.p2, KK, d.HP, 1, 2, 2};
+      default: return tilemma::ChainLayer{0, 0, 0, 0, 0, 0};
+    }
+  };
+  st.l0 = enc ? 0 : 3;
+  st.l1 = pri ? 5 : 3;
+  const tilemma::Win win{p0, T, t0, n};
+  tilemma::stage_start<KIND>(st, chain);
+  tilemma::stage_item<KIND>(st, chain, Wn, p0);
+
+  // x on the whole window, zero outside [0, T) and past the bound and in
+  // the padding channels; u on the tile's own steps; both rounded
+  const float* xb = x + (size_t)b * d.C * T;
+  const float* ub = u + b * u_sb;
+  const int C16 = enc ? tilemma::round16(d.C) : 0;
+  for (int idx = threadIdx.x; idx < C16 * Wn; idx += blockDim.x) {
+    const int c = idx / Wn, j = idx - c * Wn;
+    const int p = p0 + j;
+    const float v = (c < d.C && !encfma::outside(p, T, vt))
+                        ? xb[(size_t)c * T + p] : 0.f;
+    s.xo[j * s.RC + c] = __float2bfloat16_rn(v);
+  }
+  const int U16 = pri ? tilemma::round16(d.U) : 0;
+  for (int idx = threadIdx.x; idx < U16 * n; idx += blockDim.x) {
+    const int c = idx / n, j = idx - c * n;
+    const float v = c < d.U ? ub[c * u_sc + (long long)(t0 + j) * u_st] : 0.f;
+    s.uo[(encfma::HALO + j) * s.RU + c] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+  // h1 = relu(conv1(x)), zero outside the sequence and past the bound;
+  // h2 = relu(conv2(h1)) on the tile, not masked; the raw logits
+  if (enc)
+    tilemma::staged_layer<3, KIND>(st, chain, 0, s.xo, s.RC, s.NR,
+                                   Out{W.eb1, true, true, vt, nullptr,
+                                       nullptr, nullptr, 0, s.a, s.RG}, win);
+  if (enc)
+    tilemma::staged_layer<3, KIND>(st, chain, 1, s.a, s.RG, s.NR,
+                                   Out{W.eb2, true, false, T, nullptr,
+                                       nullptr, nullptr, 0, s.b, s.RG}, win);
+  if (enc)
+    tilemma::staged_layer<1, KIND>(st, chain, 2, s.b, s.RG, s.NR,
+                                   encmma::raw_logits(s), win);
+  // hp = relu(fc1(u)) on the tile; the raw transition logits
+  if (pri)
+    tilemma::staged_layer<1, KIND>(st, chain, 3, s.uo, s.RU, s.NR,
+                                   Out{W.pb1, true, false, T, nullptr,
+                                       nullptr, nullptr, 0, s.a, s.RG}, win);
+  if (pri)
+    tilemma::staged_layer<1, KIND>(st, chain, 4, s.a, s.RG, s.NR,
+                                   Out{nullptr, false, false, T, nullptr,
+                                       nullptr, s.ap, s.WS, nullptr, 0}, win);
+  const encfma::Rows r = tile_rows(s);
+  tile_log_softmax(r, W, K, n, s.WS, stage == 0 ? K : 0,
+                   stage == 1 ? K : K + 1);
+  write_tile(r, K, n, s.WS,
+             enc ? log_obs + ((size_t)b * T + t0) * K : nullptr,
+             pri ? log_A + ((size_t)b * T + t0) * KK : nullptr);
 }
 
 // Floats of a block of the decode before the tile store: the evidence
@@ -575,27 +704,31 @@ cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
 }  // namespace
 
 // Dynamic shared memory of an evidence block at tile width `tile`; bf16:
-// the bfloat16-operand mode's.
+// the bfloat16-operand mode's, its weights where evidence_stage puts them
+// (staged: in shared memory where they fit; else read from L2).
 extern "C" int vqhmm_fused_evidence_smem_bytes(int C, int H1, int H2, int K,
                                                int U, int HP, int tile,
-                                               int bf16) {
+                                               int bf16, int staged) {
   const encfma::Dims d{C, H1, H2, K, U, HP};
-  return bf16 ? encmma::smem_bytes(d, tile) : encfma::smem_bytes(d, tile);
+  return bf16 ? evidence_stage(d, tile, staged != 0).bytes
+              : encfma::smem_bytes(d, tile);
 }
 
 // packed_weights: vqhmm_encoder_pack's layout with the prior (HP > 0), in
 // the same mode; lengths may be null.  bf16: the bfloat16-operand mode,
-// which stages no weights (no weight-buffer bound).
+// which stages no weights in slabs (no weight-buffer bound); staged: its
+// weights in shared memory where they fit (evidence_stage), else read from
+// L2.
 extern "C" int vqhmm_fused_evidence(
     const float* x, const float* u, long long u_sb, long long u_sc,
     long long u_st, const int* lengths, const void* packed_weights,
     const float* eb1, const float* eb2, const float* eb3, const float* pb1,
     const float* pb2, float* log_obs, float* log_A, int B, int C, int T,
     int U, int H1, int H2, int K, int HP, int tile, int split, int bf16,
-    void* stream) {
+    int staged, void* stream) {
   const encfma::Dims d{C, H1, H2, K, U, HP};
   const int smem = vqhmm_fused_evidence_smem_bytes(C, H1, H2, K, U, HP, tile,
-                                                   bf16);
+                                                   bf16, staged);
   if (!encfma::tile_ok(tile) || B <= 0 || T <= 0 || U <= 0 || HP <= 0 ||
       K <= 0 || !(bf16 || encfma::layers_fit(d)) ||
       smem > encfma::SMEM_LIMIT)
@@ -603,8 +736,14 @@ extern "C" int vqhmm_fused_evidence(
   const int tiles = (T + tile - 1) / tile;
   const long long blocks = (long long)tiles * B * (split ? 2 : 1);
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const void* kernel = bf16 ? (const void*)fused_evidence_bf16_kernel
-                            : (const void*)fused_evidence_kernel;
+  const int kind = evidence_stage(d, tile, staged != 0).kind;
+  const void* kernel =
+      !bf16 ? (const void*)fused_evidence_kernel
+      : kind == tilemma::RESIDENT
+          ? (const void*)fused_evidence_bf16_staged_kernel<tilemma::RESIDENT>
+      : kind == tilemma::RING
+          ? (const void*)fused_evidence_bf16_staged_kernel<tilemma::RING>
+          : (const void*)fused_evidence_bf16_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -612,10 +751,17 @@ extern "C" int vqhmm_fused_evidence(
                           eb1, eb2, eb3, pb1, pb2};
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
-    fused_evidence_bf16_kernel<<<(unsigned)blocks, encmma::THREADS, smem,
-                                 st>>>(x, u, u_sb, u_sc, u_st, lengths, W,
-                                       log_obs, log_A, d, B, T, tile, tiles,
-                                       split ? 1 : 0);
+#define VQHMM_EVIDENCE_BF16(KERNEL)                                       \
+  KERNEL<<<(unsigned)blocks, encmma::THREADS, smem, st>>>(                 \
+      x, u, u_sb, u_sc, u_st, lengths, W, log_obs, log_A, d, B, T, tile,   \
+      tiles, split ? 1 : 0)
+    if (kind == tilemma::RESIDENT)
+      VQHMM_EVIDENCE_BF16(fused_evidence_bf16_staged_kernel<tilemma::RESIDENT>);
+    else if (kind == tilemma::RING)
+      VQHMM_EVIDENCE_BF16(fused_evidence_bf16_staged_kernel<tilemma::RING>);
+    else
+      VQHMM_EVIDENCE_BF16(fused_evidence_bf16_kernel);
+#undef VQHMM_EVIDENCE_BF16
   } else {
     int G = H1 > H2 ? H1 : H2;
     G = G > HP ? G : HP;

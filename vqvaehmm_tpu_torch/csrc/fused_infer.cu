@@ -64,16 +64,30 @@
 // fused_infer_bf16_kernel): both operands of every product rounded to the
 // nearest bfloat16 and the sums float32, on the tensor cores: the same
 // window and stages, each layer an implicit GEMM of mma.sync.m16n8k16
-// (tile_mma.cuh::layer) over bfloat16 operands kept time-major in two
-// ping-pong buffers sized by the widest of H1, H2, D and K, the weights
-// in mma fragment order read from L2.  x is rounded as it is staged and q
-// as the codebook product's operand (K padded to a chunk of 16); the
-// biases, ReLUs, masks and the softmax stay float32, the logits and q in
-// K float32 rows, (mu, logvar) in 2C.  Its plain version is
-// VAEHMM.encode/decode(bf16_operands=True) (ops/nn.py::bf16_matmul).
-// Its bound is the card's dense bf16 rate, 989 TFLOP/s, against which a
-// token's 65 kFLOP leave it bound by bytes at every shape; what holds it
-// there is one block's chain of seven layers and their barriers.
+// (tile_mma.cuh) over bfloat16 operands kept time-major in two ping-pong
+// buffers sized by the widest of H1, H2, D and K, the weights in mma
+// fragment order.  x is rounded as it is staged and q as the codebook
+// product's operand (K padded to a chunk of 16); the biases, ReLUs, masks
+// and the softmax stay float32, the logits and q in K float32 rows, (mu,
+// logvar) in 2C.  Its plain version is VAEHMM.encode/decode(
+// bf16_operands=True) (ops/nn.py::bf16_matmul).  Its bound is the card's
+// dense bf16 rate, 989 TFLOP/s, against which a token's 65 kFLOP leave it
+// bound by bytes at every shape.
+//
+// What held the mode's first design (weights read from L2 two chunks
+// ahead, on each layer's critical path) was the weights' latency: at
+// B = 1 the seven layers took 88% of a block, a layer of twelve chunks
+// about 2000 cycles and 400 more a chunk (chip_smoke.py --scan-clocks,
+// PERF.md).  So the weights are staged in shared memory ahead of the
+// chain (tile_mma.cuh::staged_layer, one instance a weight kind):
+// RESIDENT at the published widths, each layer's fragments a TMA bulk
+// copy on its own mbarrier, the first two at block start and each next
+// one two layers ahead, read from shared memory by layer()'s own loop and
+// sums; a ring for a model whose fragments do not fit beside the
+// operands; L2 where not even two slots do.  A layer's bias is read
+// before its reduction.  The sums are the first design's, so the outputs
+// are bit-equal to its.  The block keeps up to 128 registers
+// (__launch_bounds__(256, 2)): no spill.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -267,12 +281,17 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_infer_kernel(
   }
 }
 
-// The bfloat16 mode's block: 8 warps, at most 3 an SM (85 registers a
-// thread).  Shared memory: bfloat16 operands of op_rows_bf16(tile) rows
-// (x, then two ping-pong buffers of the widest of H1, H2, D and K), then
-// float32 rows of row_stride(tile) floats: K for the logits and q, 2C for
-// (mu, logvar).
+// The bfloat16 mode's block: 8 warps, at most 2 an SM (up to 128
+// registers a thread: at 3 an SM the kernel kept 80 and spilled).  Shared
+// memory: bfloat16 operands of op_rows_bf16(tile) rows (x, then two
+// ping-pong buffers of the widest of H1, H2, D and K), then float32 rows
+// of row_stride(tile) floats: K for the logits and q, 2C for (mu,
+// logvar); then the weights as tile_mma.cuh::stage_plan places them:
+// RESIDENT the next item's raw x window (C rows of op_rows_bf16(tile)
+// floats), the barriers and the seven layers' fragments; RING the
+// barriers and the slots; DIRECT nothing more.
 constexpr int MMA_THREADS = 256;
+constexpr int MMA_BLOCKS_PER_SM = 2;
 
 __host__ __device__ inline int op_rows_bf16(int tile) {
   return tile + 2 * HALO;
@@ -284,14 +303,39 @@ __host__ __device__ inline int operand_bf16(int H1, int H2, int K, int D) {
   return h > e ? h : e;
 }
 
-__global__ void __launch_bounds__(MMA_THREADS, 3) fused_infer_bf16_kernel(
+// the operands' bytes (x, two ping-pong buffers, K + 2C float32 rows)
+__host__ __device__ inline int bf16_operand_bytes(int C, int H1, int H2,
+                                                  int K, int D, int tile) {
+  return 2 * op_rows_bf16(tile) *
+             (tilemma::op_stride(C) +
+              2 * tilemma::op_stride(operand_bf16(H1, H2, K, D))) +
+         (int)sizeof(float) * row_stride(tile) * (K + 2 * C);
+}
+
+__host__ __device__ inline tilemma::StagePlan bf16_stage(int C, int H1,
+                                                         int H2, int K, int D,
+                                                         int tile) {
+  return tilemma::stage_plan(
+      bf16_operand_bytes(C, H1, H2, K, D, tile),
+      (long long)sizeof(float) * C * op_rows_bf16(tile),
+      packed_bf16(C, H1, H2, K, D).total, SMEM_LIMIT);
+}
+
+// The kernel walks the items (sequence, tile) blockIdx.x, blockIdx.x +
+// gridDim.x, ...: a persistent grid of resident blocks where the weights
+// are RESIDENT (staged once a block; each item's raw x window prefetched
+// with cp.async while the item before it computes), one item a block
+// otherwise.  Each item's layers and their sums are the first design's.
+template <int KIND>
+__global__ void __launch_bounds__(MMA_THREADS, MMA_BLOCKS_PER_SM)
+    fused_infer_bf16_kernel(
     const float* __restrict__ x, const int* __restrict__ valid_to,
     const tilemma::bf16* __restrict__ wp, const float* __restrict__ eb1,
     const float* __restrict__ eb2, const float* __restrict__ eb3,
     const float* __restrict__ db1, const float* __restrict__ db2,
     const float* __restrict__ db3, float* __restrict__ mu,
     float* __restrict__ logvar, float* __restrict__ q_out, int C, int T,
-    int H1, int H2, int K, int D, int tile, int tiles) {
+    int H1, int H2, int K, int D, int tile, int tiles, int items) {
   extern __shared__ __align__(16) unsigned char smem_b[];
   using tilemma::bf16;
   using tilemma::Out;
@@ -303,84 +347,142 @@ __global__ void __launch_bounds__(MMA_THREADS, 3) fused_infer_bf16_kernel(
   bf16* opB = opA + NR * RG;                     // NR rows of RG
   float* qs = reinterpret_cast<float*>(opB + NR * RG);   // K rows
   float* F = qs + K * WS;                        // 2C rows
-
-  const int b = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x - b * tiles) * tile;
-  const int n = min(tile, T - t0);
-  const int W = n + 2 * HALO;
-  const int p0 = t0 - HALO;
-  const int vt = valid_to[b];
-  const float* xb = x + (size_t)b * C * T;
-  const tilemma::Win win{p0, T, t0, n};
+  constexpr bool prefetch = KIND == tilemma::RESIDENT;
+  unsigned char* after = smem_b + bf16_operand_bytes(C, H1, H2, K, D, tile);
+  float* xraw = reinterpret_cast<float*>(after);  // C rows of NR floats
+  if (prefetch) after += sizeof(float) * C * NR;
+  tilemma::Staged st;
+  st.slots = bf16_stage(C, H1, H2, K, D, tile).slots;
+  st.wp = wp;
+  st.bar = reinterpret_cast<uint64_t*>(after);
+  st.ring_chain = reinterpret_cast<tilemma::ChainLayer*>(
+      after + 8 * 2 * tilemma::RING_SLOTS);
+  st.sw = reinterpret_cast<bf16*>(after + tilemma::CTRL_BYTES);
+  st.l0 = 0;
+  st.l1 = 7;
   const Packed at = packed_bf16(C, H1, H2, K, D);
+  const auto chain = [&](int l) {
+    switch (l) {
+      case 0: return tilemma::ChainLayer{at.ew1, H1, C, 3, 1, 1};
+      case 1: return tilemma::ChainLayer{at.ew2, H2, H1, 3, 2, 2};
+      case 2: return tilemma::ChainLayer{at.ew3, K, H2, 1, 2, 2};
+      case 3: return tilemma::ChainLayer{at.emb, D, K, 1, 2, 2};
+      case 4: return tilemma::ChainLayer{at.dw1, D, D, 3, 3, 3};
+      case 5: return tilemma::ChainLayer{at.dw2, D, D, 3, HALO, HALO};
+      default: return tilemma::ChainLayer{at.dw3, 2 * C, D, 1, HALO, HALO};
+    }
+  };
 
-  // 1. x on the whole window, zero outside [0, T) and past valid_to and
-  //    in the padding channels, rounded to bfloat16
-  const int C16 = tilemma::round16(C);
-  for (int idx = threadIdx.x; idx < C16 * W; idx += blockDim.x) {
-    const int c = idx / W, j = idx - c * W;
-    const int p = p0 + j;
-    const float v = (c < C && !outside(p, T, vt)) ? xb[(size_t)c * T + p]
-                                                  : 0.f;
-    xo[j * RC + c] = __float2bfloat16_rn(v);
-  }
-  __syncthreads();
-  // 2. h1 = relu(conv1(x)), masked
-  tilemma::layer<3>(wp + at.ew1, H1, C, xo, RC, NR, 1, W - 1,
-                    Out{eb1, true, true, vt, nullptr, nullptr, nullptr, 0,
-                        opA, RG}, win);
-  // 3. h2 = relu(conv2(h1)), not masked
-  tilemma::layer<3>(wp + at.ew2, H2, H1, opA, RG, NR, 2, W - 2,
-                    Out{eb2, true, false, T, nullptr, nullptr, nullptr, 0,
-                        opB, RG}, win);
-  // 4. logits = W3 h2 + b3 into the K float32 rows; q = softmax over K
-  //    (row max clamped at -1e30) in place, and as the codebook's operand
-  tilemma::layer<1>(wp + at.ew3, K, H2, opB, RG, NR, 2, W - 2,
-                    Out{eb3, false, false, T, nullptr, nullptr, qs, WS,
-                        nullptr, 0}, win);
-  for (int j = 2 + threadIdx.x; j < W - 2; j += blockDim.x) {
-    float m = -INFINITY;
-    for (int k = 0; k < K; ++k) m = fmaxf(m, qs[k * WS + j]);
-    const float msafe = fmaxf(m, NEG);
-    float z = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float e = expf(qs[k * WS + j] - msafe);
-      qs[k * WS + j] = e;
-      z += e;
+  // the raw x window of an item into xraw, the steps inside [0, T) and
+  // before valid_to alone (the staging zeroes the rest): one cp.async
+  // group
+  auto fetch_x = [&](int item) {
+    const int b = item / tiles;
+    const int t0 = (item - b * tiles) * tile;
+    const int W = min(tile, T - t0) + 2 * HALO;
+    const int vt = valid_to[b];
+    const float* xb = x + (size_t)b * C * T;
+    for (int idx = threadIdx.x; idx < C * W; idx += blockDim.x) {
+      const int c = idx / W, j = idx - c * W;
+      const int p = t0 - HALO + j;
+      if (!outside(p, T, vt))
+        tilefma::cp_async4_zfill(xraw + c * NR + j, xb + (size_t)c * T + p,
+                                 true);
     }
-    for (int k = 0; k < K; ++k) {
-      const float q = qs[k * WS + j] / z;
-      qs[k * WS + j] = q;
-      opA[j * RG + k] = __float2bfloat16_rn(q);
+    tilefma::cp_async_commit();
+  };
+
+  // 0. the weights: the first layers' bulk copies in flight (RESIDENT)
+  //    while x is staged
+  tilemma::stage_start<KIND>(st, chain);
+  bool fetched = false;     // this item's raw x prefetched into xraw
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int b = item / tiles;
+    const int t0 = (item - b * tiles) * tile;
+    const int n = min(tile, T - t0);
+    const int W = n + 2 * HALO;
+    const int p0 = t0 - HALO;
+    const int vt = valid_to[b];
+    const float* xb = x + (size_t)b * C * T;
+    const tilemma::Win win{p0, T, t0, n};
+    tilemma::stage_item<KIND>(st, chain, W, p0);
+
+    // 1. x on the whole window, zero outside [0, T) and past valid_to and
+    //    in the padding channels, rounded to bfloat16
+    if (fetched) {
+      tilefma::cp_async_wait<0>();
+      __syncthreads();
     }
-  }
-  tilemma::zero_pad(opA, RG, K, 2, W - 2);
-  __syncthreads();
-  // 5. e = E^T q, masked
-  tilemma::layer<1>(wp + at.emb, D, K, opA, RG, NR, 2, W - 2,
-                    Out{nullptr, false, true, vt, nullptr, nullptr, nullptr,
-                        0, opB, RG}, win);
-  // 6. hd1 = relu(dconv1(e)), masked
-  tilemma::layer<3>(wp + at.dw1, D, D, opB, RG, NR, 3, W - 3,
-                    Out{db1, true, true, vt, nullptr, nullptr, nullptr, 0,
-                        opA, RG}, win);
-  // 7. hd2 = relu(dconv2(hd1)), not masked
-  tilemma::layer<3>(wp + at.dw2, D, D, opA, RG, NR, HALO, W - HALO,
-                    Out{db2, true, false, T, nullptr, nullptr, nullptr, 0,
-                        opB, RG}, win);
-  // 8. (mu, logvar) = W hd2 + b on the tile into the 2C float32 rows
-  tilemma::layer<1>(wp + at.dw3, 2 * C, D, opB, RG, NR, HALO, W - HALO,
-                    Out{db3, false, false, T, nullptr, nullptr, F, WS,
-                        nullptr, 0}, win);
-  for (int idx = threadIdx.x; idx < 2 * C * n; idx += blockDim.x) {
-    const int o = idx / n, jj = idx - o * n;
-    float* dst = o < C ? mu + ((size_t)b * C + o) * T
-                       : logvar + ((size_t)b * C + (o - C)) * T;
-    dst[t0 + jj] = F[o * WS + HALO + jj];
-  }
-  for (int idx = threadIdx.x; idx < K * n; idx += blockDim.x) {
-    const int k = idx / n, jj = idx - k * n;
-    q_out[((size_t)b * K + k) * T + t0 + jj] = qs[k * WS + HALO + jj];
+    const int C16 = tilemma::round16(C);
+    for (int idx = threadIdx.x; idx < C16 * W; idx += blockDim.x) {
+      const int c = idx / W, j = idx - c * W;
+      const int p = p0 + j;
+      float v = 0.f;
+      if (c < C && !outside(p, T, vt))
+        v = fetched ? xraw[c * NR + j] : xb[(size_t)c * T + p];
+      xo[j * RC + c] = __float2bfloat16_rn(v);
+    }
+    __syncthreads();
+    // the next item's x in flight while this one computes
+    fetched = prefetch && item + (int)gridDim.x < items;
+    if (fetched) fetch_x(item + gridDim.x);
+    // 2. h1 = relu(conv1(x)), masked
+    tilemma::staged_layer<3, KIND>(st, chain, 0, xo, RC, NR,
+                             Out{eb1, true, true, vt, nullptr, nullptr,
+                                 nullptr, 0, opA, RG}, win);
+    // 3. h2 = relu(conv2(h1)), not masked
+    tilemma::staged_layer<3, KIND>(st, chain, 1, opA, RG, NR,
+                             Out{eb2, true, false, T, nullptr, nullptr,
+                                 nullptr, 0, opB, RG}, win);
+    // 4. logits = W3 h2 + b3 into the K float32 rows; q = softmax over K
+    //    (row max clamped at -1e30) in place, and as the codebook's operand
+    tilemma::staged_layer<1, KIND>(st, chain, 2, opB, RG, NR,
+                             Out{eb3, false, false, T, nullptr, nullptr, qs,
+                                 WS, nullptr, 0}, win);
+    for (int j = 2 + threadIdx.x; j < W - 2; j += blockDim.x) {
+      float m = -INFINITY;
+      for (int k = 0; k < K; ++k) m = fmaxf(m, qs[k * WS + j]);
+      const float msafe = fmaxf(m, NEG);
+      float z = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float e = expf(qs[k * WS + j] - msafe);
+        qs[k * WS + j] = e;
+        z += e;
+      }
+      for (int k = 0; k < K; ++k) {
+        const float q = qs[k * WS + j] / z;
+        qs[k * WS + j] = q;
+        opA[j * RG + k] = __float2bfloat16_rn(q);
+      }
+    }
+    tilemma::zero_pad(opA, RG, K, 2, W - 2);
+    __syncthreads();
+    // 5. e = E^T q, masked
+    tilemma::staged_layer<1, KIND>(st, chain, 3, opA, RG, NR,
+                             Out{nullptr, false, true, vt, nullptr, nullptr,
+                                 nullptr, 0, opB, RG}, win);
+    // 6. hd1 = relu(dconv1(e)), masked
+    tilemma::staged_layer<3, KIND>(st, chain, 4, opB, RG, NR,
+                             Out{db1, true, true, vt, nullptr, nullptr,
+                                 nullptr, 0, opA, RG}, win);
+    // 7. hd2 = relu(dconv2(hd1)), not masked
+    tilemma::staged_layer<3, KIND>(st, chain, 5, opA, RG, NR,
+                             Out{db2, true, false, T, nullptr, nullptr,
+                                 nullptr, 0, opB, RG}, win);
+    // 8. (mu, logvar) = W hd2 + b on the tile into the 2C float32 rows
+    tilemma::staged_layer<1, KIND>(st, chain, 6, opB, RG, NR,
+                             Out{db3, false, false, T, nullptr, nullptr, F,
+                                 WS, nullptr, 0}, win);
+    for (int idx = threadIdx.x; idx < 2 * C * n; idx += blockDim.x) {
+      const int o = idx / n, jj = idx - o * n;
+      float* dst = o < C ? mu + ((size_t)b * C + o) * T
+                         : logvar + ((size_t)b * C + (o - C)) * T;
+      dst[t0 + jj] = F[o * WS + HALO + jj];
+    }
+    for (int idx = threadIdx.x; idx < K * n; idx += blockDim.x) {
+      const int k = idx / n, jj = idx - k * n;
+      q_out[((size_t)b * K + k) * T + t0 + jj] = qs[k * WS + HALO + jj];
+    }
   }
 }
 
@@ -403,18 +505,11 @@ extern "C" long long vqhmm_fused_infer_packed_floats(int C, int H1, int H2,
               : packed(C, H1, H2, K, D).total;
 }
 
-// The bfloat16 mode's dynamic shared memory of a block.
-static int bf16_smem_bytes(int C, int H1, int H2, int K, int D, int tile) {
-  return 2 * op_rows_bf16(tile) *
-             (tilemma::op_stride(C) +
-              2 * tilemma::op_stride(operand_bf16(H1, H2, K, D))) +
-         (int)sizeof(float) * row_stride(tile) * (K + 2 * C);
-}
-
-// Dynamic shared memory of a block at tile width `tile` in the mode.
+// Dynamic shared memory of a block at tile width `tile` in the mode (the
+// bfloat16 mode's with its weights where stage_plan puts them).
 extern "C" int vqhmm_fused_infer_smem_bytes(int C, int H1, int H2, int K,
                                             int D, int tile, int bf16) {
-  if (bf16) return bf16_smem_bytes(C, H1, H2, K, D, tile);
+  if (bf16) return bf16_stage(C, H1, H2, K, D, tile).bytes;
   return (int)(sizeof(float) * (2 * tilefma::WBUF + tilefma::ROW_PAD +
                                 (size_t)row_stride(tile) *
                                     (C + 2 * buffer_rows(C, H1, H2, D) + K)));
@@ -432,10 +527,15 @@ extern "C" int vqhmm_fused_infer_pack(const float* ew1, const float* ew2,
                                       int H1, int H2, int K, int D, int bf16,
                                       void* stream) {
   if (bf16 != 0 && bf16 != 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bf16 ? (const void*)fused_infer_bf16_kernel
-           : (const void*)fused_infer_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  const void* kernels[3] = {
+      (const void*)fused_infer_bf16_kernel<tilemma::DIRECT>,
+      (const void*)fused_infer_bf16_kernel<tilemma::RESIDENT>,
+      (const void*)fused_infer_bf16_kernel<tilemma::RING>};
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < (bf16 ? 3 : 1) && err == cudaSuccess; ++k)
+    err = cudaFuncSetAttribute(
+        bf16 ? kernels[k] : (const void*)fused_infer_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
@@ -465,13 +565,15 @@ extern "C" int vqhmm_fused_infer_pack(const float* ew1, const float* ew2,
 }
 
 // The forward in the mode (bf16 0: float32, 1: bfloat16 operands) from
-// weights vqhmm_fused_infer_pack packed in that mode.
+// weights vqhmm_fused_infer_pack packed in that mode.  grid: the bfloat16
+// mode's blocks, 1 to B * ceil(T / tile) (a persistent grid walks the
+// items); the float32 mode takes a block an item and passes 0.
 extern "C" int vqhmm_fused_infer(
     const float* x, const int* valid_to, const void* packed_weights,
     const float* eb1, const float* eb2, const float* eb3, const float* db1,
     const float* db2, const float* db3, float* mu, float* logvar, float* q,
     int B, int C, int T, int H1, int H2, int K, int D, int tile, int bf16,
-    void* stream) {
+    int grid, void* stream) {
   const int maxH = max3(H1, H2, D);
   const int smem = vqhmm_fused_infer_smem_bytes(C, H1, H2, K, D, tile, bf16);
   if ((tile != 16 && tile != 32 && tile != 64) || (bf16 != 0 && bf16 != 1))
@@ -483,12 +585,31 @@ extern "C" int vqhmm_fused_infer(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    fused_infer_bf16_kernel<<<(unsigned)blocks, MMA_THREADS, smem, s>>>(
-        x, valid_to, reinterpret_cast<const tilemma::bf16*>(packed_weights),
-        eb1, eb2, eb3, db1, db2, db3, mu, logvar, q, C, T, H1, H2, K, D, tile,
-        tiles);
+    if (grid < 1 || grid > blocks) return (int)cudaErrorInvalidValue;
+    const tilemma::bf16* w =
+        reinterpret_cast<const tilemma::bf16*>(packed_weights);
+    switch (bf16_stage(C, H1, H2, K, D, tile).kind) {
+      case tilemma::RESIDENT:
+        fused_infer_bf16_kernel<tilemma::RESIDENT>
+            <<<(unsigned)grid, MMA_THREADS, smem, s>>>(
+                x, valid_to, w, eb1, eb2, eb3, db1, db2, db3, mu, logvar, q,
+                C, T, H1, H2, K, D, tile, tiles, (int)blocks);
+        break;
+      case tilemma::RING:
+        fused_infer_bf16_kernel<tilemma::RING>
+            <<<(unsigned)grid, MMA_THREADS, smem, s>>>(
+                x, valid_to, w, eb1, eb2, eb3, db1, db2, db3, mu, logvar, q,
+                C, T, H1, H2, K, D, tile, tiles, (int)blocks);
+        break;
+      default:
+        fused_infer_bf16_kernel<tilemma::DIRECT>
+            <<<(unsigned)grid, MMA_THREADS, smem, s>>>(
+                x, valid_to, w, eb1, eb2, eb3, db1, db2, db3, mu, logvar, q,
+                C, T, H1, H2, K, D, tile, tiles, (int)blocks);
+    }
     return (int)cudaGetLastError();
   }
+  if (grid != 0) return (int)cudaErrorInvalidValue;
   // a slab holds at least one input channel of every output
   if (3 * tilefma::round4(maxH) > tilefma::WBUF ||
       tilefma::round4(K) > tilefma::WBUF ||

@@ -22,7 +22,9 @@
 //    operand takes them: for each m-tile of 16 output channels, each chunk
 //    is one 512-byte fragment, 16 bytes a lane, so a warp loads a fragment
 //    as one coalesced 16-byte load a lane (from L1 or L2: no staging, no
-//    barrier within a layer).  Outputs [O, round16(O)) have zero weights;
+//    barrier within a layer; the inference kernels stage them in shared
+//    memory instead, staged_layer below).  Outputs [O, round16(O)) have
+//    zero weights;
 //  * a warp owns an item of 16 output channels (an m-tile) x up to 48
 //    steps (MMA_PAIRS pairs of n-tiles of 8) and keeps its float32 sums in
 //    registers over the whole reduction, so a weight fragment is loaded
@@ -274,13 +276,24 @@ __device__ __forceinline__ void zero_pad(bf16* op, int RS, int n, int lo,
 constexpr int MMA_PAIRS = 3;
 constexpr int AHEAD = 2;
 
+// A weight fragment: from L2 (__ldg), or, with SMEM, from fragments
+// staged in shared memory (a plain load).
+template <bool SMEM>
+__device__ __forceinline__ uint4 fragment(const uint4* at) {
+  if constexpr (SMEM)
+    return *at;
+  else
+    return __ldg(at);
+}
+
 // The whole layer, from the packed weights wp and the operand `in` (RS
 // values a row, `rows` rows allocated), through the epilogue `y`.  Rows
 // from 2 before lo to 15 past hi - 1 + TAPS/2 are read for the padded
 // columns of the first and last n-tiles (never for a stored value); they
-// are clamped to the allocation.
+// are clamped to the allocation.  SMEM: wp points at the layer's
+// fragments staged in shared memory (staged_layer), not at L2.
 // Every thread of the block calls it; it ends with a __syncthreads.
-template <int TAPS>
+template <int TAPS, bool SMEM = false>
 __device__ __forceinline__ void layer(const bf16* __restrict__ wp, int O,
                                       int I, const bf16* in, int RS, int rows,
                                       int lo, int hi, const Out& y,
@@ -321,10 +334,21 @@ __device__ __forceinline__ void layer(const bf16* __restrict__ wp, int O,
     // moved: a ring that rotated its registers waited for each load in
     // turn)
     const uint4* a = wf + (size_t)mt * chunks * 32 + lane;
+    // SMEM: the bias read before the reduction, off the chain's path
+    float bias_ahead[2];
+    if constexpr (SMEM) {
+      const int o0 = 16 * mt + (lane >> 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bias_ahead[h] = (y.bias != nullptr && o0 + 8 * h < O)
+                            ? __ldg(y.bias + o0 + 8 * h)
+                            : 0.f;
+    }
     uint4 f[AHEAD];
 #pragma unroll
     for (int s = 0; s < AHEAD; ++s)
-      f[s] = s < chunks ? __ldg(a + (size_t)s * 32) : make_uint4(0, 0, 0, 0);
+      f[s] = s < chunks ? fragment<SMEM>(a + (size_t)s * 32)
+                        : make_uint4(0, 0, 0, 0);
     int k = 0, g = 0;
     for (int c = 0; c < chunks; c += AHEAD) {
 #pragma unroll
@@ -343,7 +367,7 @@ __device__ __forceinline__ void layer(const bf16* __restrict__ wp, int O,
             }
           }
           if (c + s + AHEAD < chunks)
-            f[s] = __ldg(a + (size_t)(c + s + AHEAD) * 32);
+            f[s] = fragment<SMEM>(a + (size_t)(c + s + AHEAD) * 32);
           if (++g == groups) {
             g = 0;
             ++k;
@@ -354,9 +378,13 @@ __device__ __forceinline__ void layer(const bf16* __restrict__ wp, int O,
     const int o0 = 16 * mt + (lane >> 2);
     float b[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      b[h] = (y.bias != nullptr && o0 + 8 * h < O) ? __ldg(y.bias + o0 + 8 * h)
-                                                  : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (SMEM)
+        b[h] = bias_ahead[h];
+      else
+        b[h] = (y.bias != nullptr && o0 + 8 * h < O)
+                   ? __ldg(y.bias + o0 + 8 * h) : 0.f;
+    }
 #pragma unroll
     for (int p = 0; p < MMA_PAIRS; ++p)
       if (p < np)
@@ -365,6 +393,402 @@ __device__ __forceinline__ void layer(const bf16* __restrict__ wp, int O,
   }
   if (y.op != nullptr) zero_pad(y.op, y.RS, O, lo, hi);
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// Weights staged in shared memory ahead of a block's chain of layers: the
+// inference kernels' bfloat16-operand mode (fused_infer.cu's kernel A,
+// fused_decode.cu's kernel 11).
+//
+// layer() above reads each warp's fragments from L2, two chunks ahead, on
+// the critical path of every layer, so a block that runs a chain of
+// layers on one tile (a request at B = 1) waits for them layer after
+// layer, and every item of a split window loads them again.  Here the
+// Tensor Memory Accelerator copies them into shared memory:
+//  * RESIDENT: at block start, before x is staged, one bulk copy a layer
+//    (cp.async.bulk), all issued at once by thread 0, each completing on
+//    the layer's own mbarrier; a layer waits only for its own fragments,
+//    which arrive while x and the layers before it are computed, and
+//    reads them from shared memory.  They stay for every item the block
+//    takes (a persistent grid: weights staged once a block);
+//  * RING: a chain whose fragments do not fit beside the operands streams
+//    them through `slots` slots of SLOT_ELEMS values.  A unit is one chunk
+//    of the m-tiles of one round of one layer: a round is `mr` consecutive
+//    m-tiles (warps / split), an item each of their `split` parts of the
+//    window, so a round's fragments of a chunk are one slot.  Thread 0
+//    keeps `slots` units issued ahead of the unit the block consumes,
+//    across layer boundaries; a slot is refilled once every warp has
+//    arrived on its empty barrier;
+//  * DIRECT: where not even two slots fit, layer() reads L2, as before.
+// The sums are layer()'s: each output's float32 sum is the same sequence
+// of chunk sums (mma_chunk, chunks tap-major) whichever warp computes it,
+// so the three give one set of bits, bit-equal to layer() on L2.
+// ---------------------------------------------------------------------------
+
+enum WeightKind { DIRECT = 0, RESIDENT = 1, RING = 2 };
+
+// layers of a chain at most (kernel A's seven)
+constexpr int MAX_CHAIN = 7;
+// a ring's slots at most, and the m-tiles a round at most (a block of
+// eight warps: a round is warps / split m-tiles)
+constexpr int RING_SLOTS = 8;
+constexpr int RING_MTILES = 8;
+constexpr int SLOT_ELEMS = RING_MTILES * 256;
+// the control region: the barriers (one a layer, or full and empty a
+// slot), then the ring's copy of the chain for its producer
+constexpr int CTRL_BYTES = 8 * 2 * RING_SLOTS + 32 * 8;
+// RESIDENT: the layers whose bulk copy is in flight ahead of the layer
+// computing (the first two at block start): a block's copies spread over
+// its chain, so that the blocks of a large grid, all starting at once, do
+// not ask L2 for every block's every layer together
+constexpr int COPY_AHEAD = 2;
+
+// Where a block's dynamic shared memory puts the weights, after `base`
+// bytes of operands (a multiple of 16): RESIDENT takes `prefetch` bytes
+// of raw inputs, the control region and all `elems` packed values; else
+// RING the control region and as many slots as fit, up to RING_SLOTS;
+// else DIRECT, the operands alone.  bytes: the block's dynamic shared
+// memory.
+struct StagePlan {
+  int kind, slots, bytes;
+};
+
+__host__ __device__ inline StagePlan stage_plan(long long base,
+                                                long long prefetch,
+                                                long long elems, int limit) {
+  const long long resident = base + prefetch + CTRL_BYTES + 2 * elems;
+  if (resident <= limit) return StagePlan{RESIDENT, 0, (int)resident};
+  long long slots = (limit - base - CTRL_BYTES) / (2 * SLOT_ELEMS);
+  slots = slots < RING_SLOTS ? slots : RING_SLOTS;
+  if (slots >= 2)
+    return StagePlan{RING, (int)slots,
+                     (int)(base + CTRL_BYTES + slots * 2 * SLOT_ELEMS)};
+  return StagePlan{DIRECT, 0, (int)base};
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from device memory to shared memory, both
+// 16-byte aligned, completing on `bar`'s transaction count
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One layer of a chain: its first value in the packed weights, widths,
+// taps, and the window columns it computes, [lo, W - tail).
+struct ChainLayer {
+  long long at;
+  int O, I, taps, lo, tail;
+};
+
+// How layer() splits a layer's window into items (its first column,
+// pairs of n-tiles, pairs an item, items an m-tile), and the ring's
+// rounds of it: mr m-tiles a round.  At most 5 pairs (a window of a tile
+// of 64 and its halo), so split stays at most the block's warps.
+struct Items {
+  int mtiles, chunks, first, pairs, per, split, mr, rounds;
+};
+
+__device__ __forceinline__ Items items_of(const ChainLayer& l, int W, int p0,
+                                          int warps) {
+  Items it;
+  it.mtiles = (l.O + 15) >> 4;
+  it.chunks = l.taps * ((l.I + 15) >> 4);
+  const int lo = l.lo, hi = W - l.tail;
+  it.first = lo - ((p0 + lo) & 1);
+  it.pairs = (hi - it.first + 15) >> 4;
+  int split = (it.pairs + MMA_PAIRS - 1) / MMA_PAIRS;
+  const int fill = (warps + it.mtiles - 1) / it.mtiles;
+  if (split < fill) split = fill < it.pairs ? fill : it.pairs;
+  it.per = (it.pairs + split - 1) / split;
+  it.split = (it.pairs + it.per - 1) / it.per;
+  it.mr = max(1, warps / it.split);
+  it.rounds = (it.mtiles + it.mr - 1) / it.mr;
+  return it;
+}
+
+// A block's weights: the packed weights in device memory, where the
+// fragments (RESIDENT) or slots (RING), the barriers and the ring's copy
+// of the chain lie in shared memory, the block's layers [l0, l1) of its
+// chain, RESIDENT's layers issued; RING: the units consumed (v, every
+// thread alike), the end of the current item's units, and the producer's
+// units issued and the cursor (layer, round, chunk) of the next.  The
+// chain itself is a callable the kernel passes, chain(l) the ChainLayer l
+// (l a constant at every call, so that nothing of it stays live in
+// registers across the kernel).
+struct Staged {
+  const bf16* wp;
+  bf16* sw;
+  uint64_t* bar;
+  ChainLayer* ring_chain;
+  int l0, l1, slots, issued, v, end, pl, pr, pc, W, p0;
+  Items pit;
+};
+
+// The thread that initialises the barriers and issues the copies: lane 0
+// of the block's last warp, which a layer of few items leaves idle
+// (layer() gives its items to the first warps).
+__device__ __forceinline__ bool producer() {
+  return threadIdx.x == blockDim.x - 32;
+}
+
+// RESIDENT: layer l's first value in the block's staged fragments.
+template <class Chain>
+__device__ __forceinline__ long long staged_offset(const Staged& st,
+                                                   const Chain& chain,
+                                                   int l) {
+  long long off = 0;
+#pragma unroll
+  for (int i = 0; i < MAX_CHAIN; ++i)
+    if (i >= st.l0 && i < l) {
+      const ChainLayer c = chain(i);
+      off += packed_elems(c.O, c.I, c.taps);
+    }
+  return off;
+}
+
+// RESIDENT, the producer: layer l's bulk copy, on its own barrier.
+template <class Chain>
+__device__ __forceinline__ void issue_layer(const Staged& st,
+                                            const Chain& chain, int l) {
+  const ChainLayer c = chain(l);
+  const unsigned bytes = (unsigned)(2 * packed_elems(c.O, c.I, c.taps));
+  mbar_expect_tx(st.bar + l, bytes);
+  bulk_copy(st.sw + staged_offset(st, chain, l), st.wp + c.at, bytes,
+            st.bar + l);
+}
+
+// Every thread calls it at block start, once `st` holds the block's range
+// of the chain: the producer's warp initialises the barriers and the
+// producer writes the ring's copy of the chain and (RESIDENT) issues the
+// bulk copies of the first COPY_AHEAD layers, while the other warps go
+// on to stage x.  No barrier here: the __syncthreads that ends the
+// kernel's staging of x orders the initialisation before any wait.
+template <int KIND, class Chain>
+__device__ __forceinline__ void stage_start(Staged& st, const Chain& chain) {
+  st.v = st.end = st.issued = 0;
+  if (KIND != DIRECT && threadIdx.x >= blockDim.x - 32) {
+    const int lane = threadIdx.x & 31;
+    if (KIND == RESIDENT && lane < MAX_CHAIN) mbar_init(st.bar + lane, 1);
+    if (KIND == RING && lane < st.slots) {
+      mbar_init(st.bar + lane, 1);
+      mbar_init(st.bar + st.slots + lane, blockDim.x >> 5);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncwarp();
+    if (KIND == RING && lane == 0) {
+#pragma unroll
+      for (int l = 0; l < MAX_CHAIN; ++l) st.ring_chain[l] = chain(l);
+    }
+  }
+  if constexpr (KIND == RESIDENT) {
+#pragma unroll
+    for (int l = 0; l < MAX_CHAIN; ++l)
+      if (l >= st.l0 && l < st.l1 && l < st.l0 + COPY_AHEAD) {
+        if (producer()) issue_layer(st, chain, l);
+        st.issued = l + 1;
+      }
+  }
+}
+
+// RING, the producer: issue units until `slots` are ahead of the unit the
+// block consumes or the item's units are all issued.  A slot's next fill
+// waits until every warp has released its last unit.
+__device__ __forceinline__ void ring_top_up(Staged& st) {
+  while (st.issued < st.end && st.issued < st.v + st.slots) {
+    const int s = st.issued % st.slots, k = st.issued / st.slots;
+    if (k > 0) mbar_wait(st.bar + st.slots + s, (k - 1) & 1);
+    const int m0 = st.pr * st.pit.mr;
+    const int cnt = min(st.pit.mr, st.pit.mtiles - m0);
+    const long long at = st.ring_chain[st.pl].at;
+    mbar_expect_tx(st.bar + s, 512u * cnt);
+    for (int i = 0; i < cnt; ++i)
+      bulk_copy(st.sw + (size_t)s * SLOT_ELEMS + 256 * i,
+                st.wp + at + ((size_t)(m0 + i) * st.pit.chunks + st.pc) * 256,
+                512u, st.bar + s);
+    ++st.issued;
+    if (++st.pc == st.pit.chunks) {
+      st.pc = 0;
+      if (++st.pr == st.pit.rounds) {
+        st.pr = 0;
+        if (++st.pl < st.l1)
+          st.pit = items_of(st.ring_chain[st.pl], st.W, st.p0,
+                            blockDim.x >> 5);
+      }
+    }
+  }
+}
+
+// Every thread calls it at the start of an item whose window is W columns
+// from time p0 (before the item's first layer): RING counts the item's
+// units and the producer issues the first of them.
+template <int KIND, class Chain>
+__device__ __forceinline__ void stage_item(Staged& st, const Chain& chain,
+                                           int W, int p0) {
+  st.W = W;
+  st.p0 = p0;
+  if constexpr (KIND == RING) {
+    const int warps = blockDim.x >> 5;
+    int units = 0;
+#pragma unroll
+    for (int l = 0; l < MAX_CHAIN; ++l)
+      if (l >= st.l0 && l < st.l1) {
+        const Items it = items_of(chain(l), W, p0, warps);
+        units += it.rounds * it.chunks;
+      }
+    st.end = st.v + units;
+    if (producer()) {
+      st.pl = st.l0;
+      st.pr = st.pc = 0;
+      st.pit = items_of(st.ring_chain[st.l0], W, p0, warps);
+      ring_top_up(st);
+    }
+  }
+}
+
+// Layer li of the chain on the ring: for each round, for each chunk, every
+// warp waits for the unit, a warp with an item of the round runs its
+// mma on the slot's fragment of its m-tile, and every warp releases the
+// slot; the epilogue as layer()'s.  Ends with a __syncthreads.
+template <int TAPS>
+__device__ __forceinline__ void ring_layer(Staged& st, const ChainLayer& l,
+                                           const bf16* in, int RS, int rows,
+                                           const Out& y, const Win& win) {
+  constexpr int H = TAPS / 2;
+  const int warps = blockDim.x >> 5, w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Items it = items_of(l, st.W, win.p0, warps);
+  const int groups = (l.I + 15) >> 4;
+  const int lo = l.lo, hi = st.W - l.tail;
+  const int bn = (lane & 7) + ((lane >> 4) << 3);
+  const int bk = ((lane >> 3) & 1) << 3;
+  const int slot_mt = w / it.split, part = w - slot_mt * it.split;
+  for (int r = 0; r < it.rounds; ++r) {
+    const int mt = r * it.mr + slot_mt;
+    const bool active = slot_mt < it.mr && mt < it.mtiles;
+    const int j0 = it.first + 16 * it.per * part;
+    const int np = active ? min(it.per, it.pairs - it.per * part) : 0;
+    const int o0 = 16 * mt + (lane >> 2);
+    float b[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      b[h] = (active && y.bias != nullptr && o0 + 8 * h < l.O)
+                 ? __ldg(y.bias + o0 + 8 * h)
+                 : 0.f;
+    float acc[2 * MMA_PAIRS][4];
+#pragma unroll
+    for (int q = 0; q < 2 * MMA_PAIRS; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+    int k = 0, g = 0;
+    for (int c = 0; c < it.chunks; ++c) {
+      if (producer()) ring_top_up(st);
+      __syncwarp();
+      const int s = st.v % st.slots;
+      mbar_wait(st.bar + s, (st.v / st.slots) & 1);
+      if (np > 0) {
+        const uint4 f = reinterpret_cast<const uint4*>(
+            st.sw + (size_t)s * SLOT_ELEMS + 256 * slot_mt)[lane];
+        const bf16* base = in + 16 * g + bk;
+#pragma unroll
+        for (int p = 0; p < MMA_PAIRS; ++p) {
+          if (p < np) {
+            const int rr = max(min(j0 + 16 * p + bn - H + k, rows - 1), 0);
+            uint32_t bm[4];
+            ldmatrix_x4(bm, base + (size_t)rr * RS);
+            mma_chunk(acc[2 * p], f, bm[0], bm[1]);
+            mma_chunk(acc[2 * p + 1], f, bm[2], bm[3]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(st.bar + st.slots + s);
+      ++st.v;
+      if (++g == groups) {
+        g = 0;
+        ++k;
+      }
+    }
+    if (np > 0) {
+#pragma unroll
+      for (int p = 0; p < MMA_PAIRS; ++p)
+        if (p < np)
+          emit_pair(y, win, l.O, lo, hi, o0, j0 + 16 * p, b, acc[2 * p],
+                    acc[2 * p + 1]);
+    }
+  }
+  if (y.op != nullptr) zero_pad(y.op, y.RS, l.O, lo, hi);
+  __syncthreads();
+}
+
+// Layer li of the block's chain (li a constant), its window [lo, W -
+// tail), from wherever the weights are: RESIDENT issues the copy of the
+// layer COPY_AHEAD ahead (once a block), waits for its own (at once
+// after the first item) and reads shared memory; RING streams; DIRECT
+// reads L2.  Every thread calls it; it ends with a __syncthreads.
+template <int TAPS, int KIND, class Chain>
+__device__ __forceinline__ void staged_layer(Staged& st, const Chain& chain,
+                                             int li, const bf16* in, int RS,
+                                             int rows, const Out& y,
+                                             const Win& win) {
+  const ChainLayer l = chain(li);
+  const int lo = l.lo, hi = st.W - l.tail;
+  if constexpr (KIND == RESIDENT) {
+    const int next = li + COPY_AHEAD;
+    if (next < MAX_CHAIN && next < st.l1 && next >= st.issued) {
+      if (producer()) issue_layer(st, chain, next);
+      st.issued = next + 1;
+    }
+    mbar_wait(st.bar + li, 0);
+    layer<TAPS, true>(st.sw + staged_offset(st, chain, li), l.O, l.I, in,
+                      RS, rows, lo, hi, y, win);
+  } else if constexpr (KIND == RING) {
+    ring_layer<TAPS>(st, l, in, RS, rows, y, win);
+  } else {
+    layer<TAPS>(st.wp + l.at, l.O, l.I, in, RS, rows, lo, hi, y, win);
+  }
 }
 
 }  // namespace tilemma

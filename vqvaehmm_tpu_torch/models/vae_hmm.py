@@ -23,8 +23,12 @@ hand-written CUDA kernels: the serving forward `infer_forward`
 `encode(fused=None)` (ops/fused_encoder.py), the evidence of the three
 exact modes (ops/fused_decode.py) and the Viterbi recursion
 (ops/fused_viterbi.py).  On the CPU each runs its plain version; the
-plain version runs on the card only when asked with `fused=False` /
-`use_kernel=False`.  The kernels' outputs carry no gradient:
+plain version runs on the card when asked with `fused=False` /
+`use_kernel=False`, and for a call that autograd would record (grad mode
+on and x, u or a weight of the stage requiring grad), as the JAX
+package's auto-dispatch steps aside for a differentiating caller
+(ops/fused_infer.py::kernel_route); a kernel forced with `fused=True` /
+`use_kernel=True` then raises.  The kernels' outputs carry no gradient:
 `compute_loss` and `forward` take the plain, differentiable convolutions
 on every device.  torch's own exp/log/log_softmax are used throughout:
 the JAX package's ops/precise.py exists only for the TPU build's fast
@@ -209,12 +213,13 @@ class VAEHMM(nn.Module):
         t >= valid_to.
 
         fused=None runs the whole stack of a float32 model as one CUDA
-        kernel for a CUDA tensor (ops/fused_encoder.py; inference only: it
-        raises where grad mode is on and x or the weights require grad)
-        and the plain convolutions otherwise; fused=False is the plain,
-        differentiable stack on any device; fused=True on a CPU tensor or
-        a bfloat16 model raises.  bf16_operands: see the module's
-        docstring (plain stack only)."""
+        kernel for a CUDA tensor (ops/fused_encoder.py; inference only: a
+        call that autograd records takes the plain stack, in the kernel
+        mode's arithmetic) and the plain convolutions otherwise;
+        fused=False is the plain, differentiable stack on any device;
+        fused=True on a CPU tensor or a bfloat16 model, or under
+        autograd, raises.  bf16_operands: see the module's docstring
+        (plain stack only)."""
         if fused is not False:
             return fused_encode(self, x, valid_to=valid_to, use_kernel=fused)
         enc = self.encoder
@@ -393,7 +398,7 @@ class VAEHMM(nn.Module):
         """(log_pi, log_A, log_obs) for the exact-inference paths: one
         kernel launch for CUDA tensors (ops/fused_decode.py; inference
         only, as encode's kernel is), prior() and _hmm_evidence() for CPU
-        tensors or with use_kernel=False."""
+        tensors, with use_kernel=False, or for a call autograd records."""
         return fused_evidence(self, x, u, lengths, use_kernel=use_kernel)
 
     def smoothed_posterior(self, x: torch.Tensor, u: torch.Tensor,

@@ -53,8 +53,8 @@ _L = ctypes.c_longlong
 # otherwise pass a Python int as a 32-bit int and cut the address)
 _SIGNATURES = {
     # x, valid_to, packed weights, 6 biases, mu, logvar, q, B, C, T, H1,
-    # H2, K, D, tile, bf16, stream
-    "vqhmm_fused_infer": [_P] * 3 + [_P] * 6 + [_P] * 3 + [_I] * 9 + [_P],
+    # H2, K, D, tile, bf16, grid, stream
+    "vqhmm_fused_infer": [_P] * 3 + [_P] * 6 + [_P] * 3 + [_I] * 10 + [_P],
     # 7 weight arrays, packed weights, C, H1, H2, K, D, bf16, stream
     "vqhmm_fused_infer_pack": [_P] * 8 + [_I] * 6 + [_P],
     # C, H1, H2, K, D, tile, bf16 -> dynamic shared memory bytes per block
@@ -81,9 +81,9 @@ _SIGNATURES = {
     "vqhmm_fused_encode_smem_bytes": [_I] * 6,
     # x, u, u strides (batch, channel, time), lengths (or null), packed
     # weights, 3 encoder and 2 prior biases, log_obs, log_A, B, C, T, U,
-    # H1, H2, K, HP, tile, split, bf16, stream
+    # H1, H2, K, HP, tile, split, bf16, staged, stream
     "vqhmm_fused_evidence": [_P, _P, _L, _L, _L, _P, _P] + [_P] * 5
-    + [_P] * 2 + [_I] * 11 + [_P],
+    + [_P] * 2 + [_I] * 12 + [_P],
     # x, u, u strides (batch, channel, time), lengths (or null), packed
     # weights, 3 encoder and 2 prior biases, log_pi, the segment scratch
     # (aggregates, selector maps, end states), states, B, C, T, U, H1, H2,
@@ -92,9 +92,9 @@ _SIGNATURES = {
     + [_P] * 5 + [_I] * 10 + [_P],
     # B, C, T, U, H1, H2, K, HP, tile, bf16, out[4] -> error code
     "vqhmm_fused_decode_plan": [_I] * 10 + [_P],
-    # C, H1, H2, K, U, HP, tile, bf16 -> dynamic shared memory bytes per
-    # block
-    "vqhmm_fused_evidence_smem_bytes": [_I] * 8,
+    # C, H1, H2, K, U, HP, tile, bf16, staged -> dynamic shared memory
+    # bytes per block
+    "vqhmm_fused_evidence_smem_bytes": [_I] * 9,
     # z, z strides (batch, channel, time), codebook, z_q, idx, B, T, M, D,
     # stream
     "vqhmm_vq_nearest": [_P, _L, _L, _L, _P, _P, _P] + [_I] * 4 + [_P],

@@ -30,10 +30,12 @@ Dispatch is that of ops/fused_infer.py (`kernel_route`):
 `use_kernel=None` takes the kernel for a CUDA tensor of a float32 model
 and the plain version for a CPU tensor or a bfloat16 model,
 `use_kernel=True` on a CPU tensor or a bfloat16 model raises,
-`use_kernel=False` computes the plain version.  There is no fallback.
-`fused_evidence` refuses, as `fused_encode` does, where grad mode is on
-and an input or weight requires grad (the decode returns integer states,
-which carry none anyway).
+`use_kernel=False` computes the plain version, and so does
+`use_kernel=None` for a call that autograd would record (grad mode on and
+x, u, or a weight of the encoder or the prior requiring grad), where
+`use_kernel=True` raises, for the decode too (its integer states carry no
+gradient, but JAX's auto-dispatch routes a differentiating caller around
+its decode kernels all the same).  There is no fallback.
 
 Two modes of arithmetic, as the TPU kernels' `highest` flag has
 (ops/fused_train.py::infer_bf16_mode, ops/fused_infer.py::operand_mode):
@@ -57,10 +59,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .fused_encoder import (TILES, check_x, encoder_dims, kernel_cache,
-                            layers_fit, plan_for, refuse_grad,
+from .fused_encoder import (TILES, check_x, encoder_dims, evidence_stage,
+                            kernel_cache, layers_fit, plan_for,
                             smem_dims_bytes)
-from .fused_infer import H100_SMS, SMEM_LIMIT, kernel_route, operand_mode
+from .fused_infer import (H100_SMS, SMEM_LIMIT, autograd_aside,
+                          kernel_route, operand_mode, refuse_grad)
 from .fused_train import _u_strides
 from .fused_viterbi import MAX_K, num_segments
 from .hmm import viterbi
@@ -75,16 +78,27 @@ def _chunk_floats(K: int) -> int:
 _count_lock = threading.Lock()
 
 
+def evidence_stage_bytes(cfg, tile: int, bf16: bool = False) -> int:
+    """The evidence stages' shared memory at tile width `tile` in the
+    mode, without the weights: the decode's stage region in front of its
+    tiles (csrc/encoder_mma.cuh::smem_bytes, encoder_fma.cuh's)."""
+    return smem_dims_bytes(tile, encoder_dims(cfg, prior=True), bf16)
+
+
 def evidence_smem_bytes(cfg, tile: int, bf16: bool = False) -> int:
     """Shared memory an evidence block uses at tile width `tile` in the
-    mode (csrc/fused_decode.cu::vqhmm_fused_evidence_smem_bytes)."""
-    return smem_dims_bytes(tile, encoder_dims(cfg, prior=True), bf16)
+    mode (csrc/fused_decode.cu::vqhmm_fused_evidence_smem_bytes): the
+    stages' rows; in the bfloat16 mode also its weights, where
+    ops/fused_encoder.py::evidence_stage puts them."""
+    if bf16:
+        return evidence_stage(tile, encoder_dims(cfg, prior=True)).bytes
+    return evidence_stage_bytes(cfg, tile)
 
 
 def evidence_plan(cfg, B: int, T: int, sms: int = H100_SMS,
                   bf16: bool = False):
     return plan_for(B, T, encoder_dims(cfg, prior=True), sms, can_split=True,
-                    bf16=bf16)
+                    bf16=bf16, staged=bf16)
 
 
 def decode_smem_bytes(cfg, tile: int, ntb: int = 1,
@@ -96,7 +110,7 @@ def decode_smem_bytes(cfg, tile: int, ntb: int = 1,
     stages products and selector maps, 32 chunk products and deltas, 68
     words)."""
     K = cfg.K
-    stage = -(-evidence_smem_bytes(cfg, tile, bf16) // 16) * 16
+    stage = -(-evidence_stage_bytes(cfg, tile, bf16) // 16) * 16
     return stage + 4 * (ntb * tile * (K + K * K + 1) + _chunk_floats(K)
                         + 32 * (K * K + K) + 68)
 
@@ -183,6 +197,13 @@ def _prepare(model, x, u, lengths, what: str, bf16: bool):
     return x.contiguous(), lens
 
 
+def evidence_tensors(model, u: torch.Tensor) -> list:
+    """The tensors kernels 11 and 10 read besides x: the encoder's and the
+    prior's weights, and u."""
+    return [*model.encoder.parameters(), *model.prior_module.parameters(),
+            u]
+
+
 def _dims(cfg, B: int, T: int):
     return (B, cfg.input_dim, T, cfg.u_dim, cfg.hidden_dim, cfg.hidden_dim2,
             cfg.K, cfg.trans_hidden)
@@ -195,14 +216,15 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
     """(log_pi (K,), log_A (B, T, K, K), log_obs (B, T, K)) for x (B, C, T)
     and u (B, U, T) or (B, T, U), the encoder bounded at max(lengths)."""
     bf16 = operand_mode(model, x)
-    if not kernel_route(model, x, use_kernel):
+    tensors = evidence_tensors(model, u)
+    if not kernel_route(model, x, use_kernel) or autograd_aside(
+            use_kernel, x, tensors):
         return fused_evidence_reference(model, x, u, lengths, bf16)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "
                          "evidence is a CUDA kernel")
     cfg = model.cfg
-    refuse_grad("fused evidence", x, [
-        *model.encoder.parameters(), *model.prior_module.parameters(), u])
+    refuse_grad("fused evidence", x, tensors)
     x, lens = _prepare(model, x, u, lengths, "fused evidence", bf16)
     B, _, T = x.shape
     K = cfg.K
@@ -216,7 +238,7 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
     plan = kernel_cache(model).plan("evidence", encoder_dims(cfg, prior=True),
                                     B, T, x.device, can_split=True, bf16=bf16)
     _launch_evidence(model, x, u, lens, plan.tile, plan.split,
-                     (log_obs, log_A), bf16)
+                     (log_obs, log_A), bf16, plan.weights != "direct")
     with _count_lock:
         fused_evidence.launches += 1
         fused_evidence.bf16_launches += bf16
@@ -224,12 +246,13 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
 
 
 def _launch_evidence(model, x, u, lens, tile: int, split: bool,
-                     out, bf16: bool = False) -> None:
+                     out, bf16: bool = False, staged: bool = True) -> None:
     """One launch of the evidence kernel at tile width `tile`, in the
-    bfloat16-operand mode where bf16, the encoder and the prior in blocks
-    of their own with `split`, into out = (log_obs, log_A); lens (B,)
-    int32 contiguous or None, whose maximum the kernel bounds the encoder
-    at.  It does not count: fused_evidence does."""
+    bfloat16-operand mode where bf16 (its weights staged in shared memory
+    where they fit with `staged`, else read from L2), the encoder and the
+    prior in blocks of their own with `split`, into out = (log_obs,
+    log_A); lens (B,) int32 contiguous or None, whose maximum the kernel
+    bounds the encoder at.  It does not count: fused_evidence does."""
     cfg = model.cfg
     B, _, T = x.shape
     packed, bs = kernel_cache(model).weights(model, x.device, bf16=bf16)
@@ -238,7 +261,7 @@ def _launch_evidence(model, x, u, lens, tile: int, split: bool,
         None if lens is None else lens.data_ptr(),
         packed.data_ptr(), *[b.data_ptr() for b in bs], out[0].data_ptr(),
         out[1].data_ptr(), *_dims(cfg, B, T), tile, int(split), int(bf16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(staged), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_evidence kernel launch")
 
 
@@ -291,12 +314,15 @@ def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
     """MAP regime path (B, T) int32 from raw x (B, C, T) and u (B, U, T) or
     (B, T, U) in one launch."""
     bf16 = operand_mode(model, x)
-    if not kernel_route(model, x, use_kernel):
+    tensors = evidence_tensors(model, u)
+    if not kernel_route(model, x, use_kernel) or autograd_aside(
+            use_kernel, x, tensors):
         return fused_viterbi_states_reference(model, x, u, lengths, bf16)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "
                          "decode is a CUDA kernel")
     cfg = model.cfg
+    refuse_grad("fused decode", x, tensors)
     x, lens = _prepare(model, x, u, lengths, "fused decode", bf16)
     B, _, T = x.shape
     if T == 0:

@@ -33,11 +33,11 @@ Dispatch is that of ops/fused_infer.py (`kernel_route`):
 `use_kernel=None` takes the kernel for a CUDA tensor of a float32 model
 and the plain version for a CPU tensor or a bfloat16 model,
 `use_kernel=True` on a CPU tensor or a bfloat16 model raises,
-`use_kernel=False` computes the plain version.  There is no fallback: a
-call that takes the kernel launches it or raises.  One such exception:
-with grad mode on and x or the encoder's weights requiring grad the
-kernel refuses, so that no caller trains through a detached tensor
-unawares.
+`use_kernel=False` computes the plain version, and so does
+`use_kernel=None` for a call that autograd would record (grad mode on and
+x or the encoder's weights requiring grad), where `use_kernel=True`
+raises: no caller trains through a detached tensor unawares.  There is
+no fallback: a call that takes the kernel launches it or raises.
 `fused_encode.launches` counts the kernel's launches in either mode (the
 pack kernel, once a weight version and mode, is not counted),
 `fused_encode.bf16_launches` those in the bfloat16-operand mode.
@@ -52,8 +52,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .fused_infer import (H100_SMS, SMEM_LIMIT, _op_stride, kernel_route,
-                          operand_mode, valid_to_rows)
+from .fused_infer import (H100_SMS, SM_SMEM, SMEM_LIMIT, StagePlan,
+                          _op_stride, autograd_aside, kernel_route,
+                          operand_mode, refuse_grad, stage_plan,
+                          valid_to_rows)
 from .fused_infer import packed_bf16 as infer_packed_bf16
 from .fused_infer import packed_floats as infer_packed_floats
 
@@ -66,9 +68,8 @@ JB = 4
 MAX_THREADS = 512
 WBUF = 6144
 ROW_PAD = 8
-# an SM of an H100: shared memory and registers, and the kernels' register
-# cap (__launch_bounds__(MAX_THREADS, 2): 64 a thread)
-_SM_SMEM = 228 * 1024
+# an SM of an H100: registers, and the kernels' register cap
+# (__launch_bounds__(MAX_THREADS, 2): 64 a thread)
 _SM_REGS = 65536
 _REGS = 64
 _SM_THREADS = 2048
@@ -176,15 +177,29 @@ def smem_bytes(cfg, tile: int, bf16: bool = False) -> int:
 
 class Plan(NamedTuple):
     tile: int          # output steps a block
-    blocks: int        # B * ceil(T / tile), twice that with split
+    blocks: int        # items: B * ceil(T / tile), twice that with split
     threads: int       # a block
     smem: int          # dynamic shared memory a block, bytes
     per_sm: int        # blocks an SM holds at once
     split: bool        # evidence: encoder and prior in blocks of their own
+    weights: str = ""  # the evidence's bfloat16 mode: where its weights
+    #                    are (ops/fused_infer.py::stage_plan)
+
+
+def evidence_stage(tile: int, dims: Tuple[int, ...], staged: bool = True):
+    """Where a block of the evidence's bfloat16 mode keeps its weights
+    (csrc/fused_decode.cu::evidence_stage): after its operands
+    (`smem_dims_bytes`), where `staged`, the five layers' packed values as
+    `stage_plan` places them; else none, read from L2 ("direct")."""
+    ops = smem_dims_bytes(tile, dims, True)
+    if not staged:
+        return StagePlan("direct", 0, ops)
+    return stage_plan(ops, 0, packed_bf16(*dims))
 
 
 def plan_for(B: int, T: int, dims: Tuple[int, ...], sms: int = H100_SMS,
-             can_split: bool = False, bf16: bool = False) -> Optional[Plan]:
+             can_split: bool = False, bf16: bool = False,
+             staged: bool = False) -> Optional[Plan]:
     """The launch plan at (B, T) for widths `dims` in the mode, or None
     where no tile fits a block's shared memory.  As
     ops/fused_train.py::train_plan chooses, the tile is the one whose grid
@@ -195,29 +210,34 @@ def plan_for(B: int, T: int, dims: Tuple[int, ...], sms: int = H100_SMS,
     that cost the same (its block has more threads for the same steps).
     With can_split (the evidence), each tile is also costed with the
     encoder and the prior in blocks of their own: twice the blocks, each
-    _SPLIT_COST of the time."""
+    _SPLIT_COST of the time.  staged (the evidence's bfloat16 mode): where
+    the grid leaves an SM a block at most, a block's shared memory holds
+    its weights too (`evidence_stage`); on a larger grid they are read
+    from L2 (PERF.md: staging them there was slower)."""
     G = max(dims[1], dims[2], dims[5])
     best = None
     for t in TILES:
-        smem = smem_dims_bytes(t, dims, bf16)
-        if smem > SMEM_LIMIT:
+        if smem_dims_bytes(t, dims, bf16) > SMEM_LIMIT:
             continue
-        if bf16:
-            threads = MMA_THREADS
-            per_sm = min(_SM_SMEM // (smem + 1024), MMA_BLOCKS_PER_SM)
-        else:
-            threads = block_threads(t, G)
-            per_sm = min(_SM_SMEM // (smem + 1024),
-                         _SM_REGS // (_REGS * threads),
-                         _SM_THREADS // threads)
         blocks = B * -(-T // t)
         for split in (False, True) if can_split else (False,):
             grid = 2 * blocks if split else blocks
+            stage = evidence_stage(t, dims, grid <= sms) if staged else None
+            smem = stage.bytes if staged else smem_dims_bytes(t, dims, bf16)
+            if bf16:
+                threads = MMA_THREADS
+                per_sm = min(SM_SMEM // (smem + 1024), MMA_BLOCKS_PER_SM)
+            else:
+                threads = block_threads(t, G)
+                per_sm = min(SM_SMEM // (smem + 1024),
+                             _SM_REGS // (_REGS * threads),
+                             _SM_THREADS // threads)
             waves = -(-grid // (sms * per_sm))
             cost = waves * (min(t, T) + 2 * HALO + _FIXED_STEPS) * (
                 _SPLIT_COST if split else 1.0)
             if best is None or cost < best[0]:
-                best = (cost, Plan(t, grid, threads, smem, per_sm, split))
+                best = (cost, Plan(t, grid, threads, smem, per_sm, split,
+                                   stage.weights if staged else ""))
     return None if best is None else best[1]
 
 
@@ -322,11 +342,16 @@ class KernelCache:
     def plan(self, what: str, dims, B: int, T: int, device,
              can_split: bool = False, bf16: bool = False) -> Plan:
         """The plan at (B, T) in the mode, computed once a shape and held
-        once against the built library's shared-memory count."""
+        once against the built library's shared-memory count (the
+        evidence's bfloat16 mode stages its weights: plan_for's
+        `staged`; the decode's plan, whose tile alone is taken from here,
+        is held against the library by ops/fused_decode.py::
+        decode_plan)."""
         sms = _build.sm_count(device)
         key = (what, bf16, B, T, sms)
         if key not in self.plans:
-            plan = plan_for(B, T, dims, sms, can_split, bf16)
+            plan = plan_for(B, T, dims, sms, can_split, bf16,
+                            staged=bf16 and what == "evidence")
             if plan is None:
                 raise ValueError(f"no tile of {TILES} fits {what} at widths "
                                  f"{dims} in {SMEM_LIMIT} bytes (bf16="
@@ -335,9 +360,12 @@ class KernelCache:
             if what == "encode":
                 got = lib.vqhmm_fused_encode_smem_bytes(*dims[:4], plan.tile,
                                                         int(bf16))
+            elif what == "evidence":
+                got = lib.vqhmm_fused_evidence_smem_bytes(
+                    *dims, plan.tile, int(bf16),
+                    int(plan.weights != "direct"))
             else:
-                got = lib.vqhmm_fused_evidence_smem_bytes(*dims, plan.tile,
-                                                          int(bf16))
+                got = plan.smem
             if got != plan.smem:
                 raise RuntimeError(f"{what} kernel and wrapper disagree on "
                                    f"the shared memory at tile {plan.tile} "
@@ -405,19 +433,6 @@ def fused_encode_reference(model, x: torch.Tensor, valid_to=None,
                         bf16_operands=bf16_operands)
 
 
-def refuse_grad(what: str, x: torch.Tensor, params) -> None:
-    """Raise where autograd would expect a gradient through a kernel that
-    carries none: grad mode on, and x or one of `params` requiring grad."""
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in params)):
-        raise RuntimeError(
-            f"the {what} kernel is inference-only and its outputs carry no "
-            "gradient, but grad mode is on and x or the model's weights "
-            "require grad: call it under torch.no_grad() or "
-            "torch.inference_mode(), or take the differentiable plain "
-            "version with fused=False / use_kernel=False")
-
-
 def check_x(model, x: torch.Tensor, what: str) -> None:
     cfg = model.cfg
     if x.dtype != torch.float32:
@@ -433,13 +448,15 @@ def fused_encode(model, x: torch.Tensor, valid_to=None,
     or a per-sequence (B,) vector (the semantics of VAEHMM.encode).  Row i
     of a batched call is bit-equal to the row computed alone."""
     bf16 = operand_mode(model, x)
-    if not kernel_route(model, x, use_kernel):
+    weights = list(model.encoder.parameters())
+    if not kernel_route(model, x, use_kernel) or autograd_aside(
+            use_kernel, x, weights):
         return fused_encode_reference(model, x, valid_to, bf16)
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor; the fused "
                          "encoder is a CUDA kernel")
     cfg = model.cfg
-    refuse_grad("fused encoder", x, model.encoder.parameters())
+    refuse_grad("fused encoder", x, weights)
     check_x(model, x, "fused encoder")
     cache = kernel_cache(model)
     B, C, T = x.shape

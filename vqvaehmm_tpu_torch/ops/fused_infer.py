@@ -8,10 +8,14 @@ wrapper; `fused_forward_reference` is its plain PyTorch version;
 
 Dispatch (the counterpart of the JAX `use_pallas`; `kernel_route`):
 `use_kernel=None` takes the kernel for a CUDA tensor of a float32 model
-and the plain version for a CPU tensor or a bfloat16 model;
-`use_kernel=True` on a CPU tensor or a bfloat16 model raises;
-`use_kernel=False` computes the plain version.  There is no fallback: a
-call that takes the kernel launches it or raises.
+and the plain version for a CPU tensor or a bfloat16 model, and for a
+call that autograd would record (grad mode on and x or a weight of the
+stage requiring grad), as JAX's auto-dispatch steps aside for a
+differentiating caller; `use_kernel=True` on a CPU tensor or a bfloat16
+model raises, and so does it under autograd (`refuse_grad`: the kernel
+carries no gradient); `use_kernel=False` computes the plain version.
+There is no fallback: a call that takes the kernel launches it or
+raises.
 
 Two modes of arithmetic, as the TPU kernel's `highest` flag has
 (ops/fused_train.py::infer_bf16_mode): float32, and on a CUDA tensor of a
@@ -51,6 +55,16 @@ HALO = 4
 JB = 4
 WBUF = 6144
 ROW_PAD = 8
+# an SM's shared memory (228 KB), and the bfloat16 mode's blocks an SM at
+# most (csrc/fused_infer.cu: __launch_bounds__(256, 2))
+SM_SMEM = 228 * 1024
+MMA_BLOCKS_PER_SM = 2
+# the staged weights of the bfloat16 mode (csrc/tile_mma.cuh::stage_plan):
+# a ring's slots at most, a slot's bfloat16 values, the control region's
+# bytes (the barriers, the ring's copy of the chain)
+RING_SLOTS = 8
+SLOT_ELEMS = 8 * 256
+CTRL_BYTES = 8 * 2 * RING_SLOTS + 32 * 8
 
 _count_lock = threading.Lock()
 
@@ -73,8 +87,12 @@ def valid_to_rows(valid_to, B: int, T: int,
 
 class LaunchPlan(NamedTuple):
     tile: int          # output steps a block
-    blocks: int        # B * ceil(T / tile)
+    blocks: int        # items: B * ceil(T / tile)
     smem: int          # dynamic shared memory a block, bytes
+    grid: int = 0      # blocks launched (the bfloat16 mode: a persistent
+    #                    grid walks the items where its weights are
+    #                    resident); 0 in float32, a block an item
+    weights: str = ""  # the bfloat16 mode's weights: WEIGHT_KINDS
 
 
 def _op_stride(n: int) -> int:
@@ -83,18 +101,65 @@ def _op_stride(n: int) -> int:
     return -(-n // 16) * 16 + 8
 
 
+# csrc/tile_mma.cuh::WeightKind, by value
+WEIGHT_KINDS = ("direct", "resident", "ring")
+
+
+class StagePlan(NamedTuple):
+    weights: str       # "resident", "ring" or "direct"
+    slots: int         # the ring's
+    bytes: int         # the block's dynamic shared memory
+
+
+def stage_plan(base: int, prefetch: int, elems: int) -> StagePlan:
+    """Where a bfloat16-mode block of kernel A or 11 keeps its weights,
+    after `base` bytes of operands (csrc/tile_mma.cuh::stage_plan):
+    resident with `prefetch` bytes of raw input, the control region and
+    all `elems` packed values where they fit; else the control region and
+    a ring of as many slots as fit, up to RING_SLOTS, where two do; else
+    read from L2 (direct), the operands alone."""
+    resident = base + prefetch + CTRL_BYTES + 2 * elems
+    if resident <= SMEM_LIMIT:
+        return StagePlan("resident", 0, resident)
+    slots = min(RING_SLOTS, (SMEM_LIMIT - base - CTRL_BYTES)
+                // (2 * SLOT_ELEMS))
+    if slots >= 2:
+        return StagePlan("ring", slots, base + CTRL_BYTES
+                         + slots * 2 * SLOT_ELEMS)
+    return StagePlan("direct", 0, base)
+
+
+def operand_bytes(tile: int, C: int, H1: int, H2: int, K: int,
+                  D: int) -> int:
+    """The bfloat16 mode's operands (csrc/fused_infer.cu::
+    bf16_operand_bytes): bfloat16 operands of tile + 2 HALO rows, x and
+    two ping-pong buffers of the widest of H1, H2, D and K, then K + 2C
+    float32 rows of the window."""
+    return (2 * (tile + 2 * HALO) * (_op_stride(C) + 2 * _op_stride(
+        max(H1, H2, D, K))) + 4 * (tile + 2 * HALO + JB) * (K + 2 * C))
+
+
+def bf16_stage(tile: int, C: int, H1: int, H2: int, K: int,
+               D: int) -> StagePlan:
+    """The bfloat16 mode's weights at tile width `tile`
+    (csrc/fused_infer.cu::bf16_stage): the operands, the next item's raw
+    x window (C rows of tile + 2 HALO floats) where resident, the seven
+    layers' packed values."""
+    return stage_plan(operand_bytes(tile, C, H1, H2, K, D),
+                      4 * C * (tile + 2 * HALO),
+                      packed_bf16(C, H1, H2, K, D))
+
+
 def smem_bytes(tile: int, C: int, H1: int, H2: int, K: int, D: int,
                bf16: bool = False) -> int:
     """Dynamic shared memory of a block at tile width `tile` (the same
     count as csrc/fused_infer.cu::vqhmm_fused_infer_smem_bytes): two weight
     buffers, a pad, then C + 2 max(H1, H2, D, 2C) + K rows of the window
     (the last layer leaves its 2C rows of mu and logvar in a buffer).
-    bf16 (the same entry at bf16 = 1): bfloat16 operands of
-    tile + 2 HALO rows, x and two ping-pong buffers of the widest of H1,
-    H2, D and K, then K + 2C float32 rows of the window."""
+    bf16 (the same entry at bf16 = 1): the operands, then the weights
+    where `bf16_stage` puts them."""
     if bf16:
-        return (2 * (tile + 2 * HALO) * (_op_stride(C) + 2 * _op_stride(
-            max(H1, H2, D, K))) + 4 * (tile + 2 * HALO + JB) * (K + 2 * C))
+        return bf16_stage(tile, C, H1, H2, K, D).bytes
     return 4 * (2 * WBUF + ROW_PAD + (tile + 2 * HALO + JB)
                 * (C + 2 * max(H1, H2, D, 2 * C) + K))
 
@@ -136,8 +201,12 @@ def launch_plan(B: int, T: int, C: int, H1: int, H2: int, K: int, D: int,
     and a block's shared memory (in the mode: `smem_bytes`) fits; where
     B * T is too small for that, the narrowest tile that fits (the most
     blocks).  Raises where no tile fits or, in the float32 mode, a layer
-    is too wide for a weight buffer (the bfloat16 mode stages no
-    weights)."""
+    is too wide for a weight buffer (the bfloat16 mode stages its weights
+    whole, in a ring or not at all).  In the bfloat16 mode a grid of the
+    blocks that stay resident (MMA_BLOCKS_PER_SM an SM, as shared memory
+    allows) walks the items where its weights are resident, so that each
+    block stages them once; a block an item otherwise, and wherever the
+    items are fewer."""
     if not bf16 and (3 * ((max(H1, H2, D) + 3) // 4 * 4) > WBUF
                      or (max(K, 2 * C) + 3) // 4 * 4 > WBUF):
         raise ValueError(f"fused forward takes hidden widths up to "
@@ -153,22 +222,73 @@ def launch_plan(B: int, T: int, C: int, H1: int, H2: int, K: int, D: int,
             f"{smem_bytes(TILES[-1], C, H1, H2, K, D, bf16)} "
             f"bytes of shared memory per block at C={C}, hidden={H1}/{H2}, "
             f"K={K}; a Hopper block may use at most {SMEM_LIMIT} bytes")
-    for p in fits:
-        if p.blocks >= sms:
-            return p
-    return fits[-1]
+    plan = next((p for p in fits if p.blocks >= sms), fits[-1])
+    if not bf16:
+        return plan
+    stage = bf16_stage(plan.tile, C, H1, H2, K, D)
+    grid = plan.blocks
+    if stage.weights == "resident":
+        per_sm = min(MMA_BLOCKS_PER_SM, SM_SMEM // (plan.smem + 1024))
+        grid = min(grid, per_sm * sms)
+    return plan._replace(grid=grid, weights=stage.weights)
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether x lies where the inference kernels run (a CUDA tensor);
+    the routing tests stand a fake in for it on the CPU."""
+    return x.is_cuda
+
+
+def under_autograd(*tensors) -> bool:
+    """Whether autograd records a call on `tensors` (x, u and the weights
+    of a kernel's stage; None, or anything else that is no tensor, is
+    skipped): grad mode on and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in tensors)
+
+
+def infer_tensors(model) -> list:
+    """The weights kernel A reads: the encoder's and the decoder's."""
+    return [*model.encoder.parameters(), *model.decoder.parameters()]
 
 
 def kernel_route(model, x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
     """Whether a call of one of the inference kernels (A, 8, 10, 11)
-    launches it: use_kernel as given, and for None the kernel for a CUDA
-    tensor of a float32 model.  A bfloat16 model takes its plain path on
-    every device, as the JAX package routes such a model around these
-    kernels (vqvaehmm_tpu/models/vae_hmm.py, posterior and
-    infer_forward)."""
+    launches it by device and dtype: use_kernel as given, and for None the
+    kernel for a CUDA tensor of a float32 model.  A bfloat16 model takes
+    its plain path on every device, as the JAX package routes such a
+    model around these kernels (vqvaehmm_tpu/models/vae_hmm.py, posterior
+    and infer_forward).  The wrappers ask `autograd_aside` too."""
     if use_kernel is None:
-        return x.is_cuda and model.cfg.compute_dtype == "float32"
+        return on_card(x) and model.cfg.compute_dtype == "float32"
     return use_kernel
+
+
+def autograd_aside(use_kernel: Optional[bool], x: torch.Tensor,
+                   tensors) -> bool:
+    """Whether a default call (use_kernel None) steps aside from its kernel
+    because autograd would record it on x and `tensors` (the stage's
+    weights, and u): the kernels carry no gradient, so a differentiating
+    caller gets the differentiable plain version, in the mode's
+    arithmetic, as the JAX package's auto-dispatch steps aside for an
+    autodiff tracer (vqvaehmm_tpu/models/vae_hmm.py, posterior,
+    infer_forward and viterbi_decode).  A forced kernel does not step
+    aside: it raises (`refuse_grad`)."""
+    return use_kernel is None and under_autograd(x, *tensors)
+
+
+def refuse_grad(what: str, x: torch.Tensor, tensors) -> None:
+    """Raise where a call forced onto a kernel (use_kernel=True) would
+    hand autograd a tensor without a gradient: grad mode on, and x or one
+    of `tensors` requiring grad."""
+    if under_autograd(x, *tensors):
+        raise RuntimeError(
+            f"the {what} kernel is inference-only and its outputs carry no "
+            "gradient, but grad mode is on and x, u or the model's weights "
+            "require grad: call it under torch.no_grad() or "
+            "torch.inference_mode(), or leave use_kernel / fused None (or "
+            "pass fused=False / use_kernel=False) for the differentiable "
+            "plain version")
 
 
 def operand_mode(model, x: torch.Tensor) -> bool:
@@ -200,10 +320,12 @@ def fused_forward(model, x: torch.Tensor, valid_to=None,
     """(mu, logvar, q), each (B, C|K, T), with valid_to a scalar or a
     per-sequence (B,) vector (the semantics of VAEHMM.encode/decode).
     The kernel is inference-only, as its TPU counterpart is: its outputs
-    carry no gradient (use_kernel=False gives the differentiable plain
-    version)."""
+    carry no gradient, so a call that autograd records takes the
+    differentiable plain version (use_kernel=True then raises)."""
     bf16 = operand_mode(model, x)
-    if not kernel_route(model, x, use_kernel):
+    weights = infer_tensors(model)
+    if not kernel_route(model, x, use_kernel) or autograd_aside(
+            use_kernel, x, weights):
         return fused_forward_reference(model, x, valid_to, bf16)
     cfg = model.cfg
     if cfg.compute_dtype != "float32":
@@ -213,6 +335,7 @@ def fused_forward(model, x: torch.Tensor, valid_to=None,
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor; the fused "
                          "forward is a CUDA kernel")
+    refuse_grad("fused forward", x, weights)
     if x.dtype != torch.float32:
         raise TypeError(f"fused forward takes float32 x, got {x.dtype}")
     if x.dim() != 3 or x.shape[1] != cfg.input_dim:
@@ -226,17 +349,19 @@ def fused_forward(model, x: torch.Tensor, valid_to=None,
         return mu, logvar, q
     plan = launch_plan(B, T, C, cfg.hidden_dim, cfg.hidden_dim2, cfg.K,
                        cfg.hidden_dim, _build.sm_count(x.device), bf16)
-    _launch(model, x, valid_to, plan.tile, (mu, logvar, q), bf16)
+    _launch(model, x, valid_to, plan.tile, (mu, logvar, q), bf16, plan.grid)
     with _count_lock:
         fused_forward.launches += 1
         fused_forward.bf16_launches += bf16
     return mu, logvar, q
 
 
-def _launch(model, x, valid_to, tile: int, out, bf16: bool = False) -> None:
+def _launch(model, x, valid_to, tile: int, out, bf16: bool = False,
+            grid: int = 0) -> None:
     """One launch of the kernel at tile width `tile`, in the
-    bfloat16-operand mode where bf16, into out = (mu, logvar, q).  It does
-    not count: fused_forward does."""
+    bfloat16-operand mode where bf16 (on `grid` blocks, a block an item
+    where 0), into out = (mu, logvar, q).  It does not count:
+    fused_forward does."""
     from .fused_encoder import kernel_cache   # it imports this module
 
     cfg = model.cfg
@@ -247,10 +372,12 @@ def _launch(model, x, valid_to, tile: int, out, bf16: bool = False) -> None:
     packed, bs = kernel_cache(model).weights(model, x.device, "infer", bf16)
     x = x.contiguous()
     vt = valid_to_rows(valid_to, B, T, x.device)
+    if bf16 and not grid:
+        grid = B * -(-T // tile)
     err = lib.vqhmm_fused_infer(
         x.data_ptr(), vt.data_ptr(), packed.data_ptr(),
         *[b.data_ptr() for b in bs], *[o.data_ptr() for o in out], B, C, T,
-        H1, H2, K, D, tile, int(bf16),
+        H1, H2, K, D, tile, int(bf16), grid if bf16 else 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_infer kernel launch")
 
