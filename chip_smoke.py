@@ -529,8 +529,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# the process's start, for the seconds each line of the run is printed at
+_START = time.perf_counter()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} {time.perf_counter() - _START:.0f} s] {msg}",
+          flush=True)
 
 
 def max_abs(a, b) -> float:
@@ -6366,23 +6371,35 @@ INFER_BF16 = {
     "fused_evidence": ("fused_decode.cu", "pallas_decode.py:225",
                        "fused_evidence_bf16_kernel"),
     "fused_decode": ("fused_decode.cu", "pallas_decode.py:104",
-                     "fused_decode_kernelILi3ELb1E")}
+                     "fused_decode_kernelILi3ELb1ELi0E")}
+# the second designs of kernels 8 and 10 in the mode (their weights staged
+# in shared memory), beside the first ones above, by the same keys: (the kernels line's name, the
+# instances their SASS names: 8's weights resident and on a ring, 10's
+# resident)
+INFER_STAGED = {
+    "fused_encode": ("fused_encode_bf16_staged",
+                     ("fused_encoder_bf16_staged_kernelILi1E",
+                      "fused_encoder_bf16_staged_kernelILi2E")),
+    "fused_decode": ("fused_decode_bf16_staged",
+                     ("fused_decode_kernelILi3ELb1ELi1E",))}
 # the float32 kernels of the same four, which issue no HMMA
 INFER_FP32_SASS = ("fused_infer_kernel", "fused_encoder_kernel",
-                   "fused_evidence_kernel", "fused_decode_kernelILi3ELb0E")
+                   "fused_evidence_kernel", "fused_decode_kernelILi3ELb0ELi0E")
 # (kernel, mode) -> what the profiler's name of the kernel holds, one
 # launch a call (phase 36c's device traces must hold all of them)
 INFER_TRACE_NAMES = {
     ("fused_infer", "fp32"): "fused_infer_kernel",
     ("fused_infer", "bf16"): "fused_infer_bf16_kernel",
     ("fused_encode", "fp32"): "fused_encoder_kernel",
-    ("fused_encode", "bf16"): "fused_encoder_bf16_kernel",
+    # either design of kernel 8's mode, and of kernel 10's (the instance's
+    # last template argument, where its weights are)
+    ("fused_encode", "bf16"): "fused_encoder_bf16",
     ("fused_evidence", "fp32"): "fused_evidence_kernel",
     # the first design's kernel, or its staged twin where the grid leaves
     # an SM a block at most (fused_decode.cu::evidence_stage)
     ("fused_evidence", "bf16"): "fused_evidence_bf16",
-    ("fused_decode", "fp32"): "fused_decode_kernel<3, false>",
-    ("fused_decode", "bf16"): "fused_decode_kernel<3, true>"}
+    ("fused_decode", "fp32"): "fused_decode_kernel<3, false",
+    ("fused_decode", "bf16"): "fused_decode_kernel<3, true"}
 # The mode against its plain version on the card (both round every
 # product's operands to bfloat16 and sum in float32).  Where the two sums
 # of a layer round alike, an output agrees within BF16_INFER_EXACT; where
@@ -6494,12 +6511,13 @@ def phase_precision_kernels(torch, np, m16, m32):
     rng = np.random.default_rng(36)
     worst = {n: [0.0, 0.0, 0.0, 0.0] for n in ("mu", "logvar", "q",
                                                "logits", "log_A", "log_obs")}
-    ties, tie_gap, parted = 0, 0.0, []
+    ties, tie_gap, parted, cases = 0, 0.0, [], []
     n0 = _mode_counts(counters)
     calls = 0
     for B, T in PRECISION_SHAPES:
         x, u, lens = decode_inputs(torch, np, rng, m16, B, T, True, False)
         where = f"B={B} T={T}"
+        cases.append((x, u, lens, where))
         a = fi.fused_forward(m16, x, valid_to=lens)
         a_plain = fi.fused_forward(m16, x, valid_to=lens, use_kernel=False)
         a32 = fi.fused_forward_reference(m16, x, valid_to=lens)
@@ -6543,6 +6561,18 @@ def phase_precision_kernels(torch, np, m16, m32):
     want["viterbi"] = calls
     if got != want:
         fail(f"the mode's checks launched {got}, the calls imply {want}")
+    # the two designs of 8 and 10 give the same bits (after the counts:
+    # these launches are not the calls'), so their outputs' distance from
+    # the plain version is one
+    designs = {}
+    for x, u, lens, where in cases:
+        outs = {}
+        for name, design, fn in _design_calls(torch, m16, x, u, lens):
+            outs.setdefault(name, []).append((design, fn().clone()))
+        for name, got_ in outs.items():
+            designs.setdefault(name, set()).update(d for d, _ in got_)
+            if any(not torch.equal(o, got_[0][1]) for _, o in got_):
+                fail(f"{name}'s two designs in the mode differ at {where}")
     for x, u, lens, st, st_plain, where in parted:
         gap, bar = _decode_tie(torch, m16, x, u, lens, st, st_plain)
         ties, tie_gap = ties + 1, max(tie_gap, gap)
@@ -6581,6 +6611,8 @@ def phase_precision_kernels(torch, np, m16, m32):
                     for n, v in worst.items())
         + f"; kernel 10 states bit-equal to kernel 11 -> kernel B, and to "
         f"the plain decode but at {ties} shapes ({tie_gap:.3e} of score); "
+        f"the designs of 8 and 10 bit-equal at every shape ("
+        + ", ".join(f"{n}: {sorted(d)}" for n, d in designs.items()) + "); "
         f"launches {got}; kernel A's plain route with TF32 "
         f"on against off at (64, 200), max-abs (mu, logvar, q): "
         + ", ".join(f"{v:.3e}" for v in tf32))
@@ -6601,7 +6633,10 @@ def phase_precision_slice(torch, np, tmp):
     from vqvaehmm_tpu_torch.backtest import Backtester, RegimeBacktest
     from vqvaehmm_tpu_torch.data import market
     from vqvaehmm_tpu_torch.data.checkpoint import load_improved_head
-    from vqvaehmm_tpu_torch.ops.fused_decode import fused_viterbi_states
+    from vqvaehmm_tpu_torch.ops.fused_decode import (decode_plan,
+                                                     fused_viterbi_states)
+    from vqvaehmm_tpu_torch.ops.fused_encoder import (encode_plan,
+                                                      fused_encode)
     from vqvaehmm_tpu_torch.serve.app import InferenceModel
     from vqvaehmm_tpu_torch.serve.httpd import serve
 
@@ -6638,16 +6673,22 @@ def phase_precision_slice(torch, np, tmp):
         with torch.inference_mode():
             return head(q)
 
+    shapes8, shapes10 = [], []      # (B, T) of each call of 8 and 10
+
     def posterior_fn(x):
+        shapes8.append((x.shape[0], x.shape[2]))
         with torch.inference_mode():
             return m16.posterior(x)
 
     decoded = []
 
     def decode_fn(x, u):
+        shapes10.append((x.shape[0], x.shape[2]))
         with torch.inference_mode():
             decoded.append(fused_viterbi_states(m16, x, u))
         return decoded[-1]
+
+    staged = (fused_encode, fused_viterbi_states)
 
     solo, url = _serve_bg(serve, PRECISION_CONFIG, "cuda",
                           warmup_lengths=())
@@ -6661,6 +6702,8 @@ def phase_precision_slice(torch, np, tmp):
                      "the published checkpoint at matmul_precision default")
         for c in counters.values():
             c.launches = 0
+        for f in staged:
+            f.staged_launches = 0
         t0 = time.perf_counter()
         served = {u_: [_request(u_ + path, p)[1] for (path, _, _), p in
                        zip(reqs, payloads)] for u_ in (url, burl)}
@@ -6680,6 +6723,7 @@ def phase_precision_slice(torch, np, tmp):
                                      decode_fn=decode_fn)
         torch.cuda.synchronize()
         got = _mode_counts(counters)
+        got_staged = [f.staged_launches for f in staged]
         slice_s = time.perf_counter() - t0
         with torch.inference_mode():
             card_batch = batched.vqhmm_model.model.filtered_posterior(
@@ -6706,6 +6750,22 @@ def phase_precision_slice(torch, np, tmp):
     if got != want:
         fail(f"the default-precision slice launched {got}; its requests, "
              f"stream, evaluate and backtests imply {want}")
+    # which design each launch of 8 and 10 took: the second where the plan
+    # of its shape stages the weights
+    counted8, counted10 = shapes8[:], shapes10[:]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    designs = {
+        "fused_encode": [encode_plan(m16.cfg, B, T, sms, True).grid > 0
+                         for B, T in counted8 if B * T > 0],
+        "fused_decode": [decode_plan(m16, B, T, torch.device("cuda"), True)
+                         .weights == "resident" for B, T in counted10]}
+    for (name, want_), have in zip(designs.items(), got_staged):
+        if len(want_) != got[name] or sum(want_) != have:
+            fail(f"{name}: {have} of the slice's {got[name]} launches ran the "
+                 f"second design; the plans of its shapes "
+                 f"{counted8 if name == 'fused_encode' else counted10} imply "
+                 f"{sum(want_)} of {len(want_)}")
+        got[INFER_STAGED[name][0]] = have
     if sorted(settled) != list(range(S)):
         fail(f"/stream settled {len(settled)} of {S} frames")
     streamed = torch.tensor([settled[t] for t in range(S)]).T
@@ -6784,7 +6844,11 @@ def phase_precision_slice(torch, np, tmp):
                     f"{k} {v[0]:.3e} ({v[1]:.3%})"
                     for k, v in sorted(gaps.items()))
         + f"; evaluate MSE {mse:.6g}; panel regimes "
-        f"{counts.tolist()}, {flips} steps from the plain decode")
+        f"{counts.tolist()}, {flips} steps from the plain decode; kernel 8's "
+        f"launches at (B, T) {counted8}, kernel 10's at {counted10}, of them "
+        f"the second design (weights staged) "
+        + ", ".join(f"{INFER_STAGED[n][0]} {got[INFER_STAGED[n][0]]}"
+                    for n in INFER_STAGED))
     return got
 
 
@@ -6818,17 +6882,59 @@ def phase_precision_times(torch, np, m16, m32):
                         windows=3 if slow else 5) + (
                         _device_ms(torch, fn, 1 if slow else 10,
                                    name=INFER_TRACE_NAMES.get((name, mode))),)
+            for name, design, fn in _design_calls(torch, m16, x, u):
+                res[(name, B, T, design)] = _time(torch, fn, iters=20) + (
+                    _device_ms(torch, fn, 10,
+                               name=INFER_TRACE_NAMES[(name, "bf16")]),)
     for (name, B, T, mode), (med, lo, hi, dev_ms) in res.items():
         line = (f"{name} {mode} B={B} T={T}: {med:.4f} ms [{lo:.4f}, "
                 f"{hi:.4f}] back to back; device busy {_ms(dev_ms)} a call")
         if mode != "plain":
             bound = kernel_bounds(m16, B, T)[
-                name + ("_bf16" if mode == "bf16" else "")][0]
+                name + ("" if mode == "fp32" else "_bf16")][0]
             line += f", bound {bound:.3e} ms" + (
                 f" ({100 * bound / dev_ms:.2f}%)" if dev_ms else "")
         say("times", line)
     res["evidence_rounds"] = _evidence_rounds(torch, np, m16, m32)
     return res
+
+
+def _design_calls(torch, m16, x, u, lens=None):
+    """(kernel, design, call) of each design of kernels 8 and 10 in the
+    mode that the plan keeps at x's shape: "first" (the weights read from
+    L2) and "staged" (the second design, where it exists there; kernel 8's
+    on its persistent grid, and "staged_items" a block an item where that
+    grid walks), each call one launch of that design returning its output
+    (the logits, the states), lens the lengths (valid_to of 8) or None."""
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+    from vqvaehmm_tpu_torch.ops.fused_decode import (_launch_decode,
+                                                     decode_plan,
+                                                     fused_viterbi_states)
+
+    B, _, T = x.shape
+    dims = fe.encoder_dims(m16.cfg)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    first = fe.plan_for(B, T, dims, sms, bf16=True)
+    vt = lens if lens is not None else torch.full(
+        (B,), T, dtype=torch.int32, device=x.device)
+    lg = torch.empty((B, m16.cfg.K, T), device=x.device)
+    out = [("fused_encode", "first", lambda: (fe._launch(
+        m16, x, vt, first.tile, lg, True, 0), lg)[1])]
+    second = fe.encode_staged(first, dims, sms)
+    if second is not None:
+        out.append(("fused_encode", "staged", lambda: (fe._launch(
+            m16, x, vt, first.tile, lg, True, second.grid), lg)[1]))
+    if second is not None and second.grid < second.blocks:
+        # the second design a block an item, where its plan walks
+        out.append(("fused_encode", "staged_items", lambda: (fe._launch(
+            m16, x, vt, first.tile, lg, True, second.blocks), lg)[1]))
+    plan = decode_plan(m16, B, T, x.device, True, staged=False)
+    out.append(("fused_decode", "first", lambda: _launch_decode(
+        m16, x.contiguous(), u, lens, plan, True)))
+    if decode_plan(m16, B, T, x.device, True).weights == "resident":
+        out.append(("fused_decode", "staged", lambda: fused_viterbi_states(
+            m16, x, u, lens)))
+    return out
 
 
 # rounds of _evidence_rounds
@@ -6880,6 +6986,45 @@ def _sha(torch, *tensors) -> str:
     return h.hexdigest()
 
 
+def sass_digests(lib_path: str) -> dict:
+    """{function: SHA-256 of its SASS} of a built library (the toolkit's
+    cuobjdump --dump-sass, runs of spaces made one), the names made
+    comparable across builds and sources: the anonymous namespace's hash
+    dropped, and the decode's first-design instances
+    (fused_decode_kernel<K, BF16, 0>) named as before they had a third
+    template argument."""
+    import hashlib
+
+    from vqvaehmm_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "--dump-sass", lib_path],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail("cuobjdump --dump-sass failed: " + proc.stderr[-2000:])
+    bodies, current = {}, None
+    for line in proc.stdout.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
+                          found.group(1))
+            current = re.sub(r"(fused_decode_kernelILi\d+ELb[01]E)Li0E",
+                             r"\1", name)
+            bodies[current] = []
+        elif current is not None and line.strip():
+            # cuobjdump aligns each line's encoding comment to the widest
+            # instruction of the whole file: the spaces are not the code
+            bodies[current].append(" ".join(line.split()))
+    return {n: hashlib.sha256("\n".join(b).encode()).hexdigest()
+            for n, b in bodies.items()}
+
+
+# the kernels' numbers in the TPU kernel table (PERF.md), by the names of
+# the kernels line
+NUMBER = {"fused_infer": "A", "fused_encode": "8", "fused_evidence": "11",
+          "fused_decode": "10"}
+
+
 def kernel_times(torch, np, root: str) -> dict:
     """Kernel A at A_SHAPES, kernel C at C_SHAPES and kernels 8, 11, 10
     and B at BULK_SHAPES with the package of the checkout at `root` (its
@@ -6888,7 +7033,9 @@ def kernel_times(torch, np, root: str) -> dict:
     shape); for A and C (their float32 modes), 8, 11, 10 and B also a
     SHA-256 of the output bytes from fixed seeded inputs; and kernels A,
     8, 11 and 10 in the default-precision mode (PRECISION_CONFIG) at
-    PRECISION_SHAPES, ragged lengths, timed and hashed alike.
+    PRECISION_SHAPES, ragged lengths, timed (device-busy ms from traces
+    that hold every launch they time) and hashed alike, and each design of
+    8 and 10 where the checkout has two (`_design_calls`).
     Where the checkout's wrappers take a forced tile (and split), every
     tile of kernel 8 and (tile, split) of kernel 11 is timed at each bulk
     shape too."""
@@ -6901,11 +7048,14 @@ def kernel_times(torch, np, root: str) -> dict:
     from vqvaehmm_tpu_torch.ops.fused_train import fused_loss_and_grads
     from vqvaehmm_tpu_torch.ops.fused_viterbi import viterbi_fused
 
+    from vqvaehmm_tpu_torch.ops import _build
+
     dev = torch.device("cuda")
     model = load_published(torch, dev)
     probe = probe_model(torch, dev)
     rng = np.random.default_rng(0)
-    out = {"root": root, "card": torch.cuda.get_device_name(0)}
+    out = {"root": root, "card": torch.cuda.get_device_name(0),
+           "sass": sass_digests(_build.library()._name)}
     with torch.inference_mode():
         for B, T in A_SHAPES:
             x = torch.from_numpy(rng.normal(
@@ -6916,25 +7066,36 @@ def kernel_times(torch, np, root: str) -> dict:
                                  "device_ms": _device_ms(torch, fn),
                                  "sha256": _sha(torch, *fn())}
         # the default-precision mode of A, 8, 11 and 10 (the published
-        # weights at matmul_precision "default"), ragged lengths
+        # weights at matmul_precision "default"), ragged lengths; where the
+        # checkout has two designs of 8 and 10, each of them too
         m16 = load_published(torch, dev, PRECISION_CONFIG)
+        designs = hasattr(fused_encoder, "encode_staged")
         for B, T in PRECISION_SHAPES:
             g = np.random.default_rng(B * 10007 + T + 36)
             x, u, lens = train_inputs(torch, np, g, B, T,
                                       m16.cfg.input_dim, m16.cfg.u_dim, dev,
                                       short=max(1, T - 3))
-            for key, fn in (
-                    (f"A mode {B}x{T}", lambda: fused_forward(
-                        m16, x, valid_to=lens, use_kernel=True)),
-                    (f"8 mode {B}x{T}", lambda: fused_encode(
-                        m16, x, valid_to=lens, use_kernel=True)),
-                    (f"11 mode {B}x{T}", lambda: fused_evidence(
-                        m16, x, u, lens, use_kernel=True)),
-                    (f"10 mode {B}x{T}", lambda: fused_viterbi_states(
-                        m16, x, u, lens, use_kernel=True))):
+            calls = [
+                (f"A mode {B}x{T}", "fused_infer", lambda: fused_forward(
+                    m16, x, valid_to=lens, use_kernel=True)),
+                (f"8 mode {B}x{T}", "fused_encode", lambda: fused_encode(
+                    m16, x, valid_to=lens, use_kernel=True)),
+                (f"11 mode {B}x{T}", "fused_evidence", lambda: fused_evidence(
+                    m16, x, u, lens, use_kernel=True)),
+                (f"10 mode {B}x{T}", "fused_decode",
+                 lambda: fused_viterbi_states(m16, x, u, lens,
+                                              use_kernel=True))]
+            if designs:
+                # each design of 8 and 10 where the checkout has two
+                calls += [(f"{NUMBER[name]} mode {B}x{T} {design}", name, fn)
+                          for name, design, fn in _design_calls(
+                              torch, m16, x, u, lens)]
+            for key, name, fn in calls:
                 res = fn()
                 out[key] = {"events_ms": _time(torch, fn)[0],
-                            "device_ms": _device_ms(torch, fn),
+                            "device_ms": _device_ms(
+                                torch, fn, name=INFER_TRACE_NAMES[
+                                    (name, "bf16")]),
                             "sha256": _sha(torch, *(
                                 res if isinstance(res, tuple) else (res,)))}
     for B, T in C_SHAPES:
@@ -7062,8 +7223,10 @@ def kernel_times(torch, np, root: str) -> dict:
 def compare_checkouts(old: str, new: str) -> int:
     """kernel_times of two checkouts in the order old, new, new, old, each
     in a process of its own on the same card, the ratio of the medians of
-    the device-busy times, and whether kernels 8 and 11 of the two give the
-    same output bytes."""
+    the device-busy times, and whether the kernels of the two give the same
+    output bytes (the outputs of A, C, 8, 11 and 10's states); a key the
+    new checkout alone has (a design of its own, "<key> <design>") is held
+    to the old checkout's "<key>"."""
     runs = []
     for root in (old, new, new, old):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -7078,7 +7241,29 @@ def compare_checkouts(old: str, new: str) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip(), flush=True)
-    for key in [k for k in runs[0] if isinstance(runs[0][k], dict)]:
+    old_sass, new_sass = runs[0]["sass"], runs[1]["sass"]
+    same = sorted(n for n in old_sass if new_sass.get(n) == old_sass[n])
+    print(f"SASS (cuobjdump): {len(same)} functions identical in both "
+          f"builds; differ: "
+          f"{sorted(n for n in old_sass if n in new_sass and n not in same)}"
+          f"; old only: {sorted(set(old_sass) - set(new_sass))}; new only: "
+          f"{sorted(set(new_sass) - set(old_sass))}", flush=True)
+    for key in [k for k in runs[1] if isinstance(runs[1][k], dict)
+                and k != "sass"]:
+        if key not in runs[0]:
+            # a design the new checkout alone has, against the old's call
+            base = key.rsplit(" ", 1)[0]
+            o = [runs[i][base]["device_ms"] for i in (0, 3)]
+            n = [runs[i][key]["device_ms"] for i in (1, 2)]
+            line = f"{key}: device ms old ({base}) {o} new {n}"
+            if None not in o + n:
+                ratio = statistics.median(o) / statistics.median(n)
+                line += f": {ratio:.2f}x"
+            same = len({runs[0][base]["sha256"], runs[3][base]["sha256"],
+                        runs[1][key]["sha256"], runs[2][key]["sha256"]}) == 1
+            print(line + ("; outputs bit-equal to the old's" if same else
+                          "; OUTPUTS DIFFER from the old's"), flush=True)
+            continue
         o = [runs[0][key]["device_ms"], runs[3][key]["device_ms"]]
         n = [runs[1][key]["device_ms"], runs[2][key]["device_ms"]]
         line = f"{key}: device ms old {o} new {n}"
@@ -7158,14 +7343,19 @@ def _clocked_source(text, marker, barrier, first, sym):
                    f'(int)cudaMemcpyFromSymbol(out, {sym}, 64); }}\n')
 
 
-# the bfloat16-operand mode's kernels A and 11, and the evidence stages of
-# kernel 11, instrumented by scan_clocks: (source, the functions whose
-# statements are stamped, whether they are kernels whose block 0 starts the
-# record)
-_STAMPED = (("fused_infer.cu", ("fused_infer_bf16_kernel(",), True),
-            ("fused_decode.cu", ("fused_evidence_bf16_kernel(",
-                                 "fused_evidence_bf16_staged_kernel("), True),
-            ("encoder_mma.cuh", ("encoder_stage(", "prior_stage("), False))
+# the bfloat16-operand mode's kernels A, 8, 11 and 10, and the evidence
+# stages they share, instrumented by scan_clocks: (source, {a function
+# whose statements are stamped: whether it is a kernel whose block 0
+# starts the record})
+_STAMPED = (("fused_infer.cu", {"fused_infer_bf16_kernel(": True}),
+            ("fused_encoder.cu", {"fused_encoder_bf16_kernel(": True,
+                                  "fused_encoder_bf16_staged_kernel(": True}),
+            ("fused_decode.cu", {"fused_evidence_bf16_kernel(": True,
+                                 "fused_evidence_bf16_staged_kernel(": True,
+                                 "fused_decode_kernel(": True,
+                                 "staged_tile_evidence(": False}),
+            ("encoder_mma.cuh", {"encoder_stage(": False,
+                                 "prior_stage(": False}))
 # the stamps' record, one a translation unit (internal linkage), written by
 # thread 0 of block 0 alone
 _STAMP_PRELUDE = """static __device__ long long clk_ts_[64];
@@ -7179,22 +7369,25 @@ static __device__ int clk_n_;
 _CALL = re.compile(r"^[A-Za-z_][\w:]*(\s*<[^;()]*>)?\(")
 
 
-def _stamped_source(text, markers, kernel, labels, where):
+def _stamped_source(text, markers, labels, where):
     """`text` with CLK_STAMP(id) after each statement of the functions at
     `markers` that is a call, a barrier or an if/for/while statement, at
-    the body's level and in the body of a for loop there over `item` (a
-    kernel's loop over its items), and (kernel) the record restarted at
-    the body's first line; labels[id] gets `where`, the line and the
-    statement's first line."""
+    the body's level and in the body of a for loop there over `item` or
+    up to `ntb` (a kernel's loop over its items or tiles), and, where
+    markers[marker] (a kernel), the record restarted at the body's first
+    line; labels[id] gets `where`, the line and the statement's first
+    line."""
     lines = text.split("\n")
     out, i = [], 0
     while i < len(lines):
         line = lines[i]
         out.append(line)
-        if not any(m in line for m in markers) or line.strip().startswith(
+        found = [m for m in markers if m in line]
+        if not found or line.strip().startswith(
                 ("//", "*")) or line.rstrip().endswith(";"):
             i += 1
             continue
+        kernel = markers[found[0]]
         # the signature, to the line that opens the body
         depth = line.count("(") - line.count(")")
         while not (depth == 0 and lines[i].rstrip().endswith("{")):
@@ -7233,10 +7426,10 @@ def _stamped_source(text, markers, kernel, labels, where):
                     else:
                         first = lines[top[1]].strip() if top[1] is not None \
                             else ""
+                        loop = first.startswith(("for ", "for(")) and (
+                            "item" in first or "ntb" in first)
                         kind = "stamp" if (len(blocks) == 1 and top[0] ==
-                                           "stamp" and first.startswith(
-                                               ("for ", "for("))
-                                           and "item" in first) else "skip"
+                                           "stamp" and loop) else "skip"
                         blocks.append([kind, None])
                 elif ch == "}":
                     kind = blocks.pop()[0]
@@ -7269,10 +7462,13 @@ def _stamped_source(text, markers, kernel, labels, where):
 
 def _scan_targets(torch, np, dev, root):
     """The calls scan_clocks reads the stamps of: (name, call, the
-    translation unit's tag, a plan to print) for kernel A's and kernel
-    11's bfloat16-operand mode at (1, 5), (1, 200) and (64, 200), the
-    default-precision configuration's published weights."""
+    translation unit's tag, a plan to print, the scan clocks to read too or
+    None) for kernel A's and kernel 11's bfloat16-operand mode at (1, 5),
+    (1, 200) and (64, 200), and kernel 8's and kernel 10's at
+    PRECISION_SHAPES, the default-precision configuration's published
+    weights."""
     from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
     from vqvaehmm_tpu_torch.ops import fused_infer as fi
 
     m16 = load_published(torch, dev, PRECISION_CONFIG)
@@ -7286,10 +7482,21 @@ def _scan_targets(torch, np, dev, root):
                     functools.partial(fi.fused_forward, m16, x, valid_to=T),
                     "fused_infer", fi.launch_plan(
                         B, T, cfg.input_dim, cfg.hidden_dim, cfg.hidden_dim2,
-                        cfg.K, cfg.hidden_dim, sms, True)))
+                        cfg.K, cfg.hidden_dim, sms, True), None))
         out.append((f"11 mode B={B} T={T}",
                     functools.partial(fd.fused_evidence, m16, x, u),
-                    "fused_decode", fd.evidence_plan(cfg, B, T, sms, True)))
+                    "fused_decode", fd.evidence_plan(cfg, B, T, sms, True),
+                    None))
+    for B, T in PRECISION_SHAPES:
+        x, u, _ = decode_inputs(torch, np, rng, m16, B, T, False, False)
+        out.append((f"8 mode B={B} T={T}",
+                    functools.partial(fe.fused_encode, m16, x),
+                    "fused_encoder", fe.encode_plan(cfg, B, T, sms, True),
+                    None))
+        out.append((f"10 mode B={B} T={T}",
+                    functools.partial(fd.fused_viterbi_states, m16, x, u),
+                    "fused_decode", fd.decode_plan(m16, B, T, dev, True),
+                    "scan_clk_10"))
     return out
 
 
@@ -7305,7 +7512,8 @@ def scan_clocks(torch, np, root=ROOT) -> int:
     cycles of each phase at B = 1 over T and at the bulk shapes, with the
     device-busy time a call of the uninstrumented kernel B beside them,
     and the stamps' cycles of A and 11 in the mode at (1, 5), (1, 200)
-    and (64, 200)."""
+    and (64, 200), and of 8 and 10 (with 10's scan phases) at
+    PRECISION_SHAPES."""
     import ctypes
 
     from vqvaehmm_tpu_torch.ops import _build
@@ -7319,12 +7527,11 @@ def scan_clocks(torch, np, root=ROOT) -> int:
     out_dir = os.path.join(root, "build", "scan_clocks")
     os.makedirs(out_dir, exist_ok=True)
     labels = []
-    for name, markers, kernel in _STAMPED:
+    for name, markers in _STAMPED:
         if name.endswith(".cuh"):
             with open(os.path.join(out_dir, name), "w") as f:
                 f.write(_stamped_source(
-                    (_build.CSRC / name).read_text(), markers, kernel, labels,
-                    name))
+                    (_build.CSRC / name).read_text(), markers, labels, name))
     objs, procs = [], []
     for src in _build.sources():
         path, text = str(src), None
@@ -7332,10 +7539,10 @@ def scan_clocks(torch, np, root=ROOT) -> int:
             if src.name == name:
                 text = _clocked_source(src.read_text(), marker, barrier,
                                        first, sym)
-        for name, markers, kernel in _STAMPED:
+        for name, markers in _STAMPED:
             if src.name == name:
                 text = _STAMP_PRELUDE + _stamped_source(
-                    text or src.read_text(), markers, kernel, labels, name)
+                    text or src.read_text(), markers, labels, name)
                 text += (f'\nextern "C" int read_clk_{src.stem}(long long* '
                          'ts, int* ids, int* n) { cudaMemcpyFromSymbol(ts, '
                          'clk_ts_, sizeof(clk_ts_)); cudaMemcpyFromSymbol('
@@ -7360,7 +7567,7 @@ def scan_clocks(torch, np, root=ROOT) -> int:
     lib = _build.bind(ctypes.CDLL(lib_path))
     for _, _, _, _, sym in _CLOCKED:
         getattr(lib, f"read_{sym}").argtypes = [ctypes.c_void_p]
-    for tag in ("fused_infer", "fused_decode"):
+    for tag in ("fused_infer", "fused_encoder", "fused_decode"):
         getattr(lib, f"read_clk_{tag}").argtypes = [ctypes.c_void_p] * 3
     model = load_published(torch, dev)
     rng = np.random.default_rng(5)
@@ -7396,7 +7603,7 @@ def scan_clocks(torch, np, root=ROOT) -> int:
                     f"{what}: {list(clk)[:n] + [clk[7]]}; {plan}"
                     + (f"; uninstrumented, device busy {_ms(busy)} a call"
                        if name == "B" else ""))
-        for name, fn, tag, plan in _scan_targets(torch, np, dev, root):
+        for name, fn, tag, plan, sym in _scan_targets(torch, np, dev, root):
             _build._lib = plain_lib
             busy = _device_ms(torch, fn)
             _build._lib = lib
@@ -7412,10 +7619,18 @@ def scan_clocks(torch, np, root=ROOT) -> int:
                      f"{n.value} stamps)")
             phases = [f"{labels[ids[k]]}: {ts[k] - ts[k - 1]}"
                       for k in range(1, n.value)]
+            scan = ""
+            if sym is not None:
+                # the same run's phases: the evidence and (a), (b), (c),
+                # (d), (e), each to the barrier that ends it
+                clk = (ctypes.c_longlong * 8)()
+                getattr(lib, f"read_{sym}")(clk)
+                scan = (f"; cycles of the evidence and (a), (b), (c), (d), "
+                        f"(e): {list(clk)[:4] + [clk[7]]}")
             say("scan clocks", f"kernel {name}: {ts[n.value - 1] - ts[0]} "
                 f"cycles in block 0, by stamp: " + "; ".join(phases)
-                + f"; {plan}; uninstrumented, device busy {_ms(busy)} a "
-                "call")
+                + scan + f"; {plan}; uninstrumented, device busy "
+                f"{_ms(busy)} a call")
     _build._lib = plain_lib
     return 0
 
@@ -7491,10 +7706,14 @@ def main() -> int:
     say("build", "registers, static shared memory and spills of kernel C's "
         "bfloat16 mode on tile_mma.cuh: " + "; ".join(kernel_resources(
             _build.build_log, TRAIN_KERNELS["bfloat16"][:4])))
-    hmma = _build.sass_counts([n for kernels in TRAIN_KERNELS.values()
-                               for n in kernels])
+    staged16 = [n for _, names in INFER_STAGED.values() for n in names]
+    infer16 = [v[2] for v in INFER_BF16.values()] + [
+        "fused_evidence_bf16_staged_kernel"] + staged16
+    train = sorted({n for kernels in TRAIN_KERNELS.values() for n in kernels})
+    # one cuobjdump of the library for every kernel this phase counts
+    hmma = _build.sass_counts(train + infer16 + list(INFER_FP32_SASS))
     say("build", "HMMA instructions in the SASS of kernel C's kernels: "
-        + "; ".join(f"{n} {c}" for n, c in sorted(hmma.items())))
+        + "; ".join(f"{n} {hmma[n]}" for n in train))
     for name in BF16_PRODUCT_KERNELS:
         if hmma[name] == 0:
             fail(f"{name} issues no tensor-core instruction (HMMA)")
@@ -7505,24 +7724,34 @@ def main() -> int:
     say("build", "the scan kernels at K = 3 (Viterbi, one-kernel decode): "
         + "; ".join(kernel_resources(_build.build_log, (
             "viterbi_kernelILi3E", "fused_decode_kernelILi3E"))))
-    infer16 = [v[2] for v in INFER_BF16.values()] + [
-        "fused_evidence_bf16_staged_kernel"]
     say("build", "the bfloat16-operand mode of kernels A, 8, 11 and 10 "
         "(tile_mma.cuh): " + "; ".join(kernel_resources(
             _build.build_log, infer16 + ["infer_pack_bf16_kernel",
                                          "encoder_pack_bf16_kernel"])))
     # kernel A's mode (each instance: its weights resident, on a ring, in
-    # L2) spills nothing
+    # L2) and kernel 8's second design (resident, ring) spill nothing;
+    # kernel 10's second design no more than its first
     log = _build.build_log.splitlines()
+    spills = []         # (name, the entry's line, (stores, loads) or None)
     for i, line in enumerate(log):
-        if "Compiling entry function" in line and \
-                "fused_infer_bf16_kernel" in line:
-            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", " ".join(log[i:i + 4]))
-            if found is None or found.groups() != ("0", "0"):
-                fail(f"kernel A's bfloat16-operand mode spills: "
-                     f"{' '.join(log[i:i + 4])}")
-    hmma.update(_build.sass_counts(infer16 + list(INFER_FP32_SASS)))
+        for name in ("fused_infer_bf16_kernel", *staged16,
+                     INFER_BF16["fused_decode"][2]):
+            if "Compiling entry function" in line and name in line:
+                found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", " ".join(log[i:i + 4]))
+                spills.append((name, line.strip(), found and tuple(
+                    map(int, found.groups()))))
+    first10 = next(got for name, _, got in spills
+                   if name == INFER_BF16["fused_decode"][2])
+    for name, line, got in spills:
+        if name.startswith(("fused_infer", "fused_encoder")) and \
+                got != (0, 0):
+            fail(f"the bfloat16-operand mode spills {got} bytes: {line}")
+        if name in INFER_STAGED["fused_decode"][1] and (
+                got is None or first10 is None
+                or any(p > q for p, q in zip(got, first10))):
+            fail(f"kernel 10's second design spills {got} bytes, more than "
+                 f"its first design's {first10}")
     say("build", "HMMA instructions in the SASS of kernels A, 8, 11 and 10 "
         "(K = 3) in both modes: " + "; ".join(
             f"{n} {hmma[n]}" for n in infer16 + list(INFER_FP32_SASS)))
@@ -7912,7 +8141,40 @@ def main() -> int:
             entry[f"bound_ms_{B}x{T}"] = kernel_bounds(
                 model, B, T)[f"{name}_bf16"][0]
         kernels.append(entry)
+        if name not in INFER_STAGED:
+            continue
+        # its second design (the weights staged in shared memory): phase
+        # 36a holds it bit-equal to the first, so its distance from the
+        # plain version is the mode's; its times where the plan keeps it
+        staged_name, instances = INFER_STAGED[name]
+        shapes = [(B, T) for B, T in PRECISION_SHAPES
+                  if (name, B, T, "staged") in ptimes]
+        if not shapes:
+            fail(f"{staged_name}: no shape of {PRECISION_SHAPES} keeps it")
+        B0, T0 = shapes[0]
+        b16 = kernel_bounds(model, B0, T0)[f"{name}_bf16"]
+        entry = dict(entry, name=staged_name,
+                     launches=slice16[staged_name],
+                     ms=ptimes[(name, B0, T0, "staged")][0],
+                     plain_ms=ptimes[(name, B0, T0, "plain")][0],
+                     bound_ms=b16[0], bound_by=b16[1],
+                     shape=f"B={B0} T={T0}",
+                     device_ms=ptimes[(name, B0, T0, "staged")][3],
+                     plain_device_ms=ptimes[(name, B0, T0, "plain")][3],
+                     hmma={n: hmma[n] for n in instances})
+        for B, T in PRECISION_SHAPES:
+            for design in ("first", "staged"):
+                if (name, B, T, design) in ptimes:
+                    entry[f"{design}_ms_{B}x{T}"] = ptimes[
+                        (name, B, T, design)][0]
+                    entry[f"{design}_device_ms_{B}x{T}"] = ptimes[
+                        (name, B, T, design)][3]
+        kernels.append(entry)
+    staged = {name for name, _ in INFER_STAGED.values()}
     for k in kernels:
+        if k["name"] in staged:
+            # the second designs are counted by phase 36b alone
+            continue
         # phase 30: each stage's launches of the kernel in the recipe run
         k["recipe_launches"] = {s: n[k["name"]]
                                 for s, n in recipe_launches.items()}

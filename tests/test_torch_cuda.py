@@ -2282,11 +2282,14 @@ def test_inference_bf16_matches_plain(cuda, widths, B, T, record_property):
     (use_kernel=False on the card, the references with
     bf16_operands=True): the outputs within the mode's bars, the decode
     bit-equal to kernel 11 -> kernel B and equal to the plain decode or
-    tied; one launch each, counted in both counts.  The same weights at
+    tied; one launch each, counted in both counts.  Both designs of 8
+    and 10 (the weights read from L2, and staged in shared memory where
+    the plan keeps that design) give those same bits.  The same weights at
     "highest" take the float32 kernels, which the mode's count skips.
     Each output's readings (its share of the scale, its share of values
     past BF16_INFER_EXACT) are recorded as a property of the case, which
     --junitxml writes out."""
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
     from vqvaehmm_tpu_torch.ops.fused_decode import (
         fused_evidence, fused_evidence_reference, fused_viterbi_states,
         fused_viterbi_states_reference)
@@ -2316,8 +2319,13 @@ def test_inference_bf16_matches_plain(cuda, widths, B, T, record_property):
                                                bf16_operands=True)
         f32 = _model(cuda, seed=21, **widths)
         f32_a = fused_forward(f32, x, valid_to=lens)
+        assert _bf16_counts()[0] == (after[0][0] + 1, after[0][1])
+        designs_8, designs_10 = _two_designs(model, x, u, lens)
     assert after == [(n + 1, m + 1) for n, m in before]
-    assert _bf16_counts()[0] == (after[0][0] + 1, after[0][1])
+    for lg in designs_8:
+        assert torch.equal(lg, got_8)
+    for st in designs_10:
+        assert torch.equal(st, states)
     gaps = {}
     for g, w, name in zip((*got_a, got_8, *got_11[1:]),
                           (*want_a, want_8, *want_11[1:]),
@@ -2343,17 +2351,55 @@ def test_inference_bf16_matches_plain(cuda, widths, B, T, record_property):
         assert bool(((sg - sw).abs() <= 1e-4 + slack.double()).all())
 
 
+def _two_designs(model, x, u, lens):
+    """Kernel 8's logits from each of its designs in the mode (the first,
+    and the second where its weights are resident or on a ring, on its
+    plan's grid, on one block and on seven) at the plan's tile, and
+    kernel 10's states from each of its designs (the first, and the plan's
+    where that is the second), each design one launch."""
+    from vqvaehmm_tpu_torch.ops import _build
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+
+    B, _, T = x.shape
+    dims = fe.encoder_dims(model.cfg)
+    sms = _build.sm_count(x.device)
+    first = fe.plan_for(B, T, dims, sms, bf16=True)
+    second = fe.encode_staged(first, dims, sms)
+    grids = [0] + ([] if second is None else sorted(
+        {second.grid, 1, min(7, second.blocks)}))
+    logits = []
+    for grid in grids:
+        lg = torch.empty((B, model.cfg.K, T), device=x.device)
+        fe._launch(model, x, lens, first.tile, lg, True, grid)
+        logits.append(lg)
+    states = [_first_decode(model, x, u, lens)]
+    if fd.decode_plan(model, B, T, x.device, True).weights == "resident":
+        states.append(fd.fused_viterbi_states(model, x, u, lens))
+    return logits, states
+
+
+def _first_decode(model, x, u, lens=None):
+    """Kernel 10's states in the mode from its first design, one launch."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+
+    B, _, T = x.shape
+    plan = fd.decode_plan(model, B, T, x.device, True, staged=False)
+    assert plan.weights == "direct"
+    return fd._launch_decode(model, x.contiguous(), u, lens, plan, True)
+
+
 @pytest.mark.parametrize("widths", ["published", "ring"])
 @pytest.mark.parametrize("B,T", [(3, 37), (64, 200), (460, 20), (1, 2327)])
 def test_inference_bf16_tiles_and_rows_bit_equal(cuda, B, T, widths):
     """In the mode every tile width (and split) of kernels A, 8 and 11
-    gives the same bits, whatever the grid that walks the items (kernel A
-    on a persistent grid of 1 and 7 blocks too) and wherever the weights
-    are read from (kernel 11 staged and from L2), and a row of a batch of
-    A, 8, 11 and 10 is bit-equal to the row alone: each output's sum is
-    one fixed sequence of chunks wherever its step sits in a tile or a
-    halo and wherever its weights were read from (shared memory, the
-    ring, L2)."""
+    gives the same bits, whatever the grid that walks the items (kernels
+    A and 8 on a persistent grid of 1 and 7 blocks too) and wherever the
+    weights are read from (kernels 8 and 11 staged and from L2), and a row
+    of a batch of A, 8, 11 and 10 (each design of 8 and 10) is bit-equal
+    to the row alone: each output's sum is one fixed sequence of chunks
+    wherever its step sits in a tile or a halo and wherever its weights
+    were read from (shared memory, the ring, L2)."""
     from vqvaehmm_tpu_torch.ops import fused_decode as fd
     from vqvaehmm_tpu_torch.ops import fused_encoder as fe
     from vqvaehmm_tpu_torch.ops import fused_infer as fi
@@ -2378,9 +2424,13 @@ def test_inference_bf16_tiles_and_rows_bit_equal(cuda, B, T, widths):
                           for c in (5, 5, 3))
                 fi._launch(model, x, lens, tile, a, bf16=True, grid=grid)
                 outs[0].append(a)
-            lg = torch.empty((B, 3, T), device=cuda)
-            fe._launch(model, x, lens, tile, lg, bf16=True)
-            outs[1].append((lg,))
+            # kernel 8's three layers fit beside its operands at both
+            assert fe.encode_stage(tile, fe.encoder_dims(cfg)).weights == \
+                "resident"
+            for grid in sorted({0, items, 1, min(items, 7)}):
+                lg = torch.empty((B, 3, T), device=cuda)
+                fe._launch(model, x, lens, tile, lg, bf16=True, grid=grid)
+                outs[1].append((lg,))
             for split in (False, True):
                 for staged in (True, False):
                     ev = (torch.empty((B, T, 3), device=cuda),
@@ -2395,6 +2445,7 @@ def test_inference_bf16_tiles_and_rows_bit_equal(cuda, B, T, widths):
                  (fe.fused_encode(model, x, valid_to=lens),),
                  fd.fused_evidence(model, x, u)[1:],
                  (fd.fused_viterbi_states(model, x, u),))
+        assert torch.equal(whole[3][0], _first_decode(model, x, u))
         # the launches above ran the mode the wrappers run
         for w, kind in zip(whole[:2], outs[:2]):
             assert all(torch.equal(p, q) for p, q in zip(w, kind[0]))
@@ -2406,6 +2457,54 @@ def test_inference_bf16_tiles_and_rows_bit_equal(cuda, B, T, widths):
                      (fd.fused_viterbi_states(model, x[r], u[r]),))
             for w, a in zip(whole, alone):
                 assert all(torch.equal(p[r], q) for p, q in zip(w, a)), i
+            assert torch.equal(whole[3][0][r], _first_decode(
+                model, x[r], u[r])), i
+
+
+# the widths of the designs' test: the published model, its C = 16 twin,
+# and the probe's (C = 16, hidden 256/128, K = 8), whose kernel-8 weights
+# stream through the ring and whose kernel-10 weights do not fit beside
+# its stage (the first design alone)
+DESIGN_WIDTHS = {
+    "published": dict(hidden_dim=64, hidden_dim2=32, trans_hidden=128),
+    "c16": dict(input_dim=16, hidden_dim=64, hidden_dim2=32,
+                trans_hidden=128),
+    "probe": dict(input_dim=16, hidden_dim=256, K=8, hidden_dim2=128,
+                  trans_hidden=256)}
+
+
+@pytest.mark.parametrize("widths", sorted(DESIGN_WIDTHS))
+@pytest.mark.parametrize("B,T", [(64, 200), (1, 200), (460, 20),
+                                 (1, 2327)])
+def test_inference_bf16_designs_bit_equal(cuda, B, T, widths):
+    """Kernels 8 and 10 in the mode: the second design (the weights staged
+    in shared memory: kernel 8 resident or on a ring, on its plan's grid
+    and on 1 and 7 blocks; kernel 10 resident) gives the first design's
+    bits, and kernel 10's evidence is kernel 11's (its states those of
+    kernel 11 -> kernel B); the plans take the designs the widths allow."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+
+    w = DESIGN_WIDTHS[widths]
+    model = _model(cuda, seed=24, **w, **DEFAULT)
+    C, K = model.cfg.input_dim, model.cfg.K
+    x, u, lens = _train_inputs(cuda, B, T, B + 5 * T, C=C)
+    dims = fe.encoder_dims(model.cfg)
+    stage = fe.encode_stage(fe.encode_plan(model.cfg, B, T, bf16=True).tile,
+                            dims)
+    assert stage.weights == ("ring" if widths == "probe" else "resident")
+    with torch.inference_mode():
+        logits, states = _two_designs(model, x, u, lens)
+        ev = fd.fused_evidence(model, x, u, lens)
+        two_stage = viterbi_fused(*ev, lens).states
+        plan = fd.decode_plan(model, B, T, cuda, True)
+    assert len(logits) >= 2 and all(torch.equal(lg, logits[0])
+                                    for lg in logits)
+    assert len(states) == (1 if widths == "probe" else 2)
+    assert plan.weights == ("direct" if widths == "probe" else "resident")
+    for st in states:
+        assert torch.equal(st, two_stage)
+    assert logits[0].shape == (B, K, T)
 
 
 def test_inference_bf16_stream_bit_equal_to_batch(cuda, tmp_path):
@@ -2469,6 +2568,65 @@ def test_inference_bf16_kernel_a_reads_l2_at_its_gate_edge(cuda):
         assert bool(torch.isfinite(g).all()), name
         share, past = _bf16_gap(g, w)
         assert share <= BF16_INFER_TOL[name], (name, share)
+
+
+def test_inference_bf16_first_designs_at_their_edges(cuda):
+    """Kernels 8 and 10 of the mode where their second design gives way:
+    kernel 8 at the widest operand its gate takes (no room beside the
+    operands for two ring slots) runs its first design, the weights read
+    from L2; kernel 10's plan stages its weights only where that keeps the
+    first design's tiles a block, so over growing batches it takes the
+    second design, then the first from the batch where staging would need
+    more tiles a block, and refuses no batch the first design takes.  The
+    outputs within the mode's bars of their plain versions, each launch
+    counted in the mode and in the design it ran."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+    from vqvaehmm_tpu_torch.ops.fused_decode import fused_viterbi_states
+    from vqvaehmm_tpu_torch.ops.fused_encoder import fused_encode
+
+    wide = _model(cuda, seed=25, hidden_dim=8, hidden_dim2=2880, **DEFAULT)
+    plan = fe.encode_plan(wide.cfg, 1, 12, bf16=True)
+    assert (plan.tile, plan.weights, plan.grid) == (16, "direct", 0)
+    x, u, lens = _train_inputs(cuda, 1, 12, 25)
+    n0 = (fused_encode.bf16_launches, fused_encode.staged_launches)
+    with torch.inference_mode():
+        got = fused_encode(wide, x, valid_to=lens)
+        want = fe.fused_encode_reference(wide, x, valid_to=lens,
+                                         bf16_operands=True)
+    assert (fused_encode.bf16_launches, fused_encode.staged_launches) == \
+        (n0[0] + 1, n0[1])
+    share, _ = _bf16_gap(got, want)
+    assert share <= BF16_INFER_TOL["logits"]
+    model = _model(cuda, seed=26, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128, **DEFAULT)
+    T, kinds, edge = 2000, [], None
+    for B in range(8, 400, 8):
+        try:
+            first = fd.decode_plan(model, B, T, cuda, True, staged=False)
+        except ValueError:
+            with pytest.raises(ValueError, match="resident"):
+                fd.decode_plan(model, B, T, cuda, True)
+            break
+        plan = fd.decode_plan(model, B, T, cuda, True)
+        kinds.append(plan.weights)
+        if plan.weights == "resident":
+            assert (plan.tile, plan.ntb, plan.grid) == (
+                first.tile, first.ntb, first.grid), B
+        else:
+            assert plan == first, B
+            edge = edge or B
+    assert kinds[0] == "resident" and edge is not None
+    x, u, lens = _train_inputs(cuda, edge, T, 26)
+    n0 = (fused_viterbi_states.bf16_launches,
+          fused_viterbi_states.staged_launches)
+    with torch.inference_mode():
+        states = fused_viterbi_states(model, x, u, lens)
+        ev = fd.fused_evidence(model, x, u, lens)
+        two_stage = viterbi_fused(*ev, lens).states
+    assert (fused_viterbi_states.bf16_launches,
+            fused_viterbi_states.staged_launches) == (n0[0] + 1, n0[1])
+    assert torch.equal(states, two_stage)
 
 
 def test_inference_bf16_gates_raise(cuda):

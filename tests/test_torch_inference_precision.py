@@ -535,6 +535,14 @@ def test_bf16_smem_follows_the_cuda_source():
         stage = -(-ops_11 // 16) * 16
         assert fd.decode_smem_bytes(_cfg(), tile, 2, True) == stage + 4 * (
             2 * tile * 13 + 2048 + 32 * 12 + 68)
+        # the second designs of 8 and 10: the next item's raw x window
+        # (kernel 8), the barriers and every packed value (9728, 13824)
+        assert fe.encode_stage(tile, fe.encoder_dims(_cfg())).bytes == \
+            fe.smem_bytes(_cfg(), tile, True) + 4 * 5 * (tile + 4) \
+            + fi.CTRL_BYTES + 2 * 9728
+        assert fd.decode_smem_bytes(_cfg(), tile, 2, True, True) == \
+            stage + fi.CTRL_BYTES + 2 * 13824 + 4 * (
+                2 * tile * 13 + 2048 + 32 * 12 + 68)
 
 
 @pytest.mark.parametrize("B,T,tile", [(64, 200, 64), (1, 200, 16),
@@ -569,6 +577,9 @@ def test_bf16_gates_at_their_edges():
     assert not fe.encode_supported(_cfg(hidden_dim2=2881), 1, 8, bf16=True)
     assert fe.smem_bytes(_cfg(hidden_dim2=2880), 16, True) <= fi.SMEM_LIMIT \
         < fe.smem_bytes(_cfg(hidden_dim2=2881), 16, True)
+    # there its second design has no room for its weights: the first runs
+    assert fe.encode_plan(_cfg(hidden_dim2=2880), 1, 8, bf16=True)[-2:] == \
+        ("direct", 0)
     # kernel A: the widest operand at tile 16
     edge = max(h for h in range(16, 4000, 16)
                if fi.smem_bytes(16, 5, 8, h, 3, 8, True) <= fi.SMEM_LIMIT)

@@ -1,9 +1,10 @@
 """The staged weights of the inference kernels' bfloat16-operand mode
-(kernels A and 11, csrc/tile_mma.cuh::stage_plan and staged_layer): the
-wrappers' shared-memory counts against the CUDA sources and the plans,
-the gates against the operands-only rule they had before the weights
-were staged, and the persistent grid's walk over the items.  The kernels
-themselves run on the card (tests/test_torch_cuda.py)."""
+(kernels A and 11, and the second designs of kernels 8 and 10,
+csrc/tile_mma.cuh::stage_plan and staged_layer): the wrappers'
+shared-memory counts against the CUDA sources and the plans, the gates
+against the operands-only rule they had before the weights were staged,
+and the persistent grids' walk over the items.  The kernels themselves
+run on the card (tests/test_torch_cuda.py)."""
 
 import re
 
@@ -23,11 +24,13 @@ WIDTHS = {"published": PUBLISHED,
           "probe": dict(input_dim=16, hidden_dim=256, K=8, hidden_dim2=128,
                         u_dim=4, trans_hidden=256),
           "c16": dict(PUBLISHED, input_dim=16)}
-# where the weights go at every tile: 36352 and 13824 packed values at the
-# published widths (72.7 KB and 27.6 KB) fit beside the operands; the
-# probe's 518144 and 133120 do not
-KIND = {"published": ("resident", "resident"), "probe": ("ring", "ring"),
-        "c16": ("resident", "resident")}
+# where the weights go at every tile, kernels A, 11, 8 and 10: 36352,
+# 13824, 9728 and 13824 packed values at the published widths (72.7, 27.6,
+# 19.5 and 27.6 KB) fit beside the operands; the probe's 518144, 133120,
+# 112640 and 133120 do not (kernel 10 stages only resident weights)
+KIND = {"published": ("resident",) * 4,
+        "probe": ("ring", "ring", "ring", "direct"),
+        "c16": ("resident",) * 4}
 SMS = fi.H100_SMS
 
 
@@ -60,6 +63,24 @@ def test_stage_plan_follows_the_cuda_source():
     decode = (_build.CSRC / "fused_decode.cu").read_text()
     assert "return tilemma::stage_plan(base, 0, encmma::packed(d).total," \
         in decode
+    # kernel 8's second design: the operands, the next item's raw x window,
+    # the weights; its walk is kernel A's
+    encoder = (_build.CSRC / "fused_encoder.cu").read_text()
+    assert f"constexpr int STAGED_BLOCKS_PER_SM = " \
+        f"{fe.STAGED_BLOCKS_PER_SM};" in encoder
+    assert "__launch_bounds__(encmma::THREADS, STAGED_BLOCKS_PER_SM)\n" \
+        "    fused_encoder_bf16_staged_kernel" in encoder
+    assert ("return tilemma::stage_plan(encmma::smem_bytes(d, tile),\n"
+            "                             4LL * d.C * encmma::op_rows(tile),"
+            "\n                             encmma::packed(d).total, "
+            "encfma::SMEM_LIMIT);") in encoder
+    assert "for (int item = blockIdx.x; item < items; item += gridDim.x)" \
+        in encoder
+    # kernel 10's: the control region and the five layers after its stage
+    assert ("? (tilemma::CTRL_BYTES + 2 * (int)encmma::packed(d).total) / 4"
+            in decode)
+    assert "decode_stage_floats<BF16>(d, tile) +\n                " \
+        "decode_weight_floats<KIND>(d) +" in decode
 
 
 @pytest.mark.parametrize("name", sorted(WIDTHS))
@@ -72,6 +93,7 @@ def test_staged_smem_against_the_plan(name):
     w = WIDTHS[name]
     cfg = _cfg(w)
     dims11 = fe.encoder_dims(cfg, prior=True)
+    dims8 = fe.encoder_dims(cfg)
     C, U = w["input_dim"], w["u_dim"]
     for tile in fe.TILES:
         for ops, prefetch, elems, got, kind in (
@@ -80,7 +102,10 @@ def test_staged_smem_against_the_plan(name):
                  KIND[name][0]),
                 (fd.evidence_stage_bytes(cfg, tile, True), 0,
                  fe.packed_bf16(*dims11), fe.evidence_stage(tile, dims11),
-                 KIND[name][1])):
+                 KIND[name][1]),
+                (fe.smem_bytes(cfg, tile, True), 4 * C * (tile + 4),
+                 fe.packed_bf16(*dims8), fe.encode_stage(tile, dims8),
+                 KIND[name][2])):
             resident = ops + prefetch + fi.CTRL_BYTES + 2 * elems
             slots = min(8, (fi.SMEM_LIMIT - ops - fi.CTRL_BYTES) // 4096)
             want = (("resident", 0, resident)
@@ -94,6 +119,15 @@ def test_staged_smem_against_the_plan(name):
             fe.evidence_stage(tile, dims11).bytes
         assert tuple(fe.evidence_stage(tile, dims11, False)) == (
             "direct", 0, fd.evidence_stage_bytes(cfg, tile, True))
+        # kernel 10's second design: its weights after the stage region,
+        # where a block of one tile still fits
+        for ntb in (1, 2, 5):
+            staged = fd.decode_smem_bytes(cfg, tile, ntb, True, True)
+            assert staged == fd.decode_smem_bytes(cfg, tile, ntb, True) + \
+                fi.CTRL_BYTES + 2 * fe.packed_bf16(*dims11)
+        fits10 = fd.decode_smem_bytes(cfg, tile, 1, True, True) \
+            <= fi.SMEM_LIMIT
+        assert fits10 == (KIND[name][3] == "resident"), tile
     for B, T in ((64, 200), (1, 200), (460, 20), (1, 2327)):
         a = fi.launch_plan(B, T, *_a(w), bf16=True)
         assert (a.smem, a.weights) == (
@@ -104,18 +138,34 @@ def test_staged_smem_against_the_plan(name):
             fe.evidence_stage(e.tile, dims11, staged).bytes,
             KIND[name][1] if staged else "direct")
         assert e.smem <= fi.SMEM_LIMIT and e.threads == fe.MMA_THREADS
+        # kernel 8: the first design's tile; the second design's block
+        # where a block computes at most STAGED_STEPS steps (the requests
+        # and the windows of 20), else the first design's (64, 200)
+        p = fe.encode_plan(cfg, B, T, bf16=True)
+        first = fe.plan_for(B, T, dims8, bf16=True)
+        assert (p.tile, p.blocks, p.threads) == (first.tile, first.blocks,
+                                                 first.threads)
+        few = min(p.tile, T) <= fe.STAGED_STEPS
+        assert few == ((B, T) != (64, 200))
+        assert (p.smem, p.weights) == (
+            (fe.encode_stage(p.tile, dims8).bytes, KIND[name][2]) if few
+            else (first.smem, "direct"))
+        assert fe.smem_bytes(cfg, p.tile, True) == first.smem
         # at the published widths a request (1, 200) stages; the bulk
         # shapes' grids hold more blocks than SMs
         if name == "published":
             assert staged == ((B, T) == (1, 200))
 
 
-@pytest.mark.parametrize("which", ["fused_infer", "fused_evidence"])
+@pytest.mark.parametrize("which", ["fused_infer", "fused_evidence",
+                                   "fused_encode", "fused_decode"])
 def test_staged_gates_refuse_nothing_the_operands_fit(which):
     """The gates and plans take every model whose operands fit a block at
     the narrowest tile, as they did before the weights were staged: at
-    the edge the weights are read from L2 (direct), below it they are
-    resident or on a ring."""
+    the edge the weights are read from L2 (direct; kernel 8 then runs its
+    first design), below it they are resident or on a ring.  Kernel 10's
+    gate is its first design's (its second design is taken only where it
+    keeps the first's tiles a block, ops/fused_decode.py::decode_plan)."""
     taken = 0
     for h in list(range(16, 400, 48)) + list(range(2000, 3200, 16)):
         if which == "fused_infer":
@@ -127,6 +177,16 @@ def test_staged_gates_refuse_nothing_the_operands_fit(which):
                 plan = None
             assert (plan is not None) == fits, h
             stage = fi.bf16_stage(16, *w)
+        elif which == "fused_encode":
+            cfg = _cfg(dict(PUBLISHED, hidden_dim=8, hidden_dim2=h))
+            dims = fe.encoder_dims(cfg)
+            fits = fe.smem_bytes(cfg, 16, True) <= fi.SMEM_LIMIT
+            assert fe.encode_supported(cfg, 0, 0, bf16=True) == fits, h
+            plan = fe.encode_plan(cfg, 1, 8, bf16=True)
+            assert (plan is not None) == fits, h
+            stage = fe.encode_stage(16, dims)
+            if fits:
+                assert plan.grid == (0 if stage.weights == "direct" else 1)
         else:
             cfg = _cfg(dict(PUBLISHED, trans_hidden=h))
             fits = (fd.evidence_stage_bytes(cfg, 16, True) <= fi.SMEM_LIMIT
@@ -134,14 +194,21 @@ def test_staged_gates_refuse_nothing_the_operands_fit(which):
                     <= fi.SMEM_LIMIT)
             assert fd.supported(cfg, 0, 0, bf16=True) == fits, h
             stage = fe.evidence_stage(16, fe.encoder_dims(cfg, prior=True))
+            if which == "fused_decode":
+                # the second design holds more than the first, never less
+                assert fd.decode_smem_bytes(cfg, 16, 1, True, True) > \
+                    fd.decode_smem_bytes(cfg, 16, 1, True)
         if fits:
             taken += 1
             assert stage.bytes <= fi.SMEM_LIMIT, h
     assert taken > 10
-    # the last width that fits at the edge of kernel A takes L2
+    # the last width that fits at the edge of kernels A and 8 takes L2
     edge = max(h for h in range(16, 4000, 16)
                if fi.operand_bytes(16, 5, 8, h, 3, 8) <= fi.SMEM_LIMIT)
     assert fi.bf16_stage(16, 5, 8, edge, 3, 8).weights == "direct"
+    cfg = _cfg(dict(PUBLISHED, hidden_dim=8, hidden_dim2=2880))
+    assert fe.encode_stage(16, fe.encoder_dims(cfg)).weights == "direct"
+    assert fe.encode_plan(cfg, 1, 8, bf16=True).grid == 0
 
 
 def _walk(grid, items):
@@ -160,7 +227,8 @@ def test_persistent_grid_covers_every_item_once(B, T, name):
     that stay resident (2 an SM, as shared memory allows), each staging
     its weights once; a ring takes a block an item.  Kernel 11 takes a
     block an item (it stages only where the grid leaves an SM a block at
-    most)."""
+    most).  Kernel 8's second design walks as kernel A does (2 blocks an
+    SM)."""
     w = WIDTHS[name]
     a = fi.launch_plan(B, T, *_a(w), bf16=True)
     walked = _walk(a.grid, a.blocks)
@@ -175,3 +243,14 @@ def test_persistent_grid_covers_every_item_once(B, T, name):
     assert a.blocks == B * -(-T // a.tile)
     e = fd.evidence_plan(_cfg(w), B, T, bf16=True)
     assert e.blocks == B * -(-T // e.tile) * (2 if e.split else 1)
+    # kernel 8's second design walks its items as kernel A does; its first
+    # takes a block an item
+    p = fe.encode_plan(_cfg(w), B, T, bf16=True)
+    walked = _walk(p.grid or p.blocks, p.blocks)
+    assert sorted(i for block in walked for i in block) == \
+        list(range(p.blocks))
+    assert all(walked) and p.blocks == B * -(-T // p.tile)
+    per_sm = min(fe.STAGED_BLOCKS_PER_SM, fi.SM_SMEM // (p.smem + 1024))
+    assert p.grid == (min(p.blocks, per_sm * SMS) if p.weights == "resident"
+                      else p.blocks if p.weights == "ring" else 0)
+    assert (p.grid > 0) == (min(p.tile, T) <= fe.STAGED_STEPS)

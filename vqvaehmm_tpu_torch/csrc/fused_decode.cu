@@ -79,8 +79,8 @@
 // with float32 sums, the weights packed once a model in mma fragment order
 // (vqhmm_encoder_pack, bf16 = 1): fused_evidence_bf16_kernel (blocks of
 // encmma::THREADS threads, split as the float32 kernel) and
-// fused_decode_kernel<K, true> (the same persistent blocks, phases and
-// scan, its weights read from L2).  The log-softmax, the scan and the
+// fused_decode_kernel<K, true, DIRECT> (the same persistent blocks, phases
+// and scan, its weights read from L2).  The log-softmax, the scan and the
 // backtrace are the float32 mode's.  Its bound is the card's dense bf16
 // rate, 989 TFLOP/s: the evidence is then bound by its bytes at every
 // shape.  What held the evidence's first design was its layers' weights,
@@ -90,7 +90,12 @@
 // layers (tile_mma.cuh::staged_layer) where the grid leaves an SM a block
 // at most, with the same sums, so its outputs, and kernel 10's evidence,
 // are bit-equal to the first's; on larger grids the first design runs
-// (evidence_stage).
+// (evidence_stage).  The decode's second design,
+// fused_decode_kernel<K, true, RESIDENT>, stages the five layers' weights
+// once a block, before its first tile, and computes each of its tiles'
+// evidence from them (staged_tile_evidence), with the same sums; its
+// plan takes it where its blocks keep the first design's tiles a block
+// (decode_choice), and the scan phases are the first design's.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -367,6 +372,16 @@ __host__ __device__ inline int decode_stage_floats(const encfma::Dims& d,
   return (bytes / 4 + 3) & ~3;
 }
 
+// Floats of a decode block's staged weights after its stage region, where
+// RESIDENT: the control region (the layers' barriers) and the five
+// layers' packed values; none where the weights are read from L2.
+template <int KIND>
+__host__ __device__ inline int decode_weight_floats(const encfma::Dims& d) {
+  return KIND == tilemma::RESIDENT
+             ? (tilemma::CTRL_BYTES + 2 * (int)encmma::packed(d).total) / 4
+             : 0;
+}
+
 // Floats of one tile in the store: log_obs (tile * K), log_A
 // (tile * K * K), the backpointer words (tile).
 __host__ __device__ inline int tile_floats(int K, int tile) {
@@ -394,10 +409,11 @@ __host__ __device__ inline int scratch_floats(int K) {
 constexpr int DECODE_THREADS = 320;
 
 // Dynamic shared memory of a decode block holding ntb tiles: the stage,
-// the tile store, the scratch.
-template <bool BF16>
+// the staged weights, the tile store, the scratch.
+template <bool BF16, int KIND>
 inline long long decode_smem(const encfma::Dims& d, int tile, int ntb) {
   return 4LL * (decode_stage_floats<BF16>(d, tile) +
+                decode_weight_floats<KIND>(d) +
                 (long long)ntb * tile_floats(d.K, tile) + scratch_floats(d.K));
 }
 
@@ -448,8 +464,95 @@ __device__ __forceinline__ void tile_evidence(
   }
 }
 
-template <int K, bool BF16>
-__global__ void __launch_bounds__(DECODE_THREADS, 2)
+// The five layers of the evidence as a chain of tile_mma.cuh's staged
+// layers: the encoder's 0-2, the prior's 3-4 (fused_evidence_bf16_staged_
+// kernel's chain), each computed from the widths where it is asked for, so
+// that nothing of the chain stays live in registers across the kernel.
+struct EvidenceChain {
+  const encfma::Dims& d;
+  __device__ __forceinline__ tilemma::ChainLayer operator()(int l) const {
+    const encmma::Packed at = encmma::packed(d);
+    switch (l) {
+      case 0: return tilemma::ChainLayer{at.w1, d.H1, d.C, 3, 1, 1};
+      case 1: return tilemma::ChainLayer{at.w2, d.H2, d.H1, 3, 2, 2};
+      case 2: return tilemma::ChainLayer{at.w3, d.K, d.H2, 1, 2, 2};
+      case 3: return tilemma::ChainLayer{at.p1, d.HP, d.U, 1, 2, 2};
+      case 4: return tilemma::ChainLayer{at.p2, d.K * d.K, d.HP, 1, 2, 2};
+      default: return tilemma::ChainLayer{0, 0, 0, 0, 0, 0};
+    }
+  }
+};
+
+// One tile's evidence as tile_evidence<true> computes it, each layer's
+// weights read from the block's resident copy (tile_mma.cuh::staged_layer):
+// x and u staged together, then the five layers, the log-softmax and the
+// write into the store.  The sums are tile_evidence's, so are the bits.
+// No barrier after the write.
+__device__ __forceinline__ void staged_tile_evidence(
+    tilemma::Staged& st, const EvidenceChain& chain, float* smem,
+    const float* __restrict__ x, const float* __restrict__ u,
+    long long u_sb, long long u_sc, long long u_st, const encfma::Weights& W,
+    const encfma::Dims& d, int T, int tile, const TileAt& at, int vt,
+    float* so, float* sa) {
+  using tilemma::Out;
+  constexpr int R = tilemma::RESIDENT;
+  const encmma::Ops s =
+      encmma::carve(reinterpret_cast<unsigned char*>(smem), d, tile);
+  const int Wn = at.n + 2 * encfma::HALO;
+  const int p0 = at.t0 - encfma::HALO;
+  const tilemma::Win win{p0, T, at.t0, at.n};
+  tilemma::stage_item<R>(st, chain, Wn, p0);
+  // x on the whole window, zero outside [0, T) and past the bound and in
+  // the padding channels; u on the tile's own steps; both rounded
+  const float* xb = x + (size_t)at.b * d.C * T;
+  const float* ub = u + at.b * u_sb;
+  const int C16 = tilemma::round16(d.C);
+  for (int idx = threadIdx.x; idx < C16 * Wn; idx += blockDim.x) {
+    const int c = idx / Wn, j = idx - c * Wn;
+    const int p = p0 + j;
+    const float v = (c < d.C && !encfma::outside(p, T, vt))
+                        ? xb[(size_t)c * T + p] : 0.f;
+    s.xo[j * s.RC + c] = __float2bfloat16_rn(v);
+  }
+  const int U16 = tilemma::round16(d.U);
+  for (int idx = threadIdx.x; idx < U16 * at.n; idx += blockDim.x) {
+    const int c = idx / at.n, j = idx - c * at.n;
+    const float v =
+        c < d.U ? ub[c * u_sc + (long long)(at.t0 + j) * u_st] : 0.f;
+    s.uo[(encfma::HALO + j) * s.RU + c] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+  // h1 = relu(conv1(x)), zero outside the sequence and past the bound;
+  // h2 = relu(conv2(h1)) on the tile, not masked; the raw logits; hp =
+  // relu(fc1(u)) on the tile; the raw transition logits
+  tilemma::staged_layer<3, R>(st, chain, 0, s.xo, s.RC, s.NR,
+                              Out{W.eb1, true, true, vt, nullptr, nullptr,
+                                  nullptr, 0, s.a, s.RG}, win);
+  tilemma::staged_layer<3, R>(st, chain, 1, s.a, s.RG, s.NR,
+                              Out{W.eb2, true, false, T, nullptr, nullptr,
+                                  nullptr, 0, s.b, s.RG}, win);
+  tilemma::staged_layer<1, R>(st, chain, 2, s.b, s.RG, s.NR,
+                              encmma::raw_logits(s), win);
+  tilemma::staged_layer<1, R>(st, chain, 3, s.uo, s.RU, s.NR,
+                              Out{W.pb1, true, false, T, nullptr, nullptr,
+                                  nullptr, 0, s.a, s.RG}, win);
+  tilemma::staged_layer<1, R>(st, chain, 4, s.a, s.RG, s.NR,
+                              Out{nullptr, false, false, T, nullptr, nullptr,
+                                  s.ap, s.WS, nullptr, 0}, win);
+  const encfma::Rows r = tile_rows(s);
+  tile_log_softmax(r, W, d.K, at.n, s.WS, 0, d.K + 1);
+  write_tile(r, d.K, at.n, s.WS, so, sa);
+}
+
+// KIND: where the evidence's weights are, DIRECT (read from L2, each
+// tile through tile_evidence) or, in the bfloat16 mode, RESIDENT (staged
+// once a block after the stage region, staged_tile_evidence; blocks of
+// encmma::THREADS, up to 128 registers a thread: at the DIRECT instances'
+// 96 it spilled).  Nothing of RESIDENT's is compiled into a DIRECT
+// instance, whose code is the first design's.
+template <int K, bool BF16, int KIND>
+__global__ void __launch_bounds__(
+    KIND == tilemma::RESIDENT ? encmma::THREADS : DECODE_THREADS, 2)
     fused_decode_kernel(const float* __restrict__ x,
                         const float* __restrict__ u, long long u_sb,
                         long long u_sc, long long u_st,
@@ -465,10 +568,27 @@ __global__ void __launch_bounds__(DECODE_THREADS, 2)
   constexpr int AG = KK + K;          // scratch floats a segment
   const int tf = tile_floats(K, tile);
   float* store = smem + decode_stage_floats<BF16>(d, tile);
+  if constexpr (KIND == tilemma::RESIDENT)
+    store += decode_weight_floats<KIND>(d);
   float* chunk = store + ntb * tf;
   const int S = mpscan::seg_len(T), G = mpscan::num_segments(T);
   const int units = B * tiles;
   const int vt = batch_bound(lengths, B, T);
+  // RESIDENT: the five layers' bulk copies, the first two in flight while
+  // the first tile's x and u are staged
+  tilemma::Staged st;
+  if constexpr (KIND == tilemma::RESIDENT) {
+    unsigned char* w = reinterpret_cast<unsigned char*>(
+        smem + decode_stage_floats<BF16>(d, tile));
+    st.wp = reinterpret_cast<const tilemma::bf16*>(W.wp);
+    st.bar = reinterpret_cast<uint64_t*>(w);
+    st.ring_chain = nullptr;
+    st.sw = reinterpret_cast<tilemma::bf16*>(w + tilemma::CTRL_BYTES);
+    st.slots = 0;
+    st.l0 = 0;
+    st.l1 = 5;
+    tilemma::stage_start<KIND>(st, EvidenceChain{d});
+  }
 
   // the evidence of each tile, then (a) on its segments
   for (int k = 0; k < ntb; ++k) {
@@ -477,8 +597,12 @@ __global__ void __launch_bounds__(DECODE_THREADS, 2)
     const TileAt at = tile_at(unit, tiles, tile, T);
     float* so = store + k * tf;
     float* sa = so + tile * K;
-    tile_evidence<BF16>(smem, x, u, u_sb, u_sc, u_st, W, d, T, tile, at, vt,
-                        so, sa);
+    if constexpr (KIND == tilemma::RESIDENT)
+      staged_tile_evidence(st, EvidenceChain{d}, smem, x, u, u_sb, u_sc,
+                           u_st, W, d, T, tile, at, vt, so, sa);
+    else
+      tile_evidence<BF16>(smem, x, u, u_sb, u_sc, u_st, W, d, T, tile, at,
+                          vt, so, sa);
     __syncthreads();
     unsigned* sb = reinterpret_cast<unsigned*>(sa + tile * KK);
     const int L = lengths ? lengths[at.b] : T;
@@ -641,11 +765,11 @@ __global__ void __launch_bounds__(DECODE_THREADS, 2)
   }
 }
 
-// The decode's launch plan at tile width `tile`: the fewest tiles a block
-// (ntb) for which the resident blocks (the runtime's occupancy of this
-// kernel at that shared memory, on every SM) cover the B * ceil(T / tile)
-// tiles.  out = {grid, ntb, threads, smem}.
-template <int K, bool BF16>
+// The decode's launch plan at tile width `tile` for the instance KIND:
+// the fewest tiles a block (ntb) for which the resident blocks (the
+// runtime's occupancy of this kernel at that shared memory, on every SM)
+// cover the B * ceil(T / tile) tiles.  out = {grid, ntb, threads, smem}.
+template <int K, bool BF16, int KIND>
 cudaError_t decode_plan(const encfma::Dims& d, int B, int T, int tile,
                         int* out) {
   int dev = 0, sms = 0;
@@ -653,7 +777,7 @@ cudaError_t decode_plan(const encfma::Dims& d, int B, int T, int tile,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_decode_kernel<K, BF16>,
+    err = cudaFuncSetAttribute(fused_decode_kernel<K, BF16, KIND>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                encfma::SMEM_LIMIT);
   if (err != cudaSuccess) return err;
@@ -663,11 +787,11 @@ cudaError_t decode_plan(const encfma::Dims& d, int B, int T, int tile,
                            : encfma::block_threads(tile, G, DECODE_THREADS);
   const long long units = (long long)B * ((T + tile - 1) / tile);
   for (int ntb = 1;; ++ntb) {
-    const long long smem = decode_smem<BF16>(d, tile, ntb);
+    const long long smem = decode_smem<BF16, KIND>(d, tile, ntb);
     if (smem > encfma::SMEM_LIMIT) return cudaErrorInvalidValue;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_decode_kernel<K, BF16>, threads, (size_t)smem);
+        &per_sm, fused_decode_kernel<K, BF16, KIND>, threads, (size_t)smem);
     if (err != cudaSuccess) return err;
     if ((long long)per_sm * sms * ntb >= units) {
       out[0] = (int)((units + ntb - 1) / ntb);
@@ -679,15 +803,40 @@ cudaError_t decode_plan(const encfma::Dims& d, int B, int T, int tile,
   }
 }
 
+// The decode's design and plan: the first design's (the weights read from
+// L2); in the bfloat16 mode where `staged`, the second's (RESIDENT) where
+// its blocks, holding the weights too, still cover every tile at the
+// first design's tiles a block, so that staging raises no ntb and refuses
+// no shape the first design takes.  out = {grid, ntb, threads, smem,
+// kind}.
+template <int K, bool BF16>
+cudaError_t decode_choice(const encfma::Dims& d, int B, int T, int tile,
+                          bool staged, int* out) {
+  const cudaError_t err =
+      decode_plan<K, BF16, tilemma::DIRECT>(d, B, T, tile, out);
+  out[4] = tilemma::DIRECT;
+  if constexpr (BF16) {
+    int s[4];
+    if (err == cudaSuccess && staged &&
+        decode_plan<K, true, tilemma::RESIDENT>(d, B, T, tile, s) ==
+            cudaSuccess &&
+        s[1] == out[1]) {
+      for (int i = 0; i < 4; ++i) out[i] = s[i];
+      out[4] = tilemma::RESIDENT;
+    }
+  }
+  return err;
+}
+
 template <int K, bool BF16>
 cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
                           long long u_sc, long long u_st, const int* lengths,
                           encfma::Weights W, const float* log_pi, float* agg,
                           unsigned* sel, int* ends, int* states,
-                          encfma::Dims d, int B, int T, int tile,
+                          encfma::Dims d, int B, int T, int tile, bool staged,
                           cudaStream_t stream) {
-  int plan[4];
-  const cudaError_t err = decode_plan<K, BF16>(d, B, T, tile, plan);
+  int plan[5];
+  const cudaError_t err = decode_choice<K, BF16>(d, B, T, tile, staged, plan);
   if (err != cudaSuccess) return err;
   int tiles = (T + tile - 1) / tile, ntb = plan[1];
   void* args[] = {(void*)&x,       (void*)&u,    (void*)&u_sb,
@@ -696,9 +845,13 @@ cudaError_t launch_decode(const float* x, const float* u, long long u_sb,
                   (void*)&sel,     (void*)&ends, (void*)&states,
                   (void*)&d,       (void*)&B,    (void*)&T,
                   (void*)&tile,    (void*)&tiles, (void*)&ntb};
-  return cudaLaunchCooperativeKernel((const void*)fused_decode_kernel<K, BF16>,
-                                     dim3(plan[0]), dim3(plan[2]), args,
-                                     (size_t)plan[3], stream);
+  const void* kernel = (const void*)fused_decode_kernel<K, BF16,
+                                                       tilemma::DIRECT>;
+  if constexpr (BF16)
+    if (plan[4] == tilemma::RESIDENT)
+      kernel = (const void*)fused_decode_kernel<K, true, tilemma::RESIDENT>;
+  return cudaLaunchCooperativeKernel(kernel, dim3(plan[0]), dim3(plan[2]),
+                                     args, (size_t)plan[3], stream);
 }
 
 }  // namespace
@@ -786,25 +939,26 @@ extern "C" int vqhmm_fused_evidence(
     default: return (int)cudaErrorInvalidValue;                          \
   }
 
-// bf16: the bfloat16 mode, which stages no weights (no weight-buffer
-// bound).
+// bf16: the bfloat16 mode, which stages no weights in slabs (no
+// weight-buffer bound).
 static bool decode_dims_ok(const encfma::Dims& d, int B, int T, int tile,
                            bool bf16) {
   return encfma::tile_ok(tile) && B > 0 && T > 0 && d.U > 0 && d.HP > 0 &&
          (bf16 || encfma::layers_fit(d)) && (long long)B * T <= INT_MAX;
 }
 
-// The decode's plan for the current device in either mode: out = {grid,
-// ntb, threads, smem}; an error where no number of tiles a block fits a
+// The decode's design and plan for the current device in either mode
+// (decode_choice; staged 0: the first design's alone): out = {grid, ntb,
+// threads, smem, kind}; an error where no number of tiles a block fits a
 // block's shared memory with every tile resident.
 extern "C" int vqhmm_fused_decode_plan(int B, int C, int T, int U, int H1,
                                        int H2, int K, int HP, int tile,
-                                       int bf16, int* out) {
+                                       int bf16, int staged, int* out) {
   const encfma::Dims d{C, H1, H2, K, U, HP};
   if (!decode_dims_ok(d, B, T, tile, bf16)) return (int)cudaErrorInvalidValue;
-#define VQHMM_PLAN(KV)                                        \
-  (bf16 ? decode_plan<KV, true>(d, B, T, tile, out)           \
-        : decode_plan<KV, false>(d, B, T, tile, out))
+#define VQHMM_PLAN(KV)                                                  \
+  (bf16 ? decode_choice<KV, true>(d, B, T, tile, staged != 0, out)      \
+        : decode_choice<KV, false>(d, B, T, tile, false, out))
   VQHMM_DECODE_SWITCH(VQHMM_PLAN)
 #undef VQHMM_PLAN
 }
@@ -812,14 +966,15 @@ extern "C" int vqhmm_fused_decode_plan(int B, int C, int T, int U, int H1,
 // packed_weights as for the evidence, in the same mode; lengths may be
 // null; agg a scratch of B * G * (K * K + K) floats, sel and ends of B * G
 // words (G the segments of maxplus_scan.cuh).  K is bounded by the 4-bit
-// backpointers and the template instances.
+// backpointers and the template instances.  staged: the design
+// vqhmm_fused_decode_plan chooses; 0: the first design.
 extern "C" int vqhmm_fused_decode(
     const float* x, const float* u, long long u_sb, long long u_sc,
     long long u_st, const int* lengths, const void* packed_weights,
     const float* eb1, const float* eb2, const float* eb3, const float* pb1,
     const float* pb2, const float* log_pi, float* agg, unsigned* sel,
     int* ends, int* states, int B, int C, int T, int U, int H1, int H2, int K,
-    int HP, int tile, int bf16, void* stream) {
+    int HP, int tile, int bf16, int staged, void* stream) {
   const encfma::Dims d{C, H1, H2, K, U, HP};
   if (!decode_dims_ok(d, B, T, tile, bf16)) return (int)cudaErrorInvalidValue;
   const encfma::Weights W{reinterpret_cast<const float*>(packed_weights),
@@ -827,10 +982,11 @@ extern "C" int vqhmm_fused_decode(
   cudaStream_t st = (cudaStream_t)stream;
 #define VQHMM_LAUNCH(KV)                                                     \
   (bf16 ? launch_decode<KV, true>(x, u, u_sb, u_sc, u_st, lengths, W, log_pi, \
-                                  agg, sel, ends, states, d, B, T, tile, st)  \
+                                  agg, sel, ends, states, d, B, T, tile,      \
+                                  staged != 0, st)                            \
         : launch_decode<KV, false>(x, u, u_sb, u_sc, u_st, lengths, W,        \
                                    log_pi, agg, sel, ends, states, d, B, T,   \
-                                   tile, st))
+                                   tile, false, st))
   VQHMM_DECODE_SWITCH(VQHMM_LAUNCH)
 #undef VQHMM_LAUNCH
 }

@@ -75,10 +75,11 @@ _SIGNATURES = {
     # H2, K, U, HP, bf16, stream
     "vqhmm_encoder_pack": [_P] * 6 + [_I] * 7 + [_P],
     # x, valid_to, packed weights, 3 encoder biases, logits, B, C, T, H1,
-    # H2, K, tile, bf16, stream
-    "vqhmm_fused_encode": [_P] * 3 + [_P] * 3 + [_P] + [_I] * 8 + [_P],
-    # C, H1, H2, K, tile, bf16 -> dynamic shared memory bytes per block
-    "vqhmm_fused_encode_smem_bytes": [_I] * 6,
+    # H2, K, tile, bf16, grid, stream
+    "vqhmm_fused_encode": [_P] * 3 + [_P] * 3 + [_P] + [_I] * 9 + [_P],
+    # C, H1, H2, K, tile, bf16, staged -> dynamic shared memory bytes per
+    # block
+    "vqhmm_fused_encode_smem_bytes": [_I] * 7,
     # x, u, u strides (batch, channel, time), lengths (or null), packed
     # weights, 3 encoder and 2 prior biases, log_obs, log_A, B, C, T, U,
     # H1, H2, K, HP, tile, split, bf16, staged, stream
@@ -87,11 +88,11 @@ _SIGNATURES = {
     # x, u, u strides (batch, channel, time), lengths (or null), packed
     # weights, 3 encoder and 2 prior biases, log_pi, the segment scratch
     # (aggregates, selector maps, end states), states, B, C, T, U, H1, H2,
-    # K, HP, tile, bf16, stream
+    # K, HP, tile, bf16, staged, stream
     "vqhmm_fused_decode": [_P, _P, _L, _L, _L, _P, _P] + [_P] * 5
-    + [_P] * 5 + [_I] * 10 + [_P],
-    # B, C, T, U, H1, H2, K, HP, tile, bf16, out[4] -> error code
-    "vqhmm_fused_decode_plan": [_I] * 10 + [_P],
+    + [_P] * 5 + [_I] * 11 + [_P],
+    # B, C, T, U, H1, H2, K, HP, tile, bf16, staged, out[5] -> error code
+    "vqhmm_fused_decode_plan": [_I] * 11 + [_P],
     # C, H1, H2, K, U, HP, tile, bf16, staged -> dynamic shared memory
     # bytes per block
     "vqhmm_fused_evidence_smem_bytes": [_I] * 9,

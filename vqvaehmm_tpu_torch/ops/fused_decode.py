@@ -47,7 +47,9 @@ the card.  Each mode has its own plans, shared memory and gate
 (`supported(..., bf16=True)`); a model or shape the mode refuses raises.
 `fused_evidence.launches` and `fused_viterbi_states.launches` count the
 kernels' launches in either mode, their `.bf16_launches` those in the
-bfloat16-operand mode.
+bfloat16-operand mode, and `fused_viterbi_states.staged_launches` those
+of the decode's second design in that mode (the evidence's weights
+staged in shared memory once a block, `decode_plan`).
 """
 
 from __future__ import annotations
@@ -62,8 +64,10 @@ from . import _build
 from .fused_encoder import (TILES, check_x, encoder_dims, evidence_stage,
                             kernel_cache, layers_fit, plan_for,
                             smem_dims_bytes)
-from .fused_infer import (H100_SMS, SMEM_LIMIT, autograd_aside,
-                          kernel_route, operand_mode, refuse_grad)
+from .fused_infer import (CTRL_BYTES, H100_SMS, SMEM_LIMIT, WEIGHT_KINDS,
+                          autograd_aside, kernel_route, operand_mode,
+                          refuse_grad)
+from .fused_encoder import packed_bf16
 from .fused_train import _u_strides
 from .fused_viterbi import MAX_K, num_segments
 from .hmm import viterbi
@@ -101,16 +105,21 @@ def evidence_plan(cfg, B: int, T: int, sms: int = H100_SMS,
                     bf16=bf16, staged=bf16)
 
 
-def decode_smem_bytes(cfg, tile: int, ntb: int = 1,
-                      bf16: bool = False) -> int:
+def decode_smem_bytes(cfg, tile: int, ntb: int = 1, bf16: bool = False,
+                      staged: bool = False) -> int:
     """Shared memory of a decode block at tile width `tile` holding `ntb`
     tiles (csrc/fused_decode.cu::decode_smem): the evidence stage in the
-    mode, rounded to 16 bytes; each tile's log_obs, log_A and backpointer
+    mode, rounded to 16 bytes; with `staged` (the bfloat16 mode's second
+    design) the control region and the five layers' packed values
+    (decode_weight_floats); each tile's log_obs, log_A and backpointer
     words; the scratch of the fold and the reverse pass (the chunk that
     stages products and selector maps, 32 chunk products and deltas, 68
     words)."""
     K = cfg.K
     stage = -(-evidence_stage_bytes(cfg, tile, bf16) // 16) * 16
+    if staged:
+        stage += CTRL_BYTES + 2 * packed_bf16(
+            *encoder_dims(cfg, prior=True))
     return stage + 4 * (ntb * tile * (K + K * K + 1) + _chunk_floats(K)
                         + 32 * (K * K + K) + 68)
 
@@ -121,6 +130,9 @@ class DecodePlan(NamedTuple):
     ntb: int           # tiles a block at most
     threads: int       # a block
     smem: int          # dynamic shared memory a block, bytes
+    weights: str = "direct"  # the evidence's weights: "direct" (read from
+    #                          L2, the first design) or "resident" (the
+    #                          bfloat16 mode's second design)
 
 
 def supported(cfg, B: int, T: int, bf16: bool = False) -> bool:
@@ -269,38 +281,44 @@ fused_evidence.launches = 0
 fused_evidence.bf16_launches = 0
 
 
-def decode_plan(model, B: int, T: int, device,
-                bf16: Optional[bool] = None) -> DecodePlan:
+def decode_plan(model, B: int, T: int, device, bf16: Optional[bool] = None,
+                staged: bool = True) -> DecodePlan:
     """The decode's launch plan at (B, T) in the mode (the model's on
     `device` where bf16 is None), kept a shape: the evidence plan's tile
     without the split, and the fewest tiles a block for which the blocks
-    the runtime can keep resident cover every tile
-    (csrc/fused_decode.cu::vqhmm_fused_decode_plan).  Raises where no
-    number of tiles a block fits a block's shared memory."""
+    the runtime can keep resident cover every tile; in the bfloat16 mode,
+    where `staged`, the second design (the evidence's weights resident in
+    shared memory) where its blocks cover every tile at the first design's
+    tiles a block, else the first (csrc/fused_decode.cu::
+    vqhmm_fused_decode_plan, decode_choice).  Raises where no number of
+    tiles a block fits a block's shared memory."""
     from .fused_train import infer_bf16_mode
 
     if bf16 is None:
         bf16 = infer_bf16_mode(model.cfg, device)
     cache = kernel_cache(model)
     dims = encoder_dims(model.cfg, prior=True)
-    key = ("decode", bf16, B, T, _build.sm_count(device))
+    key = ("decode", bf16, staged, B, T, _build.sm_count(device))
     with cache.lock:
         plan = cache.plans.get(key)
     if plan is not None:
         return plan
     tile = cache.plan("decode", dims, B, T, device, bf16=bf16).tile
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     lib = _build.library()
     err = lib.vqhmm_fused_decode_plan(*_dims(model.cfg, B, T), tile,
-                                      int(bf16), out)
+                                      int(bf16), int(staged), out)
     if err != 0:
         raise ValueError(
             f"the fused decode cannot keep the {B * -(-T // tile)} tiles of "
             f"{tile} steps at (B={B}, T={T}) resident: every tile a block "
             f"more needs {4 * tile * (model.cfg.K + model.cfg.K ** 2 + 1)} "
             f"bytes of its {SMEM_LIMIT} of shared memory (CUDA error {err})")
-    plan = DecodePlan(tile, out[0], out[1], out[2], out[3])
-    if plan.smem != decode_smem_bytes(model.cfg, tile, plan.ntb, bf16):
+    plan = DecodePlan(tile, out[0], out[1], out[2], out[3],
+                      WEIGHT_KINDS[out[4]])
+    if plan.weights not in ("direct", "resident") or plan.smem != \
+            decode_smem_bytes(model.cfg, tile, plan.ntb, bf16,
+                              plan.weights == "resident"):
         raise RuntimeError("fused_decode kernel and wrapper disagree on "
                            "the shared-memory layout")
     with cache.lock:
@@ -321,16 +339,31 @@ def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
     if not x.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the fused "
                          "decode is a CUDA kernel")
-    cfg = model.cfg
     refuse_grad("fused decode", x, tensors)
     x, lens = _prepare(model, x, u, lengths, "fused decode", bf16)
     B, _, T = x.shape
     if T == 0:
         raise ValueError("Viterbi decode of an empty sequence (T=0)")
-    states = torch.empty((B, T), dtype=torch.int32, device=x.device)
     if B == 0:
-        return states
+        return torch.empty((B, T), dtype=torch.int32, device=x.device)
     plan = decode_plan(model, B, T, x.device, bf16)
+    states = _launch_decode(model, x, u, lens, plan, bf16)
+    with _count_lock:
+        fused_viterbi_states.launches += 1
+        fused_viterbi_states.bf16_launches += bf16
+        fused_viterbi_states.staged_launches += plan.weights == "resident"
+    return states
+
+
+def _launch_decode(model, x, u, lens, plan: DecodePlan,
+                   bf16: bool = False) -> torch.Tensor:
+    """One launch of the decode in the design of `plan` (`decode_plan`:
+    the bfloat16 mode's second design where plan.weights is "resident"),
+    x (B, C, T) contiguous, lens (B,) int32 or None; the states (B, T)
+    int32.  It does not count: fused_viterbi_states does."""
+    cfg = model.cfg
+    B, _, T = x.shape
+    states = torch.empty((B, T), dtype=torch.int32, device=x.device)
     packed, bs = kernel_cache(model).weights(model, x.device, bf16=bf16)
     log_pi = torch.log_softmax(model.prior_module.log_prior.detach(),
                                dim=0).contiguous()
@@ -341,20 +374,18 @@ def fused_viterbi_states(model, x: torch.Tensor, u: torch.Tensor,
     agg = torch.empty(B * G * (K * K + K), dtype=torch.float32,
                       device=x.device)
     words = torch.empty((2, B * G), dtype=torch.int32, device=x.device)
-    lib = _build.library()
-    err = lib.vqhmm_fused_decode(
+    err = _build.library().vqhmm_fused_decode(
         x.data_ptr(), u.data_ptr(), *_u_strides(cfg, u),
         None if lens is None else lens.data_ptr(), packed.data_ptr(),
         *[b.data_ptr() for b in bs], log_pi.data_ptr(), agg.data_ptr(),
         words[0].data_ptr(), words[1].data_ptr(), states.data_ptr(),
         *_dims(cfg, B, T), plan.tile, int(bf16),
+        int(plan.weights == "resident"),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_decode kernel launch")
-    with _count_lock:
-        fused_viterbi_states.launches += 1
-        fused_viterbi_states.bf16_launches += bf16
     return states
 
 
 fused_viterbi_states.launches = 0
 fused_viterbi_states.bf16_launches = 0
+fused_viterbi_states.staged_launches = 0

@@ -40,7 +40,9 @@ raises: no caller trains through a detached tensor unawares.  There is
 no fallback: a call that takes the kernel launches it or raises.
 `fused_encode.launches` counts the kernel's launches in either mode (the
 pack kernel, once a weight version and mode, is not counted),
-`fused_encode.bf16_launches` those in the bfloat16-operand mode.
+`fused_encode.bf16_launches` those in the bfloat16-operand mode,
+`fused_encode.staged_launches` those of them that ran its second design
+(the weights staged in shared memory, `encode_design`).
 """
 
 from __future__ import annotations
@@ -80,9 +82,14 @@ _FIXED_STEPS = 32
 # 0.55-0.65)
 _SPLIT_COST = 0.6
 # the bfloat16-operand mode's blocks (csrc/encoder_mma.cuh): THREADS
-# threads, at most BLOCKS_PER_SM resident an SM
+# threads, at most BLOCKS_PER_SM resident an SM; the encoder's second
+# design at most STAGED_BLOCKS_PER_SM (csrc/fused_encoder.cu)
 MMA_THREADS = 256
 MMA_BLOCKS_PER_SM = 3
+STAGED_BLOCKS_PER_SM = 2
+# the most steps a block of the encoder computes for its plan to take the
+# second design (`encode_design`)
+STAGED_STEPS = 32
 
 _count_lock = threading.Lock()
 
@@ -182,8 +189,12 @@ class Plan(NamedTuple):
     smem: int          # dynamic shared memory a block, bytes
     per_sm: int        # blocks an SM holds at once
     split: bool        # evidence: encoder and prior in blocks of their own
-    weights: str = ""  # the evidence's bfloat16 mode: where its weights
-    #                    are (ops/fused_infer.py::stage_plan)
+    weights: str = ""  # the bfloat16 mode of the evidence and the encoder:
+    #                    where its weights are (ops/fused_infer.py::
+    #                    stage_plan)
+    grid: int = 0      # the encoder's bfloat16 mode: blocks of its second
+    #                    design (a persistent grid where its weights are
+    #                    resident); 0 for the first design, a block an item
 
 
 def evidence_stage(tile: int, dims: Tuple[int, ...], staged: bool = True):
@@ -195,6 +206,50 @@ def evidence_stage(tile: int, dims: Tuple[int, ...], staged: bool = True):
     if not staged:
         return StagePlan("direct", 0, ops)
     return stage_plan(ops, 0, packed_bf16(*dims))
+
+
+def encode_stage(tile: int, dims: Tuple[int, ...]) -> StagePlan:
+    """Where a block of the encoder's second bfloat16-mode design keeps its
+    weights (csrc/fused_encoder.cu::encode_stage): after its operands
+    (`smem_dims_bytes`), resident with the next item's raw x window (C
+    rows of tile + 2 HALO floats), else on a ring, else nowhere ("direct":
+    the first design's block, which reads them from L2)."""
+    return stage_plan(smem_dims_bytes(tile, dims, True),
+                      4 * dims[0] * (tile + 2 * HALO), packed_bf16(*dims))
+
+
+def encode_staged(plan: Plan, dims: Tuple[int, ...],
+                  sms: int = H100_SMS) -> Optional[Plan]:
+    """The encoder's second bfloat16-mode design at the first design's
+    tile (`plan_for`): its weights resident or on a ring
+    (`encode_stage`), on a grid of the blocks that stay resident where they
+    are resident (each stages them once and walks its items), a block an
+    item on a ring; None where not even two ring slots fit."""
+    stage = encode_stage(plan.tile, dims)
+    if stage.weights == "direct":
+        return None
+    per_sm = min(SM_SMEM // (stage.bytes + 1024), STAGED_BLOCKS_PER_SM)
+    grid = plan.blocks if stage.weights == "ring" else min(
+        plan.blocks, per_sm * sms)
+    return plan._replace(smem=stage.bytes, per_sm=per_sm,
+                         weights=stage.weights, grid=grid)
+
+
+def encode_design(plan: Plan, dims: Tuple[int, ...], T: int,
+                  sms: int = H100_SMS) -> Plan:
+    """The encoder's bfloat16-mode plan at (B, T) with the design it runs:
+    the second (`encode_staged`) where it exists and a block computes at
+    most STAGED_STEPS steps (min(tile, T)), else the first (weights
+    "direct", read from L2, grid 0).  As measured on an H100 (PERF.md): a
+    block of few steps does few mma a weight fragment, so each layer
+    waits on its fragments from L2 and staging them pays (at (1, 200) and
+    (460, 20), blocks of 16 and 20 steps); a block of 64 steps does up to
+    six, which hide that wait, and its copy of the weights cost more than
+    it saved (at (64, 200))."""
+    staged = encode_staged(plan, dims, sms)
+    if staged is None or min(plan.tile, T) > STAGED_STEPS:
+        return plan._replace(weights="direct", grid=0)
+    return staged
 
 
 def plan_for(B: int, T: int, dims: Tuple[int, ...], sms: int = H100_SMS,
@@ -243,7 +298,12 @@ def plan_for(B: int, T: int, dims: Tuple[int, ...], sms: int = H100_SMS,
 
 def encode_plan(cfg, B: int, T: int, sms: int = H100_SMS,
                 bf16: bool = False) -> Optional[Plan]:
-    return plan_for(B, T, encoder_dims(cfg), sms, bf16=bf16)
+    """The encoder's plan at (B, T) in the mode: the tile of `plan_for`,
+    and in the bfloat16 mode the design `encode_design` takes."""
+    dims = encoder_dims(cfg)
+    plan = plan_for(B, T, dims, sms, bf16=bf16)
+    return plan if plan is None or not bf16 else encode_design(plan, dims,
+                                                               T, sms)
 
 
 def encode_supported(cfg, B: int, T: int, bf16: bool = False) -> bool:
@@ -352,14 +412,16 @@ class KernelCache:
         if key not in self.plans:
             plan = plan_for(B, T, dims, sms, can_split, bf16,
                             staged=bf16 and what == "evidence")
+            if plan is not None and bf16 and what == "encode":
+                plan = encode_design(plan, dims, T, sms)
             if plan is None:
                 raise ValueError(f"no tile of {TILES} fits {what} at widths "
                                  f"{dims} in {SMEM_LIMIT} bytes (bf16="
                                  f"{bf16})")
             lib = _build.library()
             if what == "encode":
-                got = lib.vqhmm_fused_encode_smem_bytes(*dims[:4], plan.tile,
-                                                        int(bf16))
+                got = lib.vqhmm_fused_encode_smem_bytes(
+                    *dims[:4], plan.tile, int(bf16), int(plan.grid > 0))
             elif what == "evidence":
                 got = lib.vqhmm_fused_evidence_smem_bytes(
                     *dims, plan.tile, int(bf16),
@@ -475,16 +537,19 @@ def fused_encode(model, x: torch.Tensor, valid_to=None,
     if B == 0 or T == 0:
         return logits
     plan = cache.plan("encode", encoder_dims(cfg), B, T, x.device, bf16=bf16)
-    _launch(model, x, vt, plan.tile, logits, bf16)
+    _launch(model, x, vt, plan.tile, logits, bf16, plan.grid)
     with _count_lock:
         fused_encode.launches += 1
         fused_encode.bf16_launches += bf16
+        fused_encode.staged_launches += plan.grid > 0
     return logits
 
 
-def _launch(model, x, vt, tile: int, logits, bf16: bool = False) -> None:
+def _launch(model, x, vt, tile: int, logits, bf16: bool = False,
+            grid: int = 0) -> None:
     """One launch of the kernel at tile width `tile`, in the
-    bfloat16-operand mode where bf16, into `logits`, vt the (B,) int32
+    bfloat16-operand mode where bf16 (its second design on `grid` blocks
+    where grid > 0, its first where 0), into `logits`, vt the (B,) int32
     bound.  It does not count: fused_encode does."""
     cfg = model.cfg
     B, C, T = x.shape
@@ -493,10 +558,11 @@ def _launch(model, x, vt, tile: int, logits, bf16: bool = False) -> None:
     err = _build.library().vqhmm_fused_encode(
         x.data_ptr(), vt.data_ptr(), packed.data_ptr(),
         *[b.data_ptr() for b in bs[:3]], logits.data_ptr(), B, C, T,
-        cfg.hidden_dim, cfg.hidden_dim2, cfg.K, tile, int(bf16),
+        cfg.hidden_dim, cfg.hidden_dim2, cfg.K, tile, int(bf16), grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_encoder kernel launch")
 
 
 fused_encode.launches = 0
 fused_encode.bf16_launches = 0
+fused_encode.staged_launches = 0
