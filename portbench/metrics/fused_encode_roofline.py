@@ -1,0 +1,24 @@
+"""fused_encode_roofline: kernel 8's share of its roofline (%) over the
+profiled slice: the least time the posterior's encoder needs over a
+book's padded steps (the entry takes no lengths; harness/counts.py
+encode_work, at the configuration's peak), a request, over the device
+time of the kernels the route lists for it."""
+
+from portbench.harness import counts
+from portbench.reference.vaehmm import dims_of
+
+COUNTER = "ops.fused_encoder:fused_encode.launches"
+
+
+def read(ctx):
+    sl = ctx.slice
+    if sl is None:
+        return None
+    device_s = sl.kernel_s(ctx.kernels(COUNTER))
+    if device_s <= 0.0:
+        return None
+    c = sl.calls
+    least = counts.bound_s(*counts.encode_work(
+        dims_of(ctx.config["model"]), c["assets"], c["padded_steps"]),
+        ctx.peak())[0]
+    return 100.0 * c["requests"] * least / device_s
