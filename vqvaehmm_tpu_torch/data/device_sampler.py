@@ -20,6 +20,11 @@ Under a mesh (parallel/mesh.py) every rank draws the same triples from
 the same seed, and takes its columns [r B / n, (r + 1) B / n) of each
 batch: the kernel gathers only those windows, and the sample stream is
 the single-device stream.
+
+Spans (utils/profiling.py): `sampler.draw` is a draw_epoch, its children
+`sampler.sample`, `sampler.check` and `sampler.upload` (whose three
+blocking copies are each a `host.sync`, as the pools' two at first use
+are); `train.epoch` is an epoch of make_epoch_step.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from ..ops.gather import (build_pools, gather_epoch, gather_epoch_chunks,
                           gather_windows, validate_triples)
+from ..utils.profiling import host_sync, span
 from .dataset import RandomChunkDataset
 
 
@@ -48,11 +54,14 @@ class DeviceEpochSampler:
 
     def pools(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The (N, C, Tmax) and (N, U, Tmax) pools on the device, built and
-        uploaded on first use."""
+        uploaded on first use (two blocking copies)."""
         if self._pools is None:
             px, pu = build_pools(self.dataset.x_seqs, self.dataset.u_seqs)
-            self._pools = (torch.from_numpy(px).to(self.device),
-                           torch.from_numpy(pu).to(self.device))
+            with host_sync(self.device):
+                gx = torch.from_numpy(px).to(self.device)
+            with host_sync(self.device):
+                gu = torch.from_numpy(pu).to(self.device)
+            self._pools = (gx, gu)
         return self._pools
 
     def sample_indices(self, batch_size: int,
@@ -101,18 +110,28 @@ class DeviceEpochSampler:
                lengths: np.ndarray
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Check the (batches, B) triples on the host and copy them to the
-        device: the only data an epoch ships."""
-        validate_triples(seq_idx, starts, lengths, self.seq_lens,
-                         self.max_len)
-        return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
-                     .to(self.device) for a in (seq_idx, starts, lengths))
+        device: the only data an epoch ships.  Each of the three copies is
+        from pageable host memory, so on a CUDA device each blocks the host
+        until the stream has run it (and all queued before it)."""
+        with span("sampler.check"):
+            validate_triples(seq_idx, starts, lengths, self.seq_lens,
+                             self.max_len)
+        with span("sampler.upload"):
+            out = []
+            for a in (seq_idx, starts, lengths):
+                host = torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                with host_sync(self.device):
+                    out.append(host.to(self.device))
+            return tuple(out)
 
     def draw_epoch(self, batch_size: int, num_batches: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The next training epoch's triples on the device (the vectorized
         draws, uploaded): the arguments of make_epoch_step's epoch."""
-        return self.upload(*self.sample_indices_fast(batch_size,
-                                                     num_batches))
+        with span("sampler.draw"):
+            with span("sampler.sample"):
+                trip = self.sample_indices_fast(batch_size, num_batches)
+            return self.upload(*trip)
 
     def gather(self, si: torch.Tensor, st: torch.Tensor, ln: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -159,20 +178,24 @@ class DeviceEpochSampler:
                 f"U={U_ds})")
 
         def epoch(seq_idx, starts, lengths, beta: float) -> torch.Tensor:
-            norms = [None] * seq_idx.shape[0]
-            if mesh is not None:
-                norms = global_norms(lengths, self.max_len)
-                cols = mesh.rows(seq_idx.shape[1])
-                seq_idx, starts, lengths = (a[:, cols].contiguous() for a in
-                                            (seq_idx, starts, lengths))
-            total = torch.zeros((), dtype=torch.float32, device=self.device)
-            px, pu = self.pools()
-            for s0, xs, us in gather_epoch_chunks(px, pu, seq_idx, starts,
-                                                  lengths, self.max_len):
-                for i in range(xs.shape[0]):
-                    total = total + train_step(model, optimizer, xs[i], us[i],
-                                               lengths[s0 + i], beta, fused,
-                                               mesh, norms[s0 + i])
-            return total / seq_idx.shape[0]
+            with span("train.epoch"):
+                norms = [None] * seq_idx.shape[0]
+                if mesh is not None:
+                    norms = global_norms(lengths, self.max_len)
+                    cols = mesh.rows(seq_idx.shape[1])
+                    seq_idx, starts, lengths = (a[:, cols].contiguous()
+                                                for a in (seq_idx, starts,
+                                                          lengths))
+                total = torch.zeros((), dtype=torch.float32,
+                                    device=self.device)
+                px, pu = self.pools()
+                for s0, xs, us in gather_epoch_chunks(px, pu, seq_idx,
+                                                      starts, lengths,
+                                                      self.max_len):
+                    for i in range(xs.shape[0]):
+                        total = total + train_step(
+                            model, optimizer, xs[i], us[i], lengths[s0 + i],
+                            beta, fused, mesh, norms[s0 + i])
+                return total / seq_idx.shape[0]
 
         return epoch

@@ -72,6 +72,7 @@ from ..ops.fused_decode import fused_evidence
 from ..ops.fused_encoder import fused_encode
 from ..ops.fused_infer import fused_forward
 from ..ops.fused_viterbi import viterbi_fused
+from ..utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -219,9 +220,16 @@ class VAEHMM(nn.Module):
         fused=False is the plain, differentiable stack on any device;
         fused=True on a CPU tensor or a bfloat16 model, or under
         autograd, raises.  bf16_operands: see the module's docstring
-        (plain stack only)."""
-        if fused is not False:
-            return fused_encode(self, x, valid_to=valid_to, use_kernel=fused)
+        (plain stack only).  A `model.encode` span (utils/profiling.py)."""
+        with span("model.encode"):
+            if fused is not False:
+                return fused_encode(self, x, valid_to=valid_to,
+                                    use_kernel=fused)
+            return self._encode_stack(x, valid_to, bf16_operands)
+
+    def _encode_stack(self, x: torch.Tensor, valid_to=None,
+                      bf16_operands: bool = False) -> torch.Tensor:
+        """The plain, differentiable stack of encode(fused=False)."""
         enc = self.encoder
         conv, _, _, cast = self._products(bf16_operands)
         x = cast(x)
@@ -353,8 +361,10 @@ class VAEHMM(nn.Module):
     def posterior(self, x: torch.Tensor,
                   fused: Optional[bool] = None) -> torch.Tensor:
         """Mean-field regime posterior q (B, K, T) = softmax(encode(x)),
-        the backtester's posterior extraction.  fused: see encode."""
-        return torch.softmax(self.encode(x, fused=fused), dim=1)
+        the backtester's posterior extraction.  fused: see encode.  A
+        `score.posterior` span."""
+        with span("score.posterior"):
+            return torch.softmax(self.encode(x, fused=fused), dim=1)
 
     def infer_forward(self, x: torch.Tensor, valid_to=None,
                       use_kernel: Optional[bool] = None, mesh=None):
@@ -398,8 +408,11 @@ class VAEHMM(nn.Module):
         """(log_pi, log_A, log_obs) for the exact-inference paths: one
         kernel launch for CUDA tensors (ops/fused_decode.py; inference
         only, as encode's kernel is), prior() and _hmm_evidence() for CPU
-        tensors, with use_kernel=False, or for a call autograd records."""
-        return fused_evidence(self, x, u, lengths, use_kernel=use_kernel)
+        tensors, with use_kernel=False, or for a call autograd records.
+        A `model.evidence` span; the plain encoder's own is a
+        `model.encode` inside it."""
+        with span("model.evidence"):
+            return fused_evidence(self, x, u, lengths, use_kernel=use_kernel)
 
     def smoothed_posterior(self, x: torch.Tensor, u: torch.Tensor,
                            lengths: Optional[torch.Tensor] = None,
@@ -429,11 +442,13 @@ class VAEHMM(nn.Module):
         CUDA tensors the evidence is one kernel launch and the decode
         another, for any T (ops/fused_decode.py, ops/fused_viterbi.py);
         the one-kernel decode from raw (x, u) is
-        ops.fused_decode.fused_viterbi_states."""
-        log_pi, log_A, log_obs = self._evidence_inputs(x, u, lengths,
-                                                       use_kernel)
-        return viterbi_fused(log_pi, log_A, log_obs, lengths,
-                             use_kernel=use_kernel).states
+        ops.fused_decode.fused_viterbi_states.  A `score.viterbi_decode`
+        span, its children `model.evidence` and `hmm.viterbi`."""
+        with span("score.viterbi_decode"):
+            log_pi, log_A, log_obs = self._evidence_inputs(x, u, lengths,
+                                                           use_kernel)
+            return viterbi_fused(log_pi, log_A, log_obs, lengths,
+                                 use_kernel=use_kernel).states
 
 
 def make_model(input_dim=5, hidden_dim=64, K=3, hidden_dim2=32, u_dim=4,

@@ -42,7 +42,11 @@ no fallback: a call that takes the kernel launches it or raises.
 pack kernel, once a weight version and mode, is not counted),
 `fused_encode.bf16_launches` those in the bfloat16-operand mode,
 `fused_encode.staged_launches` those of them that ran its second design
-(the weights staged in shared memory, `encode_design`).
+(the weights staged in shared memory, `encode_design`).  KernelCache's
+misses are counted and spanned (utils/profiling.py): a plan made is a
+`cache.plan` (`counts.plans_made`), a pack a `cache.pack`
+(`counts.packs_made`), and the synchronise after a kept pack a
+`host.sync`.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import counted, host_sync
 from . import _build
 from .fused_infer import (H100_SMS, SM_SMEM, SMEM_LIMIT, StagePlan,
                           _op_stride, autograd_aside, kernel_route,
@@ -409,7 +414,9 @@ class KernelCache:
         decode_plan)."""
         sms = _build.sm_count(device)
         key = (what, bf16, B, T, sms)
-        if key not in self.plans:
+        if key in self.plans:
+            return self.plans[key]
+        with counted("cache.plan", "plans_made"):
             plan = plan_for(B, T, dims, sms, can_split, bf16,
                             staged=bf16 and what == "evidence")
             if plan is not None and bf16 and what == "encode":
@@ -458,11 +465,15 @@ class KernelCache:
                     raise ValueError(
                         "model weights must be contiguous float32 on "
                         f"{device} (got {w.dtype} on {w.device})")
-            packed = _pack(_build.library(), model, what, bf16, ws, device)
-            if key is None:
-                return packed, bs
-            # a caller on another stream must find the pack done
-            torch.cuda.current_stream(device).synchronize()
+            with counted("cache.pack", "packs_made"):
+                packed = _pack(_build.library(), model, what, bf16, ws,
+                               device)
+                if key is None:
+                    return packed, bs
+                # a caller on another stream must find the pack done: the
+                # host waits for the device here
+                with host_sync(device):
+                    torch.cuda.current_stream(device).synchronize()
             self.packs[(what, bf16)] = (key, packed, bs)
             return packed, bs
 
@@ -491,8 +502,7 @@ def fused_encode_reference(model, x: torch.Tensor, valid_to=None,
     """Plain version: the model's own convolution stack, (B, K, T);
     bf16_operands: the bfloat16-operand mode's
     (VAEHMM.encode(bf16_operands=True))."""
-    return model.encode(x, valid_to=valid_to, fused=False,
-                        bf16_operands=bf16_operands)
+    return model._encode_stack(x, valid_to, bf16_operands)
 
 
 def check_x(model, x: torch.Tensor, what: str) -> None:

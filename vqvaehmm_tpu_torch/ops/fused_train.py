@@ -54,7 +54,8 @@ and the bound it meets.
 
 `fused_loss_and_grads.launches` counts the calls of the C entry point in
 either mode, `fused_loss_and_grads.bf16_launches` those in the bfloat16
-mode.
+mode.  A launch plan made at a new shape is a `cache.plan` span, counted
+in utils/profiling.py's `counts.plans_made`.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import counted, host_sync
 from . import _build
 from .fused_infer import H100_SMS, ROW_PAD, SMEM_LIMIT, WBUF, _packed
 from .nn import bf16_round
@@ -417,8 +419,11 @@ Norm = Optional[Tuple[int, int, int]]
 def global_norms(lengths, T: int) -> List[Tuple[int, int, int]]:
     """(valid_to, mask_total, B_total) of each global batch of a stacked
     epoch's lengths (batches, B_total), an array or a tensor (one host
-    read): the norm argument of each of its ranks."""
-    lens = torch.as_tensor(lengths).to("cpu", torch.int64)
+    read, a wait for a device's): the norm argument of each of its
+    ranks."""
+    lens = torch.as_tensor(lengths)
+    with host_sync(lens.device):
+        lens = lens.to("cpu", torch.int64)
     vt = lens.max(dim=1).values.tolist()
     msum = lens.clamp(0, T).sum(dim=1).tolist()
     return [(v, m, lens.shape[1]) for v, m in zip(vt, msum)]
@@ -740,7 +745,9 @@ def _checked_plan(lib, cfg, B: int, T: int, sms: int) -> TrainPlan:
     memory of the two tiled kernels)."""
     key = (_widths(cfg), cfg.compute_dtype, B, T, sms)
     plan = _plans.get(key)
-    if plan is None:
+    if plan is not None:
+        return plan
+    with counted("cache.plan", "plans_made"):
         plan = train_plan(cfg, B, T, sms)
         if plan is None:
             raise ValueError(f"fused train step: no time tile of {cfg} fits "

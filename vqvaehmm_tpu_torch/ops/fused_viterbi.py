@@ -17,6 +17,7 @@ Dispatch is that of ops/fused_infer.py: `use_kernel=None` takes the
 kernel for a CUDA tensor and the plain version for a CPU tensor,
 `use_kernel=True` on a CPU tensor raises, `use_kernel=False` computes the
 plain version.  `viterbi_fused.launches` counts the kernel's launches.
+A call is an `hmm.viterbi` span (utils/profiling.py) on either path.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .fused_infer import H100_SMS, SMEM_LIMIT
 from .hmm import ViterbiResult, _as_time_varying, _mask_inputs
@@ -208,63 +210,64 @@ def viterbi_fused(log_pi: torch.Tensor, log_A: torch.Tensor,
     """ViterbiResult(states (B, T) int32, score (B,) float32), with the
     masking of ops/hmm.py for ragged `lengths` and log_A as (K, K),
     (T, K, K) or (B, T, K, K)."""
-    if use_kernel is None:
-        use_kernel = log_obs.is_cuda
-    if not use_kernel:
-        return viterbi_reference(log_pi, log_A, log_obs, lengths)
-    if not log_obs.is_cuda:
-        raise ValueError("use_kernel=True needs CUDA tensors; the Viterbi "
-                         "decode is a CUDA kernel")
-    B, T, K = log_obs.shape
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"the Viterbi kernel takes 1 <= K <= {MAX_K}, "
-                         f"got K={K}")
-    if T == 0:
-        raise ValueError("Viterbi decode of an empty sequence (T=0)")
-    dev = log_obs.device
-    for name, t in (("log_pi", log_pi), ("log_A", log_A),
-                    ("log_obs", log_obs)):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 on {dev}, got "
-                             f"{t.dtype} on {t.device}")
-    log_A = _as_time_varying(log_A, B, T)
-    if log_A.stride(3) != 1 or log_A.stride(2) != K \
-            or log_A.stride(1) not in (0, K * K):
-        log_A = log_A.contiguous()
-    stationary = log_A.stride(1) == 0
-    log_pi = log_pi.contiguous()
-    log_obs = log_obs.contiguous()
-    lens = None
-    if lengths is not None:
-        lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
-        if tuple(lens.shape) != (B,):
-            raise ValueError(f"lengths must be ({B},), got "
-                             f"{tuple(lens.shape)}")
-    states = torch.empty((B, T), dtype=torch.int32, device=dev)
-    score = torch.empty((B,), dtype=torch.float32, device=dev)
-    if B == 0:
+    with span("hmm.viterbi"):
+        if use_kernel is None:
+            use_kernel = log_obs.is_cuda
+        if not use_kernel:
+            return viterbi_reference(log_pi, log_A, log_obs, lengths)
+        if not log_obs.is_cuda:
+            raise ValueError("use_kernel=True needs CUDA tensors; the Viterbi "
+                             "decode is a CUDA kernel")
+        B, T, K = log_obs.shape
+        if not 1 <= K <= MAX_K:
+            raise ValueError(f"the Viterbi kernel takes 1 <= K <= {MAX_K}, "
+                             f"got K={K}")
+        if T == 0:
+            raise ValueError("Viterbi decode of an empty sequence (T=0)")
+        dev = log_obs.device
+        for name, t in (("log_pi", log_pi), ("log_A", log_A),
+                        ("log_obs", log_obs)):
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 on {dev}, got "
+                                 f"{t.dtype} on {t.device}")
+        log_A = _as_time_varying(log_A, B, T)
+        if log_A.stride(3) != 1 or log_A.stride(2) != K \
+                or log_A.stride(1) not in (0, K * K):
+            log_A = log_A.contiguous()
+        stationary = log_A.stride(1) == 0
+        log_pi = log_pi.contiguous()
+        log_obs = log_obs.contiguous()
+        lens = None
+        if lengths is not None:
+            lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
+            if tuple(lens.shape) != (B,):
+                raise ValueError(f"lengths must be ({B},), got "
+                                 f"{tuple(lens.shape)}")
+        states = torch.empty((B, T), dtype=torch.int32, device=dev)
+        score = torch.empty((B,), dtype=torch.float32, device=dev)
+        if B == 0:
+            return ViterbiResult(states, score)
+        plan = viterbi_plan(B, T, K, stationary, _build.sm_count(dev))
+        if plan.smem > SMEM_LIMIT:
+            raise ValueError(
+                f"the Viterbi kernel's plan at T={T}, K={K} needs {plan.smem} "
+                f"bytes of shared memory a block, of at most {SMEM_LIMIT}")
+        lib = _build.library()
+        if lib.vqhmm_viterbi_smem_bytes(T, K, int(stationary), plan.lanes,
+                                        plan.seqs) != plan.smem:
+            raise RuntimeError("viterbi kernel and wrapper disagree on the "
+                               "shared-memory layout")
+        bp = torch.empty((B, T), dtype=torch.int32, device=dev)
+        err = lib.vqhmm_viterbi(
+            log_pi.data_ptr(), log_A.data_ptr(), log_A.stride(0),
+            log_A.stride(1), log_obs.data_ptr(),
+            None if lens is None else lens.data_ptr(), bp.data_ptr(),
+            states.data_ptr(), score.data_ptr(), B, T, K, plan.lanes,
+            plan.seqs, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "viterbi kernel launch")
+        with _count_lock:
+            viterbi_fused.launches += 1
         return ViterbiResult(states, score)
-    plan = viterbi_plan(B, T, K, stationary, _build.sm_count(dev))
-    if plan.smem > SMEM_LIMIT:
-        raise ValueError(
-            f"the Viterbi kernel's plan at T={T}, K={K} needs {plan.smem} "
-            f"bytes of shared memory a block, of at most {SMEM_LIMIT}")
-    lib = _build.library()
-    if lib.vqhmm_viterbi_smem_bytes(T, K, int(stationary), plan.lanes,
-                                    plan.seqs) != plan.smem:
-        raise RuntimeError("viterbi kernel and wrapper disagree on the "
-                           "shared-memory layout")
-    bp = torch.empty((B, T), dtype=torch.int32, device=dev)
-    err = lib.vqhmm_viterbi(
-        log_pi.data_ptr(), log_A.data_ptr(), log_A.stride(0),
-        log_A.stride(1), log_obs.data_ptr(),
-        None if lens is None else lens.data_ptr(), bp.data_ptr(),
-        states.data_ptr(), score.data_ptr(), B, T, K, plan.lanes, plan.seqs,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "viterbi kernel launch")
-    with _count_lock:
-        viterbi_fused.launches += 1
-    return ViterbiResult(states, score)
 
 
 viterbi_fused.launches = 0

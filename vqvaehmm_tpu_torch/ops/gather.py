@@ -16,7 +16,8 @@ batches, each under EPOCH_CHUNK_BYTES, one launch a chunk.
 Dispatch: `use_kernel=None` launches the kernel for CUDA tensors and takes
 the plain version for CPU tensors; `use_kernel=True` on a CPU tensor
 raises.  `gather_epoch.launches` counts every launch of the kernel,
-`gather_windows`' too.
+`gather_windows`' too.  Each chunk's call in `gather_epoch_chunks` is a
+`gather.launch` span (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
 _count_lock = threading.Lock()
@@ -171,8 +173,9 @@ def gather_epoch_chunks(pool_x: torch.Tensor, pool_u: torch.Tensor,
     batch_bytes = 4 * B * (pool_x.shape[1] + pool_u.shape[1]) * T
     n = max(1, EPOCH_CHUNK_BYTES // max(1, batch_bytes))   # whole batches
     for s0 in range(0, S, n):
-        x, u = gather_epoch(pool_x, pool_u, si[s0:s0 + n], st[s0:s0 + n],
-                            ln[s0:s0 + n], T)
+        with span("gather.launch"):
+            x, u = gather_epoch(pool_x, pool_u, si[s0:s0 + n],
+                                st[s0:s0 + n], ln[s0:s0 + n], T)
         yield s0, x, u
 
 

@@ -66,6 +66,29 @@ def _require_finite_input(arr: np.ndarray, name: str) -> None:
         raise ValueError(f"{name} contains non-finite values")
 
 
+# utils/profiling.py's counters, each a /metrics gauge vqhmm_<name>
+COUNT_GAUGES = (
+    ("host_syncs", "Blocking host waits on the device in this process."),
+    ("plans_made", "Kernel launch plans made (plan cache misses) in this "
+                   "process."),
+    ("packs_made", "Kernel weight packs made (pack cache misses) in this "
+                   "process."),
+    ("dropped_spans", "Host spans dropped from the full span buffer in "
+                      "this process."),
+)
+
+
+def bind_count_gauges() -> None:
+    """Register COUNT_GAUGES beside the launch gauges."""
+    from ..utils.profiling import counts
+    from .metrics import METRICS
+
+    for name, help_ in COUNT_GAUGES:
+        METRICS.register_gauge(
+            f"vqhmm_{name}", lambda name=name: float(getattr(counts, name)),
+            help_)
+
+
 def require_finite_output(*arrays) -> None:
     """Finite but absurd inputs (e.g. 1e38) can overflow the forward to
     inf/NaN; that is the client's input, so it is a 400, not a 500.
@@ -145,6 +168,7 @@ class InferenceModel:
                 f"vqhmm_kernel_launches_{name}",
                 lambda fn=fn: float(fn.launches),
                 f"Launches of the {name} CUDA kernel in this process.")
+        bind_count_gauges()
         METRICS.register_gauge(
             "vqhmm_stream_sessions", self._streams.n_sessions,
             "Live streaming sessions in this worker process.")

@@ -37,7 +37,8 @@ import torch
 from ..core.device import resolve_device
 from ..ops import hmm as hmm_ops
 from .app import (DEFAULT_BUCKETS, _require_finite_input,
-                  load_portfolio_head, require_finite_output)
+                  bind_count_gauges, load_portfolio_head,
+                  require_finite_output)
 
 
 class VQInferenceModel:
@@ -117,6 +118,7 @@ class VQInferenceModel:
                 f"vqhmm_kernel_launches_{name}",
                 lambda fn=fn: float(fn.launches),
                 f"Launches of the {name} CUDA kernel in this process.")
+        bind_count_gauges()
         METRICS.register_gauge(
             "vqhmm_checkpoint_loaded",
             lambda: 1.0 if self.checkpoint_loaded else 0.0,

@@ -32,6 +32,12 @@ stay identical across ranks.  The epoch steps take the global epoch on
 every rank (each rank draws the same stream from the same seed) and
 compute each batch's norm from its global lengths, with no collective;
 `train_step` on a bare shard agrees on it through the mesh.
+
+Spans (utils/profiling.py): `train.epoch` (an epoch of make_epoch_step),
+`train.step` (train_step), its children `train.loss_grads` (the loss and
+gradients, on any path), `train.clip` and `train.adam` (ClippedAdam.update:
+the clip, then the schedule and Adam's step); `host.sync` where
+shard_norm reads its all-reduced norm back.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ..ops.fused_train import (PARAM_NAMES, Norm, fused_loss_and_flat_grads,
                                fused_loss_and_grads, global_norms,
                                loss_and_grads, split_grads,
                                train_step_supported)
+from ..utils.profiling import host_sync, span
 
 
 def resolve_input_pipeline(value: str, device) -> str:
@@ -195,13 +202,15 @@ class ClippedAdam(torch.optim.Adam):
         params = [p for g in self.param_groups for p in g["params"]
                   if p.grad is not None]
         if self.gradient_clip is not None:
-            clip_by_global_norm_([p.grad for p in params],
-                                 self.gradient_clip)
-        if self.schedule is not None:
-            lr = float(self.schedule(self.updates))
-            for group in self.param_groups:
-                group["lr"] = lr
-        self.step()
+            with span("train.clip"):
+                clip_by_global_norm_([p.grad for p in params],
+                                     self.gradient_clip)
+        with span("train.adam"):
+            if self.schedule is not None:
+                lr = float(self.schedule(self.updates))
+                for group in self.param_groups:
+                    group["lr"] = lr
+            self.step()
 
 
 def make_optimizer(model: torch.nn.Module, lr: float,
@@ -232,14 +241,18 @@ class TrainState:
 def shard_norm(mesh, lengths: torch.Tensor, T: int) -> Tuple[int, int, int]:
     """The global batch's (valid_to, mask_total, B_total) from this rank's
     shard of its lengths: all-reduces of the max and the mask total (one
-    host read)."""
+    host read each, which waits for the device)."""
     import torch.distributed as dist
 
     vt = lengths.max().reshape(1).to(torch.int64)
     msum = lengths.to(torch.int64).clamp(0, T).sum().reshape(1)
     mesh.all_reduce_(vt, dist.ReduceOp.MAX)
     mesh.all_reduce_(msum)
-    return int(vt.item()), int(msum.item()), lengths.shape[0] * mesh.size
+    with host_sync(lengths.device):
+        valid_to = int(vt.item())
+    with host_sync(lengths.device):
+        mask_total = int(msum.item())
+    return valid_to, mask_total, lengths.shape[0] * mesh.size
 
 
 def _global_loss_and_grads(model, x, u, lengths, beta, fused: bool, mesh,
@@ -268,18 +281,21 @@ def train_step(model, optimizer: ClippedAdam, x: torch.Tensor,
     and the loss returned are the global batch's on every rank; norm, the
     global batch's normalisation, is agreed through the mesh where not
     given (module docstring)."""
-    if mesh is None:
-        loss, grads = (fused_loss_and_grads if fused else loss_and_grads)(
-            model, x, u, lengths, beta)
-    else:
-        if norm is None:
+    with span("train.step"):
+        if mesh is not None and norm is None:
             norm = shard_norm(mesh, lengths, x.shape[-1])
-        loss, grads = _global_loss_and_grads(model, x, u, lengths, beta,
-                                             fused, mesh, norm)
-    for name, p in model.named_parameters():
-        p.grad = grads[name]
-    optimizer.update()
-    return loss
+        with span("train.loss_grads"):
+            if mesh is None:
+                loss, grads = (fused_loss_and_grads if fused
+                               else loss_and_grads)(model, x, u, lengths,
+                                                    beta)
+            else:
+                loss, grads = _global_loss_and_grads(
+                    model, x, u, lengths, beta, fused, mesh, norm)
+        for name, p in model.named_parameters():
+            p.grad = grads[name]
+        optimizer.update()
+        return loss
 
 
 def make_epoch_step(model, optimizer: ClippedAdam, fused: bool = False,
@@ -291,17 +307,20 @@ def make_epoch_step(model, optimizer: ClippedAdam, fused: bool = False,
     dev = model.device
 
     def epoch(xs, us, lens, beta: float) -> torch.Tensor:
-        norms = [None] * len(lens)
-        if mesh is not None:
-            norms = global_norms(lens, xs.shape[-1])
-            xs, us, lens = (a[:, mesh.rows(a.shape[1])]
+        with span("train.epoch"):
+            norms = [None] * len(lens)
+            if mesh is not None:
+                norms = global_norms(lens, xs.shape[-1])
+                xs, us, lens = (a[:, mesh.rows(a.shape[1])]
+                                for a in (xs, us, lens))
+            xs, us, lens = (torch.as_tensor(a).to(dev)
                             for a in (xs, us, lens))
-        xs, us, lens = (torch.as_tensor(a).to(dev) for a in (xs, us, lens))
-        total = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(xs.shape[0]):
-            total = total + train_step(model, optimizer, xs[i], us[i],
-                                       lens[i], beta, fused, mesh, norms[i])
-        return total / xs.shape[0]
+            total = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(xs.shape[0]):
+                total = total + train_step(model, optimizer, xs[i], us[i],
+                                           lens[i], beta, fused, mesh,
+                                           norms[i])
+            return total / xs.shape[0]
 
     return epoch
 
