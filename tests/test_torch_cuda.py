@@ -675,6 +675,100 @@ def test_fused_evidence_rows_independent(cuda):
                 assert torch.equal(log_obs[i:i + 1], o)
 
 
+def _inert_steps(lens, B, T, tile):
+    """(B, T) bool: the steps of the tiles that start at or past their
+    row's length (none without lengths)."""
+    if lens is None:
+        return torch.zeros((B, T), dtype=torch.bool)
+    start = torch.arange(T, device=lens.device) // tile * tile
+    return start[None, :] >= lens.long()[:, None]
+
+
+@pytest.mark.parametrize("mode", ["float32", "bf16", "bf16_staged"])
+@pytest.mark.parametrize("B,T", [(3, 37), (4, 200), (2, 2327)])
+def test_fused_evidence_leaves_tiles_past_the_length_inert(cuda, mode, B,
+                                                           T):
+    """Kernel 11 with `inert`, in each of its three kernels (float32, the
+    bfloat16-operand mode's first design and its staged one), split and
+    not, at every tile width: each step of a tile that starts before its
+    row's length is bit-equal to the launch without the flag, each step of
+    a tile that starts at or past it holds exactly 0 and the identity;
+    lengths None, all T, ragged with a row of length 1."""
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+    from vqvaehmm_tpu_torch.ops import fused_encoder as fe
+
+    bf16 = mode != "float32"
+    model = _model(cuda, seed=23, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128, **(DEFAULT if bf16 else {}))
+    K = model.cfg.K
+    x, u, lens = _train_inputs(cuda, B, T, B * 17 + T, btu=T == 200)
+    lens[-1] = 1
+    full = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    eye = torch.full((K, K), float("-inf"), device=cuda)
+    eye.fill_diagonal_(0.0)
+    counts = fd.fused_evidence.launches, fd.fused_evidence.inert_launches
+    inert_seen = 0
+    with torch.inference_mode():
+        for tile in fe.TILES:
+            for split in (False, True):
+                for L in (None, full, lens):
+                    outs = []
+                    for inert in (False, True):
+                        ev = (torch.empty((B, T, K), device=cuda),
+                              torch.empty((B, T, K, K), device=cuda))
+                        fd._launch_evidence(model, x, u, L, tile, split, ev,
+                                            bf16=bf16,
+                                            staged=mode == "bf16_staged",
+                                            inert=inert)
+                        outs.append(ev)
+                    (obs, A), (iobs, iA) = outs
+                    dead = _inert_steps(L, B, T, tile).to(cuda)
+                    inert_seen += int(dead.sum())
+                    assert torch.equal(iobs[~dead], obs[~dead])
+                    assert torch.equal(iA[~dead], A[~dead])
+                    assert bool((iobs[dead] == 0).all())
+                    assert torch.equal(iA[dead], eye.expand_as(iA[dead]))
+    torch.cuda.synchronize()
+    assert inert_seen > 0
+    assert (fd.fused_evidence.launches,
+            fd.fused_evidence.inert_launches) == counts
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_inert_tiles_only_for_the_viterbi_decode(cuda, precision):
+    """VAEHMM.viterbi_decode asks kernel 11 for the inert tiles, once a
+    call with lengths, and its states are bit-equal to kernel B on the
+    whole evidence; smoothed_posterior, filtered_posterior and a /stream
+    step (models/online.py) never ask, and keep the whole evidence."""
+    from vqvaehmm_tpu_torch.models.online import OnlineFilter
+    from vqvaehmm_tpu_torch.ops import fused_decode as fd
+
+    model = _model(cuda, seed=24, hidden_dim=64, hidden_dim2=32,
+                   trans_hidden=128, matmul_precision=precision)
+    B, T = 6, 1040
+    x, u, lens = _train_inputs(cuda, B, T, 31)
+    lens[1:] = torch.tensor([1, 33, 64, 65, 500], dtype=torch.int32)
+    fe = fd.fused_evidence
+    with torch.inference_mode():
+        a, i = fe.launches, fe.inert_launches
+        states = model.viterbi_decode(x, u, lens)
+        assert (fe.launches, fe.inert_launches) == (a + 1, i + 1)
+        whole = fd.fused_evidence(model, x, u, lens)
+        assert torch.equal(states, viterbi_fused(*whole, lens).states)
+        i = fe.inert_launches
+        assert torch.equal(model.viterbi_decode(x, u),
+                           viterbi_fused(*fd.fused_evidence(model, x, u))
+                           .states)
+        model.smoothed_posterior(x, u, lens)
+        model.filtered_posterior(x, u, lens)
+        f = OnlineFilter(model)
+        rng = np.random.default_rng(5)
+        for _ in range(6):
+            f.update(rng.normal(size=5), rng.normal(size=4))
+        f.finish()
+    assert fe.inert_launches == i
+
+
 @pytest.mark.parametrize("precision", ["highest", "default"])
 def test_packed_weights_follow_in_place_updates(cuda, precision):
     """The packed weights are kept a model, a kernel family and a mode,

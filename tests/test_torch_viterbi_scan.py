@@ -3,7 +3,9 @@
 plain version of csrc/maxplus_scan.cuh that kernels B and 10 match bit for
 bit) against the JAX package's decodes: the lax.scan recursion and the
 Pallas kernels (monolithic and chunked) in interpret mode, and against the
-port's sequential decode (ops/hmm.py::viterbi).
+port's sequential decode (ops/hmm.py::viterbi).  Both decodes read no
+step past a row's length, whatever it holds: the property on which
+kernel 11's inert tiles for the Viterbi decode rest.
 
 The scan reassociates the max-plus sums at segment boundaries, so its
 scores differ from a sequential recursion by float roundings: they are
@@ -20,11 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port import hmm_inputs, t
+from tests.torch_port import hmm_inputs, inputs, model_pair, t
 from vqvaehmm_tpu.ops import hmm as jax_hmm
 from vqvaehmm_tpu.ops.pallas_hmm import viterbi_pallas, viterbi_pallas_tiled
 from vqvaehmm_tpu_torch.ops import _build
 from vqvaehmm_tpu_torch.ops import hmm as port_hmm
+from vqvaehmm_tpu_torch.ops.fused_decode import fused_evidence
 from vqvaehmm_tpu_torch.ops.fused_viterbi import (
     MAX_LANES, STAGE_BYTES, fold_chunk, num_segments, segment_length,
     viterbi_plan, viterbi_segmented_reference, viterbi_smem_bytes)
@@ -140,6 +143,70 @@ def test_segmented_matches_sequential_decode(K, T):
             want = port_hmm.viterbi(*args)
             assert_map_path(got, want.states, want.score, log_pi, la4,
                             log_obs, np.full(B, T) if L is None else L)
+
+
+def _past_length(a, lengths, fill, rng):
+    """A copy of a (B, T, ...) with every step t >= lengths[b] replaced:
+    NaN, random values, or the inert step (0; log_A the identity)."""
+    a = a.copy()
+    K = a.shape[-1]
+    for b, L in enumerate(lengths):
+        tail = a[b, L:]
+        if fill == "nan":
+            tail[...] = np.nan
+        elif fill == "random":
+            tail[...] = rng.normal(scale=50.0, size=tail.shape)
+        elif a.ndim == 4:
+            tail[...] = np.where(np.eye(K, dtype=bool), 0.0, -np.inf)
+        else:
+            tail[...] = 0.0
+    return a
+
+
+@pytest.mark.parametrize("fill", ["nan", "random", "inert"])
+@pytest.mark.parametrize("T", [32, 33, 128, 129, 2327])
+@pytest.mark.parametrize("K", [2, 3, 5])
+def test_decodes_read_no_step_past_the_length(K, T, fill):
+    """The property the evidence kernel's inert tiles rest on: the
+    sequential decode and the segmented scan return the same states and
+    scores, bit for bit, whatever log_obs and log_A hold past each row's
+    length (NaN, random, or the inert values the kernel writes there).
+    Ragged lengths: T, 1, and lengths inside and at the edge of a
+    segment."""
+    B = 5
+    log_pi, log_A, log_obs, lengths = hmm_inputs(B, T, K, seed=K * 31 + T)
+    S = segment_length(T)
+    lengths[1:] = (1, max(1, T - S), min(T, 2 * S), max(1, T // 2 + 1))
+    rng = np.random.default_rng(T + K)
+    masked = (_past_length(log_A, lengths, fill, rng),
+              _past_length(log_obs, lengths, fill, rng))
+    for decode in (port_hmm.viterbi, viterbi_segmented_reference):
+        want = decode(t(log_pi), t(log_A), t(log_obs), t(lengths))
+        got = decode(t(log_pi), t(masked[0]), t(masked[1]), t(lengths))
+        assert torch.equal(got.states, want.states)
+        assert torch.equal(got.score, want.score)
+        assert not torch.isnan(got.score).any()
+
+
+def test_fused_evidence_ignores_the_inert_flag_on_the_cpu():
+    """On a CPU tensor fused_evidence computes its plain version, every
+    step, with inert_past_length as without it, and launches nothing."""
+    _, _, tm = model_pair(seed=25)
+    x, u, lengths = inputs(3, 40, seed=26)
+    lengths[1:] = (1, 17)
+    counts = (fused_evidence.launches, fused_evidence.inert_launches)
+    with torch.no_grad():
+        for L in (None, t(lengths)):
+            want = fused_evidence(tm, t(x), t(u), L)
+            got = fused_evidence(tm, t(x), t(u), L, inert_past_length=True)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            got = tm._evidence_inputs(t(x), t(u), L, None,
+                                      inert_past_length=True)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    assert (fused_evidence.launches, fused_evidence.inert_launches) == \
+        counts
 
 
 @pytest.mark.parametrize("K", [1, 3, 8])

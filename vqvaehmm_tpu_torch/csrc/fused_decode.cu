@@ -26,7 +26,13 @@
 // Semantics.  The evidence applies no length masking: ops/hmm.py masks
 // downstream.  The decode makes a step t >= L inert (a zero observation
 // and an identity transition), so the path freezes at t = L - 1; delta_0 =
-// log_pi + obs_0 and log_A at t = 0 is unused (maxplus_scan.cuh).
+// log_pi + obs_0 and log_A at t = 0 is unused (maxplus_scan.cuh).  Only
+// on request (`inert`, which the Viterbi decode sets, whose scan replaces
+// every step t >= L by the inert step) and where lengths is given, an
+// evidence block whose tile starts at or past its sequence's length
+// computes nothing: it writes the inert step into the tile's steps (log_obs
+// 0, log_A the identity) and returns.  Every other tile, the one that
+// straddles L included, is computed as without the request.
 //
 // Design, evidence.  One block a tile of `tile` steps of one sequence
 // (16, 32 or 64, chosen by the wrapper from the waves of resident
@@ -122,6 +128,30 @@ __device__ __forceinline__ int batch_bound(const int* __restrict__ lengths,
   return m;
 }
 
+// Where `inert` and lengths is given: whether the tile at t0 of sequence b
+// starts at or past the sequence's length.  The same for every thread of
+// the block, so the block may return before its first barrier.
+__device__ __forceinline__ bool tile_inert(const int* __restrict__ lengths,
+                                           int inert, int b, int t0) {
+  return inert && lengths != nullptr && t0 >= lengths[b];
+}
+
+// A tile's n steps left inert: log_obs 0 and log_A the identity (0 on the
+// diagonal, -inf off it), the values ops/hmm.py::_mask_inputs and
+// maxplus_scan.cuh::step put in their place (null: the stage did not run
+// here).
+__device__ __forceinline__ void write_inert(int K, int n, float* obs,
+                                            float* trans) {
+  const int KK = K * K;
+  if (obs != nullptr)
+    for (int idx = threadIdx.x; idx < n * K; idx += blockDim.x) obs[idx] = 0.f;
+  if (trans != nullptr)
+    for (int idx = threadIdx.x; idx < n * KK; idx += blockDim.x) {
+      const int e = idx % KK;
+      trans[idx] = e / K == e % K ? 0.f : -INFINITY;
+    }
+}
+
 // Bias and log-softmax in place, a (step, row) a thread, rows [rlo, rhi):
 // row K the regimes, row r < K the transitions out of regime r.  Ends
 // with a __syncthreads.
@@ -167,7 +197,8 @@ __global__ void __launch_bounds__(encfma::MAX_THREADS, 2)
                           const int* __restrict__ lengths, encfma::Weights W,
                           float* __restrict__ log_obs,
                           float* __restrict__ log_A, encfma::Dims d, int B,
-                          int T, int tile, int tiles, int split) {
+                          int T, int tile, int tiles, int split,
+                          int inert) {
   extern __shared__ __align__(16) float smem[];
   const int WS = encfma::row_stride(tile);
   const encfma::Rows s = encfma::carve(smem, d, WS);
@@ -179,6 +210,12 @@ __global__ void __launch_bounds__(encfma::MAX_THREADS, 2)
   const int b = unit / tiles;
   const int t0 = (unit - b * tiles) * tile;
   const int n = min(tile, T - t0);
+  if (tile_inert(lengths, inert, b, t0)) {
+    write_inert(K, n,
+                stage != 1 ? log_obs + ((size_t)b * T + t0) * K : nullptr,
+                stage != 0 ? log_A + ((size_t)b * T + t0) * KK : nullptr);
+    return;
+  }
 
   if (stage != 1)
     encfma::encoder_stage(x + (size_t)b * d.C * T, W, d, T, t0, n, WS,
@@ -231,7 +268,8 @@ __global__ void __launch_bounds__(encmma::THREADS, encmma::BLOCKS_PER_SM)
                                encfma::Weights W,
                                float* __restrict__ log_obs,
                                float* __restrict__ log_A, encfma::Dims d,
-                               int B, int T, int tile, int tiles, int split) {
+                               int B, int T, int tile, int tiles, int split,
+                               int inert) {
   extern __shared__ __align__(16) unsigned char smem_b[];
   const encmma::Ops s = encmma::carve(smem_b, d, tile);
   const tilemma::bf16* wp = reinterpret_cast<const tilemma::bf16*>(W.wp);
@@ -242,6 +280,12 @@ __global__ void __launch_bounds__(encmma::THREADS, encmma::BLOCKS_PER_SM)
   const int b = unit / tiles;
   const int t0 = (unit - b * tiles) * tile;
   const int n = min(tile, T - t0);
+  if (tile_inert(lengths, inert, b, t0)) {
+    write_inert(K, n,
+                stage != 1 ? log_obs + ((size_t)b * T + t0) * K : nullptr,
+                stage != 0 ? log_A + ((size_t)b * T + t0) * KK : nullptr);
+    return;
+  }
 
   if (stage != 1)
     encmma::encoder_stage(x + (size_t)b * d.C * T, wp, W.eb1, W.eb2, d, T,
@@ -271,7 +315,8 @@ __global__ void __launch_bounds__(encmma::THREADS, encmma::BLOCKS_PER_SM)
                                encfma::Weights W,
                                float* __restrict__ log_obs,
                                float* __restrict__ log_A, encfma::Dims d,
-                               int B, int T, int tile, int tiles, int split) {
+                               int B, int T, int tile, int tiles, int split,
+                               int inert) {
   extern __shared__ __align__(16) unsigned char smem_b[];
   using tilemma::Out;
   const encmma::Ops s = encmma::carve(smem_b, d, tile);
@@ -282,10 +327,16 @@ __global__ void __launch_bounds__(encmma::THREADS, encmma::BLOCKS_PER_SM)
   const int b = unit / tiles;
   const int t0 = (unit - b * tiles) * tile;
   const int n = min(tile, T - t0);
+  const bool enc = stage != 1, pri = stage != 0;
+  // before the weights' bulk copies are asked for
+  if (tile_inert(lengths, inert, b, t0)) {
+    write_inert(K, n, enc ? log_obs + ((size_t)b * T + t0) * K : nullptr,
+                pri ? log_A + ((size_t)b * T + t0) * KK : nullptr);
+    return;
+  }
   const int Wn = n + 2 * encfma::HALO;
   const int p0 = t0 - encfma::HALO;
   const int vt = batch_bound(lengths, B, T);
-  const bool enc = stage != 1, pri = stage != 0;
   unsigned char* after = smem_b + encmma::smem_bytes(d, tile);
   const encmma::Packed at = encmma::packed(d);
   tilemma::Staged st;
@@ -871,14 +922,16 @@ extern "C" int vqhmm_fused_evidence_smem_bytes(int C, int H1, int H2, int K,
 // the same mode; lengths may be null.  bf16: the bfloat16-operand mode,
 // which stages no weights in slabs (no weight-buffer bound); staged: its
 // weights in shared memory where they fit (evidence_stage), else read from
-// L2.
+// L2; inert: the tiles that start at or past their sequence's length left
+// inert (see Semantics), for a consumer that masks them as the Viterbi
+// scan does.
 extern "C" int vqhmm_fused_evidence(
     const float* x, const float* u, long long u_sb, long long u_sc,
     long long u_st, const int* lengths, const void* packed_weights,
     const float* eb1, const float* eb2, const float* eb3, const float* pb1,
     const float* pb2, float* log_obs, float* log_A, int B, int C, int T,
     int U, int H1, int H2, int K, int HP, int tile, int split, int bf16,
-    int staged, void* stream) {
+    int staged, int inert, void* stream) {
   const encfma::Dims d{C, H1, H2, K, U, HP};
   const int smem = vqhmm_fused_evidence_smem_bytes(C, H1, H2, K, U, HP, tile,
                                                    bf16, staged);
@@ -907,7 +960,7 @@ extern "C" int vqhmm_fused_evidence(
 #define VQHMM_EVIDENCE_BF16(KERNEL)                                       \
   KERNEL<<<(unsigned)blocks, encmma::THREADS, smem, st>>>(                 \
       x, u, u_sb, u_sc, u_st, lengths, W, log_obs, log_A, d, B, T, tile,   \
-      tiles, split ? 1 : 0)
+      tiles, split ? 1 : 0, inert ? 1 : 0)
     if (kind == tilemma::RESIDENT)
       VQHMM_EVIDENCE_BF16(fused_evidence_bf16_staged_kernel<tilemma::RESIDENT>);
     else if (kind == tilemma::RING)
@@ -921,7 +974,7 @@ extern "C" int vqhmm_fused_evidence(
     fused_evidence_kernel<<<(unsigned)blocks, encfma::block_threads(tile, G),
                             smem, st>>>(x, u, u_sb, u_sc, u_st, lengths, W,
                                         log_obs, log_A, d, B, T, tile, tiles,
-                                        split ? 1 : 0);
+                                        split ? 1 : 0, inert ? 1 : 0);
   }
   return (int)cudaGetLastError();
 }

@@ -404,15 +404,19 @@ class VAEHMM(nn.Module):
 
     def _evidence_inputs(self, x: torch.Tensor, u: torch.Tensor,
                          lengths: Optional[torch.Tensor],
-                         use_kernel: Optional[bool]):
+                         use_kernel: Optional[bool],
+                         inert_past_length: bool = False):
         """(log_pi, log_A, log_obs) for the exact-inference paths: one
         kernel launch for CUDA tensors (ops/fused_decode.py; inference
         only, as encode's kernel is), prior() and _hmm_evidence() for CPU
         tensors, with use_kernel=False, or for a call autograd records.
-        A `model.evidence` span; the plain encoder's own is a
+        inert_past_length: the kernel leaves the tiles past each row's
+        length inert, for a consumer that masks those steps.  A
+        `model.evidence` span; the plain encoder's own is a
         `model.encode` inside it."""
         with span("model.evidence"):
-            return fused_evidence(self, x, u, lengths, use_kernel=use_kernel)
+            return fused_evidence(self, x, u, lengths, use_kernel=use_kernel,
+                                  inert_past_length=inert_past_length)
 
     def smoothed_posterior(self, x: torch.Tensor, u: torch.Tensor,
                            lengths: Optional[torch.Tensor] = None,
@@ -442,11 +446,15 @@ class VAEHMM(nn.Module):
         CUDA tensors the evidence is one kernel launch and the decode
         another, for any T (ops/fused_decode.py, ops/fused_viterbi.py);
         the one-kernel decode from raw (x, u) is
-        ops.fused_decode.fused_viterbi_states.  A `score.viterbi_decode`
-        span, its children `model.evidence` and `hmm.viterbi`."""
+        ops.fused_decode.fused_viterbi_states.  The decode asks the
+        evidence kernel to leave the tiles past each row's length inert
+        (`inert_past_length`): its scan replaces those steps by the inert
+        step, so the states are those of the whole evidence, bit for bit.
+        A `score.viterbi_decode` span, its children `model.evidence` and
+        `hmm.viterbi`."""
         with span("score.viterbi_decode"):
-            log_pi, log_A, log_obs = self._evidence_inputs(x, u, lengths,
-                                                           use_kernel)
+            log_pi, log_A, log_obs = self._evidence_inputs(
+                x, u, lengths, use_kernel, inert_past_length=True)
             return viterbi_fused(log_pi, log_A, log_obs, lengths,
                                  use_kernel=use_kernel).states
 

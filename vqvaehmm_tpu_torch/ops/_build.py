@@ -82,9 +82,9 @@ _SIGNATURES = {
     "vqhmm_fused_encode_smem_bytes": [_I] * 7,
     # x, u, u strides (batch, channel, time), lengths (or null), packed
     # weights, 3 encoder and 2 prior biases, log_obs, log_A, B, C, T, U,
-    # H1, H2, K, HP, tile, split, bf16, staged, stream
+    # H1, H2, K, HP, tile, split, bf16, staged, inert, stream
     "vqhmm_fused_evidence": [_P, _P, _L, _L, _L, _P, _P] + [_P] * 5
-    + [_P] * 2 + [_I] * 12 + [_P],
+    + [_P] * 2 + [_I] * 13 + [_P],
     # x, u, u strides (batch, channel, time), lengths (or null), packed
     # weights, 3 encoder and 2 prior biases, log_pi, the segment scratch
     # (aggregates, selector maps, end states), states, B, C, T, U, H1, H2,

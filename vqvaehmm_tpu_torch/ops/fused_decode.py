@@ -8,6 +8,12 @@ sets out their designs and the bounds they meet):
   `VAEHMM.prior` plus `VAEHMM._hmm_evidence`, returning `(log_pi (K,),
   log_A (B, T, K, K), log_obs (B, T, K))` ready for ops/hmm.py and the
   Viterbi kernel.  No length masking: ops/hmm.py applies it downstream.
+  Only on request (`inert_past_length=True`, which
+  `VAEHMM.viterbi_decode` alone sets: its scan replaces every step past a
+  sequence's length by the inert step) the kernel leaves each tile that
+  starts at or past its sequence's length inert, log_obs 0 and log_A the
+  identity, and computes nothing there; every other step is computed as
+  without it.  The plain version computes every step either way.
 * `fused_viterbi_states` (replaces `_kernel`): the MAP path (B, T) int32
   from raw (x, u) in one launch, the evidence never reaching device
   memory.  Past each sequence's length the path is frozen at its last
@@ -47,9 +53,11 @@ the card.  Each mode has its own plans, shared memory and gate
 (`supported(..., bf16=True)`); a model or shape the mode refuses raises.
 `fused_evidence.launches` and `fused_viterbi_states.launches` count the
 kernels' launches in either mode, their `.bf16_launches` those in the
-bfloat16-operand mode, and `fused_viterbi_states.staged_launches` those
-of the decode's second design in that mode (the evidence's weights
-staged in shared memory once a block, `decode_plan`).
+bfloat16-operand mode, `fused_evidence.inert_launches` those that left
+the tiles past the lengths inert (the flag and `lengths` given), and
+`fused_viterbi_states.staged_launches` those of the decode's second design
+in that mode (the evidence's weights staged in shared memory once a block,
+`decode_plan`).
 """
 
 from __future__ import annotations
@@ -223,10 +231,14 @@ def _dims(cfg, B: int, T: int):
 
 def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
                    lengths: Optional[torch.Tensor] = None,
-                   use_kernel: Optional[bool] = None
+                   use_kernel: Optional[bool] = None,
+                   inert_past_length: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(log_pi (K,), log_A (B, T, K, K), log_obs (B, T, K)) for x (B, C, T)
-    and u (B, U, T) or (B, T, U), the encoder bounded at max(lengths)."""
+    and u (B, U, T) or (B, T, U), the encoder bounded at max(lengths).
+    inert_past_length: on the kernel's route with `lengths`, each tile
+    that starts at or past its row's length is left inert, not computed
+    (see the module's docstring); the plain route ignores it."""
     bf16 = operand_mode(model, x)
     tensors = evidence_tensors(model, u)
     if not kernel_route(model, x, use_kernel) or autograd_aside(
@@ -249,22 +261,27 @@ def fused_evidence(model, x: torch.Tensor, u: torch.Tensor,
         return log_pi, log_A, log_obs
     plan = kernel_cache(model).plan("evidence", encoder_dims(cfg, prior=True),
                                     B, T, x.device, can_split=True, bf16=bf16)
+    inert = inert_past_length and lens is not None
     _launch_evidence(model, x, u, lens, plan.tile, plan.split,
-                     (log_obs, log_A), bf16, plan.weights != "direct")
+                     (log_obs, log_A), bf16, plan.weights != "direct", inert)
     with _count_lock:
         fused_evidence.launches += 1
         fused_evidence.bf16_launches += bf16
+        fused_evidence.inert_launches += inert
     return log_pi, log_A, log_obs
 
 
 def _launch_evidence(model, x, u, lens, tile: int, split: bool,
-                     out, bf16: bool = False, staged: bool = True) -> None:
+                     out, bf16: bool = False, staged: bool = True,
+                     inert: bool = False) -> None:
     """One launch of the evidence kernel at tile width `tile`, in the
     bfloat16-operand mode where bf16 (its weights staged in shared memory
     where they fit with `staged`, else read from L2), the encoder and the
     prior in blocks of their own with `split`, into out = (log_obs,
     log_A); lens (B,) int32 contiguous or None, whose maximum the kernel
-    bounds the encoder at.  It does not count: fused_evidence does."""
+    bounds the encoder at; with `inert` the tiles that start at or past
+    their row's length left inert.  It does not count: fused_evidence
+    does."""
     cfg = model.cfg
     B, _, T = x.shape
     packed, bs = kernel_cache(model).weights(model, x.device, bf16=bf16)
@@ -273,12 +290,14 @@ def _launch_evidence(model, x, u, lens, tile: int, split: bool,
         None if lens is None else lens.data_ptr(),
         packed.data_ptr(), *[b.data_ptr() for b in bs], out[0].data_ptr(),
         out[1].data_ptr(), *_dims(cfg, B, T), tile, int(split), int(bf16),
-        int(staged), torch.cuda.current_stream(x.device).cuda_stream)
+        int(staged), int(inert),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_evidence kernel launch")
 
 
 fused_evidence.launches = 0
 fused_evidence.bf16_launches = 0
+fused_evidence.inert_launches = 0
 
 
 def decode_plan(model, B: int, T: int, device, bf16: Optional[bool] = None,
